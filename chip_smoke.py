@@ -10,19 +10,32 @@ result line:
                triton versions, nvcc; TF32 off for matmuls and convolutions
   2. build     nvcc compiles qwen3_tts_tpu_torch/csrc/*.cu for sm_90a
   3. kernels   every kernel against its plain PyTorch version at the
-               shapes of the slice (f32 allclose, bf16 relative error)
+               shapes of the slice (f32 allclose, bf16 relative error),
+               the quantized ones included: A (qmatmul) at the talker's
+               prefill shapes, B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
+               8, 32, every epilogue and the predictor head's slices
   4. agree     teacher-forced agreement at full width in bf16, kernels vs
                plain from the same state, with peaked heads: talker step
-               argmax >= 0.93, predictor codes >= 0.95
+               argmax >= 0.93, predictor codes >= 0.95, for dense weights,
+               for the int4 talker with the int8 predictor, and for the
+               int8 talker
   5. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
                width, B=1, 32 frames, generate_with_voice(vivian): a finite
-               waveform, every kernel's launch count above 0; then
-               generate_batch at B=2; the tiny f32 config's greedy codes on
-               the card equal the CPU reference
+               waveform, every dense-path kernel's launch count above 0;
+               generate_batch at B=2. The same weights quantized as the JAX
+               bench's headline rung (talker int4, predictor int8) through
+               TtsEngine(weights=...): B=1, 32 frames, then B=2, with
+               gemv_int4, gemv_int8, decode attention and the Triton passes
+               launched; the int8/int8 rung, B=1, 16 frames, with qmatmul
+               (int8 prefill) and gemv_int8 launched. The tiny f32 config's
+               greedy codes on the card equal the CPU reference, dense, int8,
+               and int4 on a small int4-capable talker. Counts are set to 0
+               just before each of these runs and read just after.
   6. times     ms/frame of generate_codes through kernels and through the
-               plain versions (CUDA events), the device busy share of the
-               kernel path (torch.profiler), and each kernel's device time
-               against its plain version (CUDA graph replay)
+               plain versions (CUDA events), dense and int4+int8 (and
+               int8/int8), the device busy share of the kernel paths
+               (torch.profiler), and each kernel's device time against its
+               plain version (CUDA graph replay)
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -131,6 +144,12 @@ class Record:
         "argmax_gather": ("triton",
                           "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
                           "qwen3_tts_tpu/ops/fused_predictor.py:610"),
+        "gemv_int8": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
+                      "qwen3_tts_tpu/ops/fused_talker.py:428"),
+        "gemv_int4": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
+                      "qwen3_tts_tpu/ops/fused_talker.py:428"),
+        "qmatmul": ("cuda", "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
+                    "qwen3_tts_tpu/ops/quant.py:208"),
     }
 
     def __init__(self):
@@ -139,24 +158,33 @@ class Record:
         self.plain_ms = {}
         self.launches = {}
 
+    def add_launches(self, counts):
+        """Counts of one main-path run (each run starts from 0)."""
+        for k, v in counts.items():
+            self.launches[k] = self.launches.get(k, 0) + v
+
     def check(self, name, got, want, label, *, rtol=None, atol=None,
-              rel=None):
-        """f32: allclose(rtol, atol); bf16: relative error <= rel."""
+              rel=None, quiet=False):
+        """f32: allclose(rtol, atol); bf16: relative error <= rel. `quiet`
+        logs only a failure; returns (max abs error, relative error)."""
         import torch
         e = abs_err(got, want)
         self.err[name] = max(self.err[name], e)
+        r = rel_err(got, want)
         if rel is not None:
-            r = rel_err(got, want)
             ok = r <= rel
-            log(f"  {name:16s} {label:44s} max|d|={e:.3e} rel={r:.2e} "
-                f"(<= {rel:g}) {'ok' if ok else 'FAIL'}")
+            msg = (f"  {name:16s} {label:44s} max|d|={e:.3e} rel={r:.2e} "
+                   f"(<= {rel:g}) {'ok' if ok else 'FAIL'}")
         else:
             ok = torch.allclose(got.float(), want.float(), rtol=rtol,
                                 atol=atol)
-            log(f"  {name:16s} {label:44s} max|d|={e:.3e} "
-                f"(rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}")
+            msg = (f"  {name:16s} {label:44s} max|d|={e:.3e} "
+                   f"(rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}")
+        if not quiet or not ok:
+            log(msg)
         if not ok:
             fail(f"{name} {label} disagrees with its plain version")
+        return e, r
 
     def line(self):
         out = []
@@ -343,27 +371,135 @@ def phase_kernels(rec: Record):
             fail("argmax_gather tie or bias-row case wrong")
         log(f"  {'argmax_gather':16s} {'B=3 q=' + str(q) + ' ties + bias row':44s}"
             f" exact ok")
+    phase_kernels_quant(rec, randn)
     torch.cuda.synchronize()
 
 
-def phase_agree(eng, rec: Record):
-    """Teacher-forced kernel-vs-plain agreement at full width, bf16."""
+def phase_kernels_quant(rec: Record, randn):
+    """A, B8 and B4 against their plain versions at the slice's shapes."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    # A: the talker's int8 prefill products (qkv, wo, gate/up, down, head)
+    # at M = B x prompt bucket (64, 128) and a ragged M; f32 out from bf16
+    # inputs, exact products: f32 tolerances
+    talker = [(2048, 4096, "qkv"), (2048, 2048, "wo"),
+              (2048, 12288, "gate/up"), (6144, 2048, "down"),
+              (2048, 2176, "head")]
+    for K, N, what in talker:
+        qw = quant.quantize(randn(K, N, scale=0.02))
+        for M in (64, 128, 37):
+            for dt in (torch.bfloat16, torch.float32):
+                x = randn(M, K, dtype=dt)
+                rec.check("qmatmul",
+                          quant.qmatmul_kernel(x, qw["q"], qw["scale"]),
+                          quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
+                          f"talker {what} {K}x{N} M={M} x {str(dt)[6:]}",
+                          rtol=1e-4, atol=1e-4)
+
+    # B8 / B4: the decode shapes, M = 1, 2, 8, 32, every epilogue; the
+    # predictor head's codebook slices
+    pred = [(1024, 3072, "qkv"), (1024, 1024, "wo"), (1024, 6144, "gate/up"),
+            (3072, 1024, "down")]
+    shapes = [("talker " + w, k, n) for k, n, w in talker] + \
+        [("predictor " + w, k, n) for k, n, w in pred]
+    for what, K, N in shapes:
+        w = randn(K, N, scale=0.02)
+        q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+        kinds = (("gemv_int8", G.gemv_int8, G.gemv_int8_plain,
+                  (q8["q"], q8["scale"])),
+                 ("gemv_int4", G.gemv_int4, G.gemv_int4_plain,
+                  (q4["q4"], q4["m8"], q4["scale"])))
+        for name, fn, plain, wargs in kinds:
+            e32 = r16 = 0.0
+            for M in (1, 2, 8, 32):
+                x32, res = randn(M, K), randn(M, N)
+                for epi in (G.EPI_STORE_DT, G.EPI_F32, G.EPI_F32_ROUND_DT,
+                            G.EPI_ADD_F32):
+                    out = (lambda: res.clone()) if epi == G.EPI_ADD_F32 \
+                        else (lambda: None)
+                    for x, dt in ((x32, "f32"), (x32.bfloat16(), "bf16")):
+                        got = fn(x, *wargs, epilogue=epi, out=out())
+                        want = plain(x, *wargs, epilogue=epi, out=out())
+                        label = f"{what} {K}x{N} M={M} epi{epi} {dt}"
+                        if dt == "f32":
+                            e, _ = rec.check(name, got, want, label,
+                                             rtol=1e-4, atol=1e-4, quiet=True)
+                            e32 = max(e32, e)
+                        else:
+                            _, r = rec.check(name, got, want, label,
+                                             rel=8e-3, quiet=True)
+                            r16 = max(r16, r)
+            log(f"  {name:16s} {what + f' {K}x{N}':30s} M=1,2,8,32 x 4 "
+                f"epilogues: f32 max|d|={e32:.3e} (rtol/atol 1e-4), bf16 "
+                f"rel={r16:.2e} (<= 0.008) ok")
+    w = randn(1024, 16 * 2048, scale=0.02)
+    q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+    r8 = r4 = 0.0
+    for M in (1, 2, 8, 32):
+        x = randn(M, 1024, dtype=torch.bfloat16)
+        for qi in (0, 7, 15):
+            for epi in (G.EPI_F32_ROUND_DT, G.EPI_STORE_DT):
+                kw = dict(col0=qi * 2048, n=2048, epilogue=epi)
+                label = f"pred head @{qi}*2048 M={M} epi{epi} bf16"
+                r8 = max(r8, rec.check(
+                    "gemv_int8", G.gemv_int8(x, q8["q"], q8["scale"], **kw),
+                    G.gemv_int8_plain(x, q8["q"], q8["scale"], **kw),
+                    label, rel=8e-3, quiet=True)[1])
+                r4 = max(r4, rec.check(
+                    "gemv_int4",
+                    G.gemv_int4(x, q4["q4"], q4["m8"], q4["scale"], **kw),
+                    G.gemv_int4_plain(x, q4["q4"], q4["m8"], q4["scale"],
+                                      **kw),
+                    label, rel=8e-3, quiet=True)[1])
+    log(f"  gemv_int8/int4   predictor head 1024x32768 slices @0,7,15 x "
+        f"2048, M=1,2,8,32, bf16: rel {r8:.2e} / {r4:.2e} (<= 0.008) ok")
+
+
+def quantized_models(models, talker_kind, predictor_kind):
+    """The engine's weights quantized as the JAX bench quantizes them
+    (`quant.quantize_decoder_params`, on the card); norms, assets shared."""
+    from qwen3_tts_tpu_torch.ops import quant
+    return {"talker": quant.quantize_decoder_params(models["talker"],
+                                                    kind=talker_kind),
+            "predictor": quant.quantize_decoder_params(models["predictor"],
+                                                       kind=predictor_kind),
+            "assets": models["assets"]}
+
+
+def phase_agree(eng):
+    """Teacher-forced kernel-vs-plain agreement at full width, bf16: dense,
+    the int4 talker with the int8 predictor, and the int8 talker."""
+    from qwen3_tts_tpu_torch.core import protocol as P
+
+    log("[4/6] teacher-forced agreement, full width, bf16, peaked heads")
+    pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
+    pp = peak_head(eng.models["predictor"],
+                   [(q * P.CODE_VOCAB, P.CODE_VOCAB)
+                    for q in range(P.NUM_CODEBOOKS)])
+    peaked = {"talker": pt, "predictor": pp,
+              "assets": eng.models["assets"]}
+    agree_run(eng, peaked, "dense bf16")
+    q48 = quantized_models(peaked, "int4", "int8")
+    agree_run(eng, q48, "int4 talker + int8 predictor")
+    agree_run(eng, {"talker": quantized_models(peaked, "int8", "int8")[
+        "talker"]}, "int8 talker", predictor=False)
+
+
+def agree_run(eng, models, label, predictor=True):
     import torch
     from qwen3_tts_tpu_torch.core import protocol as P
     from qwen3_tts_tpu_torch.models import decoder
     from qwen3_tts_tpu_torch.ops import fused_predictor, fused_talker
     from qwen3_tts_tpu_torch.tts import generate
 
-    log("[4/6] teacher-forced agreement, full width, bf16, peaked heads")
     cfg = eng.config
     tc, pc = cfg.talker, cfg.predictor
     dev = eng.device
     dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11)
-    pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
-    pp = peak_head(eng.models["predictor"],
-                   [(q * P.CODE_VOCAB, P.CODE_VOCAB)
-                    for q in range(P.NUM_CODEBOOKS)])
+    pt = models["talker"]
 
     S, STEPS = 64, 16
     cache = decoder.init_kv_cache(tc, 1, length=256, device=dev)
@@ -390,10 +526,15 @@ def phase_agree(eng, rec: Record):
             cache = {"k": pk, "v": pv}               # teacher: the plain state
             fb = (0.9 * fb.float() + 0.1 * ph.float()).to(dt)
         frac_t = agree / STEPS
-        log(f"  talker step argmax agreement {agree}/{STEPS} = {frac_t:.3f} "
-            f"(gate 0.93), max|dlogits| {dmax:.3e}")
+        log(f"  {label}: talker step argmax agreement {agree}/{STEPS} = "
+            f"{frac_t:.3f} (gate 0.93), max|dlogits| {dmax:.3e}")
+        if frac_t < 0.93:
+            fail(f"{label}: talker agreement {frac_t:.3f} < 0.93")
+        if not predictor:
+            return
 
         ptab, rows = generate.predictor_tables(eng.models, pc)
+        pp = models["predictor"]
         agree = total = 0
         for s in range(8):
             h1024 = torch.randn(1, pc.hidden, generator=g, device=dev)
@@ -405,84 +546,149 @@ def phase_agree(eng, rec: Record):
             agree += int((ck == cp).sum())
             total += ck.numel()
         frac_p = agree / total
-        log(f"  predictor codes agreement {agree}/{total} = {frac_p:.3f} "
-            f"(gate 0.95)")
-    if frac_t < 0.93:
-        fail(f"talker agreement {frac_t:.3f} < 0.93")
+        log(f"  {label}: predictor codes agreement {agree}/{total} = "
+            f"{frac_p:.3f} (gate 0.95)")
     if frac_p < 0.95:
-        fail(f"predictor agreement {frac_p:.3f} < 0.95")
+        fail(f"{label}: predictor agreement {frac_p:.3f} < 0.95")
 
 
-def phase_main(eng, rec: Record):
-    import numpy as np
+def run_main_path(rec: Record, label: str, fn, need):
+    """fn() with every launch count set to 0 just before and read just
+    after; fails if a kernel in `need` was not launched."""
     import torch
-    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
-    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
     from qwen3_tts_tpu_torch.ops import chain
-    from qwen3_tts_tpu_torch.tts import generate
-
-    log("[5/6] main path: TtsEngine.generate_with_voice, full width, B=1")
-    eng.set_max_steps(32)
-    eng.set_sampler_config(SamplerConfig(seed=0))
-    voice = eng.get_speaker("vivian")
-    text = "Hello from the port: one sentence of speech."
     torch.cuda.synchronize()
     chain.reset_launch_counts()
     t0 = time.time()
-    audio = eng.generate_with_voice(text, voice)
+    out = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = chain.launch_counts()
-    rec.launches = counts
-    wav = audio.samples
-    n_frames = len(wav) // 2000
-    log(f"  wav {wav.shape} samples, {n_frames} frames, {wall:.2f} s wall, "
-        f"finite={bool(np.isfinite(wav).all())}")
-    log(f"  launches {json.dumps(counts)}")
-    if not np.isfinite(wav).all():
-        fail("waveform not finite")
-    if n_frames < 1 or len(wav) != n_frames * 2000 or n_frames > 32:
-        fail(f"waveform of {len(wav)} samples is not 1..32 whole frames")
-    missing = [k for k, v in counts.items() if v <= 0]
+    rec.add_launches(counts)
+    log(f"  {label}: {wall:.2f} s wall, launches {json.dumps(counts)}")
+    missing = [k for k in need if counts[k] <= 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"{label}: kernels never launched on this path: {missing}")
+    return out
 
+
+def check_wav(label, wav, max_frames):
+    import numpy as np
+    n_frames = len(wav) // 2000
+    finite = bool(np.isfinite(wav).all())
+    log(f"  {label}: wav {wav.shape} samples, {n_frames} frames, "
+        f"finite={finite}")
+    if not finite:
+        fail(f"{label}: waveform not finite")
+    if n_frames < 1 or len(wav) != n_frames * 2000 or n_frames > max_frames:
+        fail(f"{label}: waveform of {len(wav)} samples is not 1..{max_frames}"
+             " whole frames")
+
+
+TEXT = "Hello from the port: one sentence of speech."
+TRITON = ("rms_norm", "qk_norm_rope", "silu_mul", "argmax_gather")
+
+
+def phase_main(eng, rec: Record, q48, q88):
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import chain
+
+    log("[5/6] main path: TtsEngine.generate_with_voice, full width")
+    voice = eng.get_speaker("vivian")
+    dense_need = ("gemv", "decode_attention") + TRITON
+
+    def engine_runs(e, label, frames, need):
+        e.set_max_steps(frames)
+        e.set_sampler_config(SamplerConfig(seed=0))
+        audio = run_main_path(rec, f"{label} B=1 generate_with_voice",
+                              lambda: e.generate_with_voice(TEXT, voice),
+                              need)
+        check_wav(f"{label} B=1", audio.samples, frames)
+        return audio
+
+    engine_runs(eng, "dense bf16", 32, dense_need)
     # the batched entry point: two ragged prompts, left-padded, B=2
-    t0 = time.time()
-    pair = eng.generate_batch([text, "A second, shorter one."], [voice, voice])
-    torch.cuda.synchronize()
+    pair = run_main_path(
+        rec, "dense bf16 B=2 generate_batch",
+        lambda: eng.generate_batch([TEXT, "A second, shorter one."],
+                                   [voice, voice]), dense_need)
     for i, a in enumerate(pair):
-        w = a.samples
-        if not np.isfinite(w).all() or len(w) % 2000 or not 0 < len(w) <= 64000:
-            fail(f"generate_batch row {i}: {len(w)} samples, finite="
-                 f"{bool(np.isfinite(w).all())}")
-    log(f"  generate_batch B=2: {[len(a.samples) // 2000 for a in pair]} "
-        f"frames, {time.time() - t0:.2f} s wall, finite")
+        check_wav(f"dense bf16 B=2 row {i}", a.samples, 32)
 
-    # reference on a small input: the tiny f32 config's greedy generation,
-    # kernels on the card against the plain versions on the CPU
-    cfg = tiny_engine_config(max_steps=8)
-    teng = TtsEngine(config=cfg, random_weights=True, seed=0,
-                     speakers_dir=os.path.join(REPO, "speakers"), device="cuda")
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(
-        (0.1 * rng.standard_normal((2, 9, cfg.talker.hidden))).astype(
-            np.float32))
-    x[1, :3] = 0
-    pad = torch.tensor([0, 3], dtype=torch.int32)
-    cpu_models = _to(teng.models, "cpu")
-    with torch.inference_mode():
-        ck, nk = generate.generate_codes(
-            teng.models, cfg.talker, cfg.predictor, x.cuda(), pad.cuda(),
-            None, 0.0, 0, 1.0, cfg.max_steps)
-        cc, nc = generate.generate_codes(
-            cpu_models, cfg.talker, cfg.predictor, x, pad, None, 0.0, 0, 1.0,
-            cfg.max_steps)
-    same = bool(torch.equal(ck.cpu(), cc)) and bool(torch.equal(nk.cpu(), nc))
-    log(f"  tiny f32 greedy codes, card kernels vs CPU plain: "
-        f"{'equal' if same else 'DIFFER'} (n_frames {nc.tolist()})")
-    if not same:
-        fail("tiny-config codes on the card differ from the CPU reference")
+    # the JAX bench's headline rung: talker int4, predictor int8; the int4
+    # prefill is plain (qmatmul4, as in JAX) and the predictor has no
+    # prefill through `linear`, so this run launches no qmatmul
+    spk = os.path.join(REPO, "speakers")
+    e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
+                    speakers_dir=spk, device="cuda")
+    need48 = ("gemv_int4", "gemv_int8", "decode_attention") + TRITON
+    engine_runs(e48, "int4+int8", 32, need48)
+    e48.set_max_steps(32)
+    pair = run_main_path(
+        rec, "int4+int8 B=2 generate_batch",
+        lambda: e48.generate_batch([TEXT, "A second, shorter one."],
+                                   [voice, voice]), need48)
+    for i, a in enumerate(pair):
+        check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
+
+    # the second rung, int8/int8: the talker prefill runs kernel A
+    e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
+                    speakers_dir=spk, device="cuda")
+    engine_runs(e88, "int8/int8", 16, ("qmatmul", "gemv_int8",
+                                       "decode_attention") + TRITON)
+    del e48, e88
+    chain.reset_launch_counts()
+
+    tiny_card_vs_cpu()
+
+
+def tiny_card_vs_cpu():
+    """Reference on a small input: greedy generation of the tiny f32
+    config, kernels on the card against the plain versions on the CPU;
+    dense, int8/int8, and int4 talker + int8 predictor on a small
+    int4-capable talker."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.tts import generate
+
+    base = tiny_engine_config(max_steps=8)
+    small4 = dataclasses.replace(base, talker=dataclasses.replace(
+        base.talker, hidden=256, n_q_heads=2, n_kv_heads=2, head_dim=128,
+        ffn_dim=256, mrope_sections=(32, 16, 16, 0)))
+    for label, cfg, kinds in (("tiny f32 dense", base, None),
+                              ("tiny f32 int8/int8", base, ("int8", "int8")),
+                              ("small f32 int4+int8", small4,
+                               ("int4", "int8"))):
+        teng = TtsEngine(config=cfg, random_weights=True, seed=0,
+                         speakers_dir=os.path.join(REPO, "speakers"),
+                         device="cuda")
+        models = teng.models if kinds is None \
+            else quantized_models(teng.models, *kinds)
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(
+            (0.1 * rng.standard_normal((2, 9, cfg.talker.hidden))).astype(
+                np.float32))
+        x[1, :3] = 0
+        pad = torch.tensor([0, 3], dtype=torch.int32)
+        cpu_models = _to(models, "cpu")
+        with torch.inference_mode():
+            ck, nk = generate.generate_codes(
+                models, cfg.talker, cfg.predictor, x.cuda(), pad.cuda(),
+                None, 0.0, 0, 1.0, cfg.max_steps)
+            cc, nc = generate.generate_codes(
+                cpu_models, cfg.talker, cfg.predictor, x, pad, None, 0.0, 0,
+                1.0, cfg.max_steps)
+        same = bool(torch.equal(ck.cpu(), cc)) and bool(
+            torch.equal(nk.cpu(), nc))
+        log(f"  {label} greedy codes B=2, card kernels vs CPU plain: "
+            f"{'equal' if same else 'DIFFER'} (n_frames {nc.tolist()})")
+        if not same:
+            fail(f"{label}: codes on the card differ from the CPU reference")
 
 
 def _to(obj, dev):
@@ -501,17 +707,15 @@ def _to(obj, dev):
     return obj
 
 
-def phase_times(eng, rec: Record, card: str):
+def frame_times(eng, models, label: str, card: str, g):
+    """ms/frame of generate_codes(ignore_eos) through the kernels and
+    through their plain versions, in alternating runs (kernel, plain, plain,
+    kernel), and the kernel path's device busy share."""
     import torch
-    from qwen3_tts_tpu_torch.ops import elementwise as el
-    from qwen3_tts_tpu_torch.ops import flash_decode
-    from qwen3_tts_tpu_torch.ops import gemv as G
     from qwen3_tts_tpu_torch.tts import generate
 
-    log(f"[6/6] times on {card} (CUDA events)")
     cfg = eng.config
     dev = eng.device
-    g = torch.Generator(device=dev).manual_seed(5)
     frames = 32
     prompt = 0.1 * torch.randn(1, 64, cfg.talker.hidden, generator=g,
                                device=dev)
@@ -521,7 +725,7 @@ def phase_times(eng, rec: Record, card: str):
         gen = torch.Generator(device=dev).manual_seed(0)
         with torch.inference_mode():
             generate.generate_codes(
-                eng.models, cfg.talker, cfg.predictor, prompt, pad, gen,
+                models, cfg.talker, cfg.predictor, prompt, pad, gen,
                 0.7, 40, 0.9, frames, ignore_eos=True, step_cap=steps,
                 plain=plain)
 
@@ -535,17 +739,20 @@ def phase_times(eng, rec: Record, card: str):
         torch.cuda.synchronize()
         return s.elapsed_time(e)
 
-    per_frame = {}
+    per_frame, prefills = {}, {}
     for plain in (False, True, True, False):        # kernel, plain, plain, kernel
         run(plain, 2)                                # warm up
         total = timed(plain, frames)
         prefill = timed(plain, 0)
         per_frame.setdefault(plain, []).append((total - prefill) / frames)
+        prefills.setdefault(plain, []).append(prefill)
     kms, pms = min(per_frame[False]), min(per_frame[True])
-    log(f"  ms/frame generate_codes(ignore_eos) over {frames} frames, B=1, "
-        f"bf16 (prefill subtracted): kernels {kms:.3f} (runs "
+    log(f"  {label}: ms/frame generate_codes(ignore_eos) over {frames} "
+        f"frames, B=1, bf16 (prefill subtracted): kernels {kms:.3f} (runs "
         f"{[round(v, 3) for v in per_frame[False]]}), plain {pms:.3f} (runs "
-        f"{[round(v, 3) for v in per_frame[True]]}) on {card}")
+        f"{[round(v, 3) for v in per_frame[True]]}); prefill of 64 tokens "
+        f"ms: kernels {[round(v, 3) for v in prefills[False]]}, plain "
+        f"{[round(v, 3) for v in prefills[True]]} on {card}")
 
     # device busy share of the kernel path: device time of the kernels in a
     # profiler trace of prefill + 4 frames, over the wall time of the same
@@ -565,7 +772,7 @@ def phase_times(eng, rec: Record, card: str):
         if dev_us > 0:
             busy = dev_us / 1e3 / wall
             top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-            log(f"  profiler, prefill + 4 frames: device busy "
+            log(f"  {label}: profiler, prefill + 4 frames: device busy "
                 f"{dev_us / 1e3:.2f} ms of {wall:.2f} ms unprofiled wall = "
                 f"{busy:.3f} on {card}")
             for e in top:
@@ -574,7 +781,25 @@ def phase_times(eng, rec: Record, card: str):
     except (RuntimeError, AssertionError) as exc:
         log(f"  profiler unavailable ({exc}); device busy share not measured")
     if busy is None:
-        log("  device busy share: not measured (no device time in trace)")
+        log(f"  {label}: device busy share: not measured (no device time in "
+            "trace)")
+
+
+def phase_times(eng, rec: Record, card: str, q48, q88):
+    import torch
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import flash_decode
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    log(f"[6/6] times on {card} (CUDA events)")
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    # ms/frame and busy share per weight set; int8/int8 last (the first to
+    # drop if the run outgrows its time limit)
+    for label, models in (("dense bf16", eng.models),
+                          ("int4+int8", q48), ("int8/int8", q88)):
+        frame_times(eng, models, label, card, g)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
@@ -636,6 +861,47 @@ def phase_times(eng, rec: Record, card: str):
             lambda: el.argmax_gather(logits, codes, 3, ptab, 3072, xo),
             lambda: el.argmax_gather_plain(logits, codes, 3, ptab, 3072, xo)),
     }
+
+    # the quantized kernels, one layer per call, weights rotating over
+    # copies larger than L2: A over the talker's int8 layer at M=64 (50 MB
+    # a copy), B8 over the predictor's int8 layer at M=1 (13.6 MB), B4 over
+    # the talker's int4 layer at M=1 (25 MB)
+    def qlayers(shapes, n_copies, kind, M):
+        fn = quant.quantize if kind == "int8" else quant.quantize_int4
+        return [[(randn(M, k), fn(randn(k, n, scale=0.02)))
+                 for k, n in shapes] for _ in range(n_copies)]
+
+    pred_layer = [(1024, 3072), (1024, 1024), (1024, 6144), (3072, 1024)]
+    a_mats = qlayers(layer, 4, "int8", 64)
+    b8_mats = qlayers(pred_layer, 8, "int8", 1)
+    b4_mats = qlayers(layer, 4, "int4", 1)
+
+    def over(mats, fn):
+        def call():
+            for layer_mats in mats:
+                for x, w in layer_mats:
+                    fn(x, w)
+        return call
+
+    cases.update({
+        "qmatmul": (
+            "one talker layer int8: qkv+wo+gate/up+down, M=64 bf16", 4,
+            over(a_mats, lambda x, w: quant.qmatmul_kernel(x, w["q"],
+                                                           w["scale"])),
+            over(a_mats, lambda x, w: quant.qmatmul_kernel_plain(
+                x, w["q"], w["scale"]))),
+        "gemv_int8": (
+            "one predictor layer int8: qkv+wo+gate/up+down, M=1 bf16", 8,
+            over(b8_mats, lambda x, w: G.gemv_int8(x, w["q"], w["scale"])),
+            over(b8_mats, lambda x, w: G.gemv_int8_plain(x, w["q"],
+                                                         w["scale"]))),
+        "gemv_int4": (
+            "one talker layer int4: qkv+wo+gate/up+down, M=1 bf16", 4,
+            over(b4_mats, lambda x, w: G.gemv_int4(x, w["q4"], w["m8"],
+                                                   w["scale"])),
+            over(b4_mats, lambda x, w: G.gemv_int4_plain(
+                x, w["q4"], w["m8"], w["scale"]))),
+    })
     for name, (label, per, kfn, pfn) in cases.items():
         rec.ms[name] = graph_ms(kfn) / per
         rec.plain_ms[name] = graph_ms(pfn) / per
@@ -665,9 +931,11 @@ def main() -> int:
     log(f"  engine: full EngineConfig() random weights in "
         f"{time.time() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    phase_agree(eng, rec)
-    phase_main(eng, rec)
-    phase_times(eng, rec, card)
+    phase_agree(eng)
+    q48 = quantized_models(eng.models, "int4", "int8")
+    q88 = quantized_models(eng.models, "int8", "int8")
+    phase_main(eng, rec, q48, q88)
+    phase_times(eng, rec, card, q48, q88)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB on {card}")
     print(card, flush=True)

@@ -5,7 +5,10 @@ Parameters may come as the nested trees the JAX package builds (dicts and
 lists of arrays) or as the flat `.npz` dicts written by
 `qwen3_tts_tpu/assets/checkpoint.py`, keyed by tree paths such as
 `layers/wqkv` or `up/0/w`. The layouts are the same in both packages
-([in, out] matrices, [L, ...] stacks), so the bridge only moves arrays.
+([in, out] matrices, [L, ...] stacks, the int8 / int4 dicts of
+`ops/quant.py`), so the bridge only moves arrays: float leaves take the
+model dtype, except a quantized weight's f32 `scale`; integer leaves keep
+their type.
 The port's own random init draws from a `torch.Generator` and does not
 reproduce JAX's numbers: a comparison of the two packages goes through
 this bridge.
@@ -50,7 +53,12 @@ def _tree(tree):
 
 def _to_torch(tree, device, dtype: Optional[torch.dtype]):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+        # a quantized weight's per-channel scale stays f32, as the JAX
+        # package keeps it (its integer q / q4 / m8 stay int8 below)
+        quantized = "scale" in tree and ("q" in tree or "q4" in tree)
+        return {k: _to_torch(v, device,
+                             None if quantized and k == "scale" else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v, device, dtype) for v in tree]
     arr = np.asarray(tree)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface and loaded with `ctypes`. The
+`csrc/*.cu` are compiled at first use with `nvcc` for `sm_90a`, one `nvcc`
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with `ctypes`. The
 library lives under `qwen3_tts_tpu_torch/kernels/_build/<hash>/`, keyed by a
 hash of the sources and the compiler flags, so a changed source rebuilds and
 an unchanged one is reused within a checkout. Nothing is fetched or
@@ -24,7 +25,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "kernels", "_build")
 LIB_NAME = "libqwen3_tts_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
 _lib = None
@@ -35,6 +36,9 @@ I = ctypes.c_int
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
     "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, I, P],
 }
@@ -68,6 +72,23 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the output of a failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+        elif verbose and text:
+            print(text, flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> str:
     """Compile (if needed) and return the library path."""
     out_dir = os.path.join(BUILD_DIR, source_hash())
@@ -75,23 +96,22 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = find_nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    # compile to a temporary name, then rename: a concurrent build (test
-    # workers) never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib_path)
+    # objects and library under temporary names, then a rename: a
+    # concurrent build (test workers) never loads a half-written library
+    tmp_dir = tempfile.mkdtemp(dir=out_dir)
+    try:
+        objs = [os.path.join(tmp_dir, os.path.basename(p) + ".o")
+                for p in cu]
+        extra = ["-Xptxas=-v"] if verbose else []
+        _run([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, p]
+              for p, o in zip(cu, objs)], verbose)
+        tmp_lib = os.path.join(tmp_dir, LIB_NAME)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs]], verbose)
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib_path
 
 

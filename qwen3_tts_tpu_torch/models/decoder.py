@@ -2,12 +2,16 @@
 trunk: the port of `qwen3_tts_tpu/models/decoder.py`.
 
 Embedding inputs (never token ids), RMSNorm + QK-norm, GQA with M-RoPE,
-SwiGLU MLP, final norm + dense head. Weights are a plain dict of stacked
+SwiGLU MLP, final norm + head. Weights are a plain dict of stacked
 tensors in the JAX layout ([in, out] matrices, [L, ...] stacks):
 
   layers/ln1 [L,H], wqkv [L,H,(nq+2nk)*hd], q_norm [L,hd], k_norm [L,hd],
   wo [L,nq*hd,H], ln2 [L,H], w_gu [L,H,2F], w_down [L,F,H]
   final_norm [H], head [H, vocab]
+
+The four layer matmuls and the head may instead be int8 or int4 dicts
+(`ops/quant.py`, from `quant.quantize_decoder_params`); every product goes
+through `quant.linear`, so an int8 prefill runs kernel A on the card.
 
 The KV cache is {"k", "v": [L, B, nk, T, hd]}, written in place (the JAX
 version returns an updated copy; in place saves a cache-sized copy per
@@ -22,7 +26,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..ops import attention, flash_decode, rope
+from ..ops import attention, flash_decode, quant, rope
 from ..ops.elementwise import rms_norm_plain, silu_mul_plain
 from ..ops.quant import linear
 
@@ -97,11 +101,14 @@ def write_layer_cache(cache_all: torch.Tensor, new: torch.Tensor, layer: int,
 
 def head_logits(params: DecoderParams, h: torch.Tensor, start: int,
                 width: int) -> torch.Tensor:
-    """f32 logits of the head's column slice [start, start + width)."""
+    """f32 logits of the head's column slice [start, start + width), for
+    dense, int8 and int4 heads (column slices are packing-transparent: the
+    int4 nibbles pair rows, not columns)."""
     head = params["head"]
+    cols = slice(start, start + width)
     if isinstance(head, dict):
-        linear(h, head)      # raises: quantized heads are not ported yet
-    return (h @ head[:, start:start + width]).float()
+        return linear(h, {k: v[..., cols] for k, v in head.items()}).float()
+    return (h @ head[:, cols]).float()
 
 
 def forward(
@@ -137,7 +144,7 @@ def forward(
     h = x.to(dt)
     for l in range(cfg.n_layers):
         a_in = rms_norm(h, lw["ln1"][l], cfg.rms_eps)
-        qkv = linear(a_in, lw["wqkv"][l])
+        qkv = linear(a_in, quant.layer(lw["wqkv"], l))
         q = qkv[..., : nq * hd].reshape(B, S, nq, hd)
         k = qkv[..., nq * hd: (nq + nk) * hd].reshape(B, S, nk, hd)
         v = qkv[..., (nq + nk) * hd:].reshape(B, S, nk, hd)
@@ -160,11 +167,13 @@ def forward(
             write_layer_cache(v_all, v, l, cache_len)
             attn = attention.gqa_attention(q, k_all[l], v_all[l], cache_len,
                                            kv_len, kv_valid_from)
-        h = h + linear(attn.reshape(B, S, nq * hd), lw["wo"][l])
+        h = h + linear(attn.reshape(B, S, nq * hd),
+                       quant.layer(lw["wo"], l))
         m_in = rms_norm(h, lw["ln2"][l], cfg.rms_eps)
-        gu = linear(m_in, lw["w_gu"][l])
+        gu = linear(m_in, quant.layer(lw["w_gu"], l))
         # silu in f32 with a single rounding to the model dtype
-        h = h + linear(silu_mul_plain(gu, gu.dtype), lw["w_down"][l])
+        h = h + linear(silu_mul_plain(gu, gu.dtype),
+                       quant.layer(lw["w_down"], l))
 
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = linear(h, params["head"]).float() if with_logits else None

@@ -10,6 +10,11 @@ down into the residual). The chain runs with one of two op sets:
   PLAIN    the plain PyTorch versions, on any device (the card's reference
            in `chip_smoke.py`).
 
+Weights are dense, int8 or int4 (`ops/quant.py` layouts); `matmul` hands
+each to its gemv variant (B, B8, B4). `qmatmul` (kernel A) is in the sets
+for its launch counter and its plain version: it runs in the talker
+prefill (`models/decoder.forward` through `quant.linear`), not here.
+
 Host code here only makes views and hands buffers to the kernels; every
 FLOP of the layer runs in one of the ops.
 """
@@ -22,10 +27,14 @@ import torch
 
 from . import elementwise as el
 from . import flash_decode
-from .gemv import EPI_ADD_F32, EPI_F32, gemv, gemv_plain
+from . import gemv as G
+from . import quant
 
 KERNELS = SimpleNamespace(
-    gemv=gemv,
+    gemv=G.gemv,
+    gemv_int8=G.gemv_int8,
+    gemv_int4=G.gemv_int4,
+    qmatmul=quant.qmatmul_kernel,
     rms_norm=el.rms_norm,
     qk_norm_rope=el.qk_norm_rope,
     silu_mul=el.silu_mul,
@@ -34,13 +43,46 @@ KERNELS = SimpleNamespace(
 )
 
 PLAIN = SimpleNamespace(
-    gemv=gemv_plain,
+    gemv=G.gemv_plain,
+    gemv_int8=G.gemv_int8_plain,
+    gemv_int4=G.gemv_int4_plain,
+    qmatmul=quant.qmatmul_kernel_plain,
     rms_norm=el.rms_norm_plain,
     qk_norm_rope=el.qk_norm_rope_plain,
     silu_mul=el.silu_mul_plain,
     decode_attention=flash_decode.decode_attention_plain,
     argmax_gather=el.argmax_gather_plain,
 )
+
+
+def matmul(ops, x: torch.Tensor, w: quant.Weight, **kw) -> torch.Tensor:
+    """x @ w through the gemv variant of w's kind (keywords: col0, n,
+    epilogue, out)."""
+    if quant.is_quantized4(w):
+        return ops.gemv_int4(x, w["q4"], w["m8"], w["scale"], **kw)
+    if quant.is_quantized(w):
+        return ops.gemv_int8(x, w["q"], w["scale"], **kw)
+    return ops.gemv(x, w, **kw)
+
+
+def check_weights(params, cfg, what: str) -> None:
+    """Refuse what the TPU kernels refuse: int4 mixed with other kinds
+    (`qwen3_tts_tpu/ops/fused_talker.py:467-470`), and int4 stacks whose
+    widths do not split into whole packed groups (H, F and nq*hd multiples
+    of 2 * GROUP4)."""
+    ws = [params["layers"][n] for n in quant.DECODER_MATMULS] \
+        + [params["head"]]
+    n4 = sum(quant.is_quantized4(w) for w in ws)
+    if n4 == 0:
+        return
+    if n4 != len(ws):
+        raise ValueError(f"mixed int4/non-int4 {what} weights are not "
+                         "supported")
+    g2 = 2 * quant.GROUP4
+    if cfg.hidden % g2 or cfg.ffn_dim % g2 \
+            or (cfg.n_q_heads * cfg.head_dim) % g2:
+        raise ValueError(f"int4 {what} weights need hidden, ffn_dim and "
+                         f"n_q_heads * head_dim in multiples of {g2}")
 
 
 def layer_pass(ops, lw, l: int, cfg, x_res: torch.Tensor, cos, sin,
@@ -55,17 +97,18 @@ def layer_pass(ops, lw, l: int, cfg, x_res: torch.Tensor, cos, sin,
     dt = q_buf.dtype
     eps = cfg.rms_eps
     a = ops.rms_norm(x_res, lw["ln1"][l], eps, dt)
-    qkv = ops.gemv(a, lw["wqkv"][l])
+    qkv = matmul(ops, a, quant.layer(lw["wqkv"], l))
     ops.qk_norm_rope(qkv, lw["q_norm"][l], lw["k_norm"][l], cos, sin, nq, nk,
                      eps, out=(q_buf, k_new, v_new))
     attn = ops.decode_attention(q_buf, k_cache, v_cache, k_new, v_new, l,
                                 kv_len, valid_from)
-    ops.gemv(attn.view(B, nq * hd), lw["wo"][l], epilogue=EPI_ADD_F32,
-             out=x_res)
+    matmul(ops, attn.view(B, nq * hd), quant.layer(lw["wo"], l),
+           epilogue=G.EPI_ADD_F32, out=x_res)
     m = ops.rms_norm(x_res, lw["ln2"][l], eps, dt)
-    gu = ops.gemv(m, lw["w_gu"][l], epilogue=EPI_F32)
+    gu = matmul(ops, m, quant.layer(lw["w_gu"], l), epilogue=G.EPI_F32)
     act = ops.silu_mul(gu, dt)
-    ops.gemv(act, lw["w_down"][l], epilogue=EPI_ADD_F32, out=x_res)
+    matmul(ops, act, quant.layer(lw["w_down"], l), epilogue=G.EPI_ADD_F32,
+           out=x_res)
 
 
 def reset_launch_counts() -> None:

@@ -18,9 +18,21 @@ attention. Codes stay on the device: no `.item()`, no host sync inside the
 frame. Codes out of range select the bias row of ptab; negative codes
 clamp to 0 (`qwen3_tts_tpu/ops/fused_predictor.py:651-659`).
 
-Deliberate divergence from the TPU kernel: the residual stream is f32 (the
-TPU predictor kernel keeps it in the model dtype), the same as the talker
-step; with f32 weights the two are the same.
+Weights are dense, int8 or int4, split per layer as the TPU kernel's
+`_split_w` splits them (`qwen3_tts_tpu/ops/fused_predictor.py:596`): values
+to gemv B / B8 / B4, the f32 per-channel scales into their epilogues; the
+head's logits are f32 rounded through the model dtype for every kind.
+
+Deliberate divergences from the TPU kernel:
+  * the residual stream is f32 (the TPU predictor kernel keeps it in the
+    model dtype), the same as the talker step; with f32 weights the two
+    are the same;
+  * the TPU kernel's VMEM-resident int8 weights (`resident`, `kv_res`;
+    `qwen3_tts_tpu/ops/fused_predictor.py:52-65`) are not ported. They are
+    a placement of the same math, bit-identical to its streamed int8 path
+    (the whole int8 layer stack staged once per frame into the TPU core's
+    128 MB of VMEM); an H100 SM has 227 KB of shared memory, so every pass
+    here streams its weights from HBM (or the 50 MB L2).
 """
 
 from __future__ import annotations
@@ -33,16 +45,14 @@ from ..core import protocol
 from . import chain, rope
 from .elementwise import sel_rows
 from .gemv import EPI_F32_ROUND_DT
-from .quant import require_dense
 
 
 def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
            ptab_rows: int, h1024: torch.Tensor,
            code_0: torch.Tensor) -> torch.Tensor:
+    chain.check_weights(params, cfg, "predictor")
     lw = params["layers"]
-    for name in ("wqkv", "wo", "w_gu", "w_down"):
-        require_dense(lw[name])
-    head = require_dense(params["head"])
+    head = params["head"]
     B = code_0.shape[0]
     dev = h1024.device
     L, nq, nk, hd = cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
@@ -83,8 +93,8 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
 
     def head_slice(qi: int) -> None:
         h = ops.rms_norm(x_res, params["final_norm"], cfg.rms_eps, dt)
-        ops.gemv(h, head, col0=qi * CV, n=CV, epilogue=EPI_F32_ROUND_DT,
-                 out=logits)
+        chain.matmul(ops, h, head, col0=qi * CV, n=CV,
+                     epilogue=EPI_F32_ROUND_DT, out=logits)
 
     stack_pass(0)
     x_res.copy_(ptab[0][sel_rows(code_0.long(), ptab_rows, ptab.shape[1])])

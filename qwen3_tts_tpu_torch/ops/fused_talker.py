@@ -12,9 +12,12 @@ kernel's:
   * the current token's k/v fold into the attention last, and the cache is
     written after the whole step, in place, at the row's slot (the
     pre-update contract of `qwen3_tts_tpu/ops/fused_talker.py:575-596`);
-  * logits are f32 rounded through the model dtype.
+  * logits are f32 rounded through the model dtype, for dense and
+    quantized heads alike.
 
-Dense weights only (int8/int4: ROADMAP queue 2 item 1).
+Weights are dense, int8 or int4, split per layer as the TPU kernel's
+`_split_w` splits them (`qwen3_tts_tpu/ops/fused_talker.py:72-82`): values
+to gemv B / B8 / B4, the f32 per-channel scales into their epilogues.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import torch
 
 from . import chain, rope
 from .gemv import EPI_F32_ROUND_DT
-from .quant import require_dense
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -34,10 +36,8 @@ def _dtype(cfg) -> torch.dtype:
 
 def _step(ops, params: Dict[str, Any], cfg, x, positions, slot, kv_len,
           valid_from, k_cache, v_cache):
+    chain.check_weights(params, cfg, "talker")
     lw = params["layers"]
-    for name in ("wqkv", "wo", "w_gu", "w_down"):
-        require_dense(lw[name])
-    head = require_dense(params["head"])
     B = x.shape[0]
     dev = x.device
     L, nq, nk, hd = cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
@@ -59,7 +59,7 @@ def _step(ops, params: Dict[str, Any], cfg, x, positions, slot, kv_len,
         chain.layer_pass(ops, lw, l, cfg, x_res, cos, sin, k_cache, v_cache,
                          q_buf, k_new[l], v_new[l], kv_len, valid_from)
     h = ops.rms_norm(x_res, params["final_norm"], cfg.rms_eps, dt)
-    logits = ops.gemv(h, head, epilogue=EPI_F32_ROUND_DT)
+    logits = chain.matmul(ops, h, params["head"], epilogue=EPI_F32_ROUND_DT)
 
     # the cache write after the step, in place at each row's slot
     slot_b = torch.as_tensor(slot, device=dev).to(torch.long).expand(B)

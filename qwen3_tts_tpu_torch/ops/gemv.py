@@ -1,27 +1,36 @@
-"""Skinny matmul for decode batches: kernel B (`csrc/gemv.cu`).
+"""Skinny matmul for decode batches: kernels B, B8 and B4 (`csrc/gemv.cu`).
 
 The building block of both fused ports, `ops/fused_talker.py` and
 `ops/fused_predictor.py`: every qkv / wo / gate-up / down / head product of
-a talker step or a predictor pass. It is the counterpart of the
+a talker step or a predictor pass. They are the counterpart of the
 `stream_matmul` helpers inside the two TPU kernels
 (`qwen3_tts_tpu/ops/fused_talker.py:136`,
-`qwen3_tts_tpu/ops/fused_predictor.py:153`).
+`qwen3_tts_tpu/ops/fused_predictor.py:153`), one wrapper per weight kind:
 
-`gemv(x, w, ...)` computes f32( x[M, K] @ w[:, col0:col0 + n] ) with f32
-accumulation and applies one epilogue:
+  gemv(x, w)                    B   dense w in x.dtype
+  gemv_int8(x, q, scale)        B8  int8 q, per-column f32 scale
+  gemv_int4(x, q4, m8, scale)   B4  packed biased int4 q4 + m8 + scale, in
+                                    the panel order of `quant.panel_matmul4`
+
+Each computes acc = f32( x[M, K] @ deq(w)[:, col0:col0 + n] ) with f32
+accumulation, multiplies the quantized kinds' acc by scale[col0:col0 + n]
+(the TPU kernels' `sc_*`), and applies one epilogue:
 
   EPI_STORE_DT        store in x.dtype (the model dtype),
   EPI_F32             store f32,
   EPI_F32_ROUND_DT    store f32 rounded through x.dtype (logits),
   EPI_ADD_F32         add into an f32 residual buffer `out` (in place).
 
-On a CPU tensor it runs `gemv_plain`; on a CUDA tensor it launches the
-kernel or raises.
+Column slices are packing-transparent: `col0` selects the same columns of
+q, q4, m8 and scale. On a CPU tensor each wrapper runs its plain version;
+on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .quant import GROUP4, panel_matmul4_plain
 
 EPI_STORE_DT = 0
 EPI_F32 = 1
@@ -55,17 +64,40 @@ def _finish(acc: torch.Tensor, dt: torch.dtype, epilogue: int,
     return out
 
 
+def _cols(w, col0: int, n: int | None) -> int:
+    return w.shape[1] - col0 if n is None else n
+
+
 def gemv_plain(x, w, *, col0: int = 0, n: int | None = None,
                epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
-    """Plain version: the product in f32, then the same epilogue."""
-    n = w.shape[1] - col0 if n is None else n
+    """Plain version of B: the product in f32, then the same epilogue."""
+    n = _cols(w, col0, n)
     acc = x.float() @ w[:, col0:col0 + n].float()
     return _finish(acc, x.dtype, epilogue, out)
 
 
+def gemv_int8_plain(x, q, scale, *, col0: int = 0, n: int | None = None,
+                    epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
+    """Plain version of B8: (x @ q) in f32, times the column scales."""
+    n = _cols(q, col0, n)
+    acc = (x.float() @ q[:, col0:col0 + n].float()) * scale[col0:col0 + n]
+    return _finish(acc, x.dtype, epilogue, out)
+
+
+def gemv_int4_plain(x, q4, m8, scale, *, col0: int = 0,
+                    n: int | None = None, epilogue: int = EPI_STORE_DT,
+                    out=None) -> torch.Tensor:
+    """Plain version of B4: `panel_matmul4`'s order, times the scales."""
+    n = _cols(q4, col0, n)
+    cols = slice(col0, col0 + n)
+    acc = panel_matmul4_plain(x, q4[:, cols], m8[:, cols]) * scale[cols]
+    return _finish(acc, x.dtype, epilogue, out)
+
+
 def k_chunk(M: int, K: int, N: int) -> int:
-    """K rows per block: halve from MAX_CHUNK until the grid (column tiles
-    x row chunks x K chunks) has two waves of blocks for 132 SMs."""
+    """K rows per block of B and B8: halve from MAX_CHUNK until the grid
+    (column tiles x row chunks x K chunks) has two waves of blocks for 132
+    SMs. (B4 takes whole packed groups of GROUP4 rows instead.)"""
     chunk = MAX_CHUNK
     col_tiles = -(-N // 256) * -(-M // 8)
     while chunk > 32 and col_tiles * -(-K // chunk) < _TARGET_BLOCKS:
@@ -73,34 +105,28 @@ def k_chunk(M: int, K: int, N: int) -> int:
     return chunk
 
 
-def gemv(x, w, *, col0: int = 0, n: int | None = None,
-         epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
-    """y = x @ w[:, col0:col0+n] with an epilogue (see module docstring).
-
-    x [M, K] contiguous, M <= 32; w [K, ldw] with unit column stride (a
-    layer slice of a stacked [L, K, N] weight is such a view).
-    """
-    if x.device.type == "cpu":
-        return gemv_plain(x, w, col0=col0, n=n, epilogue=epilogue, out=out)
+def _check(name, x, w, col0, n, epilogue, out, *, align, packed=False):
+    """Validate a launch (w has K rows, K/2 when `packed`); returns
+    (M, K, n, out)."""
     if not x.is_cuda or w.device != x.device:
-        raise ValueError(f"gemv: x on {x.device}, w on {w.device}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"gemv: x {x.dtype} / w {w.dtype}; both must be "
-                        "float32 or bfloat16")
+        raise ValueError(f"{name}: x on {x.device}, w on {w.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: x {x.dtype}; float32 or bfloat16")
     if x.dim() != 2 or w.dim() != 2 or not x.is_contiguous() \
             or w.stride(1) != 1:
-        raise ValueError("gemv: x must be contiguous [M, K] and w [K, N] "
-                         "with unit column stride")
+        raise ValueError(f"{name}: x must be contiguous [M, K] and w "
+                         "[rows, N] with unit column stride")
     M, K = x.shape
-    ldw = w.stride(0)
-    n = w.shape[1] - col0 if n is None else n
-    if not (1 <= M <= MAX_M) or w.shape[0] != K or col0 < 0 \
+    n = _cols(w, col0, n)
+    rows = K // 2 if packed else K
+    if not (1 <= M <= MAX_M) or w.shape[0] != rows or col0 < 0 \
             or col0 + n > w.shape[1]:
-        raise ValueError(f"gemv: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"cols [{col0}, {col0 + n})")
-    if n % 8 or col0 % 8 or ldw % 8 or w.data_ptr() % 16:
-        raise ValueError("gemv: columns, column offset and row stride must "
-                         "be multiples of 8 and w 16-byte aligned")
+    if n % 8 or col0 % 8 or w.stride(0) % 8 or w.data_ptr() % align:
+        raise ValueError(f"{name}: columns, column offset and row stride "
+                         f"must be multiples of 8 and w {align}-byte "
+                         "aligned")
     out_dtype = x.dtype if epilogue == EPI_STORE_DT else torch.float32
     if out is None:
         if epilogue == EPI_ADD_F32:
@@ -108,20 +134,107 @@ def gemv(x, w, *, col0: int = 0, n: int | None = None,
         out = torch.empty(M, n, dtype=out_dtype, device=x.device)
     elif (out.dtype != out_dtype or tuple(out.shape) != (M, n)
           or not out.is_contiguous() or out.device != x.device):
-        raise ValueError(f"gemv: out {out.dtype} {tuple(out.shape)} does "
+        raise ValueError(f"{name}: out {out.dtype} {tuple(out.shape)} does "
                          f"not match {out_dtype} {(M, n)}")
+    return M, K, n, out
 
+
+def _check_scale(name, scale, w):
+    if scale.dtype != torch.float32 or scale.dim() != 1 \
+            or scale.shape[0] != w.shape[1] or not scale.is_contiguous() \
+            or scale.device != w.device:
+        raise ValueError(f"{name}: scale must be contiguous f32 "
+                         f"[{w.shape[1]}] on {w.device}")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def gemv(x, w, *, col0: int = 0, n: int | None = None,
+         epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
+    """B: y = x @ w[:, col0:col0+n] with an epilogue (module docstring).
+
+    x [M, K] contiguous, M <= 32; w [K, ldw] in x.dtype with unit column
+    stride (a layer slice of a stacked [L, K, N] weight is such a view).
+    """
+    if x.device.type == "cpu":
+        return gemv_plain(x, w, col0=col0, n=n, epilogue=epilogue, out=out)
+    if w.dtype != x.dtype:
+        raise TypeError(f"gemv: x {x.dtype} / w {w.dtype} must match")
+    M, K, n, out = _check("gemv", x, w, col0, n, epilogue, out, align=16)
     from ..kernels import build
     chunk = k_chunk(M, K, n)
     part = torch.empty(-(-K // chunk), M, n, dtype=torch.float32,
                        device=x.device)
     err = build.lib().gemv_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
-        M, K, n, ldw, col0, chunk, _DTYPES[x.dtype], epilogue,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        M, K, n, w.stride(0), col0, chunk, _DTYPES[x.dtype], epilogue,
+        _stream(x))
     build.check(err, "gemv")
     gemv.launches += 1
     return out
 
 
+def gemv_int8(x, q, scale, *, col0: int = 0, n: int | None = None,
+              epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
+    """B8: y = (x @ q[:, col0:col0+n]) * scale[col0:col0+n], epilogue.
+    q int8 [K, ldq], scale f32 [ldq]."""
+    if x.device.type == "cpu":
+        return gemv_int8_plain(x, q, scale, col0=col0, n=n,
+                               epilogue=epilogue, out=out)
+    if q.dtype != torch.int8:
+        raise TypeError(f"gemv_int8: q {q.dtype}, not int8")
+    _check_scale("gemv_int8", scale, q)
+    M, K, n, out = _check("gemv_int8", x, q, col0, n, epilogue, out,
+                          align=8)
+    from ..kernels import build
+    chunk = k_chunk(M, K, n)
+    part = torch.empty(-(-K // chunk), M, n, dtype=torch.float32,
+                       device=x.device)
+    err = build.lib().gemv_int8_launch(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        part.data_ptr(), M, K, n, q.stride(0), col0, chunk,
+        _DTYPES[x.dtype], epilogue, _stream(x))
+    build.check(err, "gemv_int8")
+    gemv_int8.launches += 1
+    return out
+
+
+def gemv_int4(x, q4, m8, scale, *, col0: int = 0, n: int | None = None,
+              epilogue: int = EPI_STORE_DT, out=None) -> torch.Tensor:
+    """B4: y = panel_matmul4(x, q4, m8)[:, cols] * scale[cols], epilogue.
+    q4 int8 [K//2, ldq] packed, m8 int8 [K//GROUP4, ldm], scale f32
+    [ldq]; K a multiple of 2 * GROUP4. Each block takes one packed group
+    (GROUP4 packed rows = two whole k-groups), so groups are never split."""
+    if x.device.type == "cpu":
+        return gemv_int4_plain(x, q4, m8, scale, col0=col0, n=n,
+                               epilogue=epilogue, out=out)
+    if q4.dtype != torch.int8 or m8.dtype != torch.int8:
+        raise TypeError(f"gemv_int4: q4 {q4.dtype} / m8 {m8.dtype}, "
+                        "not int8")
+    _check_scale("gemv_int4", scale, q4)
+    M, K, n, out = _check("gemv_int4", x, q4, col0, n, epilogue, out,
+                          align=4, packed=True)
+    if K % (2 * GROUP4) or m8.dim() != 2 \
+            or tuple(m8.shape) != (K // GROUP4, q4.shape[1]) \
+            or m8.stride(1) != 1 or m8.device != q4.device:
+        raise ValueError(f"gemv_int4: K {K} must be a multiple of "
+                         f"{2 * GROUP4}, m8 {tuple(m8.shape)} "
+                         f"[K // {GROUP4}, {q4.shape[1]}] with unit "
+                         "column stride")
+    from ..kernels import build
+    part = torch.empty(K // (2 * GROUP4), M, n, dtype=torch.float32,
+                       device=x.device)
+    err = build.lib().gemv_int4_launch(
+        x.data_ptr(), q4.data_ptr(), m8.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), part.data_ptr(), M, K, n, q4.stride(0),
+        m8.stride(0), col0, _DTYPES[x.dtype], epilogue, _stream(x))
+    build.check(err, "gemv_int4")
+    gemv_int4.launches += 1
+    return out
+
+
 gemv.launches = 0
+gemv_int8.launches = 0
+gemv_int4.launches = 0

@@ -4,7 +4,9 @@
 `TtsEngine(config=..., random_weights=True, seed=0)` draws seeded random
 weights from a `torch.Generator` on the engine's device, with the JAX
 engine's shapes; `weights=(models, vocoder_params)` takes weights built
-elsewhere (`convert.engine_from_jax_arrays` bridges the JAX package's).
+elsewhere (`convert.engine_from_jax_arrays` bridges the JAX package's),
+dense or quantized: talker and predictor trees from
+`ops.quant.quantize_decoder_params` run the int8 / int4 kernels.
 `generate_with_voice` / `generate_batch` run prompt assembly, the
 generation loop (`tts/generate.py`) and the one-shot vocoder.
 
@@ -56,9 +58,13 @@ class TtsEngine:
         weights: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None,
     ):
         if quant != "none":
+            # in the JAX engine `quant` only picks a checkpoint's per-quant
+            # subdirectory (download.quant_dir)
             raise NotImplementedError(
-                "quantized weights are not ported yet: ROADMAP queue 2 "
-                "item 1 (_pallas_qmatmul and panel_matmul4)")
+                f"quant={quant!r} selects a checkpoint's per-quant "
+                "subdirectory, and loading checkpoints is not ported yet "
+                "(ROADMAP queue 1): pass quantized trees from "
+                "ops.quant.quantize_decoder_params through weights=")
         self.config = config or EngineConfig()
         self.device = torch.device(device) if device is not None \
             else default_device()

@@ -1,10 +1,14 @@
 """The port against the JAX package's Pallas kernels themselves, run in
 interpret mode on the CPU (marked slow, like the JAX kernel suites), on f32
 tiny shapes: decode attention, the fused talker step and the fused
-predictor frame. The port runs its kernels' plain versions here.
-Tolerances: atol 1e-5 for attention, 1e-4 for the step's hidden and
-logits (f32, different reduction order); codes exact.
+predictor frame, with dense, int8 and int4 weights. The port runs its
+kernels' plain versions here. Tolerances: atol 1e-5 for attention, 1e-4
+for the step's hidden and logits (f32, different reduction order; the int4
+panel order is the same on both sides); codes exact.
 """
+
+import dataclasses
+
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from qwen3_tts_tpu.models import decoder as jdecoder
 from qwen3_tts_tpu.ops import flash_decode as jflash
 from qwen3_tts_tpu.ops import fused_predictor as jfused_predictor
 from qwen3_tts_tpu.ops import fused_talker as jfused_talker
+from qwen3_tts_tpu.ops import quant as jquant
 from qwen3_tts_tpu_torch import convert
 from qwen3_tts_tpu_torch.ops import flash_decode, fused_predictor
 from qwen3_tts_tpu_torch.ops import fused_talker
@@ -30,6 +35,20 @@ TC = TalkerConfig(hidden=64, n_layers=2, n_q_heads=4, n_kv_heads=2,
 PC = PredictorConfig(hidden=32, n_layers=2, n_q_heads=2, n_kv_heads=2,
                      head_dim=16, ffn_dim=64, max_seq=32,
                      mrope_sections=(8, 0, 0, 0), dtype="float32")
+# int4 needs widths in whole packed groups (multiples of 256)
+TC4 = dataclasses.replace(TC, hidden=256, n_q_heads=2, n_kv_heads=2,
+                          head_dim=128, ffn_dim=256,
+                          mrope_sections=(32, 16, 16, 0))
+PC4 = dataclasses.replace(PC, hidden=256, n_q_heads=2, n_kv_heads=2,
+                          head_dim=128, ffn_dim=256,
+                          mrope_sections=(64, 0, 0, 0))
+KINDS = {"dense": (TC, PC), "int8": (TC, PC), "int4": (TC4, PC4)}
+
+
+def _quantized(params, kind):
+    if kind == "dense":
+        return params
+    return jquant.quantize_decoder_params(params, kind=kind)
 
 
 def _close(t, j, atol):
@@ -55,11 +74,13 @@ def test_decode_attention_matches_pallas_interpret():
     _close(got, ref, 1e-5)
 
 
-def test_talker_step_matches_pallas_interpret():
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_talker_step_matches_pallas_interpret(kind):
+    TC, _ = KINDS[kind]
     ks = jax.random.split(jax.random.key(0), 3)
     B, S = 2, 5
     pad = np.asarray([0, 3], np.int32)
-    jp = jdecoder.init_decoder(ks[0], TC)
+    jp = _quantized(jdecoder.init_decoder(ks[0], TC), kind)
     x = 0.1 * jax.random.normal(ks[1], (B, S, TC.hidden))
     pos = jnp.maximum(jnp.arange(S)[None] - jnp.asarray(pad)[:, None], 0)
     _, _, jcache = jdecoder.forward(
@@ -83,9 +104,11 @@ def test_talker_step_matches_pallas_interpret():
     _close(tv, jv, 1e-5)
 
 
-def test_frame_codes_match_pallas_interpret():
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_frame_codes_match_pallas_interpret(kind):
+    TC, PC = KINDS[kind]
     k1, k2 = jax.random.split(jax.random.key(3))
-    jp = jdecoder.init_decoder(k1, PC)
+    jp = _quantized(jdecoder.init_decoder(k1, PC), kind)
     ja = jtables.random_assets(k2, text_vocab=64, codec_rows=2176,
                                dim=TC.hidden, proj_dim=PC.hidden)
     jptab, rows = jfused_predictor.make_ptab(ja, PC)

@@ -7,7 +7,8 @@ This file imports no JAX, so it runs on the card's machine:
 
 Tolerances: f32 rtol/atol 1e-4 (the kernels sum in another order than
 PyTorch); bf16 outputs within one bf16 ulp (relative 2^-7 of the row max).
-Codes and gathered rows: exact.
+Codes and gathered rows: exact. Kernel A (qmatmul) outputs f32 from bf16
+inputs, exact products: f32 tolerances for both x dtypes.
 """
 
 import pytest
@@ -18,6 +19,7 @@ from qwen3_tts_tpu_torch.ops import elementwise as el
 from qwen3_tts_tpu_torch.ops import flash_decode, fused_predictor
 from qwen3_tts_tpu_torch.ops import fused_talker
 from qwen3_tts_tpu_torch.ops import gemv as G
+from qwen3_tts_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -59,6 +61,47 @@ def test_gemv(dev, dtype, M, K, N, col0, n):
                   out=res.clone()),
            G.gemv_plain(x, w, col0=col0, n=n, epilogue=G.EPI_ADD_F32,
                         out=res.clone()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,col0,n", [(1, 2048, 4096, 0, None),
+                                          (3, 1024, 3072, 0, None),
+                                          (8, 1024, 8192, 2048, 2048),
+                                          (32, 6144, 2048, 0, None),
+                                          (9, 256, 264, 8, 256)])
+def test_gemv_quantized(dev, dtype, M, K, N, col0, n):
+    """B8 and B4 against their plain versions, every epilogue."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(g, M, K, dtype=dtype)
+    w = _randn(g, K, N, scale=0.02)
+    q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+    calls = [(G.gemv_int8, G.gemv_int8_plain, (q8["q"], q8["scale"])),
+             (G.gemv_int4, G.gemv_int4_plain,
+              (q4["q4"], q4["m8"], q4["scale"]))]
+    for fn, plain, wargs in calls:
+        for epi in (G.EPI_STORE_DT, G.EPI_F32, G.EPI_F32_ROUND_DT):
+            _close(fn(x, *wargs, col0=col0, n=n, epilogue=epi),
+                   plain(x, *wargs, col0=col0, n=n, epilogue=epi), dtype)
+        res = _randn(g, M, n or N)
+        _close(fn(x, *wargs, col0=col0, n=n, epilogue=G.EPI_ADD_F32,
+                  out=res.clone()),
+               plain(x, *wargs, col0=col0, n=n, epilogue=G.EPI_ADD_F32,
+                     out=res.clone()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(64, 2048, 4096), (37, 6144, 2048),
+                                   (128, 2048, 2176), (1, 128, 128),
+                                   (300, 256, 384)])
+def test_qmatmul(dev, dtype, M, K, N):
+    """Kernel A against its plain version; ragged M is masked in the
+    kernel, K is split where the output tiles are few."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(g, M, K, dtype=dtype)
+    qw = quant.quantize(_randn(g, K, N, scale=0.02))
+    _close(quant.qmatmul_kernel(x, qw["q"], qw["scale"]),
+           quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
+           torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,3 +190,32 @@ def test_fused_steps_match_plain_tiny_f32(dev):
     assert torch.equal(
         fused_predictor.frame_codes_fused(pp, pc, ptab, rows, h, code0),
         fused_predictor.frame_codes_fused_plain(pp, pc, ptab, rows, h, code0))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_talker_step_matches_plain(dev, kind):
+    """The fused talker step on int8 / int4 weights (B8 / B4 in the
+    chain) against the chained plain versions, f32, on an int4-capable
+    width."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.models import decoder
+
+    tc = dataclasses.replace(tiny_engine_config().talker, hidden=256,
+                             n_q_heads=2, n_kv_heads=2, head_dim=128,
+                             ffn_dim=256, mrope_sections=(32, 16, 16, 0))
+    g = torch.Generator(device=dev).manual_seed(7)
+    tp = quant.quantize_decoder_params(
+        decoder.init_decoder(g, tc, device=dev), kind=kind)
+    cache = decoder.init_kv_cache(tc, 2, length=256, device=dev)
+    cache["k"].copy_(_randn(g, *cache["k"].shape))
+    cache["v"].copy_(_randn(g, *cache["v"].shape))
+    x = _randn(g, 2, tc.hidden)
+    slot = torch.tensor([40, 40], dtype=torch.int32, device=dev)
+    pad = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+    a = fused_talker.talker_step_fused(tp, tc, x, slot - pad, 40, slot, pad,
+                                       cache["k"].clone(), cache["v"].clone())
+    b = fused_talker.talker_step_fused_plain(tp, tc, x, slot - pad, 40, slot,
+                                             pad, cache["k"].clone(),
+                                             cache["v"].clone())
+    for u, v in zip(a, b):
+        _close(u, v, torch.float32)

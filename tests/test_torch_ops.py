@@ -84,15 +84,17 @@ def test_rms_norm_and_plain_kernel_match_jax():
 
 
 def test_linear_dense_and_quantized_raises():
+    """Dense `linear` matches JAX; a weight dict that is neither int8
+    (q, scale) nor int4 (q4, m8, scale) raises. The quantized kinds are
+    held against JAX in tests/test_torch_quant.py."""
     rng = _rng(4)
     x = rng.standard_normal((2, 3, 32)).astype(np.float32)
     w = rng.standard_normal((32, 24)).astype(np.float32)
     _close(quant.linear(torch.from_numpy(x), torch.from_numpy(w)),
            jquant.linear(jnp.asarray(x), jnp.asarray(w)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="q4/m8/scale"):
         quant.linear(torch.from_numpy(x),
-                     {"q": torch.zeros(32, 24, dtype=torch.int8),
-                      "scale": torch.ones(24)})
+                     {"q": torch.zeros(32, 24, dtype=torch.int8)})
 
 
 @pytest.mark.parametrize("kv_len,vfrom,T", [

@@ -74,10 +74,12 @@ def test_unflatten_npz_paths():
 
 def test_kernel_sources_and_build_key():
     names = {os.path.basename(p) for p in build.sources()}
-    assert {"gemv.cu", "decode_attention.cu"} <= names
+    assert {"gemv.cu", "decode_attention.cu", "qmatmul.cu"} <= names
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert set(build.SIGNATURES) == {"gemv_launch", "decode_attention_launch"}
+    assert set(build.SIGNATURES) == {
+        "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
+        "qmatmul_launch", "decode_attention_launch"}
 
 
 @pytest.mark.parametrize("M,K,N,chunk", [(1, 2048, 4096, 64),
@@ -87,6 +89,19 @@ def test_kernel_sources_and_build_key():
 def test_gemv_k_chunk_fills_the_card(M, K, N, chunk):
     from qwen3_tts_tpu_torch.ops import gemv
     assert gemv.k_chunk(M, K, N) == chunk
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(64, 2048, 4096, 4),
+                                            (64, 6144, 2048, 8),
+                                            (37, 2048, 2176, 4),
+                                            (128, 2048, 12288, 1),
+                                            (128, 128, 128, 2)])
+def test_qmatmul_splits_whole_k_tiles(M, K, N, splits):
+    """Kernel A splits K only while the output tiles are fewer than two
+    waves, and only into whole 64-deep K tiles."""
+    from qwen3_tts_tpu_torch.ops import quant
+    assert quant.qmatmul_splits(M, K, N) == splits
+    assert (K // 64) % splits == 0
 
 
 @pytest.mark.parametrize("B,nk,T", [(1, 8, 256), (1, 8, 1024), (1, 8, 32),
