@@ -14,12 +14,19 @@ result line:
                the quantized ones included: A (qmatmul) at the talker's
                prefill shapes, B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
                8, 32, every epilogue and the predictor head's slices
-  4. agree     teacher-forced agreement at full width in bf16, kernels vs
+  4. probes    the capability-probe tool (`python -m
+               qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
+               user runs it, every probe kernel launched; then each of the
+               eight kernels (csrc/probes.cu) against its plain version at
+               the TPU probe's shapes (equal, except the int8 panel's f32
+               sums: max |d| <= 1e-5 x max |plain|), the TPU probe's own
+               check, the edge indices, and device times (CUDA graph replay)
+  5. agree     teacher-forced agreement at full width in bf16, kernels vs
                plain from the same state, with peaked heads: talker step
                argmax >= 0.93, predictor codes >= 0.95, for dense weights,
                for the int4 talker with the int8 predictor, and for the
                int8 talker
-  5. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
+  6. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
                width, B=1, 32 frames, generate_with_voice(vivian): a finite
                waveform, every dense-path kernel's launch count above 0;
                generate_batch at B=2. The same weights quantized as the JAX
@@ -31,7 +38,21 @@ result line:
                greedy codes on the card equal the CPU reference, dense, int8,
                and int4 on a small int4-capable talker. Counts are set to 0
                just before each of these runs and read just after.
-  6. times     ms/frame of generate_codes through kernels and through the
+  7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
+               dense bf16 and int4 talker + int8 predictor: a cold call,
+               warmup, a warm call, each with the counts set to 0 just
+               before and read just after. A finite waveform of whole
+               frames; every chunk whole frames and at most (4 +
+               lookahead) frames, the chunks concatenating to the samples;
+               the waveform equal to a one-shot vocoder decode of the
+               stream's own codes (f32 vocoder, atol 1e-4). The tiny f32
+               config: greedy stream codes equal the offline path's and
+               the CPU's, samples within atol 1e-4. Prints first-chunk ms
+               (cold, warm), streaming RTF including vocoding, the
+               vocoder's device ms per 4-frame chunk, and ms/frame of the
+               stream step with its 4096-slot cache against the offline
+               window's 256
+  8. times     ms/frame of generate_codes through kernels and through the
                plain versions (CUDA events), dense and int4+int8 (and
                int8/int8), the device busy share of the kernel paths
                (torch.profiler), and each kernel's device time against its
@@ -50,6 +71,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WARMUP, REPS = 5, 20
+PROBE = "probe_"      # prefix of the probe kernels' names in the JSON line
 
 
 def fail(msg: str) -> None:
@@ -71,10 +93,10 @@ def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def cuda_ms(fn, reps=REPS) -> float:
-    """Mean device time of fn() over `reps` launches after a warmup."""
+def cuda_ms(fn, reps=REPS, warmup=WARMUP) -> float:
+    """Mean device time of fn() over `reps` launches after `warmup`."""
     import torch
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -153,7 +175,13 @@ class Record:
     }
 
     def __init__(self):
-        self.err = {k: 0.0 for k in self.SOURCES}
+        from qwen3_tts_tpu_torch.tools import mosaic_probe
+        self.sources = dict(self.SOURCES)
+        for p in mosaic_probe.PROBES:
+            self.sources[PROBE + p.name] = (
+                "cuda", "qwen3_tts_tpu_torch/csrc/probes.cu",
+                f"tools/mosaic_probe.py:{p.call}")
+        self.err = {k: 0.0 for k in self.sources}
         self.ms = {}
         self.plain_ms = {}
         self.launches = {}
@@ -188,7 +216,7 @@ class Record:
 
     def line(self):
         out = []
-        for name, (route, src, repl) in self.SOURCES.items():
+        for name, (route, src, repl) in self.sources.items():
             out.append({"name": name, "route": route, "source": src,
                         "replaces": repl,
                         "launches": self.launches.get(name, 0),
@@ -218,7 +246,7 @@ def phase_device():
         fail("triton is not installed")
     from qwen3_tts_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
-    log("[1/6] device")
+    log("[1/8] device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"triton {tv}  nvcc {nvcc}  python {sys.version.split()[0]}")
@@ -233,7 +261,7 @@ def phase_device():
 
 def phase_build():
     from qwen3_tts_tpu_torch.kernels import build
-    log("[2/6] build")
+    log("[2/8] build")
     t0 = time.time()
     path = build.build(verbose=True)
     build.lib()
@@ -247,7 +275,7 @@ def phase_kernels(rec: Record):
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
 
-    log("[3/6] kernels against their plain versions")
+    log("[3/8] kernels against their plain versions")
     log("  f32 tolerances: rtol 1e-4, atol 1e-4 (the kernels sum in another "
         "order than cuBLAS / PyTorch); bf16: relative error")
     dev = torch.device("cuda")
@@ -457,6 +485,77 @@ def phase_kernels_quant(rec: Record, randn):
         f"2048, M=1,2,8,32, bf16: rel {r8:.2e} / {r4:.2e} (<= 0.008) ok")
 
 
+def phase_probes(rec: Record, card: str):
+    """The probe tool's path and its eight kernels against their plain
+    versions."""
+    import torch
+    from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
+
+    log("[4/8] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
+        "--device cuda, then each kernel against its plain version")
+    torch.cuda.synchronize()
+    mp.reset_launch_counts()
+    rc = mp.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {PROBE + k: v for k, v in mp.launch_counts().items()}
+    rec.add_launches(counts)
+    log(f"  the tool: exit {rc}, launches {json.dumps(counts)}")
+    if rc != 0:
+        fail("mosaic_probe --device cuda printed FAIL")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        fail(f"the probe tool never launched: {missing}")
+
+    dev = torch.device("cuda")
+    inputs = mp.probe_inputs(dev, seed=1)        # other draws than the tool's
+    for p in mp.PROBES:
+        args = inputs[p.name]
+        got, want = p.kernel(*args), p.plain(*args)
+        torch.cuda.synchronize()
+        ok, err = mp.agree(p, got, want)
+        name = PROBE + p.name
+        rec.err[name] = err
+        tol = "equal" if p.exact \
+            else f"<= {mp.PANEL_REL_TOL:g} x max|plain|, exact products"
+        log(f"  {name:22s} {str(tuple(got.shape)):12s} max|d|={err:.3e} "
+            f"({tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version")
+        try:
+            p.check(got, *args)
+        except mp.ProbeFailed as e:
+            fail(f"{name}: the TPU probe's own check failed: {e}")
+
+    # indices outside the range: zero rows for one-hot codes, device-held
+    # starts taken as lax.dynamic_slice takes them
+    codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
+                         dtype=torch.int32, device=dev).expand(8, 128)
+    edge = [("onehot", mp.onehot, mp.onehot_plain,
+             (codes.contiguous(), inputs["onehot"][1]))]
+    c, w = inputs["dyn_sublane"][0], inputs["dyn_col_dma"][1]
+    for v in (-40, -3, 0, 31, 40):
+        edge.append((f"dyn_sublane pos={v}", mp.dyn_sublane,
+                     mp.dyn_sublane_plain,
+                     (c, torch.tensor([v], dtype=torch.int32, device=dev))))
+    for v in (-9, -1, 0, 3, 5):
+        edge.append((f"dyn_col_dma q={v}", mp.dyn_col_dma,
+                     mp.dyn_col_dma_plain,
+                     (torch.tensor([v], dtype=torch.int32, device=dev), w)))
+    for label, fn, plain, args in edge:
+        if not torch.equal(fn(*args), plain(*args)):
+            fail(f"probe {label}: kernel differs from its plain version")
+    log(f"  edge indices: {len(edge)} cases (one-hot codes outside [0, 256), "
+        "clamped device-held starts) equal")
+
+    for p in mp.PROBES:
+        args = inputs[p.name]
+        name = PROBE + p.name
+        rec.ms[name] = graph_ms(lambda: p.kernel(*args))
+        rec.plain_ms[name] = graph_ms(lambda: p.plain(*args))
+        log(f"  {name:22s} device: kernel {rec.ms[name]:.4f} ms, plain "
+            f"{rec.plain_ms[name]:.4f} ms on {card}")
+
+
 def quantized_models(models, talker_kind, predictor_kind):
     """The engine's weights quantized as the JAX bench quantizes them
     (`quant.quantize_decoder_params`, on the card); norms, assets shared."""
@@ -473,7 +572,7 @@ def phase_agree(eng):
     the int4 talker with the int8 predictor, and the int8 talker."""
     from qwen3_tts_tpu_torch.core import protocol as P
 
-    log("[4/6] teacher-forced agreement, full width, bf16, peaked heads")
+    log("[5/8] teacher-forced agreement, full width, bf16, peaked heads")
     pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
     pp = peak_head(eng.models["predictor"],
                    [(q * P.CODE_VOCAB, P.CODE_VOCAB)
@@ -594,7 +693,7 @@ def phase_main(eng, rec: Record, q48, q88):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
     from qwen3_tts_tpu_torch.ops import chain
 
-    log("[5/6] main path: TtsEngine.generate_with_voice, full width")
+    log("[6/8] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
     dense_need = ("gemv", "decode_attention") + TRITON
 
@@ -707,6 +806,246 @@ def _to(obj, dev):
     return obj
 
 
+# f32 vocoder, TF32 off: a chunked and a one-shot decode differ only in the
+# order of the sums (other extents of the attention and convolutions)
+STREAM_WAV_ATOL = 1e-4
+
+
+def stream_once(e, text, voice):
+    """One generate_stream call: the samples, the chunks handed to
+    on_chunk, the codes the stream submitted to its vocoder worker
+    [1, N, 16], the first chunk's latency (ms) and the call's wall time
+    (s), on the host clock; the call returns after the last chunk is
+    vocoded and on the host."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.parallel import pipeline
+
+    submitted, chunks, first = [], [], []
+    submit = pipeline.VocoderPipeline.submit
+
+    def recording_submit(self, codes, is_final=False):
+        submitted.append(np.array(codes))
+        return submit(self, codes, is_final)
+
+    def on_chunk(piece):
+        if not first:
+            first.append(time.perf_counter())
+        chunks.append(piece)
+
+    pipeline.VocoderPipeline.submit = recording_submit
+    try:
+        t0 = time.perf_counter()
+        audio = e.generate_stream(text, voice, on_chunk=on_chunk)
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.VocoderPipeline.submit = submit
+    codes = np.concatenate(submitted, axis=1) if submitted \
+        else np.zeros((1, 0, 16), np.int32)
+    return {"samples": audio.samples, "chunks": chunks, "codes": codes,
+            "first_ms": (first[0] - t0) * 1e3 if first else None,
+            "wall": wall}
+
+
+def check_stream(label, run, e, max_frames):
+    """Whole-frame chunks of at most (4 + lookahead) frames that concatenate
+    to the samples, and the samples equal to a one-shot decode of the
+    stream's own codes."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.models import vocoder
+
+    vcfg = e.config.vocoder
+    fs = vcfg.frame_samples
+    wav = run["samples"]
+    check_wav(label, wav, max_frames)
+    sizes = [len(c) for c in run["chunks"]]
+    if not sizes or any(n % fs or not 0 < n <= (4 + vcfg.lookahead) * fs
+                        for n in sizes):
+        fail(f"{label}: chunk sizes {sizes} are not 1..{4 + vcfg.lookahead} "
+             "whole frames")
+    if not np.array_equal(np.concatenate(run["chunks"]), wav):
+        fail(f"{label}: the chunks do not concatenate to the samples")
+    codes = torch.from_numpy(run["codes"]).to(e.device)
+    n = codes.shape[1]
+    with torch.inference_mode():
+        w, v, _ = vocoder.decode(
+            e.vocoder_params, vcfg, codes,
+            vocoder.init_state(vcfg, 1, frames=n, device=e.device), True)
+    one = w[0, : int(v[0])].cpu().numpy()
+    err = float(np.abs(one - wav).max()) if one.shape == wav.shape \
+        else float("inf")
+    log(f"  {label}: chunks of {[s // fs for s in sizes]} frames; against a "
+        f"one-shot decode of its {n} frames max|d|={err:.3e} "
+        f"(atol {STREAM_WAV_ATOL:g})")
+    if err > STREAM_WAV_ATOL:
+        fail(f"{label}: the streamed waveform differs from a one-shot decode "
+             "of its codes")
+
+
+def profiled_device_ms(fn, n):
+    """Device ms per call of fn(): the kernels' self device time in a
+    torch.profiler trace of n calls, or None where the trace holds none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.3f}"
+
+
+def phase_stream(eng, rec: Record, card: str, q48):
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import chain
+
+    frames = 32
+    log(f"[7/8] stream: TtsEngine.generate_stream, full width, B=1, "
+        f"{frames} frames")
+    voice = eng.get_speaker("vivian")
+    e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
+                    speakers_dir=os.path.join(REPO, "speakers"),
+                    device="cuda")
+    sets = (("dense bf16", eng, ("gemv", "decode_attention") + TRITON),
+            ("int4+int8", e48,
+             ("gemv_int4", "gemv_int8", "decode_attention") + TRITON))
+    for label, e, need in sets:
+        e.set_max_steps(frames)
+        e.set_sampler_config(SamplerConfig(seed=0))
+        runs = []
+        for what in ("cold", "warm"):
+            if what == "warm":
+                t0 = time.perf_counter()
+                e.warmup()
+                log(f"  {label}: warmup (offline + stream, prompt bucket 64) "
+                    f"{time.perf_counter() - t0:.2f} s")
+            run = run_main_path(rec, f"{label} generate_stream ({what})",
+                                lambda: stream_once(e, TEXT, voice), need)
+            check_stream(f"{label} {what}", run, e, frames)
+            runs.append(run)
+        rtf = [r["wall"] / (len(r["samples"]) / 24000) for r in runs]
+        log(f"  {label}: first-chunk ms cold {runs[0]['first_ms']:.1f}, warm "
+            f"{runs[1]['first_ms']:.1f}; streaming RTF incl. vocoding cold "
+            f"{rtf[0]:.3f}, warm {rtf[1]:.3f} "
+            f"({len(runs[1]['samples']) / 24000:.3f} s of audio; cold = the "
+            f"engine's first stream, kernels already built) on {card}")
+    chain.reset_launch_counts()
+    vocoder_chunk_times(eng, card)
+    for label, e, _ in sets:
+        stream_frame_times(e, label, card)
+    tiny_stream_card_vs_cpu()
+
+
+def vocoder_chunk_times(eng, card):
+    """One 4-frame chunk through the streaming vocoder (B=1, a KV of
+    max_frames slots, 16 frames already decoded)."""
+    import torch
+    from qwen3_tts_tpu_torch.models import vocoder
+
+    vcfg = eng.config.vocoder
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    codes = torch.randint(0, vcfg.code_vocab, (1, 4, 16), generator=g,
+                          device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        st = vocoder.init_state(vcfg, 1, device=dev)
+        for _ in range(4):
+            _, _, st = vocoder.decode(eng.vocoder_params, vcfg, codes, st,
+                                      False)
+
+        def chunk():          # the same slots each call: the same work
+            vocoder.decode(eng.vocoder_params, vcfg, codes, st, False)
+        wall = cuda_ms(chunk)
+        dev_ms = profiled_device_ms(chunk, 5)
+    log(f"  vocoder, one 4-frame chunk (f32, {vcfg.max_frames} KV slots): "
+        f"device {_fmt(dev_ms)} ms (profiler), {wall:.3f} ms per call "
+        f"(CUDA events around eager calls) on {card}")
+
+
+def stream_frame_times(e, label, card):
+    """ms/frame of the stream step (4 frames a call, B=1, prompt 64) with
+    the stream path's talker cache (max_seq slots) and with the offline
+    path's 256-slot window: per frame on the stream (CUDA events around
+    the host loop) and device time (profiler)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import flash_decode
+    from qwen3_tts_tpu_torch.tts import generate
+
+    cfg = e.config
+    dev = e.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    prompt = 0.1 * torch.randn(1, 64, cfg.talker.hidden, generator=g,
+                               device=dev)
+    pad = torch.zeros(1, dtype=torch.int32, device=dev)
+    parts = []
+    for cache_len in (cfg.talker.max_seq, 256):
+        prefill_fn, step_fn = generate.make_stream_fns(
+            cfg.talker, cfg.predictor, top_k=40, frames_per_call=4,
+            cache_len=cache_len)
+        with torch.inference_mode():
+            state = [prefill_fn(e.models, prompt, pad,
+                                torch.Generator(device=dev).manual_seed(0),
+                                0.7, 0.9)]
+
+            def step():
+                state[0] = step_fn(e.models, state[0])[0]
+            wall = cuda_ms(step, reps=2, warmup=1) / 4
+            dev_ms = profiled_device_ms(step, 1)
+        splits = flash_decode.split_plan(1, cfg.talker.n_kv_heads,
+                                         cache_len)[0]
+        parts.append(f"{cache_len} slots ({splits} splits/head): "
+                     f"{wall:.3f} ms/frame on the stream, device "
+                     f"{_fmt(None if dev_ms is None else dev_ms / 4)} "
+                     "ms/frame")
+    log(f"  {label}: stream step, talker cache " + "; ".join(parts)
+        + f" on {card}")
+
+
+def tiny_stream_card_vs_cpu():
+    """Reference on a small input for the stream path: the tiny f32
+    config's greedy stream on the card against its offline path and
+    against the stream on the CPU (plain versions)."""
+    import numpy as np
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+
+    cfg = tiny_engine_config(max_steps=12)
+    spk = os.path.join(REPO, "speakers")
+    on_card = TtsEngine(config=cfg, random_weights=True, seed=0,
+                        speakers_dir=spk, device="cuda")
+    on_cpu = TtsEngine(config=cfg, weights=(_to(on_card.models, "cpu"),
+                                            _to(on_card.vocoder_params,
+                                                "cpu")),
+                       speakers_dir=spk, device="cpu")
+    for e in (on_card, on_cpu):
+        e.set_sampler_config(SamplerConfig(temperature=0.0, top_k=0,
+                                           top_p=1.0, seed=0))
+    voice = on_card.get_speaker("vivian")
+    card = stream_once(on_card, TEXT, voice)
+    cpu = stream_once(on_cpu, TEXT, voice)
+    offline = on_card.generate_with_voice(TEXT, voice).samples
+    same = np.array_equal(card["codes"], cpu["codes"])
+    errs = [float(np.abs(card["samples"] - ref).max())
+            if ref.shape == card["samples"].shape else float("inf")
+            for ref in (offline, cpu["samples"])]
+    log(f"  tiny f32 greedy stream ({card['codes'].shape[1]} frames): codes "
+        f"card vs CPU {'equal' if same else 'DIFFER'}; samples max|d| vs the "
+        f"card's offline path {errs[0]:.3e}, vs the CPU stream {errs[1]:.3e} "
+        f"(atol {STREAM_WAV_ATOL:g})")
+    if not same or max(errs) > STREAM_WAV_ATOL:
+        fail("tiny f32 stream: the card differs from its offline path or "
+             "from the CPU")
+
+
 def frame_times(eng, models, label: str, card: str, g):
     """ms/frame of generate_codes(ignore_eos) through the kernels and
     through their plain versions, in alternating runs (kernel, plain, plain,
@@ -792,7 +1131,7 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
     from qwen3_tts_tpu_torch.ops import gemv as G
     from qwen3_tts_tpu_torch.ops import quant
 
-    log(f"[6/6] times on {card} (CUDA events)")
+    log(f"[8/8] times on {card} (CUDA events)")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(5)
     # ms/frame and busy share per weight set; int8/int8 last (the first to
@@ -921,6 +1260,7 @@ def main() -> int:
     phase_build()
     rec = Record()
     phase_kernels(rec)
+    phase_probes(rec, card)
 
     from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
     t0 = time.time()
@@ -935,6 +1275,7 @@ def main() -> int:
     q48 = quantized_models(eng.models, "int4", "int8")
     q88 = quantized_models(eng.models, "int8", "int8")
     phase_main(eng, rec, q48, q88)
+    phase_stream(eng, rec, card, q48)
     phase_times(eng, rec, card, q48, q88)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB on {card}")

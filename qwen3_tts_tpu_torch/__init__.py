@@ -1,10 +1,10 @@
 """qwen3_tts_tpu_torch — the PyTorch/CUDA port of qwen3_tts_tpu.
 
-Runs offline preset-speaker synthesis on an NVIDIA H100 through kernels
-written by hand for Hopper (`csrc/*.cu`, `ops/elementwise_triton.py`), with
-a plain PyTorch version beside each kernel for CPU tensors. Imports torch,
-never JAX; the JAX package `qwen3_tts_tpu` is the reference it is tested
-against.
+Runs preset-speaker synthesis, offline and streaming, on an NVIDIA H100
+through kernels written by hand for Hopper (`csrc/*.cu`,
+`ops/elementwise_triton.py`), with a plain PyTorch version beside each
+kernel for CPU tensors. Imports torch, never JAX; the JAX package
+`qwen3_tts_tpu` is the reference it is tested against.
 """
 
 from .core.config import (  # noqa: F401

@@ -32,6 +32,7 @@ _lib = None
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a pointer passed
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
@@ -41,6 +42,15 @@ SIGNATURES = {
     "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, I, P],
+    # csrc/probes.cu (tools/mosaic_probe.py)
+    "probe_hbm_scratch_launch": [P, P, P, I, P],
+    "probe_fori_dma_launch": [P, P, I, P],
+    "probe_argmax_launch": [P, P, I, I, I, P],
+    "probe_dyn_sublane_launch": [P, P, P, P],
+    "probe_rot_launch": [P, P, LL, I, P],
+    "probe_onehot_launch": [P, P, P, I, I, I, I, P],
+    "probe_dyn_col_dma_launch": [P, P, P, I, I, I, I, I, P],
+    "probe_int8_panel_launch": [P, P, P, I, P],
 }
 
 

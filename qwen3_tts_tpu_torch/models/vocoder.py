@@ -9,10 +9,14 @@ upsampling stage has kernel == stride and so is one matmul per frame.
     --causal conv (K=3, history carried)--> [B,N+LA,1024]
     --upsampler, strides 5,5,5,4,4 as matmuls--> wav [B,(N+LA)*2000]
 
-`decode` carries the streaming state like the JAX version; this slice uses
-it one-shot (zero state, is_last=True). `flush`, chunked streaming, the
-general BigVGAN/DAC upsampler family and the snake activation come later
-(ROADMAP queue 1). The activation is JAX's default gelu, the tanh form.
+`decode` carries the streaming state like the JAX version: the offline
+path calls it once (zero state sized to the frame count, is_last=True),
+the streaming path once per 4-frame chunk against a state of `max_frames`
+KV slots, and `flush` drains the lookahead window when a stream ends
+between chunks. `gather_row` and `reset_row` take one row out of a batched
+state and return a row to the stream-start state. The general BigVGAN/DAC
+upsampler family and the snake activation come later (ROADMAP queue 1).
+The activation is JAX's default gelu, the tanh form.
 """
 
 from __future__ import annotations
@@ -212,3 +216,44 @@ def decode(params: Dict[str, Any], cfg: VocoderConfig, codes: torch.Tensor,
         conv_history=new_hist, kv=kv,
         frames_done=state.frames_done + N)
     return wav, valid, new_state
+
+
+def flush(params: Dict[str, Any], cfg: VocoderConfig, state: VocoderState
+          ) -> Tuple[torch.Tensor, torch.Tensor, VocoderState]:
+    """Drain the lookahead window with no new frames (the N=0 `is_last`
+    call): returns (wav [B, lookahead*2000], valid [B], dead state). Used
+    when a stream ends between chunks."""
+    _check_supported(cfg)
+    B = state.frames_done.shape[0]
+    dev = state.frames_done.device
+    h0 = torch.zeros(B, 0, cfg.hidden, device=dev)
+    wav, valid, new_latbuf, new_hist = _post_stage(
+        params, cfg, h0, state, torch.ones(B, dtype=torch.int32, device=dev))
+    new_state = VocoderState(
+        pre_conv_history=state.pre_conv_history, latent_buffer=new_latbuf,
+        conv_history=new_hist, kv=state.kv, frames_done=state.frames_done)
+    return wav, valid, new_state
+
+
+def gather_row(state: VocoderState, row: int) -> VocoderState:
+    """One batch row as a B=1 state, copied (a later `decode` of it writes
+    its own KV cache, not the batch's)."""
+    r = slice(row, row + 1)
+    return VocoderState(
+        pre_conv_history=state.pre_conv_history[r].clone(),
+        latent_buffer=state.latent_buffer[r].clone(),
+        conv_history=state.conv_history[r].clone(),
+        kv={k: v[:, r].clone() for k, v in state.kv.items()},
+        frames_done=state.frames_done[r].clone())
+
+
+def reset_row(state: VocoderState, row: int) -> VocoderState:
+    """Return one batch row to the stream-start state (zeros) and return the
+    state. Unlike the JAX version, which builds a new state, this zeroes
+    the row in place."""
+    for t in (state.pre_conv_history, state.latent_buffer,
+              state.conv_history, state.frames_done):
+        t[row] = 0
+    for v in state.kv.values():
+        v[:, row] = 0
+    return state

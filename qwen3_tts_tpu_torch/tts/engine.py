@@ -1,31 +1,42 @@
 """TtsEngine: the public orchestration layer. Port of
-`qwen3_tts_tpu/tts/engine.py` for offline preset-speaker synthesis.
+`qwen3_tts_tpu/tts/engine.py` for preset-speaker synthesis.
 
 `TtsEngine(config=..., random_weights=True, seed=0)` draws seeded random
-weights from a `torch.Generator` on the engine's device, with the JAX
-engine's shapes; `weights=(models, vocoder_params)` takes weights built
-elsewhere (`convert.engine_from_jax_arrays` bridges the JAX package's),
-dense or quantized: talker and predictor trees from
+weights from a `torch.Generator` on the engine's device (the CUDA card
+unless `device=` names another), with the JAX engine's shapes;
+`weights=(models, vocoder_params)` takes weights built elsewhere
+(`convert.engine_from_jax_arrays` bridges the JAX package's), dense or
+quantized: talker and predictor trees from
 `ops.quant.quantize_decoder_params` run the int8 / int4 kernels.
-`generate_with_voice` / `generate_batch` run prompt assembly, the
-generation loop (`tts/generate.py`) and the one-shot vocoder.
+
+Generation paths:
+  * offline: `generate_with_voice` / `generate_batch` run prompt assembly,
+    the generation loop (`tts/generate.py`) and the one-shot vocoder;
+  * stream: `generate_stream` runs the 4-frame step of `make_stream_fns`
+    and hands each chunk's codes to a `VocoderPipeline` worker, which
+    vocodes them against the carried state and delivers ~333 ms waveform
+    chunks through `on_chunk`.
 
 Deliberate divergences from the JAX engine:
+  * `device=None` means the CUDA card and raises where there is none; CPU
+    use passes `device="cpu"` (the plain versions of the kernels);
   * no persistent compilation cache: the JAX engine turns on a
     process-global XLA cache at construction; PyTorch runs eagerly and
-    the kernels build once per checkout (`kernels/build.py`);
-  * the generation loop reads `done` back at most once per 4 frames
-    (see `tts/generate.py`).
+    the kernels build once per checkout (`kernels/build.py`). `warmup`
+    builds them and runs each path once, so the first request pays for
+    neither nvcc nor Triton's JIT;
+  * the offline loop reads `done` back at most once per 4 frames, the
+    stream loop once per 4-frame chunk (see `tts/generate.py`).
 
-Loading checkpoints from `model_dir`, streaming, cloning and long text
-come later (ROADMAP queue 1).
+Loading checkpoints from `model_dir`, cloning and long text come later
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +52,14 @@ from . import generate, prompt
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The engine's device when none is given: the CUDA card. There is no
+    quiet fallback to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "TtsEngine: no CUDA device (torch.cuda.is_available() is False);"
+            " pass device=\"cpu\" to run the kernels' plain versions on the "
+            "CPU")
+    return torch.device("cuda")
 
 
 class TtsEngine:
@@ -73,6 +91,7 @@ class TtsEngine:
         self.max_steps = self.config.max_steps
         self.sampler_config = SamplerConfig()
         self.speakers: Dict[str, VoiceFile] = {}
+        self._stream_fns: Dict[int, Tuple[Callable, Callable]] = {}
 
         if weights is not None:
             self.models, self.vocoder_params = weights
@@ -115,6 +134,75 @@ class TtsEngine:
     # ------------------------------------------------------------- settings
     def set_max_steps(self, steps: int) -> None:
         self.max_steps = int(steps)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, prompt_buckets: Sequence[int] = (64,),
+               batch_sizes: Sequence[int] = (1,)) -> None:
+        """Build the kernels (nvcc at first use, Triton's JIT at the first
+        launch of each variant) and run each prompt bucket and batch size
+        through the offline path (prefill, two frames, one-shot vocoder)
+        and the streaming path, so the first request pays for neither.
+        Nothing is compiled per shape beyond that: PyTorch runs eagerly."""
+        cfg = self.config
+        sc = self.sampler_config
+        dim = int(self.models["assets"].text_table.shape[1])
+        for b in batch_sizes:
+            for s in prompt_buckets:
+                if s >= cfg.talker.max_seq:
+                    continue
+                fake = [torch.zeros(s, dim, device=self.device)
+                        for _ in range(b)]
+                batch, offsets = self._pad_prompts(fake)
+                bucket, steps = self._offline_extents(int(batch.shape[1]))
+                with torch.inference_mode():
+                    generate.generate_audio(
+                        self.models, self.vocoder_params, cfg.talker,
+                        cfg.predictor, cfg.vocoder, batch, offsets,
+                        self._generator(), sc.temperature, sc.top_k,
+                        sc.top_p, bucket, step_cap=min(steps, 2))
+                self._sync()
+        for b in batch_sizes:
+            self.warmup_streaming(prompt_buckets, batch=b)
+
+    def warmup_streaming(self, prompt_buckets: Sequence[int] = (64,),
+                         batch: int = 1) -> None:
+        """Run each prompt bucket through the streaming prefill and one
+        stream step, and one chunk through the vocoder, for `batch`
+        rows."""
+        cfg = self.config
+        sc = self.sampler_config
+        dim = int(self.models["assets"].text_table.shape[1])
+        prefill_fn, step_fn = self._get_stream_fns()
+        with torch.inference_mode():
+            for s in prompt_buckets:
+                if s >= cfg.talker.max_seq:
+                    continue
+                fake = [torch.zeros(s, dim, device=self.device)
+                        for _ in range(batch)]
+                b_arr, offsets = self._pad_prompts(fake)
+                state = prefill_fn(self.models, b_arr, offsets,
+                                   self._generator(), sc.temperature,
+                                   sc.top_p)
+                step_fn(self.models, state)
+            vocoder.decode(
+                self.vocoder_params, cfg.vocoder,
+                torch.zeros(batch, P.STREAM_CHUNK_FRAMES, P.NUM_CODEBOOKS,
+                            dtype=torch.int32, device=self.device),
+                vocoder.init_state(cfg.vocoder, batch, device=self.device),
+                False)
+        self._sync()
+
+    def _get_stream_fns(self):
+        """Memoised (prefill, step) pair for the sampler's top_k."""
+        top_k = self.sampler_config.top_k
+        if top_k not in self._stream_fns:
+            self._stream_fns[top_k] = generate.make_stream_fns(
+                self.config.talker, self.config.predictor, top_k=top_k,
+                frames_per_call=P.STREAM_CHUNK_FRAMES)
+        return self._stream_fns[top_k]
 
     def set_sampler_config(self, config: SamplerConfig) -> None:
         self.sampler_config = config
@@ -231,3 +319,57 @@ class TtsEngine:
         datas = [self._prompt_for_voice(t, v, instruct)
                  for t, v in zip(texts, voices)]
         return self._run_inference(datas)
+
+    def generate_stream(self, text: str, voice: VoiceFile,
+                        instruct: Optional[str] = None,
+                        on_chunk: Optional[Callable[[np.ndarray], None]]
+                        = None) -> AudioSample:
+        """Streaming synthesis: ~333 ms (4-frame) waveform chunks delivered
+        through `on_chunk` as soon as each chunk is vocoded, on a worker
+        thread (`VocoderPipeline`); returns the whole waveform."""
+        from ..parallel.pipeline import VocoderPipeline
+
+        cfg = self.config
+        sc = self.sampler_config
+        data = self._prompt_for_voice(text, voice, instruct)
+        batch, offsets = self._pad_prompts([data.embeds])
+        prefill_fn, step_fn = self._get_stream_fns()
+        # frame budget: max_steps, the talker context left after the
+        # prompt, and the vocoder's streaming KV capacity (as in JAX)
+        budget = min(self.max_steps,
+                     max(cfg.talker.max_seq - int(batch.shape[1]), 1),
+                     cfg.vocoder.max_frames)
+        with torch.inference_mode():
+            state = prefill_fn(self.models, batch, offsets, self._generator(),
+                               sc.temperature, sc.top_p)
+        pipe = VocoderPipeline(self.vocoder_params, cfg.vocoder, batch=1,
+                               on_chunk=on_chunk)
+        try:
+            steps = 0
+            while steps < budget:
+                with torch.inference_mode():
+                    state, codes, active = step_fn(self.models, state)
+                # one host read per chunk: the chunk's active flags and done
+                flags = torch.cat([active[0], state["done"][:1]]).cpu()
+                n_new = min(int(flags[:-1].sum()), budget - steps)
+                done = bool(flags[-1])
+                steps += P.STREAM_CHUNK_FRAMES
+                if n_new > 0:
+                    # is_final on the EOS chunk flushes the vocoder
+                    # lookahead; a stream that ends between chunks is
+                    # drained by close()
+                    pipe.submit(codes[:, :n_new].cpu().numpy(),
+                                is_final=done)
+                if done:
+                    break
+        except BaseException:
+            # stop the worker before the error leaves; its own error, if
+            # any, is secondary to this one
+            try:
+                pipe.close()
+            except RuntimeError:
+                pass
+            raise
+        samples = pipe.close()
+        return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
+                           channels=1)

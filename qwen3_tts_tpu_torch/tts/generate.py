@@ -1,6 +1,8 @@
 """The autoregressive generation loop (talker -> predictor -> feedback).
 
-Port of `qwen3_tts_tpu/tts/generate.py` (offline path). Per frame: sample
+Port of `qwen3_tts_tpu/tts/generate.py`: the offline path
+(`generate_codes`, `generate_audio`) and the streaming pair
+(`make_stream_fns`), both over one frame body. Per frame: sample
 code_0 from talker logits [0, 2160), stop rows on EOS (code_0 in
 {2150, 151673}; the EOS frame is not emitted), project the talker hidden to
 1024, expand the frame to 16 codes with the fused predictor, and feed the
@@ -12,6 +14,12 @@ Deliberate divergences from the JAX package:
     frames, not on every frame. Frames run after every row is done only
     step rows that are already done, whose codes are zeroed and not
     counted, so the output is the same as stopping at once;
+  * the streaming step is a host loop of `frames_per_call` frame bodies
+    (JAX: one jitted scan); the caller reads `active` and `done` back once
+    per call;
+  * `make_stream_fns` has no `fused_rows`: that is the TPU kernel's VMEM
+    placement of the predictor's int8 weights, which the port does not
+    have (see `ops/fused_predictor.py`);
   * there is no Jacobi predictor path yet (ROADMAP queue 1, still to
     port: `predictor.frame_codes` and Jacobi decoding).
 """
@@ -169,6 +177,36 @@ def generate_codes(models: Dict[str, Any], talker_cfg, pred_cfg,
                 and bool(state["done"].all()):
             break
     return codes_buf, state["n_frames"]
+
+
+def make_stream_fns(talker_cfg, pred_cfg, top_k: int,
+                    frames_per_call: int = 1, cache_len: int | None = None):
+    """(prefill_fn, step_fn) for streaming generation.
+
+    prefill_fn(models, prompt_embeds, pad_offset, generator, temperature,
+    top_p) -> state: the talker prefill into a KV cache of `cache_len`
+    slots (None: talker_cfg.max_seq, as in JAX).
+    step_fn(models, state) -> (state, codes [B, frames_per_call, 16] int32,
+    active [B, frames_per_call] bool): `frames_per_call` frames of the
+    offline loop's frame body, with its EOS / done / context-cap semantics;
+    codes are zero where a row is not active. It reads nothing back to the
+    host: the caller checks `active` and `done` once per call."""
+
+    def prefill_fn(models, prompt_embeds, pad_offset, generator,
+                   temperature, top_p):
+        return init_state(models, talker_cfg, prompt_embeds, pad_offset,
+                          generator, temperature, top_p, cache_len=cache_len)
+
+    def step_fn(models, state):
+        codes, active = [], []
+        for _ in range(frames_per_call):
+            state, c, a = _frame_body(models, talker_cfg, pred_cfg, top_k,
+                                      state)
+            codes.append(c)
+            active.append(a)
+        return state, torch.stack(codes, dim=1), torch.stack(active, dim=1)
+
+    return prefill_fn, step_fn
 
 
 def generate_audio(models: Dict[str, Any], voc_params: Dict[str, Any],

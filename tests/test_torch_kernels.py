@@ -8,7 +8,10 @@ This file imports no JAX, so it runs on the card's machine:
 Tolerances: f32 rtol/atol 1e-4 (the kernels sum in another order than
 PyTorch); bf16 outputs within one bf16 ulp (relative 2^-7 of the row max).
 Codes and gathered rows: exact. Kernel A (qmatmul) outputs f32 from bf16
-inputs, exact products: f32 tolerances for both x dtypes.
+inputs, exact products: f32 tolerances for both x dtypes. The eight
+capability probes (`csrc/probes.cu`): exact, except the int8 panel's f32
+sums (max |d| <= 1e-5 of the output's largest magnitude: exact products,
+another order of the sums).
 """
 
 import pytest
@@ -20,6 +23,7 @@ from qwen3_tts_tpu_torch.ops import flash_decode, fused_predictor
 from qwen3_tts_tpu_torch.ops import fused_talker
 from qwen3_tts_tpu_torch.ops import gemv as G
 from qwen3_tts_tpu_torch.ops import quant
+from qwen3_tts_tpu_torch.tools import mosaic_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -219,3 +223,37 @@ def test_quantized_talker_step_matches_plain(dev, kind):
                                              cache["v"].clone())
     for u, v in zip(a, b):
         _close(u, v, torch.float32)
+
+
+@pytest.mark.parametrize("name", [p.name for p in mosaic_probe.PROBES])
+def test_probe_kernel_matches_plain(dev, name):
+    """Each probe kernel against its plain version at the TPU probe's
+    shapes, and the TPU probe's own check."""
+    probe = next(p for p in mosaic_probe.PROBES if p.name == name)
+    args = mosaic_probe.probe_inputs(dev)[name]
+    got = probe.kernel(*args)
+    torch.cuda.synchronize()
+    ok, err = mosaic_probe.agree(probe, got, probe.plain(*args))
+    assert ok, err
+    probe.check(got, *args)
+
+
+def test_probe_kernels_edge_indices(dev):
+    """Out-of-table codes give zero rows; device-held indices outside the
+    range are taken as lax.dynamic_slice takes them."""
+    tab = torch.randn(256, 128, device=dev)
+    codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
+                         dtype=torch.int32, device=dev).expand(8, 128)
+    codes = codes.contiguous()
+    assert torch.equal(mosaic_probe.onehot(codes, tab),
+                       mosaic_probe.onehot_plain(codes, tab))
+    c = torch.randn(32, 128, device=dev)
+    for pos in (-40, -3, 0, 31, 40):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        assert torch.equal(mosaic_probe.dyn_sublane(c, p),
+                           mosaic_probe.dyn_sublane_plain(c, p)), pos
+    w = torch.randn(128, 2048, device=dev)
+    for q in (-9, -1, 0, 3, 5):
+        qt = torch.tensor([q], dtype=torch.int32, device=dev)
+        assert torch.equal(mosaic_probe.dyn_col_dma(qt, w),
+                           mosaic_probe.dyn_col_dma_plain(qt, w)), q

@@ -23,7 +23,9 @@ PKG = os.path.join(REPO, "qwen3_tts_tpu_torch")
 
 def test_import_leaves_jax_out():
     code = ("import sys, qwen3_tts_tpu_torch, qwen3_tts_tpu_torch.convert, "
-            "qwen3_tts_tpu_torch.ops.chain, qwen3_tts_tpu_torch.tts.engine; "
+            "qwen3_tts_tpu_torch.ops.chain, qwen3_tts_tpu_torch.tts.engine, "
+            "qwen3_tts_tpu_torch.parallel.pipeline, "
+            "qwen3_tts_tpu_torch.tools.mosaic_probe; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qwen3_tts_tpu.'))] "
             "+ [m for m in ('triton', 'qwen3_tts_tpu') if m in sys.modules]; "
@@ -74,12 +76,34 @@ def test_unflatten_npz_paths():
 
 def test_kernel_sources_and_build_key():
     names = {os.path.basename(p) for p in build.sources()}
-    assert {"gemv.cu", "decode_attention.cu", "qmatmul.cu"} <= names
+    assert {"gemv.cu", "decode_attention.cu", "qmatmul.cu",
+            "probes.cu"} <= names
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    probes = {f"probe_{n}_launch" for n in (
+        "hbm_scratch", "fori_dma", "argmax", "dyn_sublane", "rot", "onehot",
+        "dyn_col_dma", "int8_panel")}
     assert set(build.SIGNATURES) == {
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
-        "qmatmul_launch", "decode_attention_launch"}
+        "qmatmul_launch", "decode_attention_launch"} | probes
+    # every C entry point the build binds is defined in a source
+    text = "".join(open(p).read() for p in build.sources())
+    for name in build.SIGNATURES:
+        assert f"int {name}(" in text, name
+
+
+def test_engine_without_device_needs_cuda(monkeypatch):
+    """`TtsEngine()` with no `device` means the CUDA card: where there is
+    none it raises instead of quietly running the plain versions on the
+    CPU; `device="cpu"` still builds a CPU engine."""
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine, tiny_engine_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TtsEngine(config=tiny_engine_config(), random_weights=True)
+    eng = TtsEngine(config=tiny_engine_config(), random_weights=True,
+                    device="cpu")
+    assert eng.device.type == "cpu"
 
 
 @pytest.mark.parametrize("M,K,N,chunk", [(1, 2048, 4096, 64),

@@ -1,0 +1,200 @@
+"""The port's capability probes (`qwen3_tts_tpu_torch/tools/mosaic_probe.py`)
+against the JAX tool (`tools/mosaic_probe.py`) on the CPU.
+
+For each of the eight probes: the JAX probe runs unchanged in interpret
+mode (it asserts its own result), and the port's plain version, fed the JAX
+probe's own inputs, is compared with the JAX expression of what the probe
+expects. Data-moving probes and the argmax are compared exactly; probe 12
+(an f32 sum of exact bf16 x int8 products) within rtol 1e-6 of jnp.dot, with
+an absolute floor of 1e-6 of the output's largest magnitude: both sides sum
+the same products in another order, and an element near zero has no
+relative bound. The kernels themselves are held against these plain
+versions on the card (`tests/test_torch_kernels.py`, `chip_smoke.py`).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_tts_tpu_torch.tools import mosaic_probe as tprobe
+from tools import mosaic_probe as jprobe
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_inputs(name):
+    """The JAX probe's inputs, built as it builds them."""
+    if name == "hbm_scratch":
+        return (jnp.ones((64, 128), jnp.float32),)
+    if name == "fori_dma":
+        return (jnp.arange(4 * 8 * 128, dtype=jnp.float32).reshape(4, 8, 128),)
+    if name == "argmax":
+        return (jax.random.normal(jax.random.key(0), (8, 2048), jnp.float32),)
+    if name == "dyn_sublane":
+        return (jnp.arange(32 * 128, dtype=jnp.float32).reshape(32, 128),
+                jnp.array([7], jnp.int32))
+    if name == "rot":
+        return (jax.random.normal(jax.random.key(1), (8, 16, 128),
+                                  jnp.float32),)
+    if name == "onehot":
+        codes = jnp.array([[3], [7], [0], [255], [9], [1], [2], [4]],
+                          jnp.int32)
+        return (jnp.broadcast_to(codes, (8, 128)),
+                jax.random.normal(jax.random.key(2), (256, 128), jnp.float32))
+    if name == "dyn_col_dma":
+        return (jnp.array([2], jnp.int32),
+                jnp.arange(128 * 2048, dtype=jnp.float32).reshape(128, 2048))
+    assert name == "int8_panel"
+    x = jax.random.normal(jax.random.key(3), (16, 512)).astype(jnp.bfloat16)
+    w = jax.random.randint(jax.random.key(4), (512, 512), -127, 127,
+                           jnp.int8)
+    return x, w
+
+
+def _jax_expect(name, *a):
+    """The JAX expression of the probe's expectation, at the port's output
+    shape."""
+    if name == "hbm_scratch":
+        return a[0] * 2.0
+    if name == "fori_dma":
+        return a[0].sum(axis=0)
+    if name == "argmax":
+        idx = jnp.argmax(a[0], axis=-1).astype(jnp.int32)
+        return jnp.broadcast_to(idx[:, None], (a[0].shape[0], 128))
+    if name == "dyn_sublane":
+        return jnp.broadcast_to(a[0][7], (8, 128))
+    if name == "rot":
+        return jnp.concatenate([-a[0][..., 64:], a[0][..., :64]], axis=-1)
+    if name == "onehot":
+        return a[1][a[0][:, 0]]
+    if name == "dyn_col_dma":
+        return a[1][:, 1280:1536]
+    return jnp.dot(a[0].astype(jnp.float32), a[1][:, :256].astype(jnp.float32))
+
+
+def _torch(a):
+    a = np.array(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
+    return torch.from_numpy(a)
+
+
+JAX_PROBES = {"hbm_scratch": jprobe.p_hbm_scratch,
+              "fori_dma": jprobe.p_fori_dma, "argmax": jprobe.p_argmax,
+              "dyn_sublane": jprobe.p_dyn_sublane, "rot": jprobe.p_rot,
+              "onehot": jprobe.p_onehot, "dyn_col_dma": jprobe.p_dyn_col_dma,
+              "int8_panel": jprobe.p_int8_panel}
+NAMES = [p.name for p in tprobe.PROBES]
+
+
+def test_probe_table_covers_the_jax_tool():
+    assert sorted(NAMES) == sorted(JAX_PROBES)
+    src = open(os.path.join(REPO, "tools", "mosaic_probe.py")).read()
+    lines = src.splitlines()
+    for p in tprobe.PROBES:
+        assert lines[p.line - 1].startswith(f"def p_{p.name}("), p
+        assert "pl.pallas_call(" in lines[p.call - 1], p
+        assert p.line < p.call
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_probe_plain_matches_jax(name, capsys):
+    # the JAX probe, unchanged, in interpret mode: it asserts itself
+    JAX_PROBES[name]()
+    out = capsys.readouterr().out
+    assert "[interpret]" in out and ": OK" in out and "FAIL" not in out, out
+
+    jin = _jax_inputs(name)
+    tin = [_torch(a) for a in jin]
+    if name == "int8_panel":
+        tin = [tin[0].bfloat16(), tin[1]]
+    probe = next(p for p in tprobe.PROBES if p.name == name)
+    got = probe.plain(*tin)
+    probe.check(got, *tin)              # the tool's own check passes too
+    want = np.asarray(_jax_expect(name, *jin))
+    if name == "int8_panel":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    else:
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(probe.kernel(*tin).numpy(), got.numpy())
+
+
+def test_onehot_out_of_range_codes_give_zero_rows():
+    """One-hot semantics for codes outside [0, 256): the jnp one-hot
+    formula gives a zero row, and so does the port."""
+    codes = jnp.broadcast_to(jnp.array([[3], [-1], [256], [255], [1000], [0],
+                                        [-7], [4]], jnp.int32), (8, 128))
+    tab = jax.random.normal(jax.random.key(2), (256, 128), jnp.float32)
+    oh = (jnp.arange(256)[None] == codes[:, :1]).astype(jnp.float32)
+    want = np.asarray(jnp.dot(oh, tab, preferred_element_type=jnp.float32))
+    got = tprobe.onehot_plain(_torch(codes), _torch(tab))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[[1, 2, 4, 6]].any()
+
+
+@pytest.mark.parametrize("pos", [-40, -3, 0, 31, 40])
+def test_dyn_sublane_clamps_like_dynamic_slice(pos):
+    c = jnp.arange(32 * 128, dtype=jnp.float32).reshape(32, 128)
+    want = jax.lax.dynamic_slice_in_dim(c, pos, 1, 0)
+    got = tprobe.dyn_sublane_plain(_torch(c),
+                                   torch.tensor([pos], dtype=torch.int32))
+    np.testing.assert_array_equal(
+        got.numpy(), np.broadcast_to(np.asarray(want), (8, 128)))
+
+
+@pytest.mark.parametrize("q", [-9, -1, 0, 3, 5])
+def test_dyn_col_dma_clamps_like_dynamic_slice(q):
+    w = jnp.arange(128 * 2048, dtype=jnp.float32).reshape(128, 2048)
+    want = jax.lax.dynamic_slice_in_dim(w, q * 512 + 256, 256, 1)
+    got = tprobe.dyn_col_dma_plain(torch.tensor([q], dtype=torch.int32),
+                                   _torch(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_wrapper_refuses_a_non_cuda_device(name):
+    """Off the CPU the wrapper launches its kernel or raises: a tensor on
+    another device (here `meta`) is refused, never run through plain."""
+    probe = next(p for p in tprobe.PROBES if p.name == name)
+    args = [t.to("meta") for t in tprobe.probe_inputs("cpu")[name]]
+    before = probe.kernel.launches
+    with pytest.raises((ValueError, TypeError)):
+        probe.kernel(*args)
+    assert probe.kernel.launches == before
+
+
+def test_tool_cpu_runs_eight_plain_probes():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-m", "qwen3_tts_tpu_torch.tools.mosaic_probe",
+         "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    ok = [l for l in r.stdout.splitlines() if l.strip().startswith("[plain]")
+          and l.endswith(": OK")]
+    assert len(ok) == 8, r.stdout
+    assert "FAIL" not in r.stdout and "[kernel]" not in r.stdout
+
+
+def test_tool_cuda_without_a_card_fails(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tprobe.main(["--device", "cuda"]) != 0
+    out = capsys.readouterr()
+    assert "[plain]" not in out.out and "is_available" in out.err
+
+
+def test_tool_exits_1_on_a_failed_probe(monkeypatch, capsys):
+    """Divergence from the JAX tool, which exits 0 after printing FAIL."""
+    bad = tprobe.PROBES[2]
+    monkeypatch.setattr(tprobe, "PROBES", tprobe.PROBES[:2] + (
+        dataclasses.replace(bad, plain=lambda x: bad.plain(x) + 1),))
+    assert tprobe.main(["--device", "cpu"]) == 1
+    assert "[plain] " + bad.label + ": FAIL" in capsys.readouterr().out
