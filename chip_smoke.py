@@ -13,7 +13,11 @@ result line:
                shapes of the slice (f32 allclose, bf16 relative error),
                the quantized ones included: A (qmatmul) at the talker's
                prefill shapes, B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
-               8, 32, every epilogue and the predictor head's slices
+               8, 32, every epilogue and the predictor head's slices;
+               decode attention with bf16 q over the predictor's f32 cache
+               and in the stream path's 4096-slot cache; the same calls of
+               B, B8 and decode attention twice and in two CUDA-graph
+               replays give bit-identical outputs
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
                user runs it, every probe kernel launched; then each of the
@@ -54,12 +58,22 @@ result line:
                window's 256
   8. times     ms/frame of generate_codes through kernels and through the
                plain versions (CUDA events), dense and int4+int8 (and
-               int8/int8), the device busy share of the kernel paths
-               (torch.profiler), and each kernel's device time against its
-               plain version (CUDA graph replay)
+               int8/int8), the device busy share of the kernel paths and
+               the device ms and CUDA kernels per frame by kernel name
+               (torch.profiler: prefill + 4 frames less the prefill), and
+               each kernel's device time (CUDA graph replay) against its
+               plain version, a PyTorch call of the same function and its
+               bound, at the earlier timing shapes and the main path's;
+               B, B8 and decode attention at each split count beside
+               their plans' choice
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel (its
+launches on the main path, max |kernel - plain|, device ms of the kernel,
+its plain version and one PyTorch call computing the same function where
+there is one, `library_ms`, else null; `bound_ms`, the least time the card
+could take from the case's bytes at 3.35 TB/s or its operations at the
+type's peak, and `bound_by`); the last line is {"ok": true, "device":
+{...}}.
 """
 
 import json
@@ -134,6 +148,24 @@ def graph_ms(fn, reps=REPS) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM
+# bytes/s and operations/s by the inputs' type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops=0.0, kind="f32"):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the operations over the type's peak rate."""
+    b = n_bytes / HBM_BYTES_S * 1e3
+    o = ops / PEAK_OPS_S[kind] * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def peak_head(params, slices, seed=0, boost=24.0, n_heavy=4):
     """Decisive-logit head: `n_heavy` random columns per sampled slice
     scaled by `boost`, so the argmax race runs between a few well-separated
@@ -184,6 +216,8 @@ class Record:
         self.err = {k: 0.0 for k in self.sources}
         self.ms = {}
         self.plain_ms = {}
+        self.library_ms = {}
+        self.bound = {}                 # name -> (bound_ms, bound_by)
         self.launches = {}
 
     def add_launches(self, counts):
@@ -217,12 +251,15 @@ class Record:
     def line(self):
         out = []
         for name, (route, src, repl) in self.sources.items():
+            bound_ms, bound_by = self.bound.get(name, (None, None))
             out.append({"name": name, "route": route, "source": src,
                         "replaces": repl,
                         "launches": self.launches.get(name, 0),
                         "max_abs_err": self.err[name],
                         "ms": self.ms.get(name),
-                        "plain_ms": self.plain_ms.get(name)})
+                        "plain_ms": self.plain_ms.get(name),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": self.library_ms.get(name)})
         return json.dumps({"kernels": out})
 
 
@@ -300,12 +337,17 @@ def phase_kernels(rec: Record):
             rec.check("gemv", G.gemv(xb, wb, epilogue=G.EPI_F32),
                       G.gemv_plain(xb, wb, epilogue=G.EPI_F32),
                       f"{what} {K}x{N} M={M} bf16", rel=1e-3)
-    xb, wb = randn(1, 1024, dtype=torch.bfloat16), randn(
-        1024, 16 * 2048, dtype=torch.bfloat16, scale=0.02)
-    for epi, name in ((G.EPI_F32_ROUND_DT, "round"), (G.EPI_STORE_DT, "dt")):
-        rec.check("gemv", G.gemv(xb, wb, col0=14 * 2048, n=2048, epilogue=epi),
-                  G.gemv_plain(xb, wb, col0=14 * 2048, n=2048, epilogue=epi),
-                  f"predictor head slice @14*2048 bf16 {name}", rel=8e-3)
+    wb = randn(1024, 16 * 2048, dtype=torch.bfloat16, scale=0.02)
+    for M in (1, 2):
+        xb = randn(M, 1024, dtype=torch.bfloat16)
+        for qi in (0, 7, 14, 15):
+            for epi, name in ((G.EPI_F32_ROUND_DT, "round"),
+                              (G.EPI_STORE_DT, "dt")):
+                kw = dict(col0=qi * 2048, n=2048, epilogue=epi)
+                rec.check("gemv", G.gemv(xb, wb, **kw),
+                          G.gemv_plain(xb, wb, **kw),
+                          f"predictor head slice @{qi}*2048 M={M} bf16 {name}",
+                          rel=8e-3, quiet=qi != 14)
     res = randn(1, 2048)
     x, w = randn(1, 6144, dtype=torch.bfloat16), randn(
         6144, 2048, dtype=torch.bfloat16, scale=0.02)
@@ -338,6 +380,21 @@ def phase_kernels(rec: Record):
                               rtol=1e-4, atol=1e-4)
                 else:
                     rec.check("decode_attention", got, want, label, rel=tol)
+    # the stream path's 4096-slot cache with a short live range
+    kc, vc = randn(L, 1, 8, 4096, 128, dtype=torch.bfloat16), randn(
+        L, 1, 8, 4096, 128, dtype=torch.bfloat16)
+    q = randn(1, 16, 128, dtype=torch.bfloat16)
+    kn, vn = (randn(1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+    for kv_len, vfrom in ((96, 0), (100, 37), (5, 3), (0, 0)):
+        lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+        vf = torch.tensor([vfrom], dtype=torch.int32, device=dev)
+        rec.check("decode_attention",
+                  flash_decode.decode_attention_stacked(q, kc, vc, kn, vn, 1,
+                                                        lens, vf),
+                  flash_decode.decode_attention_plain(q, kc, vc, kn, vn, 1,
+                                                      lens, vf),
+                  f"16/8 T=4096 kv_len={kv_len} vfrom={vfrom} bf16/bf16",
+                  rel=8e-3)
     # batch of 2 with different prefixes (left padding)
     kc, vc = randn(L, 2, 8, 512, 128), randn(L, 2, 8, 512, 128)
     q, kn, vn = randn(2, 16, 128), randn(2, 8, 128), randn(2, 8, 128)
@@ -349,6 +406,8 @@ def phase_kernels(rec: Record):
               flash_decode.decode_attention_plain(q, kc, vc, kn, vn, 0, lens,
                                                   vf),
               "16/8 B=2 ragged f32", rtol=1e-4, atol=1e-4)
+
+    determinism(randn)
 
     # Triton passes (bf16 outputs: one bf16 ulp is 2^-8 relative)
     for H in (2048, 1024):
@@ -401,6 +460,70 @@ def phase_kernels(rec: Record):
             f" exact ok")
     phase_kernels_quant(rec, randn)
     torch.cuda.synchronize()
+
+
+def bit_identical(fn) -> bool:
+    """fn() twice, and a CUDA graph of fn() replayed twice: equal bits."""
+    import torch
+    a, b = fn().clone(), fn().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    return all(torch.equal(a, t) for t in (b, *replays))
+
+
+def determinism(randn):
+    """The cluster kernels sum in a fixed order: B, B8 and decode attention
+    at main-path shapes give the same bits on a repeat and in graph
+    replays."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import flash_decode
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    x = randn(2, 2048, dtype=torch.bfloat16)
+    w = randn(2048, 12288, dtype=torch.bfloat16, scale=0.02)
+    res = randn(1, 1024)
+    xp = randn(1, 3072, dtype=torch.bfloat16)
+    q8 = quant.quantize(randn(3072, 1024, scale=0.02))
+    q = randn(1, 8, 128, dtype=torch.bfloat16)
+    kc, vc = randn(2, 1, 8, 32, 128), randn(2, 1, 8, 32, 128)
+    kn, vn = (randn(1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+    kt, vt = (randn(2, 1, 8, 4096, 128, dtype=torch.bfloat16)
+              for _ in range(2))
+    qt = randn(1, 16, 128, dtype=torch.bfloat16)
+    lens = torch.tensor([15], dtype=torch.int32, device=dev)
+    lens_t = torch.tensor([96], dtype=torch.int32, device=dev)
+    vf = torch.zeros(1, dtype=torch.int32, device=dev)
+    calls = {
+        "gemv talker gate/up M=2 f32 out": lambda: G.gemv(
+            x, w, epilogue=G.EPI_F32),
+        "gemv_int8 predictor down add into residual": lambda: G.gemv_int8(
+            xp, q8["q"], q8["scale"], epilogue=G.EPI_ADD_F32,
+            out=res.clone()),
+        "decode_attention predictor bf16 q / f32 cache": lambda:
+            flash_decode.decode_attention_stacked(q, kc, vc, kn, vn, 1, lens,
+                                                  vf),
+        "decode_attention talker T=4096 kv_len=96": lambda:
+            flash_decode.decode_attention_stacked(
+                qt, kt, vt, kn, vn, 0, lens_t, vf)}
+    for label, fn in calls.items():
+        ok = bit_identical(fn)
+        log(f"  {'determinism':16s} {label:44s} repeat + 2 graph replays "
+            f"{'bit-identical' if ok else 'DIFFER'}")
+        if not ok:
+            fail(f"{label}: repeated calls or graph replays differ")
 
 
 def phase_kernels_quant(rec: Record, randn):
@@ -552,8 +675,13 @@ def phase_probes(rec: Record, card: str):
         name = PROBE + p.name
         rec.ms[name] = graph_ms(lambda: p.kernel(*args))
         rec.plain_ms[name] = graph_ms(lambda: p.plain(*args))
+        # each input read once, the output written once; no PyTorch call
+        # computes a probe's function
+        ins = [a for a in args if isinstance(a, torch.Tensor)]
+        rec.bound[name] = bound(nbytes(*ins, p.kernel(*args)))
         log(f"  {name:22s} device: kernel {rec.ms[name]:.4f} ms, plain "
-            f"{rec.plain_ms[name]:.4f} ms on {card}")
+            f"{rec.plain_ms[name]:.4f} ms, bound {rec.bound[name][0]:.5f} ms "
+            f"({rec.bound[name][1]}) on {card}")
 
 
 def quantized_models(models, talker_kind, predictor_kind):
@@ -977,6 +1105,7 @@ def stream_frame_times(e, label, card):
     path's 256-slot window: per frame on the stream (CUDA events around
     the host loop) and device time (profiler)."""
     import torch
+    from qwen3_tts_tpu_torch.kernels import build
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.tts import generate
 
@@ -1000,8 +1129,8 @@ def stream_frame_times(e, label, card):
                 state[0] = step_fn(e.models, state[0])[0]
             wall = cuda_ms(step, reps=2, warmup=1) / 4
             dev_ms = profiled_device_ms(step, 1)
-        splits = flash_decode.split_plan(1, cfg.talker.n_kv_heads,
-                                         cache_len)[0]
+        splits = flash_decode.attention_splits(1, cfg.talker.n_kv_heads,
+                                               cache_len, build.sm_count(dev))
         parts.append(f"{cache_len} slots ({splits} splits/head): "
                      f"{wall:.3f} ms/frame on the stream, device "
                      f"{_fmt(None if dev_ms is None else dev_ms / 4)} "
@@ -1095,28 +1224,42 @@ def frame_times(eng, models, label: str, card: str, g):
 
     # device busy share of the kernel path: device time of the kernels in a
     # profiler trace of prefill + 4 frames, over the wall time of the same
-    # run without the profiler (which slows the host down)
+    # run without the profiler (which slows the host down); per frame: the
+    # trace of prefill + 4 frames less the trace of the prefill alone, by
+    # kernel name
     busy = None
     try:
-        from torch.profiler import ProfilerActivity, profile
-        wall = timed(False, 4)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(False, 4)
-            torch.cuda.synchronize()
         from torch.autograd import DeviceType
-        kern = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in kern)
+        from torch.profiler import ProfilerActivity, profile
+
+        def trace(steps):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(False, steps)
+                torch.cuda.synchronize()
+            return {e.key: (e.self_device_time_total, e.count)
+                    for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA}
+
+        wall = timed(False, 4)
+        kern, pre = trace(4), trace(0)
+        dev_us = sum(us for us, _ in kern.values())
         if dev_us > 0:
             busy = dev_us / 1e3 / wall
-            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
             log(f"  {label}: profiler, prefill + 4 frames: device busy "
                 f"{dev_us / 1e3:.2f} ms of {wall:.2f} ms unprofiled wall = "
                 f"{busy:.3f} on {card}")
-            for e in top:
-                log(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
-                    f"{e.count:6d}x  {e.key[:70]}")
+            per = {k: ((us - pre.get(k, (0, 0))[0]) / 4e3,
+                       (n - pre.get(k, (0, 0))[1]) / 4)
+                   for k, (us, n) in kern.items()}
+            tot = sum(ms for ms, _ in per.values())
+            cnt = sum(n for _, n in per.values())
+            log(f"  {label}: device ms per frame (profiler, (prefill + 4 "
+                f"frames) - prefill) {tot:.3f} ms in {cnt:.0f} CUDA kernels "
+                f"on {card}; by kernel:")
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:10]
+            for k, (ms, n) in top:
+                log(f"    {ms:9.4f} ms/frame  {n:7.1f}x/frame  {k[:70]}")
     except (RuntimeError, AssertionError) as exc:
         log(f"  profiler unavailable ({exc}); device busy share not measured")
     if busy is None:
@@ -1126,10 +1269,6 @@ def frame_times(eng, models, label: str, card: str, g):
 
 def phase_times(eng, rec: Record, card: str, q48, q88):
     import torch
-    from qwen3_tts_tpu_torch.ops import elementwise as el
-    from qwen3_tts_tpu_torch.ops import flash_decode
-    from qwen3_tts_tpu_torch.ops import gemv as G
-    from qwen3_tts_tpu_torch.ops import quant
 
     log(f"[8/8] times on {card} (CUDA events)")
     dev = eng.device
@@ -1139,36 +1278,161 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
     for label, models in (("dense bf16", eng.models),
                           ("int4+int8", q48), ("int8/int8", q88)):
         frame_times(eng, models, label, card, g)
+    kernel_times(rec, card, g)
+    split_times(card, g)
+
+
+def kernel_times(rec: Record, card: str, g):
+    """Each kernel's device time (REPS calls captured in one CUDA graph and
+    replayed, so host launch cost drops out) against its plain version, one
+    PyTorch call that computes the same function where there is one, and
+    its bound from the case's own shapes. Weights and caches rotate over
+    copies larger than the 50 MB L2, as on the main path. The first case of
+    each kernel is its earlier timing shape (kept comparable); the others
+    are the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import flash_decode
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
 
-    # per-kernel device time: REPS calls captured in one CUDA graph and
-    # replayed, so host launch cost drops out; weights and caches rotate
-    # over copies larger than the 50 MB L2, as on the main path
-    layer = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
-    copies = 4
-    mats = [[(randn(1, k), randn(k, n, scale=0.02)) for k, n in layer]
-            for _ in range(copies)]
+    cases = []      # (name, label, per call, kernel, plain, library, bytes,
+    #                  ops, ops kind, recorded in the JSON line)
 
-    def gemv_layers(fn):
+    def over(mats, fn):
         def call():
-            for layer_mats in mats:
-                for x, w in layer_mats:
-                    fn(x, w)
+            for x, w, kw in mats:
+                fn(x, w, **kw)
         return call
 
-    kc, vc = randn(8, 1, 8, 1024, 128), randn(8, 1, 8, 1024, 128)
-    q, kn, vn = randn(1, 16, 128), randn(1, 8, 128), randn(1, 8, 128)
-    lens = torch.tensor([1000], dtype=torch.int32, device=dev)
-    vf = torch.zeros(1, dtype=torch.int32, device=dev)
+    # B: one layer (qkv, wo, gate/up, down) of the talker and the
+    # predictor, the talker head, the predictor head's slices; M = 1, 2
+    talker = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
+    pred = [(1024, 3072), (1024, 1024), (1024, 6144), (3072, 1024)]
+    for what, shapes, copies, M, record in (
+            ("talker layer qkv+wo+gate/up+down", talker, 4, 1, True),
+            ("talker layer qkv+wo+gate/up+down", talker, 4, 2, False),
+            ("predictor layer qkv+wo+gate/up+down", pred, 4, 1, False),
+            ("predictor layer qkv+wo+gate/up+down", pred, 4, 2, False),
+            ("talker head 2048x2176", [(2048, 2176)], 8, 1, False),
+            ("talker head 2048x2176", [(2048, 2176)], 8, 2, False)):
+        mats = [(randn(M, k), randn(k, n, scale=0.02), {})
+                for _ in range(copies) for k, n in shapes]
+        ws = [w for _, w, _ in mats]
+        xs = [x for x, _, _ in mats]
+        outs = [torch.empty(M, w.shape[1], dtype=torch.bfloat16, device=dev)
+                for w in ws]
+        flops = 2.0 * M * sum(w.numel() for w in ws)
+        cases.append(("gemv", f"{what}, M={M} bf16", copies,
+                      over(mats, G.gemv), over(mats, G.gemv_plain),
+                      over(mats, torch.matmul),
+                      nbytes(*ws, *xs, *outs), flops, "bf16", record))
+    head = randn(1024, 16 * 2048, scale=0.02)
+    for M in (1, 2):
+        x = randn(M, 1024)
+        mats = [(x, head, dict(col0=q * 2048, n=2048,
+                               epilogue=G.EPI_F32_ROUND_DT))
+                for q in range(16)]
+        lib = [(x, head[:, q * 2048:(q + 1) * 2048], {}) for q in range(16)]
+        cases.append(("gemv", f"predictor head slice 1024x2048 @q*2048, "
+                      f"q=0..15, M={M} bf16", 16, over(mats, G.gemv),
+                      over(mats, G.gemv_plain), over(lib, torch.matmul),
+                      nbytes(head, x) + 16 * M * 2048 * 4,
+                      2.0 * M * head.numel(), "bf16", False))
 
-    def attn(fn):
-        def call():
+    # B8, B4, A: one layer per call (B8 the predictor's int8 layer at M=1,
+    # 13.6 MB a copy; B4 the talker's int4 layer at M=1, 25 MB; A the
+    # talker's int8 layer at M=64, 50 MB); no PyTorch call computes them
+    def qlayers(shapes, n_copies, kind, M):
+        fn = quant.quantize if kind == "int8" else quant.quantize_int4
+        return [(randn(M, k), fn(randn(k, n, scale=0.02)), {})
+                for _ in range(n_copies) for k, n in shapes]
+
+    def qbytes(mats, out_el):
+        return sum(nbytes(x, *w.values()) + x.shape[0] * w["scale"].shape[0]
+                   * out_el for x, w, _ in mats)
+
+    def qops(mats):
+        return sum(2.0 * x.numel() * w["scale"].shape[0] for x, w, _ in mats)
+
+    a_mats = qlayers(talker, 4, "int8", 64)
+    b8_mats = qlayers(pred, 8, "int8", 1)
+    b4_mats = qlayers(talker, 4, "int4", 1)
+    cases += [
+        ("qmatmul", "one talker layer int8: qkv+wo+gate/up+down, M=64 bf16",
+         4, over(a_mats, lambda x, w: quant.qmatmul_kernel(x, w["q"],
+                                                           w["scale"])),
+         over(a_mats, lambda x, w: quant.qmatmul_kernel_plain(
+             x, w["q"], w["scale"])), None, qbytes(a_mats, 4),
+         qops(a_mats), "bf16", True),
+        ("gemv_int8", "one predictor layer int8: qkv+wo+gate/up+down, M=1 "
+         "bf16", 8,
+         over(b8_mats, lambda x, w: G.gemv_int8(x, w["q"], w["scale"])),
+         over(b8_mats, lambda x, w: G.gemv_int8_plain(x, w["q"],
+                                                      w["scale"])),
+         None, qbytes(b8_mats, 2), qops(b8_mats), "bf16", True),
+        ("gemv_int4", "one talker layer int4: qkv+wo+gate/up+down, M=1 bf16",
+         4, over(b4_mats, lambda x, w: G.gemv_int4(x, w["q4"], w["m8"],
+                                                   w["scale"])),
+         over(b4_mats, lambda x, w: G.gemv_int4_plain(
+             x, w["q4"], w["m8"], w["scale"])), None, qbytes(b4_mats, 2),
+         qops(b4_mats), "bf16", True)]
+
+    # decode attention over 8 layers of a cache; its library yardstick is
+    # SDPA over k / v built beforehand as the live slots followed by the
+    # current token (in q's dtype, as SDPA takes one dtype)
+    def attention_case(label, nq, nk, T, kv, qdt, cdt, record):
+        kc, vc = randn(8, 1, nk, T, 128, dtype=cdt), randn(8, 1, nk, T, 128,
+                                                          dtype=cdt)
+        q, kn, vn = (randn(1, nq, 128, dtype=qdt), randn(1, nk, 128,
+                                                         dtype=qdt),
+                     randn(1, nk, 128, dtype=qdt))
+        lens = torch.tensor([kv], dtype=torch.int32, device=dev)
+        vf = torch.zeros(1, dtype=torch.int32, device=dev)
+        kl = [torch.cat([kc[l, :, :, :kv], kn[:, :, None]], 2).to(qdt)
+              for l in range(8)]
+        vl = [torch.cat([vc[l, :, :, :kv], vn[:, :, None]], 2).to(qdt)
+              for l in range(8)]
+        q4 = q[:, :, None]
+
+        def attn(fn):
+            def call():
+                for l in range(8):
+                    fn(q, kc, vc, kn, vn, l, lens, vf)
+            return call
+
+        def sdpa():
             for l in range(8):
-                fn(q, kc, vc, kn, vn, l, lens, vf)
-        return call
+                F.scaled_dot_product_attention(q4, kl[l], vl[l],
+                                               enable_gqa=True)
 
+        # a call's bytes: q, k_new, v_new, kv_len, valid_from and the live
+        # slots of k and v read, the output written; 8 calls
+        n_b = 8 * (nbytes(q, kn, vn, q, lens, vf)
+                   + 2 * nk * kv * 128 * kc.element_size())
+        return ("decode_attention", f"{label}, per layer", 8,
+                attn(flash_decode.decode_attention_stacked),
+                attn(flash_decode.decode_attention_plain), sdpa,
+                n_b, 8 * 4.0 * nq * (kv + 1) * 128, "f32", record)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases += [
+        attention_case("16/8 hd128 kv_len=1000 T=1024 bf16", 16, 8, 1024,
+                       1000, bf, bf, False),
+        attention_case("talker 16/8 hd128 kv_len=96 T=256 bf16", 16, 8, 256,
+                       96, bf, bf, True),
+        attention_case("talker stream 16/8 hd128 kv_len=96 T=4096 bf16", 16,
+                       8, 4096, 96, bf, bf, False),
+        attention_case("predictor 8/8 hd128 kv_len=8 T=32 bf16 q / f32 "
+                       "cache", 8, 8, 32, 8, bf, f32, False)]
+
+    # the Triton passes at the main path's shapes; no single PyTorch call
     x32, w = randn(1, 2048, dtype=torch.float32), randn(2048)
     qkv, qn, kn_ = randn(1, 32 * 128), randn(128), randn(128)
     cos, sin = (randn(1, 128, dtype=torch.float32),
@@ -1178,76 +1442,121 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
     logits = randn(1, 2048, dtype=torch.float32)
     codes = torch.zeros(1, 16, dtype=torch.int32, device=dev)
     xo = torch.zeros(1, 1024, device=dev)
-    cases = {
-        "gemv": ("one talker layer: qkv+wo+gate/up+down, M=1 bf16", copies,
-                 gemv_layers(G.gemv), gemv_layers(G.gemv_plain)),
-        "decode_attention": ("16/8 hd128 kv_len=1000 bf16, per layer", 8,
-                             attn(flash_decode.decode_attention_stacked),
-                             attn(flash_decode.decode_attention_plain)),
-        "rms_norm": ("H=2048 f32 -> bf16", 1,
-                     lambda: el.rms_norm(x32, w, 1e-6, torch.bfloat16),
-                     lambda: el.rms_norm_plain(x32, w, 1e-6, torch.bfloat16)),
-        "qk_norm_rope": (
-            "16/8 hd128 bf16", 1,
-            lambda: el.qk_norm_rope(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
-            lambda: el.qk_norm_rope_plain(qkv, qn, kn_, cos, sin, 16, 8,
-                                          1e-6)),
-        "silu_mul": ("F=6144 f32 -> bf16", 1,
-                     lambda: el.silu_mul(gu, torch.bfloat16),
-                     lambda: el.silu_mul_plain(gu, torch.bfloat16)),
-        "argmax_gather": (
-            "B=1 2048 logits, ptab row 1024 bf16", 1,
-            lambda: el.argmax_gather(logits, codes, 3, ptab, 3072, xo),
-            lambda: el.argmax_gather_plain(logits, codes, 3, ptab, 3072, xo)),
-    }
+    cases += [
+        ("rms_norm", "H=2048 f32 -> bf16", 1,
+         lambda: el.rms_norm(x32, w, 1e-6, torch.bfloat16),
+         lambda: el.rms_norm_plain(x32, w, 1e-6, torch.bfloat16), None,
+         nbytes(x32, w) + 2048 * 2, 4.0 * 2048, "f32", True),
+        ("qk_norm_rope", "16/8 hd128 bf16", 1,
+         lambda: el.qk_norm_rope(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
+         lambda: el.qk_norm_rope_plain(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
+         None, nbytes(qkv, qn, kn_, cos, sin, qkv), 10.0 * 24 * 128, "f32",
+         True),
+        ("silu_mul", "F=6144 f32 -> bf16", 1,
+         lambda: el.silu_mul(gu, torch.bfloat16),
+         lambda: el.silu_mul_plain(gu, torch.bfloat16), None,
+         nbytes(gu) + 6144 * 2, 5.0 * 6144, "f32", True),
+        ("argmax_gather", "B=1 2048 logits, ptab row 1024 bf16", 1,
+         lambda: el.argmax_gather(logits, codes, 3, ptab, 3072, xo),
+         lambda: el.argmax_gather_plain(logits, codes, 3, ptab, 3072, xo),
+         None, nbytes(logits) + 4 + 1024 * 2 + nbytes(xo), 2048.0, "f32",
+         True)]
 
-    # the quantized kernels, one layer per call, weights rotating over
-    # copies larger than L2: A over the talker's int8 layer at M=64 (50 MB
-    # a copy), B8 over the predictor's int8 layer at M=1 (13.6 MB), B4 over
-    # the talker's int4 layer at M=1 (25 MB)
-    def qlayers(shapes, n_copies, kind, M):
-        fn = quant.quantize if kind == "int8" else quant.quantize_int4
-        return [[(randn(M, k), fn(randn(k, n, scale=0.02)))
-                 for k, n in shapes] for _ in range(n_copies)]
-
-    pred_layer = [(1024, 3072), (1024, 1024), (1024, 6144), (3072, 1024)]
-    a_mats = qlayers(layer, 4, "int8", 64)
-    b8_mats = qlayers(pred_layer, 8, "int8", 1)
-    b4_mats = qlayers(layer, 4, "int4", 1)
-
-    def over(mats, fn):
-        def call():
-            for layer_mats in mats:
-                for x, w in layer_mats:
-                    fn(x, w)
-        return call
-
-    cases.update({
-        "qmatmul": (
-            "one talker layer int8: qkv+wo+gate/up+down, M=64 bf16", 4,
-            over(a_mats, lambda x, w: quant.qmatmul_kernel(x, w["q"],
-                                                           w["scale"])),
-            over(a_mats, lambda x, w: quant.qmatmul_kernel_plain(
-                x, w["q"], w["scale"]))),
-        "gemv_int8": (
-            "one predictor layer int8: qkv+wo+gate/up+down, M=1 bf16", 8,
-            over(b8_mats, lambda x, w: G.gemv_int8(x, w["q"], w["scale"])),
-            over(b8_mats, lambda x, w: G.gemv_int8_plain(x, w["q"],
-                                                         w["scale"]))),
-        "gemv_int4": (
-            "one talker layer int4: qkv+wo+gate/up+down, M=1 bf16", 4,
-            over(b4_mats, lambda x, w: G.gemv_int4(x, w["q4"], w["m8"],
-                                                   w["scale"])),
-            over(b4_mats, lambda x, w: G.gemv_int4_plain(
-                x, w["q4"], w["m8"], w["scale"]))),
-    })
-    for name, (label, per, kfn, pfn) in cases.items():
-        rec.ms[name] = graph_ms(kfn) / per
-        rec.plain_ms[name] = graph_ms(pfn) / per
+    for (name, label, per, kfn, pfn, lfn, n_b, n_ops, kind,
+         record) in cases:
+        ms = graph_ms(kfn) / per
+        plain = graph_ms(pfn) / per
+        lib = graph_ms(lfn) / per if lfn is not None else None
+        b_ms, b_by = bound(n_b / per, n_ops / per, kind)
         host = cuda_ms(kfn) / per
-        log(f"  {name:16s} {label:48s} device: kernel {rec.ms[name]:.4f} ms, "
-            f"plain {rec.plain_ms[name]:.4f} ms; host-bound eager kernel "
+        log(f"  {name:16s} {label:60s} device: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library {_fmt4(lib)} ms, bound {b_ms:.3g} ms "
+            f"({b_by}, {b_ms / ms:.1%} of it); host-bound eager kernel "
             f"{host:.4f} ms on {card}")
+        if record:
+            rec.ms[name], rec.plain_ms[name] = ms, plain
+            rec.library_ms[name] = lib
+            rec.bound[name] = (b_ms, b_by)
+
+
+def split_times(card: str, g):
+    """The measurement behind the split plans of the two cluster kernels
+    (`gemv.gemv_splits`, `flash_decode.attention_splits`): device ms per
+    call (CUDA-graph replay) of B, B8 and decode attention at main-path
+    shapes with the split count forced to 1, 2, 4 and 8 (one split is a
+    plain launch, more a cluster launch), beside the plan's own choice.
+    The calls go through the wrappers, with their checks; only the planner
+    they consult is replaced. Weights and caches rotate over copies larger
+    than the 50 MB L2, as in `kernel_times`."""
+    from unittest import mock
+    import torch
+    from qwen3_tts_tpu_torch.kernels import build
+    from qwen3_tts_tpu_torch.ops import flash_decode
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
+    sms = build.sm_count(dev)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    def sweep(label, fn, per, target, name, planned):
+        times = []
+        for s in (1, 2, 4, 8):
+            with mock.patch.object(target, name, lambda *a, s=s: s):
+                times.append(graph_ms(fn) / per)
+        log(f"  splits {label:44s} "
+            + " ".join(f"s{s}={t:.4f}" for s, t in zip((1, 2, 4, 8), times))
+            + f" ms; plan s{planned} on {card}")
+
+    for label, K, N, int8 in (
+            ("B talker qkv 2048x4096, M=1", 2048, 4096, False),
+            ("B predictor qkv 1024x3072, M=1", 1024, 3072, False),
+            ("B one tile 256x128, M=1 (launch floor)", 256, 128, False),
+            ("B8 predictor qkv 1024x3072, M=1", 1024, 3072, True)):
+        w_bytes = 1 if int8 else 2
+        copies = min(64, max(2, -(-64 * 2**20 // (K * N * w_bytes))))
+        x = randn(1, K)
+        if int8:
+            ws = [quant.quantize(randn(K, N, scale=0.02))
+                  for _ in range(copies)]
+
+            def fn(ws=ws, x=x):
+                for w in ws:
+                    G.gemv_int8(x, w["q"], w["scale"])
+            planned = G.launch_splits(x, ws[0]["q"], 1, K, N)
+        else:
+            ws = [randn(K, N, scale=0.02) for _ in range(copies)]
+
+            def fn(ws=ws, x=x):
+                for w in ws:
+                    G.gemv(x, w)
+            planned = G.launch_splits(x, ws[0], 1, K, N)
+        sweep(label, fn, copies, G, "launch_splits", planned)
+        del ws
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, nq, nk, T, kv, cdt in (
+            ("attention talker kv_len 96 of 256", 16, 8, 256, 96, bf),
+            ("attention talker kv_len 96 of 4096", 16, 8, 4096, 96, bf),
+            ("attention predictor kv_len 8 of 32, f32 cache", 8, 8, 32, 8,
+             f32)):
+        kc, vc = (randn(8, 1, nk, T, 128, dtype=cdt) for _ in range(2))
+        q, kn, vn = (randn(1, n, 128) for n in (nq, nk, nk))
+        lens = torch.tensor([kv], dtype=torch.int32, device=dev)
+        vf = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def fn(kc=kc, vc=vc, q=q, kn=kn, vn=vn, lens=lens, vf=vf):
+            for layer in range(8):
+                flash_decode.decode_attention_stacked(q, kc, vc, kn, vn,
+                                                      layer, lens, vf)
+        sweep(label, fn, 8, flash_decode, "attention_splits",
+              flash_decode.attention_splits(1, nk, T, sms))
+
+
+def _fmt4(ms):
+    return "none" if ms is None else f"{ms:.4f}"
 
 
 def main() -> int:

@@ -93,13 +93,17 @@ def vocoder_from_numpy(tree, device="cpu") -> Dict[str, Any]:
 
 
 def engine_from_jax_arrays(models: Dict[str, Any], vocoder_params,
-                           config, *, device="cpu", speakers_dir=None):
+                           config, *, device=None, speakers_dir=None):
     """A port `TtsEngine` holding the JAX engine's weights.
 
     `models` has "talker" and "predictor" trees and "assets" (an object or
     dict with the `Assets` fields), all numpy-convertible;
-    `vocoder_params` is the vocoder tree."""
-    from .tts.engine import TtsEngine
+    `vocoder_params` is the vocoder tree. `device=None` means the CUDA card,
+    as for `TtsEngine`, and raises where there is none; CPU use passes
+    `device="cpu"`."""
+    from .tts.engine import TtsEngine, default_device
+
+    device = torch.device(device) if device is not None else default_device()
 
     a = models["assets"]
     get = a.get if isinstance(a, dict) else (lambda k: getattr(a, k))

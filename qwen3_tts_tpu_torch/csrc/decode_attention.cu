@@ -13,37 +13,64 @@
 // The cache is read before this step's write (the caller writes k_new/v_new
 // into the cache afterwards), so the current token never comes from it.
 //
-// Bound: cache bytes. Each (b, h) reads kv_len * hd keys and values once;
-//   the arithmetic per byte is a few FLOPs. At decode batch sizes there are
-//   only B * nk (b, h) pairs (8 on the talker at B = 1), far fewer than the
-//   132 SMs, so one block per pair would leave the card idle.
+// Bound: at the main path's shapes, latency. Each (b, h) reads its live
+//   slots' keys and values once (the talker: ~100 slots x 128 dims x 2
+//   bytes x 2 per kv head, ~0.4 MB a layer-step in all, ~0.12 us at HBM
+//   rate; the predictor: <= 15 slots), well below the cost of one launch,
+//   and only B * nk (b, h) pairs exist (8 at B = 1).
 //
-// Design (split-K "flash decoding"): the cache prefix is split into
-//   `n_splits` ranges of whole tiles, one block per (b, h, range), so the
-//   grid fills the card. A block walks its range in shared-memory tiles of
-//   kTile slots (converted to f32 on load) and keeps an f32 online softmax:
-//   warp r scores slot `lane` of the tile for q row r (rows of the group
-//   ride along, so each tile is read once for all of them), takes the
-//   tile's max and sum with warp shuffles, and every thread accumulates one
-//   head dimension of p @ V. Masking is explicit: a masked slot contributes
-//   p = 0 even in a fully masked tile, so kv_len = 0 works; tiles before
-//   valid_from are skipped. Each block writes (m, l, acc) of its range to an
-//   f32 workspace; a second kernel merges the ranges in order, then folds in
-//   the current token and divides by max(l, 1e-30). The cache may be bf16 or
-//   f32 and q / k_new / v_new bf16 or f32, at any T.
+// Design, one CUDA kernel per call:
+//   * A cluster per (b, h) of `n_splits` blocks (ops/flash_decode.py
+//     attention_splits: from B, nk and the cache capacity, never from the
+//     data, so the launch needs no host sync and is CUDA-graph-safe). Each
+//     block reads kv_len[b] and valid_from[b] itself and takes an even share
+//     of the LIVE range [valid_from, min(kv_len, T)): a 4096-slot cache
+//     costs what a 256-slot window costs, and no block walks empty slots.
+//   * In a block, a group of hd / 8 lanes scores one key: each lane holds 8
+//     head dimensions of every q row of the group (g <= 4) in registers,
+//     reads 8 dims of the key and of the value with 16-byte loads (two for
+//     f32), converts in registers, and the group sums its lanes' dots with
+//     shuffles; every q row is scored from one read of each key. Groups
+//     take slots round robin, 4 slots a lane in flight, each with its own
+//     online softmax (m, l, acc) in f32.
+//   * The block merges its groups in shared memory; then, after a cluster
+//     barrier, rank r merges a slice of (q row, dim) over the cluster's
+//     blocks through distributed shared memory, folds in the current token
+//     last and divides by max(l, 1e-30). Each merge takes two passes: the
+//     states' max m*, then sum_i l_i exp(m_i - m*) (and acc alike) in group
+//     or rank order, so the exponentials do not wait on each other. Empty
+//     ranges carry m = -1e30, l = 0, acc = 0, so kv_len = 0 and a fully
+//     masked prefix give the current token's value. Every sum has a fixed
+//     order: results do not depend on scheduling.
+// q / k_new / v_new bf16 or f32 and the cache bf16 or f32, in any mix; hd a
+// power of two from 8 to 128, g <= 4.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;            // cache slots per tile: one per lane
-constexpr int kMaxHd = kThreads;     // one head dimension per thread
-constexpr int kMaxG = kWarps;        // one warp per q row of the group
+constexpr int kVec = 8;              // head dims per lane
+constexpr int kMaxHd = 128;
+constexpr int kMaxG = 4;
+constexpr int kMaxSplits = 8;        // portable cluster size
+constexpr int kAhead = 4;            // slots per group in flight
+// groups of a block: 1024 / hd; their (acc, m, l) per q row: at most
+// (1024 / hd) * kMaxG * (hd + 2) floats, largest at hd = 8
+constexpr int kGroupFloats = (kThreads * kVec / 8) * kMaxG * (8 + 2);
 constexpr float kNeg = -1e30f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -54,219 +81,288 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// 8 consecutive values as raw bytes (loaded ahead, converted later)
+template <typename T> struct Raw;
+template <> struct Raw<float> { float4 a, b; };
+template <> struct Raw<__nv_bfloat16> { uint4 a; };
+
+__device__ __forceinline__ Raw<float> ld_raw(const float* p) {
+  return {__ldg(reinterpret_cast<const float4*>(p)),
+          __ldg(reinterpret_cast<const float4*>(p + 4))};
+}
+__device__ __forceinline__ Raw<__nv_bfloat16> ld_raw(const __nv_bfloat16* p) {
+  return {__ldg(reinterpret_cast<const uint4*>(p))};
+}
+__device__ __forceinline__ void cvt8(const Raw<float>& r, float* f) {
+  f[0] = r.a.x; f[1] = r.a.y; f[2] = r.a.z; f[3] = r.a.w;
+  f[4] = r.b.x; f[5] = r.b.y; f[6] = r.b.z; f[7] = r.b.w;
+}
+__device__ __forceinline__ void cvt8(const Raw<__nv_bfloat16>& r, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < 4; ++i) {
+    float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// q rows of group (b, h), scaled by 1 / sqrt(hd) as the reference does
-template <typename TQ>
-__device__ __forceinline__ void load_q(float (*qs)[kMaxHd], const TQ* q,
-                                       int64_t q_off, int g, int hd) {
-  const float sqrt_hd = sqrtf(static_cast<float>(hd));
-  for (int i = threadIdx.x; i < g * hd; i += kThreads)
-    qs[i / hd][i % hd] = to_f32(q[q_off + i]) / sqrt_hd;
-}
 
 template <typename TQ, typename TC>
 __global__ void __launch_bounds__(kThreads)
-attention_split(const TQ* __restrict__ q,        // [B, nq, hd]
-                const TC* __restrict__ kc,       // [L, B, nk, T, hd]
-                const TC* __restrict__ vc,
-                const int* __restrict__ kv_len,      // [B]
-                const int* __restrict__ valid_from,  // [B]
-                float* __restrict__ part,  // [B*nk, n_splits, g, hd + 2]
-                int layer, int B, int nq, int nk, int T, int hd,
-                int tiles_per_split) {
-  __shared__ float ks[kTile][kMaxHd + 1];   // +1: conflict-free row reads
-  __shared__ float vs[kTile][kMaxHd];
-  __shared__ float qs[kMaxG][kMaxHd];
-  __shared__ float ps[kMaxG][kTile];
-  __shared__ float alpha_s[kMaxG];
-
-  const int bh = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
-  const int b = bh / nk, h = bh % nk;
-  const int g = nq / nk;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  load_q(qs, q, ((int64_t)b * nq + (int64_t)h * g) * hd, g, hd);
-  const int len = kv_len[b];
-  const int vfrom = valid_from[b];
-  const int64_t c_off = (((int64_t)layer * B + b) * nk + h) * T * hd;
-  const int t_lo = max(split * tiles_per_split * kTile,
-                       (vfrom / kTile) * kTile);
-  const int t_hi = min((split + 1) * tiles_per_split * kTile, min(len, T));
-
-  float m = kNeg, l = 0.f;       // warp `warp`'s q row; lane-uniform
-  float acc[kMaxG];
-#pragma unroll
-  for (int r = 0; r < kMaxG; ++r) acc[r] = 0.f;
-  __syncthreads();
-
-  for (int t0 = t_lo; t0 < t_hi; t0 += kTile) {
-    for (int i = tid; i < kTile * hd; i += kThreads) {
-      const int t = i / hd, d = i % hd;
-      const bool in = t0 + t < T;
-      const int64_t at = c_off + (int64_t)(t0 + t) * hd + d;
-      ks[t][d] = in ? to_f32(kc[at]) : 0.f;
-      vs[t][d] = in ? to_f32(vc[at]) : 0.f;
-    }
-    __syncthreads();
-
-    if (warp < g) {
-      const int pos = t0 + lane;
-      const bool ok = pos < t_hi && pos >= vfrom;   // t_hi <= min(len, T)
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qs[warp][d] * ks[lane][d];
-      s = ok ? s : kNeg;
-      const float m_new = fmaxf(m, warp_max(s));
-      const float alpha = expf(m - m_new);
-      const float p = ok ? expf(s - m_new) : 0.f;
-      l = l * alpha + warp_sum(p);
-      m = m_new;
-      ps[warp][lane] = p;
-      if (lane == 0) alpha_s[warp] = alpha;
-    }
-    __syncthreads();
-
-    if (tid < hd) {
-#pragma unroll
-      for (int r = 0; r < kMaxG; ++r) {
-        if (r < g) {
-          float pv = 0.f;
-#pragma unroll 8
-          for (int t = 0; t < kTile; ++t) pv += ps[r][t] * vs[t][tid];
-          acc[r] = acc[r] * alpha_s[r] + pv;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int stride = hd + 2;
-  float* base = part + ((int64_t)bh * n_splits + split) * g * stride;
-  if (warp < g && lane == 0) {
-    base[warp * stride + hd] = m;
-    base[warp * stride + hd + 1] = l;
-  }
-  if (tid < hd) {
-#pragma unroll
-    for (int r = 0; r < kMaxG; ++r)
-      if (r < g) base[r * stride + tid] = acc[r];
-  }
-}
-
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
-attention_merge(const TQ* __restrict__ q, const TQ* __restrict__ k_new,
-                const TQ* __restrict__ v_new,
-                const float* __restrict__ part, TQ* __restrict__ out,
-                int nq, int nk, int hd, int n_splits) {
-  __shared__ float qs[kMaxG][kMaxHd];
+attention_cluster(const TQ* __restrict__ q,        // [B, nq, hd]
+                  const TC* __restrict__ kc,       // [L, B, nk, T, hd]
+                  const TC* __restrict__ vc,
+                  const TQ* __restrict__ k_new,    // [B, nk, hd]
+                  const TQ* __restrict__ v_new,
+                  const int* __restrict__ kv_len,      // [B]
+                  const int* __restrict__ valid_from,  // [B]
+                  TQ* __restrict__ out,            // [B, nq, hd]
+                  int layer, int B, int nq, int nk, int T, int hd) {
+  __shared__ float grp[kGroupFloats];         // [group][row][hd + 2]
+  __shared__ float blk[kMaxG * (kMaxHd + 2)];  // [row][hd + 2]: acc, m, l
   __shared__ float s_new[kMaxG];
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / n_splits;
   const int b = bh / nk, h = bh % nk;
+  // the row's live range first: the K / V loads wait on it
+  const int len = min(kv_len[b], T);
+  const int lo = max(valid_from[b], 0);
   const int g = nq / nk;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lk = hd / kVec;                   // lanes per key, 1..16
+  const int n_groups = kThreads / lk;
+  const int group = tid / lk, sub = tid % lk;
+  // the group's lanes, for its shuffles (groups run apart)
+  const unsigned gmask = (lk == 32 ? 0xffffffffu : ((1u << lk) - 1u))
+                         << ((lane / lk) * lk);
+  const int stride = hd + 2;
   const int64_t q_off = ((int64_t)b * nq + (int64_t)h * g) * hd;
   const int64_t n_off = ((int64_t)b * nk + h) * hd;
-  load_q(qs, q, q_off, g, hd);
-  __syncthreads();
+
+  // q is scaled by 1 / sqrt(hd) before its dots, as the reference scales it
+  const float sqrt_hd = sqrtf(static_cast<float>(hd));
+  // the current token's score per q row, for the final merge
   if (warp < g) {
     float s = 0.f;
+#pragma unroll 4
     for (int d = lane; d < hd; d += 32)
-      s += qs[warp][d] * to_f32(k_new[n_off + d]);
+      s += to_f32(q[q_off + (int64_t)warp * hd + d]) / sqrt_hd *
+           to_f32(k_new[n_off + d]);
     s = warp_sum(s);
     if (lane == 0) s_new[warp] = s;
   }
-  __syncthreads();
-  if (tid >= hd) return;
 
-  const int stride = hd + 2;
-  const float* base = part + (int64_t)bh * n_splits * g * stride;
-  const float vn = to_f32(v_new[n_off + tid]);
-  for (int r = 0; r < g; ++r) {
-    float m = kNeg, l = 0.f, acc = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) {       // ranges in order
-      const float* pr = base + ((int64_t)sp * g + r) * stride;
-      const float ms = pr[hd], ls = pr[hd + 1];
-      const float m_new = fmaxf(m, ms);
-      const float a = expf(m - m_new), c = expf(ms - m_new);
-      l = l * a + ls * c;
-      acc = acc * a + pr[tid] * c;
-      m = m_new;
+  // this lane's 8 dims of every q row
+  float qv[kMaxG][kVec];
+#pragma unroll
+  for (int r = 0; r < kMaxG; ++r) {
+    if (r < g) {
+      float f[kVec];
+      const TQ* p = q + q_off + (int64_t)r * hd + sub * kVec;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = to_f32(p[j]) / sqrt_hd;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) qv[r][j] = f[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) qv[r][j] = 0.f;
     }
-    // the current token, always valid (causal self-attention), last
-    const float m_fin = fmaxf(m, s_new[r]);
-    const float a = expf(m - m_fin);
-    const float p_new = expf(s_new[r] - m_fin);
-    const float l_fin = fmaxf(l * a + p_new, 1e-30f);
-    store(&out[q_off + (int64_t)r * hd + tid], (acc * a + p_new * vn) / l_fin);
   }
+
+  // this block's share of the live range
+  const int live = max(len - lo, 0);
+  const int per = (live + n_splits - 1) / n_splits;
+  const int s0 = lo + rank * per;
+  const int s1 = min(s0 + per, len);
+
+  float m[kMaxG], l[kMaxG], acc[kMaxG][kVec];
+#pragma unroll
+  for (int r = 0; r < kMaxG; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[r][j] = 0.f;
+  }
+
+  const int64_t c_off =
+      (((int64_t)layer * B + b) * nk + h) * T * hd + sub * kVec;
+  for (int j0 = s0 + group; j0 < s1; j0 += n_groups * kAhead) {
+    Raw<TC> kr[kAhead], vr[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int j = j0 + u * n_groups;
+      if (j < s1) {
+        kr[u] = ld_raw(kc + c_off + (int64_t)j * hd);
+        vr[u] = ld_raw(vc + c_off + (int64_t)j * hd);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (j0 + u * n_groups < s1) {          // uniform over the group
+        float kf[kVec], vf[kVec];
+        cvt8(kr[u], kf);
+        cvt8(vr[u], vf);
+#pragma unroll
+        for (int r = 0; r < kMaxG; ++r) {
+          if (r < g) {
+            float s = 0.f;
+#pragma unroll
+            for (int d = 0; d < kVec; ++d) s = fmaf(qv[r][d], kf[d], s);
+            for (int o = lk / 2; o > 0; o >>= 1)
+              s += __shfl_xor_sync(gmask, s, o);
+            const float mn = fmaxf(m[r], s);
+            const float a = expf(m[r] - mn), p = expf(s - mn);
+            l[r] = l[r] * a + p;
+#pragma unroll
+            for (int d = 0; d < kVec; ++d)
+              acc[r][d] = fmaf(p, vf[d], acc[r][d] * a);
+            m[r] = mn;
+          }
+        }
+      }
+    }
+  }
+
+  // the block's groups, merged in group order
+#pragma unroll
+  for (int r = 0; r < kMaxG; ++r) {
+    if (r < g) {
+      float* gp = grp + (group * g + r) * stride;
+#pragma unroll
+      for (int d = 0; d < kVec; ++d) gp[sub * kVec + d] = acc[r][d];
+      if (sub == 0) {
+        gp[hd] = m[r];
+        gp[hd + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < g * hd; i += kThreads) {
+    const int r = i / hd, d = i % hd;
+    // two passes: the groups' max, then their (l, acc) rescaled to it and
+    // summed in group order (the rescalings do not wait on each other)
+    float mm = kNeg;
+    for (int q2 = 0; q2 < n_groups; ++q2)
+      mm = fmaxf(mm, grp[(q2 * g + r) * stride + hd]);
+    float ll = 0.f, aa = 0.f;
+    for (int q2 = 0; q2 < n_groups; ++q2) {
+      const float* gp = grp + (q2 * g + r) * stride;
+      const float c = expf(gp[hd] - mm);
+      ll = fmaf(gp[hd + 1], c, ll);
+      aa = fmaf(gp[d], c, aa);
+    }
+    blk[r * stride + d] = aa;
+    if (d == 0) {
+      blk[r * stride + hd] = mm;
+      blk[r * stride + hd + 1] = ll;
+    }
+  }
+
+  // the cluster's blocks in rank order, then the current token, last
+  cluster.sync();
+  const int total = g * hd;
+  const int share = (total + n_splits - 1) / n_splits;
+  const int i1 = min(total, (rank + 1) * share);
+  for (int i = rank * share + tid; i < i1; i += kThreads) {
+    const int r = i / hd, d = i % hd;
+    // all ranks' (m, l, acc) in flight at once, then merged in rank order
+    float ms[kMaxSplits], ls[kMaxSplits], as[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        const float* bp = cluster.map_shared_rank(blk, sp) + r * stride;
+        ms[sp] = bp[hd];
+        ls[sp] = bp[hd + 1];
+        as[sp] = bp[d];
+      }
+    }
+    float mm = kNeg, ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < n_splits) mm = fmaxf(mm, ms[sp]);
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp) {
+      if (sp < n_splits) {
+        const float c = expf(ms[sp] - mm);
+        ll = fmaf(ls[sp], c, ll);
+        aa = fmaf(as[sp], c, aa);
+      }
+    }
+    const float m_fin = fmaxf(mm, s_new[r]);
+    const float a = expf(mm - m_fin);
+    const float p_new = expf(s_new[r] - m_fin);
+    const float l_fin = fmaxf(ll * a + p_new, 1e-30f);
+    store(&out[q_off + (int64_t)r * hd + d],
+          (aa * a + p_new * to_f32(v_new[n_off + d])) / l_fin);
+  }
+  cluster.sync();                 // no block leaves while its blk is read
 }
 
 template <typename TQ, typename TC>
 int launch(const void* q, const void* kc, const void* vc, const void* kn,
            const void* vn, const void* kv_len, const void* vfrom, void* out,
-           void* part, int layer, int B, int nq, int nk, int T, int hd,
-           int n_splits, int tiles_per_split, cudaStream_t st) {
-  attention_split<TQ, TC><<<dim3(B * nk, n_splits), kThreads, 0, st>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(kc),
-      static_cast<const TC*>(vc), static_cast<const int*>(kv_len),
-      static_cast<const int*>(vfrom), static_cast<float*>(part), layer, B,
-      nq, nk, T, hd, tiles_per_split);
-  attention_merge<TQ><<<B * nk, kThreads, 0, st>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(kn),
-      static_cast<const TQ*>(vn), static_cast<const float*>(part),
-      static_cast<TQ*>(out), nq, nk, hd, n_splits);
-  return static_cast<int>(cudaGetLastError());
+           int layer, int B, int nq, int nk, int T, int hd, int n_splits,
+           cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * nk * n_splits, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // one split needs no cluster (a block is its own cluster of one); a
+  // cluster launch costs 0.3-0.9 us more on the H100 (chip_smoke.py
+  // split_times)
+  cfg.numAttrs = n_splits > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, attention_cluster<TQ, TC>, static_cast<const TQ*>(q),
+      static_cast<const TC*>(kc), static_cast<const TC*>(vc),
+      static_cast<const TQ*>(kn), static_cast<const TQ*>(vn),
+      static_cast<const int*>(kv_len), static_cast<const int*>(vfrom),
+      static_cast<TQ*>(out), layer, B, nq, nk, T, hd);
+  return e != cudaSuccess ? static_cast<int>(e)
+                          : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// q_dtype / c_dtype: 0 float32, 1 bfloat16. part: f32 workspace of
-// B * nk * n_splits * (nq / nk) * (hd + 2) values. The splits must cover
-// the cache: n_splits * tiles_per_split * 32 >= T.
+// q_dtype / c_dtype: 0 float32, 1 bfloat16. n_splits: blocks per (b, h),
+// the cluster size, 1..kMaxSplits. hd a power of two in [8, 128].
 int decode_attention_launch(const void* q, const void* kc, const void* vc,
                             const void* k_new, const void* v_new,
                             const void* kv_len, const void* valid_from,
-                            void* out, void* part, int layer, int B, int nq,
-                            int nk, int T, int hd, int n_splits,
-                            int tiles_per_split, int q_dtype, int c_dtype,
-                            void* stream) {
-  if (hd > kMaxHd || nk <= 0 || nq % nk != 0 || nq / nk > kMaxG ||
-      n_splits <= 0 || tiles_per_split <= 0 ||
-      (int64_t)n_splits * tiles_per_split * kTile < T)
+                            void* out, int layer, int B, int nq, int nk,
+                            int T, int hd, int n_splits, int q_dtype,
+                            int c_dtype, void* stream) {
+  if (hd < kVec || hd > kMaxHd || (hd & (hd - 1)) != 0 || nk <= 0 ||
+      nq % nk != 0 || nq / nk > kMaxG || n_splits <= 0 ||
+      n_splits > kMaxSplits || B <= 0 || T <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && c_dtype == 0)
     return launch<float, float>(q, kc, vc, k_new, v_new, kv_len, valid_from,
-                                out, part, layer, B, nq, nk, T, hd, n_splits,
-                                tiles_per_split, st);
+                                out, layer, B, nq, nk, T, hd, n_splits, st);
   if (q_dtype == 0)
     return launch<float, __nv_bfloat16>(q, kc, vc, k_new, v_new, kv_len,
-                                        valid_from, out, part, layer, B, nq,
-                                        nk, T, hd, n_splits, tiles_per_split,
-                                        st);
+                                        valid_from, out, layer, B, nq, nk, T,
+                                        hd, n_splits, st);
   if (c_dtype == 0)
     return launch<__nv_bfloat16, float>(q, kc, vc, k_new, v_new, kv_len,
-                                        valid_from, out, part, layer, B, nq,
-                                        nk, T, hd, n_splits, tiles_per_split,
-                                        st);
+                                        valid_from, out, layer, B, nq, nk, T,
+                                        hd, n_splits, st);
   return launch<__nv_bfloat16, __nv_bfloat16>(
-      q, kc, vc, k_new, v_new, kv_len, valid_from, out, part, layer, B, nq,
-      nk, T, hd, n_splits, tiles_per_split, st);
+      q, kc, vc, k_new, v_new, kv_len, valid_from, out, layer, B, nq, nk, T,
+      hd, n_splits, st);
 }
 
 }  // extern "C"

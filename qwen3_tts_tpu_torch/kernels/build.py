@@ -36,12 +36,13 @@ LL = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a pointer passed
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
-    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_launch": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_int8_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_blocks_per_sm": [I, I, I],
     "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
-    "decode_attention_launch": [P, P, P, P, P, P, P, P, P,
-                                I, I, I, I, I, I, I, I, I, I, P],
+    "decode_attention_launch": [P, P, P, P, P, P, P, P,
+                                I, I, I, I, I, I, I, I, I, P],
     # csrc/probes.cu (tools/mosaic_probe.py)
     "probe_hbm_scratch_launch": [P, P, P, I, P],
     "probe_fori_dma_launch": [P, P, I, P],
@@ -145,3 +146,19 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+_sms: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, which the launch plans of the cluster
+    kernels (`ops/gemv.py`, `ops/flash_decode.py`) size their grids by."""
+    import torch
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]

@@ -1,4 +1,4 @@
-"""Single-token GQA decode attention: kernel A (`csrc/decode_attention.cu`).
+"""Single-token GQA decode attention (`csrc/decode_attention.cu`).
 
 Port of `qwen3_tts_tpu/ops/flash_decode.py::decode_attention_stacked`.
 Contract (the same as the TPU kernel's):
@@ -13,7 +13,9 @@ token never comes from the cache. Serves the attention of the talker step,
 of every predictor pass, and of `decoder.forward` at S == 1.
 
 On a CPU tensor it runs `decode_attention_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. The kernel is one CUDA launch: a thread
+block cluster per (b, h) whose blocks share the row's live slots and merge
+through distributed shared memory in rank order.
 """
 
 from __future__ import annotations
@@ -24,19 +26,25 @@ import torch
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 32                  # kTile of csrc/decode_attention.cu
-_TARGET_BLOCKS = 264       # two waves over the H100's 132 SMs
+MAX_SPLITS = 8             # kMaxSplits of csrc/decode_attention.cu
+MIN_SPLIT_SLOTS = 32       # cache capacity per split below which no split
 
 
-def split_plan(B: int, nk: int, T: int):
-    """(n_splits, tiles_per_split): split the cache's T slots into ranges of
-    whole tiles so that B * nk * n_splits blocks fill the card. Planned from
-    the capacity T, not the device-side kv_len, so no host sync is needed;
-    ranges past a row's kv_len do no work."""
-    n_tiles = max(1, -(-T // TILE))
-    want = max(1, -(-_TARGET_BLOCKS // (B * nk)))
-    per = -(-n_tiles // min(n_tiles, want))
-    return -(-n_tiles // per), per
+def attention_splits(B: int, nk: int, T: int, sms: int) -> int:
+    """Blocks per (b, h), the cluster size: doubled while the B * nk
+    clusters leave some of the card's `sms` SMs idle, up to MAX_SPLITS, and
+    while the cache holds at least MIN_SPLIT_SLOTS slots a split (one split
+    is a plain launch, ~0.9 us cheaper than a cluster launch at the
+    predictor's shape, `chip_smoke.py split_times`: the predictor's
+    32-slot cache takes it). Planned from B, nk and the capacity T, never
+    from the device-held kv_len, so no host sync is needed; the kernel
+    divides each row's live range [valid_from, kv_len) over the splits
+    itself, and a 4096-slot cache gets the 256-slot window's splits."""
+    s = 1
+    while (s * 2 <= MAX_SPLITS and B * nk * s < sms
+           and s * MIN_SPLIT_SLOTS < T):
+        s *= 2
+    return s
 
 
 def decode_attention_plain(q, k_all, v_all, k_new, v_new, layer: int,
@@ -93,9 +101,12 @@ def decode_attention_stacked(q, k_all, v_all, k_new, v_new, layer: int,
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, cache "
             f"{tuple(k_all.shape)}, k_new {tuple(k_new.shape)}, layer {layer}")
-    if hd > 128 or nq // nk > 4:
-        raise ValueError("decode_attention: head_dim <= 128 and at most 4 "
-                         "q heads per kv head")
+    if hd not in (8, 16, 32, 64, 128) or nq // nk > 4:
+        raise ValueError("decode_attention: head_dim a power of two from 8 "
+                         "to 128 and at most 4 q heads per kv head")
+    if k_all.data_ptr() % 16 or v_all.data_ptr() % 16:
+        raise ValueError("decode_attention: the caches must be 16-byte "
+                         "aligned (rows are read as 16-byte vectors)")
     if (q.dtype not in _DTYPES or k_all.dtype not in _DTYPES
             or v_all.dtype != k_all.dtype or k_new.dtype != q.dtype
             or v_new.dtype != q.dtype or kv_len.dtype != torch.int32
@@ -104,15 +115,13 @@ def decode_attention_stacked(q, k_all, v_all, k_new, v_new, layer: int,
                         "be float32 or bfloat16, kv_len/valid_from int32")
 
     from ..kernels import build
-    n_splits, per = split_plan(B, nk, T)
     out = torch.empty_like(q)
-    part = torch.empty(B * nk * n_splits * (nq // nk) * (hd + 2),
-                       dtype=torch.float32, device=q.device)
     err = build.lib().decode_attention_launch(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), kv_len.data_ptr(), valid_from.data_ptr(),
-        out.data_ptr(), part.data_ptr(), layer, B, nq, nk, T, hd, n_splits,
-        per, _DTYPES[q.dtype], _DTYPES[k_all.dtype],
+        out.data_ptr(), layer, B, nq, nk, T, hd,
+        attention_splits(B, nk, T, build.sm_count(q.device)),
+        _DTYPES[q.dtype], _DTYPES[k_all.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     decode_attention_stacked.launches += 1

@@ -24,6 +24,10 @@ accumulation, multiplies the quantized kinds' acc by scale[col0:col0 + n]
 Column slices are packing-transparent: `col0` selects the same columns of
 q, q4, m8 and scale. On a CPU tensor each wrapper runs its plain version;
 on a CUDA tensor it launches its kernel or raises.
+
+B and B8 are one CUDA kernel per product: the K split of a column tile is
+a thread block cluster that reduces through distributed shared memory
+(`gemv_splits`); B4 is two (partials per packed group, then an epilogue).
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ EPI_F32_ROUND_DT = 2
 EPI_ADD_F32 = 3
 
 MAX_M = 32
-MAX_CHUNK = 256            # kMaxChunk of csrc/gemv.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TARGET_BLOCKS = 264       # two waves over the H100's 132 SMs
+# B / B8 launch (csrc/gemv.cu): 128-column tiles, the K split a thread
+# block cluster of at most 8 (the portable size), at least 32 KB of weights
+# per block
+TILE_N = 128
+MAX_SPLITS = 8
+MIN_BLOCK_BYTES = 32 * 1024
 
 
 def _finish(acc: torch.Tensor, dt: torch.dtype, epilogue: int,
@@ -94,15 +102,43 @@ def gemv_int4_plain(x, q4, m8, scale, *, col0: int = 0,
     return _finish(acc, x.dtype, epilogue, out)
 
 
-def k_chunk(M: int, K: int, N: int) -> int:
-    """K rows per block of B and B8: halve from MAX_CHUNK until the grid
-    (column tiles x row chunks x K chunks) has two waves of blocks for 132
-    SMs. (B4 takes whole packed groups of GROUP4 rows instead.)"""
-    chunk = MAX_CHUNK
-    col_tiles = -(-N // 256) * -(-M // 8)
-    while chunk > 32 and col_tiles * -(-K // chunk) < _TARGET_BLOCKS:
-        chunk //= 2
-    return chunk
+def gemv_splits(M: int, K: int, N: int, w_bytes: int, sms: int,
+                per_sm: int) -> int:
+    """The K split of B / B8, the cluster size: the grid is (column tiles *
+    splits, x row chunks), rank q of a cluster taking K rows [q * rows,
+    (q + 1) * rows), rows = ceil(K / splits). Split in two until about one
+    block runs on each SM (7/8 of the SMs busy): at most MAX_SPLITS ways,
+    never below MIN_BLOCK_BYTES of weights per block, and never past one
+    wave of the resident blocks (sms * per_sm). More, smaller blocks
+    measured slower on the H100 (each pays its x staging, reduction and
+    cluster barriers; `chip_smoke.py split_times`)."""
+    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8  # x rows a
+    tiles = -(-N // TILE_N) * -(-M // mt)       # block, as csrc/gemv.cu picks
+    most = max(1, min(MAX_SPLITS,
+                      K * TILE_N * w_bytes // MIN_BLOCK_BYTES))
+    splits = 1
+    while (splits * 2 <= most and tiles * splits < sms * 7 // 8
+           and tiles * splits * 2 <= sms * per_sm):
+        splits *= 2
+    return splits
+
+
+_per_sm: dict = {}
+
+
+def launch_splits(x, w, M, K, n) -> int:
+    """gemv_splits on x's card: its SM count and the kernel's resident
+    blocks per SM (queried once per card, dtype, weight kind and M)."""
+    from ..kernels import build
+    int8_w = int(w.dtype == torch.int8)
+    key = (x.device.index, x.dtype, int8_w, M)
+    if key not in _per_sm:
+        per_sm = build.lib().gemv_blocks_per_sm(_DTYPES[x.dtype], int8_w, M)
+        if per_sm <= 0:
+            build.check(-per_sm or 1, "gemv_blocks_per_sm")
+        _per_sm[key] = per_sm
+    return gemv_splits(M, K, n, w.element_size(), build.sm_count(x.device),
+                       _per_sm[key])
 
 
 def _check(name, x, w, col0, n, epilogue, out, *, align, packed=False):
@@ -126,7 +162,8 @@ def _check(name, x, w, col0, n, epilogue, out, *, align, packed=False):
     if n % 8 or col0 % 8 or w.stride(0) % 8 or w.data_ptr() % align:
         raise ValueError(f"{name}: columns, column offset and row stride "
                          f"must be multiples of 8 and w {align}-byte "
-                         "aligned")
+                         "aligned (each lane loads 8 columns of a row as "
+                         "one vector)")
     out_dtype = x.dtype if epilogue == EPI_STORE_DT else torch.float32
     if out is None:
         if epilogue == EPI_ADD_F32:
@@ -164,12 +201,9 @@ def gemv(x, w, *, col0: int = 0, n: int | None = None,
         raise TypeError(f"gemv: x {x.dtype} / w {w.dtype} must match")
     M, K, n, out = _check("gemv", x, w, col0, n, epilogue, out, align=16)
     from ..kernels import build
-    chunk = k_chunk(M, K, n)
-    part = torch.empty(-(-K // chunk), M, n, dtype=torch.float32,
-                       device=x.device)
     err = build.lib().gemv_launch(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
-        M, K, n, w.stride(0), col0, chunk, _DTYPES[x.dtype], epilogue,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, n, w.stride(0),
+        col0, launch_splits(x, w, M, K, n), _DTYPES[x.dtype], epilogue,
         _stream(x))
     build.check(err, "gemv")
     gemv.launches += 1
@@ -189,12 +223,9 @@ def gemv_int8(x, q, scale, *, col0: int = 0, n: int | None = None,
     M, K, n, out = _check("gemv_int8", x, q, col0, n, epilogue, out,
                           align=8)
     from ..kernels import build
-    chunk = k_chunk(M, K, n)
-    part = torch.empty(-(-K // chunk), M, n, dtype=torch.float32,
-                       device=x.device)
     err = build.lib().gemv_int8_launch(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        part.data_ptr(), M, K, n, q.stride(0), col0, chunk,
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+        n, q.stride(0), col0, launch_splits(x, q, M, K, n),
         _DTYPES[x.dtype], epilogue, _stream(x))
     build.check(err, "gemv_int8")
     gemv_int8.launches += 1

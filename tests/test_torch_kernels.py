@@ -52,7 +52,11 @@ def _close(a, b, dtype):
 @pytest.mark.parametrize("M,K,N,col0,n", [(1, 2048, 4096, 0, None),
                                           (3, 1024, 3072, 0, None),
                                           (1, 1024, 8192, 2048, 2048),
-                                          (9, 128, 264, 8, 256)])
+                                          (9, 128, 264, 8, 256),
+                                          (1, 1024, 6144, 0, None),
+                                          (2, 3072, 1024, 0, None),
+                                          (2, 1024, 32768, 30720, 2048),
+                                          (32, 6144, 2048, 0, None)])
 def test_gemv(dev, dtype, M, K, N, col0, n):
     g = torch.Generator(device=dev).manual_seed(0)
     x, w = _randn(g, M, K, dtype=dtype), _randn(g, K, N, dtype=dtype,
@@ -72,7 +76,10 @@ def test_gemv(dev, dtype, M, K, N, col0, n):
                                           (3, 1024, 3072, 0, None),
                                           (8, 1024, 8192, 2048, 2048),
                                           (32, 6144, 2048, 0, None),
-                                          (9, 256, 264, 8, 256)])
+                                          (9, 256, 264, 8, 256),
+                                          (1, 1024, 6144, 0, None),
+                                          (2, 3072, 1024, 0, None),
+                                          (1, 1024, 1024, 0, None)])
 def test_gemv_quantized(dev, dtype, M, K, N, col0, n):
     """B8 and B4 against their plain versions, every epilogue."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -125,6 +132,72 @@ def test_decode_attention(dev, dtype, nq, nk, T, lens, vfrom):
                                                  vfrom),
            flash_decode.decode_attention_plain(q, kc, vc, kn, vn, 1, lens,
                                                vfrom), dtype)
+
+
+@pytest.mark.parametrize("nq,nk,T,lens,vfrom,qdt,cdt", [
+    # the predictor's mix: bf16 q over an f32 cache, <= 15 live slots
+    (8, 8, 32, (15, 8), (0, 0), torch.bfloat16, torch.float32),
+    (8, 8, 32, (0, 1), (0, 0), torch.bfloat16, torch.float32),
+    # the stream path's 4096-slot cache with a short live range
+    (16, 8, 4096, (96, 100), (0, 37), torch.bfloat16, torch.bfloat16),
+    (16, 8, 4096, (5, 64), (3, 64), torch.bfloat16, torch.bfloat16),
+    (16, 8, 4096, (100, 1), (0, 0), torch.float32, torch.bfloat16)])
+def test_decode_attention_mixed_dtypes_and_stream_cache(dev, nq, nk, T, lens,
+                                                        vfrom, qdt, cdt):
+    g = torch.Generator(device=dev).manual_seed(8)
+    B = len(lens)
+    q = _randn(g, B, nq, 128, dtype=qdt)
+    kc, vc = (_randn(g, 2, B, nk, T, 128, dtype=cdt) for _ in range(2))
+    kn, vn = (_randn(g, B, nk, 128, dtype=qdt) for _ in range(2))
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    vfrom = torch.tensor(vfrom, dtype=torch.int32, device=dev)
+    _close(flash_decode.decode_attention_stacked(q, kc, vc, kn, vn, 0, lens,
+                                                 vfrom),
+           flash_decode.decode_attention_plain(q, kc, vc, kn, vn, 0, lens,
+                                               vfrom), qdt)
+
+
+def _bit_identical(fn):
+    """fn() twice and in a CUDA graph replayed twice: equal bits."""
+    a, b = fn().clone(), fn().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    return all(torch.equal(a, t) for t in (b, *replays))
+
+
+def test_cluster_kernels_repeat_and_graph_replay_bit_identical(dev):
+    """B, B8 and decode attention sum in a fixed order: the same call twice
+    and two replays of a captured call give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(g, 2, 2048, dtype=torch.bfloat16)
+    w = _randn(g, 2048, 4096, dtype=torch.bfloat16, scale=0.02)
+    q8 = quant.quantize(_randn(g, 1024, 3072, scale=0.02))
+    x8 = _randn(g, 1, 1024, dtype=torch.bfloat16)
+    res = _randn(g, 2, 4096)
+    q = _randn(g, 1, 16, 128, dtype=torch.bfloat16)
+    kc, vc = (_randn(g, 2, 1, 8, 4096, 128, dtype=torch.bfloat16)
+              for _ in range(2))
+    kn, vn = (_randn(g, 1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([97], dtype=torch.int32, device=dev)
+    vfrom = torch.tensor([2], dtype=torch.int32, device=dev)
+    calls = [lambda: G.gemv(x, w, epilogue=G.EPI_F32),
+             lambda: G.gemv(x, w, epilogue=G.EPI_ADD_F32, out=res.clone()),
+             lambda: G.gemv_int8(x8, q8["q"], q8["scale"]),
+             lambda: flash_decode.decode_attention_stacked(
+                 q, kc, vc, kn, vn, 1, lens, vfrom)]
+    for i, fn in enumerate(calls):
+        assert _bit_identical(fn), i
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

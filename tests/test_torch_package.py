@@ -85,7 +85,8 @@ def test_kernel_sources_and_build_key():
         "dyn_col_dma", "int8_panel")}
     assert set(build.SIGNATURES) == {
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
-        "qmatmul_launch", "decode_attention_launch"} | probes
+        "gemv_blocks_per_sm", "qmatmul_launch",
+        "decode_attention_launch"} | probes
     # every C entry point the build binds is defined in a source
     text = "".join(open(p).read() for p in build.sources())
     for name in build.SIGNATURES:
@@ -106,13 +107,51 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     assert eng.device.type == "cpu"
 
 
-@pytest.mark.parametrize("M,K,N,chunk", [(1, 2048, 4096, 64),
-                                         (1, 6144, 2048, 128),
-                                         (1, 1024, 1024, 32),
-                                         (32, 2048, 12288, 256)])
-def test_gemv_k_chunk_fills_the_card(M, K, N, chunk):
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()
+
+
+def test_engine_bridge_without_device_needs_cuda(monkeypatch):
+    """`convert.engine_from_jax_arrays` without `device` means the CUDA
+    card, as `TtsEngine()` does: where there is none it raises instead of
+    quietly building a CPU engine; `device="cpu"` builds one."""
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine, tiny_engine_config
+    cfg = tiny_engine_config()
+    src = TtsEngine(config=cfg, random_weights=True, device="cpu")
+    a = src.models["assets"]
+    models = {"talker": _numpy_tree(src.models["talker"]),
+              "predictor": _numpy_tree(src.models["predictor"]),
+              "assets": {k: getattr(a, k).numpy() for k in (
+                  "text_table", "codec_tables", "proj_weight", "proj_bias")}}
+    voc = _numpy_tree(src.vocoder_params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.engine_from_jax_arrays(models, voc, cfg)
+    eng = convert.engine_from_jax_arrays(models, voc, cfg, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.models["talker"]["head"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(1, 2048, 4096, 4),
+                                          (1, 6144, 2048, 8),
+                                          (1, 1024, 1024, 8),
+                                          (32, 2048, 12288, 1)])
+def test_gemv_k_chunk_fills_the_card(M, K, N, splits):
+    """B's K split (the cluster size) doubles until about one block runs on
+    each of 132 SMs, at most 8 ways and within one wave of resident
+    blocks (2 a SM here)."""
     from qwen3_tts_tpu_torch.ops import gemv
-    assert gemv.k_chunk(M, K, N) == chunk
+    got = gemv.gemv_splits(M, K, N, 2, sms=132, per_sm=2)
+    assert got == splits
+    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+    blocks = -(-N // gemv.TILE_N) * -(-M // mt) * splits
+    assert blocks <= 264 or splits == 1
+    assert blocks >= 132 * 7 // 8 or splits == gemv.MAX_SPLITS
 
 
 @pytest.mark.parametrize("M,K,N,splits", [(64, 2048, 4096, 4),
@@ -131,12 +170,16 @@ def test_qmatmul_splits_whole_k_tiles(M, K, N, splits):
 @pytest.mark.parametrize("B,nk,T", [(1, 8, 256), (1, 8, 1024), (1, 8, 32),
                                     (2, 8, 600), (32, 8, 4096), (2, 2, 16)])
 def test_attention_split_plan_covers_the_cache(B, nk, T):
+    """The split count comes from B, nk and the capacity alone: a power of
+    two up to 8, more only while B * nk clusters leave SMs idle and the
+    cache has 32 slots a split; the same at 4096 slots as at 256."""
     from qwen3_tts_tpu_torch.ops import flash_decode
-    n_splits, per = flash_decode.split_plan(B, nk, T)
-    tiles = -(-T // flash_decode.TILE)
-    assert n_splits * per >= tiles > (n_splits - 1) * per
-    # whole tiles per range: at least half the ranges that fill the card
-    assert 2 * n_splits >= min(tiles, -(-264 // (B * nk)))
+    s = flash_decode.attention_splits(B, nk, T, sms=132)
+    assert 1 <= s <= flash_decode.MAX_SPLITS and s & (s - 1) == 0
+    if s > 1:
+        assert B * nk * s // 2 < 132 and (s // 2) * 32 < T
+    if T >= 256:
+        assert s == flash_decode.attention_splits(B, nk, 4096, sms=132)
 
 
 def test_voice_file_and_audio_copies_roundtrip(tmp_path):

@@ -132,7 +132,8 @@ def engines(tmp_path_factory):
     teng = convert.engine_from_jax_arrays(
         _np({k: jeng.models[k] for k in ("talker", "predictor")})
         | {"assets": jeng.models["assets"]},
-        _np(jeng.vocoder_params), cfg, speakers_dir=str(sdir))
+        _np(jeng.vocoder_params), cfg, device="cpu",
+        speakers_dir=str(sdir))
     teng.set_sampler_config(SamplerConfig(temperature=0.0, top_k=0,
                                           top_p=1.0, seed=42))
     return jeng, teng

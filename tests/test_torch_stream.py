@@ -364,7 +364,7 @@ def _engine_pair(cfg, sdir, seed=0):
     teng = convert.engine_from_jax_arrays(
         _np({k: jeng.models[k] for k in ("talker", "predictor")})
         | {"assets": jeng.models["assets"]},
-        _np(jeng.vocoder_params), cfg, speakers_dir=sdir)
+        _np(jeng.vocoder_params), cfg, device="cpu", speakers_dir=sdir)
     teng.set_sampler_config(SamplerConfig(**greedy))
     return jeng, teng
 
