@@ -14,9 +14,12 @@ result line:
                the quantized ones included: A (qmatmul) at the talker's
                prefill shapes, B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
                8, 32, every epilogue and the predictor head's slices;
-               decode attention with bf16 q over the predictor's f32 cache
-               and in the stream path's 4096-slot cache; the same calls of
-               B, B8 and decode attention twice and in two CUDA-graph
+               B, B8 and B4 with the rms norm as their prologue against
+               rms_norm_plain + the plain product at the talker's and the
+               predictor's shapes; decode attention with bf16 q over the
+               predictor's f32 cache and in the stream path's 4096-slot
+               cache; the same calls of B, B8, B4 (with and without the
+               norm) and decode attention twice and in two CUDA-graph
                replays give bit-identical outputs
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
@@ -41,7 +44,10 @@ result line:
                (int8 prefill) and gemv_int8 launched. The tiny f32 config's
                greedy codes on the card equal the CPU reference, dense, int8,
                and int4 on a small int4-capable talker. Counts are set to 0
-               just before each of these runs and read just after.
+               just before each of these runs and read just after; every
+               full-width run launches the standalone rms_norm once a frame
+               (the talker's final norm) and 327 gemv launches a frame with
+               the norm as their prologue.
   7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
                dense bf16 and int4 talker + int8 predictor: a cold call,
                warmup, a warm call, each with the counts set to 0 just
@@ -64,8 +70,9 @@ result line:
                each kernel's device time (CUDA graph replay) against its
                plain version, a PyTorch call of the same function and its
                bound, at the earlier timing shapes and the main path's;
-               B, B8 and decode attention at each split count beside
-               their plans' choice
+               rms_norm + B / B8 / B4 against the same products with the
+               fused norm (and without any norm); B, B8, B4 and decode
+               attention at each split count beside their plans' choice
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -204,6 +211,9 @@ class Record:
                       "qwen3_tts_tpu/ops/fused_talker.py:428"),
         "qmatmul": ("cuda", "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
                     "qwen3_tts_tpu/ops/quant.py:208"),
+        # the norm prologue of B / B8 / B4 (`rms2` inside the TPU kernels)
+        "rms_norm_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
+                          "qwen3_tts_tpu/ops/fused_talker.py:121"),
     }
 
     def __init__(self):
@@ -459,6 +469,7 @@ def phase_kernels(rec: Record):
         log(f"  {'argmax_gather':16s} {'B=3 q=' + str(q) + ' ties + bias row':44s}"
             f" exact ok")
     phase_kernels_quant(rec, randn)
+    phase_kernels_norm(rec, randn)
     torch.cuda.synchronize()
 
 
@@ -483,9 +494,9 @@ def bit_identical(fn) -> bool:
 
 
 def determinism(randn):
-    """The cluster kernels sum in a fixed order: B, B8 and decode attention
-    at main-path shapes give the same bits on a repeat and in graph
-    replays."""
+    """The cluster kernels sum in a fixed order: B, B8, B4 (with and
+    without the norm prologue) and decode attention at main-path shapes
+    give the same bits on a repeat and in graph replays."""
     import torch
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
@@ -506,12 +517,25 @@ def determinism(randn):
     lens = torch.tensor([15], dtype=torch.int32, device=dev)
     lens_t = torch.tensor([96], dtype=torch.int32, device=dev)
     vf = torch.zeros(1, dtype=torch.int32, device=dev)
+    q4 = quant.quantize_int4(randn(6144, 2048, scale=0.02))
+    x4 = randn(2, 6144, dtype=torch.bfloat16)
+    res4 = randn(2, 2048)
+    xr, ln = randn(1, 2048), randn(2048, dtype=torch.bfloat16)
+    q4h = quant.quantize_int4(randn(2048, 4096, scale=0.02))
+    nb = dict(norm=(ln, 1e-6), dt=torch.bfloat16)
     calls = {
         "gemv talker gate/up M=2 f32 out": lambda: G.gemv(
             x, w, epilogue=G.EPI_F32),
+        "gemv talker gate/up M=1 with the norm": lambda: G.gemv(
+            xr, w, epilogue=G.EPI_F32, **nb),
         "gemv_int8 predictor down add into residual": lambda: G.gemv_int8(
             xp, q8["q"], q8["scale"], epilogue=G.EPI_ADD_F32,
             out=res.clone()),
+        "gemv_int4 talker down M=2 add into residual": lambda: G.gemv_int4(
+            x4, q4["q4"], q4["m8"], q4["scale"], epilogue=G.EPI_ADD_F32,
+            out=res4.clone()),
+        "gemv_int4 talker qkv M=1 with the norm": lambda: G.gemv_int4(
+            xr, q4h["q4"], q4h["m8"], q4h["scale"], **nb),
         "decode_attention predictor bf16 q / f32 cache": lambda:
             flash_decode.decode_attention_stacked(q, kc, vc, kn, vn, 1, lens,
                                                   vf),
@@ -606,6 +630,55 @@ def phase_kernels_quant(rec: Record, randn):
                     label, rel=8e-3, quiet=True)[1])
     log(f"  gemv_int8/int4   predictor head 1024x32768 slices @0,7,15 x "
         f"2048, M=1,2,8,32, bf16: rel {r8:.2e} / {r4:.2e} (<= 0.008) ok")
+
+
+def phase_kernels_norm(rec: Record, randn):
+    """B, B8 and B4 with the rms norm as their prologue (x the f32
+    residual) against rms_norm_plain + the plain product, at the talker's
+    and the predictor's normed products (qkv, gate/up, the predictor head's
+    slices) and M = 1, 2, 8; bf16 relative error, f32 allclose."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    shapes = [("talker qkv", 2048, 4096, G.EPI_STORE_DT, None),
+              ("talker gate/up", 2048, 12288, G.EPI_F32, None),
+              ("predictor qkv", 1024, 3072, G.EPI_STORE_DT, None),
+              ("predictor gate/up", 1024, 6144, G.EPI_F32, None),
+              ("predictor head slice", 1024, 16 * 2048, G.EPI_F32_ROUND_DT,
+               (0, 7, 15))]
+    for what, K, N, epi, slices in shapes:
+        w32 = randn(K, N, scale=0.02)
+        q8, q4 = quant.quantize(w32), quant.quantize_int4(w32)
+        e32 = r16 = 0.0
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            kinds = (("gemv", G.gemv, G.gemv_plain, (w32.to(dt),)),
+                     ("gemv_int8", G.gemv_int8, G.gemv_int8_plain,
+                      (q8["q"], q8["scale"])),
+                     ("gemv_int4", G.gemv_int4, G.gemv_int4_plain,
+                      (q4["q4"], q4["m8"], q4["scale"])))
+            ln = (1.0 + 0.1 * randn(K)).to(dt)
+            for M in (1, 2, 8):
+                x = randn(M, K)
+                for qi in slices or (None,):
+                    kw = dict(epilogue=epi, norm=(ln, 1e-6), dt=dt)
+                    if qi is not None:
+                        kw.update(col0=qi * 2048, n=2048)
+                    for kind, fn, plain, wargs in kinds:
+                        got = fn(x, *wargs, **kw)
+                        want = plain(x, *wargs, **kw)
+                        label = f"{kind} {what} {K}x{N} M={M} {dname}"
+                        if dt == torch.float32:
+                            e32 = max(e32, rec.check(
+                                "rms_norm_gemv", got, want, label,
+                                rtol=1e-4, atol=1e-4, quiet=True)[0])
+                        else:
+                            r16 = max(r16, rec.check(
+                                "rms_norm_gemv", got, want, label, rel=8e-3,
+                                quiet=True)[1])
+        log(f"  {'rms_norm_gemv':16s} {what + f' {K}x{N}':30s} B/B8/B4, "
+            f"M=1,2,8: f32 max|d|={e32:.3e} (rtol/atol 1e-4), bf16 "
+            f"rel={r16:.2e} (<= 0.008) ok")
 
 
 def phase_probes(rec: Record, card: str):
@@ -779,9 +852,21 @@ def agree_run(eng, models, label, predictor=True):
         fail(f"{label}: predictor agreement {frac_p:.3f} < 0.95")
 
 
-def run_main_path(rec: Record, label: str, fn, need):
+def fused_norms_per_frame(cfg) -> int:
+    """gemv launches a frame with the norm as their prologue: ln1 and ln2
+    of every talker layer, of every predictor layer in each of the 16
+    passes, and the final norm of the 15 head slices."""
+    from qwen3_tts_tpu_torch.core import protocol as P
+    nb = P.NUM_CODEBOOKS
+    return (2 * cfg.talker.n_layers + nb * 2 * cfg.predictor.n_layers
+            + nb - 1)
+
+
+def run_main_path(rec: Record, label: str, fn, need, norms=None):
     """fn() with every launch count set to 0 just before and read just
-    after; fails if a kernel in `need` was not launched."""
+    after; fails if a kernel in `need` was not launched, or, given `norms`
+    (fused norms a frame), unless the standalone rms_norm ran once a frame
+    (the talker's final norm) and the fused norm `norms` times a frame."""
     import torch
     from qwen3_tts_tpu_torch.ops import chain
     torch.cuda.synchronize()
@@ -796,6 +881,15 @@ def run_main_path(rec: Record, label: str, fn, need):
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         fail(f"{label}: kernels never launched on this path: {missing}")
+    if norms is not None:
+        frames = counts["rms_norm"]
+        ok = frames > 0 and counts["rms_norm_gemv"] == norms * frames
+        log(f"  {label}: norms: {frames} standalone rms_norm (one a frame), "
+            f"{counts['rms_norm_gemv']} fused = {norms} x {frames} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label}: expected one standalone rms_norm and {norms} "
+                 "fused norms a frame")
     return out
 
 
@@ -823,14 +917,15 @@ def phase_main(eng, rec: Record, q48, q88):
 
     log("[6/8] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
-    dense_need = ("gemv", "decode_attention") + TRITON
+    dense_need = ("gemv", "decode_attention", "rms_norm_gemv") + TRITON
+    norms = fused_norms_per_frame(eng.config)
 
     def engine_runs(e, label, frames, need):
         e.set_max_steps(frames)
         e.set_sampler_config(SamplerConfig(seed=0))
         audio = run_main_path(rec, f"{label} B=1 generate_with_voice",
                               lambda: e.generate_with_voice(TEXT, voice),
-                              need)
+                              need, norms)
         check_wav(f"{label} B=1", audio.samples, frames)
         return audio
 
@@ -839,7 +934,7 @@ def phase_main(eng, rec: Record, q48, q88):
     pair = run_main_path(
         rec, "dense bf16 B=2 generate_batch",
         lambda: eng.generate_batch([TEXT, "A second, shorter one."],
-                                   [voice, voice]), dense_need)
+                                   [voice, voice]), dense_need, norms)
     for i, a in enumerate(pair):
         check_wav(f"dense bf16 B=2 row {i}", a.samples, 32)
 
@@ -849,13 +944,14 @@ def phase_main(eng, rec: Record, q48, q88):
     spk = os.path.join(REPO, "speakers")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
-    need48 = ("gemv_int4", "gemv_int8", "decode_attention") + TRITON
+    need48 = ("gemv_int4", "gemv_int8", "decode_attention",
+              "rms_norm_gemv") + TRITON
     engine_runs(e48, "int4+int8", 32, need48)
     e48.set_max_steps(32)
     pair = run_main_path(
         rec, "int4+int8 B=2 generate_batch",
         lambda: e48.generate_batch([TEXT, "A second, shorter one."],
-                                   [voice, voice]), need48)
+                                   [voice, voice]), need48, norms)
     for i, a in enumerate(pair):
         check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
 
@@ -863,7 +959,8 @@ def phase_main(eng, rec: Record, q48, q88):
     e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
     engine_runs(e88, "int8/int8", 16, ("qmatmul", "gemv_int8",
-                                       "decode_attention") + TRITON)
+                                       "decode_attention", "rms_norm_gemv")
+                + TRITON)
     del e48, e88
     chain.reset_launch_counts()
 
@@ -1043,9 +1140,11 @@ def phase_stream(eng, rec: Record, card: str, q48):
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=os.path.join(REPO, "speakers"),
                     device="cuda")
-    sets = (("dense bf16", eng, ("gemv", "decode_attention") + TRITON),
-            ("int4+int8", e48,
-             ("gemv_int4", "gemv_int8", "decode_attention") + TRITON))
+    sets = (("dense bf16", eng,
+             ("gemv", "decode_attention", "rms_norm_gemv") + TRITON),
+            ("int4+int8", e48, ("gemv_int4", "gemv_int8", "decode_attention",
+                                "rms_norm_gemv") + TRITON))
+    norms = fused_norms_per_frame(eng.config)
     for label, e, need in sets:
         e.set_max_steps(frames)
         e.set_sampler_config(SamplerConfig(seed=0))
@@ -1057,7 +1156,8 @@ def phase_stream(eng, rec: Record, card: str, q48):
                 log(f"  {label}: warmup (offline + stream, prompt bucket 64) "
                     f"{time.perf_counter() - t0:.2f} s")
             run = run_main_path(rec, f"{label} generate_stream ({what})",
-                                lambda: stream_once(e, TEXT, voice), need)
+                                lambda: stream_once(e, TEXT, voice), need,
+                                norms)
             check_stream(f"{label} {what}", run, e, frames)
             runs.append(run)
         rtf = [r["wall"] / (len(r["samples"]) / 24000) for r in runs]
@@ -1257,9 +1357,14 @@ def frame_times(eng, models, label: str, card: str, g):
             log(f"  {label}: device ms per frame (profiler, (prefill + 4 "
                 f"frames) - prefill) {tot:.3f} ms in {cnt:.0f} CUDA kernels "
                 f"on {card}; by kernel:")
-            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:10]
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
             for k, (ms, n) in top:
                 log(f"    {ms:9.4f} ms/frame  {n:7.1f}x/frame  {k[:70]}")
+            two = [k for k in per
+                   if "gemv_epilogue" in k or "gemv4_partial" in k]
+            if two:
+                fail(f"{label}: second-launch gemv kernels in the profile: "
+                     f"{two}")
     except (RuntimeError, AssertionError) as exc:
         log(f"  profiler unavailable ({exc}); device busy share not measured")
     if busy is None:
@@ -1434,6 +1539,7 @@ def kernel_times(rec: Record, card: str, g):
 
     # the Triton passes at the main path's shapes; no single PyTorch call
     x32, w = randn(1, 2048, dtype=torch.float32), randn(2048)
+    w32 = w.float()
     qkv, qn, kn_ = randn(1, 32 * 128), randn(128), randn(128)
     cos, sin = (randn(1, 128, dtype=torch.float32),
                 randn(1, 128, dtype=torch.float32))
@@ -1443,9 +1549,13 @@ def kernel_times(rec: Record, card: str, g):
     codes = torch.zeros(1, 16, dtype=torch.int32, device=dev)
     xo = torch.zeros(1, 1024, device=dev)
     cases += [
+        # F.rms_norm computes the same function in f32, without the final
+        # rounding to bf16
         ("rms_norm", "H=2048 f32 -> bf16", 1,
          lambda: el.rms_norm(x32, w, 1e-6, torch.bfloat16),
-         lambda: el.rms_norm_plain(x32, w, 1e-6, torch.bfloat16), None,
+         lambda: el.rms_norm_plain(x32, w, 1e-6, torch.bfloat16),
+         (lambda: F.rms_norm(x32, (2048,), w32, 1e-6))
+         if hasattr(F, "rms_norm") else None,
          nbytes(x32, w) + 2048 * 2, 4.0 * 2048, "f32", True),
         ("qk_norm_rope", "16/8 hd128 bf16", 1,
          lambda: el.qk_norm_rope(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
@@ -1477,13 +1587,86 @@ def kernel_times(rec: Record, card: str, g):
             rec.ms[name], rec.plain_ms[name] = ms, plain
             rec.library_ms[name] = lib
             rec.bound[name] = (b_ms, b_by)
+    norm_fusion_times(rec, card, g)
+
+
+def norm_fusion_times(rec: Record, card: str, g):
+    """The norm prologue against the launch it removes: per normed product
+    (qkv with its ln1, gate/up with its ln2; 4 copies of the layer's pair
+    over the L2), device ms (CUDA-graph replay) of the product alone (x
+    already normed), of the standalone Triton rms_norm then the product,
+    and of the product with the fused norm; B at the talker layer, B8 at
+    the predictor layer, B4 at the talker layer, M=1 bf16. B's case is the
+    fused norm's entry in the JSON line (its bound: the product's weights,
+    the f32 residual, the norm weight and the output)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    for label, K, Ns, kind, record in (
+            ("B talker qkv + gate/up", 2048, (4096, 12288), "dense", True),
+            ("B8 predictor qkv + gate/up", 1024, (3072, 6144), "int8",
+             False),
+            ("B4 talker qkv + gate/up", 2048, (4096, 12288), "int4",
+             False)):
+        fn, plain = {"dense": (G.gemv, G.gemv_plain),
+                     "int8": (G.gemv_int8, G.gemv_int8_plain),
+                     "int4": (G.gemv_int4, G.gemv_int4_plain)}[kind]
+        x = randn(1, K, dtype=torch.float32)
+        ln = randn(K)
+        xn = el.rms_norm(x, ln, 1e-6, bf)
+        mats = []
+        for _ in range(4):
+            for n, epi in zip(Ns, (G.EPI_STORE_DT, G.EPI_F32)):
+                w = randn(K, n, scale=0.02)
+                wargs = (w,) if kind == "dense" else tuple(
+                    (quant.quantize(w.float()) if kind == "int8"
+                     else quant.quantize_int4(w.float())).values())
+                mats.append((wargs, epi))
+
+        def run(f, normed):
+            def call():
+                for wargs, epi in mats:
+                    if normed == "fused":
+                        f(x, *wargs, epilogue=epi, norm=(ln, 1e-6), dt=bf)
+                    elif normed == "standalone":
+                        f(el.rms_norm(x, ln, 1e-6, bf), *wargs, epilogue=epi)
+                    else:
+                        f(xn, *wargs, epilogue=epi)
+            return call
+
+        per = len(mats)
+        alone = graph_ms(run(fn, "none")) / per
+        unfused = graph_ms(run(fn, "standalone")) / per
+        fused = graph_ms(run(fn, "fused")) / per
+        log(f"  {'rms_norm_gemv':16s} {label + ', per product, M=1 bf16':44s}"
+            f" device: product alone {alone:.4f} ms, rms_norm + product "
+            f"{unfused:.4f} ms, fused norm {fused:.4f} ms (the fused norm "
+            f"costs {fused - alone:+.4f} ms, the launch it removes "
+            f"{unfused - alone:+.4f}) on {card}")
+        if record:
+            n_b = sum(nbytes(*wargs) + (2 if epi == G.EPI_STORE_DT else 4)
+                      * wargs[0].shape[1] for wargs, epi in mats)
+            n_b += per * nbytes(x, ln)
+            ops = sum(2.0 * K * wargs[0].shape[1] for wargs, _ in mats)
+            rec.ms["rms_norm_gemv"] = fused
+            rec.plain_ms["rms_norm_gemv"] = graph_ms(run(plain, "fused")) / per
+            rec.library_ms["rms_norm_gemv"] = None
+            rec.bound["rms_norm_gemv"] = bound(n_b / per, ops / per, "bf16")
 
 
 def split_times(card: str, g):
-    """The measurement behind the split plans of the two cluster kernels
-    (`gemv.gemv_splits`, `flash_decode.attention_splits`): device ms per
-    call (CUDA-graph replay) of B, B8 and decode attention at main-path
-    shapes with the split count forced to 1, 2, 4 and 8 (one split is a
+    """The measurement behind the split plans of the cluster kernels
+    (`gemv.gemv_splits`, `gemv.gemv4_splits`,
+    `flash_decode.attention_splits`): device ms per call (CUDA-graph
+    replay) of B, B8, B4 and decode attention at main-path shapes with the split count forced to 1, 2, 4 and 8 (one split is a
     plain launch, more a cluster launch), beside the plan's own choice.
     The calls go through the wrappers, with their checks; only the planner
     they consult is replaced. Weights and caches rotate over copies larger
@@ -1510,33 +1693,45 @@ def split_times(card: str, g):
             + " ".join(f"s{s}={t:.4f}" for s, t in zip((1, 2, 4, 8), times))
             + f" ms; plan s{planned} on {card}")
 
-    for label, K, N, int8 in (
-            ("B talker qkv 2048x4096, M=1", 2048, 4096, False),
-            ("B predictor qkv 1024x3072, M=1", 1024, 3072, False),
-            ("B one tile 256x128, M=1 (launch floor)", 256, 128, False),
-            ("B8 predictor qkv 1024x3072, M=1", 1024, 3072, True)):
-        w_bytes = 1 if int8 else 2
-        copies = min(64, max(2, -(-64 * 2**20 // (K * N * w_bytes))))
+    bf = torch.bfloat16
+    for label, K, N, kind in (
+            ("B talker qkv 2048x4096, M=1", 2048, 4096, G.DENSE),
+            ("B predictor qkv 1024x3072, M=1", 1024, 3072, G.DENSE),
+            ("B one tile 256x128, M=1 (launch floor)", 256, 128, G.DENSE),
+            ("B8 predictor qkv 1024x3072, M=1", 1024, 3072, G.INT8),
+            ("B4 talker qkv 2048x4096, M=1", 2048, 4096, G.INT4),
+            ("B4 talker gate/up 2048x12288, M=1", 2048, 12288, G.INT4)):
+        w_bytes = {G.DENSE: 2, G.INT8: 1, G.INT4: 0.5}[kind]
+        copies = int(min(64, max(2, -(-64 * 2**20 // (K * N * w_bytes)))))
         x = randn(1, K)
-        if int8:
+        if kind == G.INT8:
             ws = [quant.quantize(randn(K, N, scale=0.02))
                   for _ in range(copies)]
 
             def fn(ws=ws, x=x):
                 for w in ws:
                     G.gemv_int8(x, w["q"], w["scale"])
-            planned = G.launch_splits(x, ws[0]["q"], 1, K, N)
+            w0 = ws[0]["q"]
+        elif kind == G.INT4:
+            ws = [quant.quantize_int4(randn(K, N, scale=0.02))
+                  for _ in range(copies)]
+
+            def fn(ws=ws, x=x):
+                for w in ws:
+                    G.gemv_int4(x, w["q4"], w["m8"], w["scale"])
+            w0 = ws[0]["q4"]
         else:
             ws = [randn(K, N, scale=0.02) for _ in range(copies)]
 
             def fn(ws=ws, x=x):
                 for w in ws:
                     G.gemv(x, w)
-            planned = G.launch_splits(x, ws[0], 1, K, N)
+            w0 = ws[0]
+        planned = G.launch_splits(x, w0, 1, K, N, kind, bf, False)
         sweep(label, fn, copies, G, "launch_splits", planned)
         del ws
 
-    bf, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
     for label, nq, nk, T, kv, cdt in (
             ("attention talker kv_len 96 of 256", 16, 8, 256, 96, bf),
             ("attention talker kv_len 96 of 4096", 16, 8, 4096, 96, bf),

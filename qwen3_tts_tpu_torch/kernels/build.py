@@ -33,13 +33,14 @@ _lib = None
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a pointer passed
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
-    "gemv_launch": [P, P, P, I, I, I, I, I, I, I, I, P],
-    "gemv_int8_launch": [P, P, P, P, I, I, I, I, I, I, I, I, P],
-    "gemv_blocks_per_sm": [I, I, I],
-    "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "gemv_blocks_per_sm": [I, I, I, I],
+    "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, P],

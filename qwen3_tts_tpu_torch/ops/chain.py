@@ -3,7 +3,10 @@
 Shared by `ops/fused_talker.py` and `ops/fused_predictor.py`: the layer
 body of both TPU kernels (rms(ln1), qkv, QK-norm and RoPE, attention over
 the pre-update cache, wo into the f32 residual, rms(ln2), gate/up, silu*up,
-down into the residual). The chain runs with one of two op sets:
+down into the residual). As inside the TPU kernels, each rms norm runs in
+the launch of the product it feeds: ln1 and ln2 are the norm prologues of
+the qkv and gate/up products (`gemv`'s `norm=`), not launches of their
+own. The chain runs with one of two op sets:
 
   KERNELS  the wrappers, which launch the kernels on CUDA tensors (and take
            their plain versions on CPU tensors);
@@ -57,7 +60,7 @@ PLAIN = SimpleNamespace(
 
 def matmul(ops, x: torch.Tensor, w: quant.Weight, **kw) -> torch.Tensor:
     """x @ w through the gemv variant of w's kind (keywords: col0, n,
-    epilogue, out)."""
+    epilogue, out, norm, dt)."""
     if quant.is_quantized4(w):
         return ops.gemv_int4(x, w["q4"], w["m8"], w["scale"], **kw)
     if quant.is_quantized(w):
@@ -96,25 +99,34 @@ def layer_pass(ops, lw, l: int, cfg, x_res: torch.Tensor, cos, sin,
     nq, nk, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
     dt = q_buf.dtype
     eps = cfg.rms_eps
-    a = ops.rms_norm(x_res, lw["ln1"][l], eps, dt)
-    qkv = matmul(ops, a, quant.layer(lw["wqkv"], l))
+    qkv = matmul(ops, x_res, quant.layer(lw["wqkv"], l),
+                 norm=(lw["ln1"][l], eps), dt=dt)
     ops.qk_norm_rope(qkv, lw["q_norm"][l], lw["k_norm"][l], cos, sin, nq, nk,
                      eps, out=(q_buf, k_new, v_new))
     attn = ops.decode_attention(q_buf, k_cache, v_cache, k_new, v_new, l,
                                 kv_len, valid_from)
     matmul(ops, attn.view(B, nq * hd), quant.layer(lw["wo"], l),
            epilogue=G.EPI_ADD_F32, out=x_res)
-    m = ops.rms_norm(x_res, lw["ln2"][l], eps, dt)
-    gu = matmul(ops, m, quant.layer(lw["w_gu"], l), epilogue=G.EPI_F32)
+    gu = matmul(ops, x_res, quant.layer(lw["w_gu"], l), epilogue=G.EPI_F32,
+                norm=(lw["ln2"][l], eps), dt=dt)
     act = ops.silu_mul(gu, dt)
     matmul(ops, act, quant.layer(lw["w_down"], l), epilogue=G.EPI_ADD_F32,
            out=x_res)
 
 
+_GEMVS = (G.gemv, G.gemv_int8, G.gemv_int4)
+
+
 def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
+    for fn in _GEMVS:
+        fn.norm_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in vars(KERNELS).items()}
+    """Launches per kernel wrapper, and `rms_norm_gemv`: the gemv launches
+    that ran the norm as their prologue (counted in their gemv too)."""
+    counts = {name: fn.launches for name, fn in vars(KERNELS).items()}
+    counts["rms_norm_gemv"] = sum(fn.norm_launches for fn in _GEMVS)
+    return counts

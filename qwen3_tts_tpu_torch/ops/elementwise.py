@@ -2,7 +2,11 @@
 predictor frame, as Triton kernels (`ops/elementwise_triton.py`) with their
 plain PyTorch versions beside them.
 
-  rms_norm        x [M, H] (f32 or dt) -> dt; f32 math, one rounding
+  rms_norm        x [M, H] (f32 or dt) -> dt; f32 math, one rounding. On
+                  the main path only the talker's final norm (its output
+                  is the step's hidden); every other norm of the chain is
+                  the prologue of the gemv it feeds (`ops/gemv.py`), which
+                  takes `rms_norm_plain` as its plain prologue
   qk_norm_rope    fused qkv row -> q, k (per-head rms + rotate-half RoPE)
                   and v, each [B, heads, hd] contiguous in dt
   silu_mul        gate/up [M, 2F] (f32 or dt) -> dt; f32 math, one rounding

@@ -18,7 +18,9 @@ import triton.language as tl
 
 @triton.jit
 def rms_norm_kernel(x_ptr, w_ptr, out_ptr, H, eps, BLOCK: tl.constexpr):
-    """Replaces `rms2` of both TPU kernels: f32 math, one rounding."""
+    """Replaces `rms2` of the TPU talker kernel where its output is kept
+    (the final norm, the step's hidden): f32 math, one rounding. The other
+    norms run as the prologue of their gemv (`csrc/gemv.cu`)."""
     row = tl.program_id(0)
     offs = tl.arange(0, BLOCK)
     mask = offs < H

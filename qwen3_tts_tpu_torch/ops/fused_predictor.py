@@ -5,7 +5,8 @@ On the TPU this is one Pallas kernel. Here it is a chain of the port's
 kernels (`ops/chain.py`), driven from Python:
 
   pass 0   x = h1024 (rounded to the model dtype) at position 0
-  pass 1   x = ptab[0][sel(code_0)] at position 1; head slice 0
+  pass 1   x = ptab[0][sel(code_0)] at position 1; head slice 0 (its
+           product with the final norm as prologue)
   q=1..15  code_q = argmax of the f32 head slice [(q-1)*2048, q*2048)
            (lowest index on ties) -> codes[:, q]; for q < 15 the same
            kernel gathers x = ptab[q][sel(code_q)] for pass q+1 at position
@@ -92,9 +93,10 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
             v_cache[l, :, :, p] = v_new
 
     def head_slice(qi: int) -> None:
-        h = ops.rms_norm(x_res, params["final_norm"], cfg.rms_eps, dt)
-        chain.matmul(ops, h, head, col0=qi * CV, n=CV,
-                     epilogue=EPI_F32_ROUND_DT, out=logits)
+        # the final norm is the head slice's prologue, as in the TPU kernel
+        chain.matmul(ops, x_res, head, col0=qi * CV, n=CV,
+                     epilogue=EPI_F32_ROUND_DT, out=logits,
+                     norm=(params["final_norm"], cfg.rms_eps), dt=dt)
 
     stack_pass(0)
     x_res.copy_(ptab[0][sel_rows(code_0.long(), ptab_rows, ptab.shape[1])])

@@ -3,9 +3,10 @@
 
 On the TPU this is one Pallas kernel. Here it is a chain, driven per layer
 from Python, of the port's hand-written kernels (`ops/chain.py`): gemv for
-every product, decode attention over the pre-update cache, and the Triton
-passes for the norms, QK-norm + RoPE and SwiGLU. Semantics are the TPU
-kernel's:
+every product (ln1 and ln2 as the norm prologues of the qkv and gate/up
+products), decode attention over the pre-update cache, and the Triton
+passes for the final norm, QK-norm + RoPE and SwiGLU. Semantics are the
+TPU kernel's:
 
   * the residual stream stays f32 across layers; matmul inputs are rounded
     to the model dtype (rms outputs, attention output, silu*up);
@@ -58,6 +59,8 @@ def _step(ops, params: Dict[str, Any], cfg, x, positions, slot, kv_len,
     for l in range(L):
         chain.layer_pass(ops, lw, l, cfg, x_res, cos, sin, k_cache, v_cache,
                          q_buf, k_new[l], v_new[l], kv_len, valid_from)
+    # the final norm stays a launch of its own: its output is also the
+    # step's returned hidden, which a product's prologue would not keep
     h = ops.rms_norm(x_res, params["final_norm"], cfg.rms_eps, dt)
     logits = chain.matmul(ops, h, params["head"], epilogue=EPI_F32_ROUND_DT)
 

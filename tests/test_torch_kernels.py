@@ -101,6 +101,37 @@ def test_gemv_quantized(dev, dtype, M, K, N, col0, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,col0,n", [(1, 2048, 4096, 0, None),
+                                          (2, 2048, 12288, 0, None),
+                                          (1, 1024, 3072, 0, None),
+                                          (8, 1024, 32768, 30720, 2048),
+                                          (3, 512, 264, 8, 256),
+                                          (32, 2048, 2176, 0, None)])
+def test_gemv_fused_norm(dev, dtype, M, K, N, col0, n):
+    """B, B8 and B4 with the rms norm as their prologue (x the f32
+    residual) against rms_norm_plain + the plain product, every epilogue."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = _randn(g, M, K, scale=3.0)
+    ln = (1.0 + 0.1 * _randn(g, K)).to(dtype)
+    w = _randn(g, K, N, scale=0.02)
+    q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+    calls = [(G.gemv, G.gemv_plain, (w.to(dtype),)),
+             (G.gemv_int8, G.gemv_int8_plain, (q8["q"], q8["scale"])),
+             (G.gemv_int4, G.gemv_int4_plain,
+              (q4["q4"], q4["m8"], q4["scale"]))]
+    res = _randn(g, M, n or N)
+    for fn, plain, wargs in calls:
+        for epi in (G.EPI_STORE_DT, G.EPI_F32, G.EPI_F32_ROUND_DT,
+                    G.EPI_ADD_F32):
+            kw = dict(col0=col0, n=n, epilogue=epi, norm=(ln, 1e-6),
+                      dt=dtype)
+            out = (lambda: res.clone()) if epi == G.EPI_ADD_F32 \
+                else (lambda: None)
+            _close(fn(x, *wargs, out=out(), **kw),
+                   plain(x, *wargs, out=out(), **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(64, 2048, 4096), (37, 6144, 2048),
                                    (128, 2048, 2176), (1, 128, 128),
                                    (300, 256, 384)])
@@ -177,8 +208,9 @@ def _bit_identical(fn):
 
 
 def test_cluster_kernels_repeat_and_graph_replay_bit_identical(dev):
-    """B, B8 and decode attention sum in a fixed order: the same call twice
-    and two replays of a captured call give the same bits."""
+    """B, B8, B4 (with and without the norm prologue) and decode attention
+    sum in a fixed order: the same call twice and two replays of a captured
+    call give the same bits."""
     g = torch.Generator(device=dev).manual_seed(9)
     x = _randn(g, 2, 2048, dtype=torch.bfloat16)
     w = _randn(g, 2048, 4096, dtype=torch.bfloat16, scale=0.02)
@@ -191,9 +223,20 @@ def test_cluster_kernels_repeat_and_graph_replay_bit_identical(dev):
     kn, vn = (_randn(g, 1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
     lens = torch.tensor([97], dtype=torch.int32, device=dev)
     vfrom = torch.tensor([2], dtype=torch.int32, device=dev)
+    q4 = quant.quantize_int4(_randn(g, 6144, 2048, scale=0.02))
+    x4 = _randn(g, 2, 6144, dtype=torch.bfloat16)
+    res4 = _randn(g, 2, 2048)
+    xr, ln = _randn(g, 1, 2048), _randn(g, 2048, dtype=torch.bfloat16)
+    nb = dict(norm=(ln, 1e-6), dt=torch.bfloat16)
+    q4h = quant.quantize_int4(_randn(g, 2048, 1024, scale=0.02))
     calls = [lambda: G.gemv(x, w, epilogue=G.EPI_F32),
              lambda: G.gemv(x, w, epilogue=G.EPI_ADD_F32, out=res.clone()),
+             lambda: G.gemv(xr, w, epilogue=G.EPI_F32, **nb),
              lambda: G.gemv_int8(x8, q8["q"], q8["scale"]),
+             lambda: G.gemv_int4(x4, q4["q4"], q4["m8"], q4["scale"],
+                                 epilogue=G.EPI_ADD_F32, out=res4.clone()),
+             lambda: G.gemv_int4(xr, q4h["q4"], q4h["m8"], q4h["scale"],
+                                 **nb),
              lambda: flash_decode.decode_attention_stacked(
                  q, kc, vc, kn, vn, 1, lens, vfrom)]
     for i, fn in enumerate(calls):

@@ -154,6 +154,47 @@ def test_gemv_k_chunk_fills_the_card(M, K, N, splits):
     assert blocks >= 132 * 7 // 8 or splits == gemv.MAX_SPLITS
 
 
+@pytest.mark.parametrize("M,K,N,splits", [(1, 2048, 4096, 4),
+                                          (1, 2048, 2048, 8),
+                                          (1, 2048, 12288, 2),
+                                          (1, 6144, 2048, 8),
+                                          (2, 2048, 12288, 2),
+                                          (1, 512, 4096, 2)])
+def test_gemv4_k_split_fills_the_card(M, K, N, splits):
+    """B4's K split doubles as B's does (up to about one block per SM,
+    within one wave of 2 resident blocks a SM), capped at 8 and at the
+    packed groups; the main path's plans are the fastest splits measured
+    on the H100 (chip_smoke.py split_times)."""
+    from qwen3_tts_tpu_torch.ops import gemv
+    assert gemv.gemv4_splits(M, K, N, sms=132, per_sm=2) == splits
+    assert splits <= K // (2 * gemv.GROUP4)
+
+
+def _c_params(name, text):
+    """The parameter types of `int name(...)` in the C sources: "P" for a
+    pointer, "F" for a float, "I" for an int."""
+    head = text[text.index(f"int {name}("):]
+    params = head[len(f"int {name}("):head.index(")")].split(",")
+    kinds = []
+    for p in params:
+        p = p.strip()
+        kinds.append("P" if "*" in p else "F" if p.startswith("float")
+                     else "I")
+    return kinds
+
+
+def test_signatures_match_the_c_entry_points():
+    """ctypes passes each argument as SIGNATURES says: a pointer where the C
+    function takes one, a float for a float, an int for an int, as many as
+    it takes."""
+    import ctypes
+    text = "".join(open(p).read() for p in build.sources())
+    code = {ctypes.c_void_p: "P", ctypes.c_float: "F", ctypes.c_int: "I",
+            ctypes.c_longlong: "I"}
+    for name, argtypes in build.SIGNATURES.items():
+        assert [code[a] for a in argtypes] == _c_params(name, text), name
+
+
 @pytest.mark.parametrize("M,K,N,splits", [(64, 2048, 4096, 4),
                                             (64, 6144, 2048, 8),
                                             (37, 2048, 2176, 4),

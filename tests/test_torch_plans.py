@@ -1,11 +1,11 @@
-"""The launch plans of the two cluster kernels, and their merge order, on
-the CPU (no card needed).
+"""The launch plans of the cluster kernels, and their merge order, on the
+CPU (no card needed).
 
-`csrc/gemv.cu` (B, B8) and `csrc/decode_attention.cu` divide their work
-with integer arithmetic inside the kernel. The mirrors below repeat that
-arithmetic in Python, block by block, and check that it covers every K row
-and output column (gemv) and every live cache slot (attention) exactly
-once, in order. `split_merge_attention` repeats the attention kernel's
+`csrc/gemv.cu` (B, B8, B4) and `csrc/decode_attention.cu` divide their
+work with integer arithmetic inside the kernel. The mirrors below repeat
+that arithmetic in Python, block by block, and check that it covers every
+K row (B4: every packed group, whole) and output column (gemv) and every
+live cache slot (attention) exactly once, in order. `split_merge_attention` repeats the attention kernel's
 order of operations (per split, per group an online softmax; groups merged
 in group order, splits in rank order, each merge in two passes: the max,
 then the rescaled sums; the current token last) in f32 and
@@ -80,6 +80,63 @@ def test_gemv_plan_covers_every_row_and_column_once(K, N, w_bytes):
                 == list(range(N))
             assert [m for c in sorted(xrows) for m in xrows[c]] \
                 == list(range(M))
+
+
+# (K, N) of every B4 product on the main path (the int4 talker's qkv, wo,
+# gate/up, down and head; an int4 predictor's), and one of two groups
+MAIN_PATH4 = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048),
+              (2048, 2176), (1024, 3072), (1024, 1024), (1024, 6144),
+              (3072, 1024), (1024, 2048), (512, 264)]
+GROUP2 = 2 * G.GROUP4                  # k's of a packed group
+
+
+def gemv4_blocks(splits, M, K, N):
+    """What each block of the B4 kernel covers, by the kernel's own
+    arithmetic: (packed groups, columns, x rows, rank)."""
+    mt_max = G.row_tile(M, 4)
+    ng2 = K // GROUP2
+    per = -(-ng2 // splits)
+    for by in range(-(-M // mt_max)):
+        for bx in range(-(-N // G.TILE_N) * splits):
+            tile, rank = divmod(bx, splits)
+            m0 = by * mt_max
+            gb = min(ng2, rank * per)
+            ge = min(ng2, gb + per)
+            c0 = tile * G.TILE_N
+            yield (range(gb, ge), range(c0, min(c0 + G.TILE_N, N)),
+                   range(m0, min(m0 + mt_max, M)), rank)
+
+
+@pytest.mark.parametrize("K,N", MAIN_PATH4)
+def test_gemv4_plan_covers_every_packed_group_once(K, N):
+    ng2 = K // GROUP2
+    for M in (1, 2, 3, 8, 32):
+        for per_sm in (1, 2, 3):
+            splits = G.gemv4_splits(M, K, N, sms=132, per_sm=per_sm)
+            assert 1 <= splits <= min(G.MAX_SPLITS, ng2)
+            assert splits & (splits - 1) == 0
+            groups_of, cols, xrows = {}, {}, {}
+            for gs, cs, ms, rank in gemv4_blocks(splits, M, K, N):
+                groups_of.setdefault((ms.start, cs.start), []).append(
+                    (rank, list(gs)))
+                cols[cs.start] = list(cs)
+                xrows[ms.start] = list(ms)
+            for key, parts in groups_of.items():
+                # ranks in order take whole groups [0, ng2), each once
+                assert [r for r, _ in sorted(parts)] == list(range(splits))
+                gs = [grp for _, r in sorted(parts) for grp in r]
+                assert gs == list(range(ng2)), (M, per_sm, splits, key)
+            assert [c for t in sorted(cols) for c in cols[t]] \
+                == list(range(N))
+            assert [m for c in sorted(xrows) for m in xrows[c]] \
+                == list(range(M))
+
+
+def test_gemv4_plan_never_splits_past_the_groups():
+    # one packed group: never a cluster; two: at most two ranks
+    assert G.gemv4_splits(1, GROUP2, 128, sms=132, per_sm=3) == 1
+    assert G.gemv4_splits(1, 2 * GROUP2, 128, sms=132, per_sm=3) == 2
+    assert G.gemv4_splits(1, 24 * GROUP2, 2048, sms=132, per_sm=3) == 8
 
 
 def attention_ranges(kv_len, valid_from, T, n_splits):
