@@ -16,10 +16,16 @@ result line:
                8, 32, every epilogue and the predictor head's slices;
                B, B8 and B4 with the rms norm as their prologue against
                rms_norm_plain + the plain product at the talker's and the
-               predictor's shapes; decode attention with bf16 q over the
-               predictor's f32 cache and in the stream path's 4096-slot
-               cache; the same calls of B, B8, B4 (with and without the
-               norm) and decode attention twice and in two CUDA-graph
+               predictor's shapes; B, B8 and B4 with the qk epilogue
+               (QK-norm, RoPE, q/k/v split; the KV store into a strided f32
+               cache view: slot p equal to the launch's own k / v, its
+               neighbours untouched) at the talker's and the predictor's
+               qkv, and with the silu prologue at their down products,
+               against the plain fused products; decode attention with
+               bf16 q over the predictor's f32 cache and in the stream
+               path's 4096-slot cache; the same calls of B, B8, B4 (with
+               and without the norm, with the silu prologue and the qk
+               epilogue) and decode attention twice and in two CUDA-graph
                replays give bit-identical outputs
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
@@ -39,15 +45,18 @@ result line:
                generate_batch at B=2. The same weights quantized as the JAX
                bench's headline rung (talker int4, predictor int8) through
                TtsEngine(weights=...): B=1, 32 frames, then B=2, with
-               gemv_int4, gemv_int8, decode attention and the Triton passes
-               launched; the int8/int8 rung, B=1, 16 frames, with qmatmul
-               (int8 prefill) and gemv_int8 launched. The tiny f32 config's
-               greedy codes on the card equal the CPU reference, dense, int8,
+               gemv_int4, gemv_int8, decode attention, the fused pieces
+               and the Triton passes launched; the int8/int8 rung, B=1, 16
+               frames, with qmatmul (int8 prefill) and gemv_int8 launched.
+               The tiny f32 config's greedy codes on the card (its qk
+               epilogue at hd 16) equal the CPU reference, dense, int8,
                and int4 on a small int4-capable talker. Counts are set to 0
                just before each of these runs and read just after; every
                full-width run launches the standalone rms_norm once a frame
-               (the talker's final norm) and 327 gemv launches a frame with
-               the norm as their prologue.
+               (the talker's final norm), and a frame's gemv launches run
+               327 norm prologues, 156 qk epilogues (28 talker + 128
+               predictor layer passes), 128 KV stores (the predictor's)
+               and 156 silu prologues.
   7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
                dense bf16 and int4 talker + int8 predictor: a cold call,
                warmup, a warm call, each with the counts set to 0 just
@@ -71,8 +80,10 @@ result line:
                plain version, a PyTorch call of the same function and its
                bound, at the earlier timing shapes and the main path's;
                rms_norm + B / B8 / B4 against the same products with the
-               fused norm (and without any norm); B, B8, B4 and decode
-               attention at each split count beside their plans' choice
+               fused norm (and without any norm); the qkv products with
+               and without the qk epilogue, the down products with and
+               without the silu prologue; B, B8, B4 and decode attention
+               at each split count beside their plans' choice
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -197,11 +208,6 @@ class Record:
                  "qwen3_tts_tpu/ops/fused_talker.py:428"),
         "rms_norm": ("triton", "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
                      "qwen3_tts_tpu/ops/fused_talker.py:428"),
-        "qk_norm_rope": ("triton",
-                         "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
-                         "qwen3_tts_tpu/ops/fused_talker.py:428"),
-        "silu_mul": ("triton", "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
-                     "qwen3_tts_tpu/ops/fused_talker.py:428"),
         "argmax_gather": ("triton",
                           "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
                           "qwen3_tts_tpu/ops/fused_predictor.py:610"),
@@ -214,6 +220,12 @@ class Record:
         # the norm prologue of B / B8 / B4 (`rms2` inside the TPU kernels)
         "rms_norm_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
                           "qwen3_tts_tpu/ops/fused_talker.py:121"),
+        # the qk epilogue of the qkv product (`rms3` + `rope`, and the
+        # predictor's KV store) and the silu prologue of the down product
+        "qk_rope_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cuh",
+                         "qwen3_tts_tpu/ops/fused_talker.py:126"),
+        "silu_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cuh",
+                      "qwen3_tts_tpu/ops/fused_talker.py:373"),
     }
 
     def __init__(self):
@@ -428,28 +440,6 @@ def phase_kernels(rec: Record):
         rec.check("rms_norm", el.rms_norm(x, w.float(), 1e-6, torch.float32),
                   el.rms_norm_plain(x, w.float(), 1e-6, torch.float32),
                   f"H={H} f32", rtol=1e-4, atol=1e-4)
-    for nq, nk, B in ((16, 8, 1), (8, 8, 1), (16, 8, 3)):
-        for dt in (torch.float32, torch.bfloat16):
-            qkv = randn(B, (nq + 2 * nk) * 128, dtype=dt)
-            qn, kn_ = randn(128, dtype=dt), randn(128, dtype=dt)
-            cos, sin = randn(B, 128), randn(B, 128)
-            got = el.qk_norm_rope(qkv, qn, kn_, cos, sin, nq, nk, 1e-6)
-            want = el.qk_norm_rope_plain(qkv, qn, kn_, cos, sin, nq, nk, 1e-6)
-            for part, a, b in zip("qkv", got, want):
-                label = f"{nq}/{nk} B={B} {part} {str(dt)[6:]}"
-                if dt == torch.float32:
-                    rec.check("qk_norm_rope", a, b, label, rtol=1e-4,
-                              atol=1e-4)
-                else:
-                    rec.check("qk_norm_rope", a, b, label, rel=8e-3)
-    for F in (6144, 3072):
-        gu = randn(1, 2 * F)
-        rec.check("silu_mul", el.silu_mul(gu, torch.bfloat16),
-                  el.silu_mul_plain(gu, torch.bfloat16),
-                  f"F={F} f32 -> bf16", rel=8e-3)
-        rec.check("silu_mul", el.silu_mul(gu, torch.float32),
-                  el.silu_mul_plain(gu, torch.float32), f"F={F} f32",
-                  rtol=1e-4, atol=1e-4)
     ptab = randn(16, 3584, 1024, dtype=torch.bfloat16)
     logits = randn(3, 2048)
     logits[0, 100] = logits[0, 900] = 50.0          # tie: lowest index wins
@@ -470,6 +460,7 @@ def phase_kernels(rec: Record):
             f" exact ok")
     phase_kernels_quant(rec, randn)
     phase_kernels_norm(rec, randn)
+    phase_kernels_fused(rec, randn)
     torch.cuda.synchronize()
 
 
@@ -495,8 +486,9 @@ def bit_identical(fn) -> bool:
 
 def determinism(randn):
     """The cluster kernels sum in a fixed order: B, B8, B4 (with and
-    without the norm prologue) and decode attention at main-path shapes
-    give the same bits on a repeat and in graph replays."""
+    without the norm prologue, with the silu prologue and the qk epilogue
+    with its KV store) and decode attention at main-path shapes give the
+    same bits on a repeat and in graph replays."""
     import torch
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
@@ -542,6 +534,18 @@ def determinism(randn):
         "decode_attention talker T=4096 kv_len=96": lambda:
             flash_decode.decode_attention_stacked(
                 qt, kt, vt, kn, vn, 0, lens_t, vf)}
+    gu = randn(1, 2 * 3072)
+    calls["gemv_int8 predictor down with the silu prologue"] = lambda: \
+        G.gemv_int8(gu, q8["q"], q8["scale"], epilogue=G.EPI_ADD_F32,
+                    out=res.clone(), act="silu", dt=torch.bfloat16)
+    c = qk_case(randn, 1024, 8, 8, torch.bfloat16, 1)
+    for kind, fn, _, wargs in c["kinds"]:
+        def qk_call(fn=fn, wargs=wargs):
+            q_, k_, v_ = fn(c["x"], *wargs, norm=(c["ln"], 1e-6), qk=c["qk"],
+                            kv=c["views"], dt=torch.bfloat16)
+            return torch.cat([t.flatten().float() for t in (q_, k_, v_)]
+                             + [c["cache"].flatten()])
+        calls[f"{kind} predictor qkv + qk epilogue + KV store"] = qk_call
     for label, fn in calls.items():
         ok = bit_identical(fn)
         log(f"  {'determinism':16s} {label:44s} repeat + 2 graph replays "
@@ -677,6 +681,115 @@ def phase_kernels_norm(rec: Record, randn):
                                 "rms_norm_gemv", got, want, label, rel=8e-3,
                                 quiet=True)[1])
         log(f"  {'rms_norm_gemv':16s} {what + f' {K}x{N}':30s} B/B8/B4, "
+            f"M=1,2,8: f32 max|d|={e32:.3e} (rtol/atol 1e-4), bf16 "
+            f"rel={r16:.2e} (<= 0.008) ok")
+
+
+def qk_case(randn, K, nq, nk, dt, M, L=2, T=16, slot=5):
+    """A qkv product with the qk epilogue at hd 128: the f32 residual x,
+    ln1, the weights of B, B8 and B4 (`(name, fn, plain, wargs)`), the qk
+    tuple, and an [2, L, M, nk, T, 128] f32 cache whose (last layer, slot)
+    views are the KV store's target."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    hd = 128
+    w32 = randn(K, (nq + 2 * nk) * hd, scale=0.02)
+    q8, q4 = quant.quantize(w32), quant.quantize_int4(w32)
+    kinds = (("gemv", G.gemv, G.gemv_plain, (w32.to(dt),)),
+             ("gemv_int8", G.gemv_int8, G.gemv_int8_plain,
+              (q8["q"], q8["scale"])),
+             ("gemv_int4", G.gemv_int4, G.gemv_int4_plain,
+              (q4["q4"], q4["m8"], q4["scale"])))
+    qk = ((1.0 + 0.1 * randn(hd)).to(dt), (1.0 + 0.1 * randn(hd)).to(dt),
+          randn(M, hd), randn(M, hd), nq, nk, 1e-6)
+    cache = randn(2, L, M, nk, T, hd)
+    views = (cache[0, -1, :, :, slot], cache[1, -1, :, :, slot])
+    return dict(x=randn(M, K), ln=(1.0 + 0.1 * randn(K)).to(dt), kinds=kinds,
+                qk=qk, cache=cache, views=views, slot=slot)
+
+
+def phase_kernels_fused(rec: Record, randn):
+    """The qk epilogue (B, B8, B4 at the talker's qkv 2048x4096, 16/8 heads,
+    and the predictor's 1024x3072, 8/8, with the KV store into a strided f32
+    cache view) and the silu prologue (the talker's down 6144x2048 and the
+    predictor's 3072x1024, added into the residual) against their plain
+    fused products, M = 1, 2, 8, f32 and bf16: f32 allclose (rtol/atol
+    1e-4), bf16 relative error <= 8e-3 (phase_kernels_norm's tolerances);
+    the cache's slot p equal to the launch's own k / v as f32, every other
+    slot bit-unchanged."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    def check(name, got, want, label, dt):
+        if dt == torch.float32:
+            return rec.check(name, got, want, label, rtol=1e-4, atol=1e-4,
+                             quiet=True)
+        return rec.check(name, got, want, label, rel=8e-3, quiet=True)
+
+    for what, K, nq, nk, kv in (("talker qkv", 2048, 16, 8, False),
+                                ("predictor qkv", 1024, 8, 8, True)):
+        e32 = r16 = 0.0
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for M in (1, 2, 8):
+                c = qk_case(randn, K, nq, nk, dt, M)
+                for kind, fn, plain, wargs in c["kinds"]:
+                    outs = []
+                    for f in (fn, plain):
+                        cache = c["cache"].clone()
+                        views = (cache[0, -1, :, :, c["slot"]],
+                                 cache[1, -1, :, :, c["slot"]]) if kv else None
+                        outs.append((f(c["x"], *wargs, norm=(c["ln"], 1e-6),
+                                       qk=c["qk"], kv=views, dt=dt), cache))
+                    (got, cache), (want, _) = outs
+                    for part, a, b in zip("qkv", got, want):
+                        e, r = check("qk_rope_gemv", a, b,
+                                     f"{kind} {what} M={M} {part} {dname}",
+                                     dt)
+                        e32, r16 = (max(e32, e), r16) \
+                            if dt == torch.float32 else (e32, max(r16, r))
+                    if kv:
+                        slot = cache[:, -1, :, :, c["slot"]].clone()
+                        if not torch.equal(slot, torch.stack(
+                                [got[1], got[2]]).float()):
+                            fail(f"{kind} {what} M={M} {dname}: the KV "
+                                 "store's slot differs from the launch's k/v")
+                        cache[:, -1, :, :, c["slot"]] = \
+                            c["cache"][:, -1, :, :, c["slot"]]
+                        if not torch.equal(cache, c["cache"]):
+                            fail(f"{kind} {what} M={M} {dname}: the KV "
+                                 "store wrote outside its slot")
+        shape = f"{what} {K}x{(nq + 2 * nk) * 128}"
+        store = ", KV store" if kv else ""
+        log(f"  {'qk_rope_gemv':16s} {shape:30s} B/B8/B4, M=1,2,8{store}: "
+            f"f32 max|d|={e32:.3e} (rtol/atol 1e-4), bf16 rel={r16:.2e} "
+            f"(<= 0.008)"
+            f"{'; slot p = k/v, other slots unchanged' if kv else ''} ok")
+
+    for what, K, N in (("talker down", 6144, 2048),
+                       ("predictor down", 3072, 1024)):
+        w32 = randn(K, N, scale=0.02)
+        q8, q4 = quant.quantize(w32), quant.quantize_int4(w32)
+        e32 = r16 = 0.0
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            kinds = (("gemv", G.gemv, G.gemv_plain, (w32.to(dt),)),
+                     ("gemv_int8", G.gemv_int8, G.gemv_int8_plain,
+                      (q8["q"], q8["scale"])),
+                     ("gemv_int4", G.gemv_int4, G.gemv_int4_plain,
+                      (q4["q4"], q4["m8"], q4["scale"])))
+            for M in (1, 2, 8):
+                gu, res = randn(M, 2 * K, scale=2.0), randn(M, N)
+                kw = dict(epilogue=G.EPI_ADD_F32, act="silu", dt=dt)
+                for kind, fn, plain, wargs in kinds:
+                    e, r = check("silu_gemv",
+                                 fn(gu, *wargs, out=res.clone(), **kw),
+                                 plain(gu, *wargs, out=res.clone(), **kw),
+                                 f"{kind} {what} {K}x{N} M={M} {dname}", dt)
+                    e32, r16 = (max(e32, e), r16) \
+                        if dt == torch.float32 else (e32, max(r16, r))
+        log(f"  {'silu_gemv':16s} {what + f' {K}x{N}':30s} B/B8/B4, "
             f"M=1,2,8: f32 max|d|={e32:.3e} (rtol/atol 1e-4), bf16 "
             f"rel={r16:.2e} (<= 0.008) ok")
 
@@ -852,21 +965,26 @@ def agree_run(eng, models, label, predictor=True):
         fail(f"{label}: predictor agreement {frac_p:.3f} < 0.95")
 
 
-def fused_norms_per_frame(cfg) -> int:
-    """gemv launches a frame with the norm as their prologue: ln1 and ln2
-    of every talker layer, of every predictor layer in each of the 16
-    passes, and the final norm of the 15 head slices."""
+def fused_per_frame(cfg) -> dict:
+    """gemv launches a frame with each fused piece: the norm prologue (ln1
+    and ln2 of every talker layer, of every predictor layer in each of the
+    16 passes, and the final norm of the 15 head slices); the qk epilogue
+    and the silu prologue (once a layer pass: the talker's layers and the
+    predictor's in each of the 16 passes); the KV store (the predictor's
+    layer passes)."""
     from qwen3_tts_tpu_torch.core import protocol as P
     nb = P.NUM_CODEBOOKS
-    return (2 * cfg.talker.n_layers + nb * 2 * cfg.predictor.n_layers
-            + nb - 1)
+    passes = cfg.talker.n_layers + nb * cfg.predictor.n_layers
+    return {"rms_norm_gemv": 2 * passes + nb - 1, "qk_rope_gemv": passes,
+            "silu_gemv": passes,
+            "kv_store_gemv": nb * cfg.predictor.n_layers}
 
 
-def run_main_path(rec: Record, label: str, fn, need, norms=None):
+def run_main_path(rec: Record, label: str, fn, need, fused=None):
     """fn() with every launch count set to 0 just before and read just
-    after; fails if a kernel in `need` was not launched, or, given `norms`
-    (fused norms a frame), unless the standalone rms_norm ran once a frame
-    (the talker's final norm) and the fused norm `norms` times a frame."""
+    after; fails if a kernel in `need` was not launched, or, given `fused`
+    (`fused_per_frame`), unless the standalone rms_norm ran once a frame
+    (the talker's final norm) and each fused piece its count a frame."""
     import torch
     from qwen3_tts_tpu_torch.ops import chain
     torch.cuda.synchronize()
@@ -881,15 +999,17 @@ def run_main_path(rec: Record, label: str, fn, need, norms=None):
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         fail(f"{label}: kernels never launched on this path: {missing}")
-    if norms is not None:
+    if fused is not None:
         frames = counts["rms_norm"]
-        ok = frames > 0 and counts["rms_norm_gemv"] == norms * frames
-        log(f"  {label}: norms: {frames} standalone rms_norm (one a frame), "
-            f"{counts['rms_norm_gemv']} fused = {norms} x {frames} "
-            f"{'ok' if ok else 'FAIL'}")
+        ok = frames > 0 and all(counts[k] == n * frames
+                                for k, n in fused.items())
+        log(f"  {label}: {frames} frames (one standalone rms_norm a frame); "
+            "fused a frame: " + ", ".join(
+                f"{k} {counts[k] / max(frames, 1):g} (expect {n})"
+                for k, n in fused.items()) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"{label}: expected one standalone rms_norm and {norms} "
-                 "fused norms a frame")
+            fail(f"{label}: expected one standalone rms_norm and {fused} "
+                 "fused launches a frame")
     return out
 
 
@@ -907,7 +1027,9 @@ def check_wav(label, wav, max_frames):
 
 
 TEXT = "Hello from the port: one sentence of speech."
-TRITON = ("rms_norm", "qk_norm_rope", "silu_mul", "argmax_gather")
+TRITON = ("rms_norm", "argmax_gather")
+# the fused pieces of the gemv launches, each launched on every path
+FUSED = ("rms_norm_gemv", "qk_rope_gemv", "silu_gemv", "kv_store_gemv")
 
 
 def phase_main(eng, rec: Record, q48, q88):
@@ -917,15 +1039,15 @@ def phase_main(eng, rec: Record, q48, q88):
 
     log("[6/8] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
-    dense_need = ("gemv", "decode_attention", "rms_norm_gemv") + TRITON
-    norms = fused_norms_per_frame(eng.config)
+    dense_need = ("gemv", "decode_attention") + FUSED + TRITON
+    fused = fused_per_frame(eng.config)
 
     def engine_runs(e, label, frames, need):
         e.set_max_steps(frames)
         e.set_sampler_config(SamplerConfig(seed=0))
         audio = run_main_path(rec, f"{label} B=1 generate_with_voice",
                               lambda: e.generate_with_voice(TEXT, voice),
-                              need, norms)
+                              need, fused)
         check_wav(f"{label} B=1", audio.samples, frames)
         return audio
 
@@ -934,7 +1056,7 @@ def phase_main(eng, rec: Record, q48, q88):
     pair = run_main_path(
         rec, "dense bf16 B=2 generate_batch",
         lambda: eng.generate_batch([TEXT, "A second, shorter one."],
-                                   [voice, voice]), dense_need, norms)
+                                   [voice, voice]), dense_need, fused)
     for i, a in enumerate(pair):
         check_wav(f"dense bf16 B=2 row {i}", a.samples, 32)
 
@@ -944,14 +1066,13 @@ def phase_main(eng, rec: Record, q48, q88):
     spk = os.path.join(REPO, "speakers")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
-    need48 = ("gemv_int4", "gemv_int8", "decode_attention",
-              "rms_norm_gemv") + TRITON
+    need48 = ("gemv_int4", "gemv_int8", "decode_attention") + FUSED + TRITON
     engine_runs(e48, "int4+int8", 32, need48)
     e48.set_max_steps(32)
     pair = run_main_path(
         rec, "int4+int8 B=2 generate_batch",
         lambda: e48.generate_batch([TEXT, "A second, shorter one."],
-                                   [voice, voice]), need48, norms)
+                                   [voice, voice]), need48, fused)
     for i, a in enumerate(pair):
         check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
 
@@ -959,8 +1080,7 @@ def phase_main(eng, rec: Record, q48, q88):
     e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
     engine_runs(e88, "int8/int8", 16, ("qmatmul", "gemv_int8",
-                                       "decode_attention", "rms_norm_gemv")
-                + TRITON)
+                                       "decode_attention") + FUSED + TRITON)
     del e48, e88
     chain.reset_launch_counts()
 
@@ -1140,11 +1260,10 @@ def phase_stream(eng, rec: Record, card: str, q48):
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=os.path.join(REPO, "speakers"),
                     device="cuda")
-    sets = (("dense bf16", eng,
-             ("gemv", "decode_attention", "rms_norm_gemv") + TRITON),
-            ("int4+int8", e48, ("gemv_int4", "gemv_int8", "decode_attention",
-                                "rms_norm_gemv") + TRITON))
-    norms = fused_norms_per_frame(eng.config)
+    sets = (("dense bf16", eng, ("gemv", "decode_attention") + FUSED + TRITON),
+            ("int4+int8", e48, ("gemv_int4", "gemv_int8", "decode_attention")
+             + FUSED + TRITON))
+    fused = fused_per_frame(eng.config)
     for label, e, need in sets:
         e.set_max_steps(frames)
         e.set_sampler_config(SamplerConfig(seed=0))
@@ -1157,7 +1276,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
                     f"{time.perf_counter() - t0:.2f} s")
             run = run_main_path(rec, f"{label} generate_stream ({what})",
                                 lambda: stream_once(e, TEXT, voice), need,
-                                norms)
+                                fused)
             check_stream(f"{label} {what}", run, e, frames)
             runs.append(run)
         rtf = [r["wall"] / (len(r["samples"]) / 24000) for r in runs]
@@ -1360,11 +1479,11 @@ def frame_times(eng, models, label: str, card: str, g):
             top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
             for k, (ms, n) in top:
                 log(f"    {ms:9.4f} ms/frame  {n:7.1f}x/frame  {k[:70]}")
-            two = [k for k in per
-                   if "gemv_epilogue" in k or "gemv4_partial" in k]
-            if two:
-                fail(f"{label}: second-launch gemv kernels in the profile: "
-                     f"{two}")
+            gone = [k for k in per if any(
+                name in k for name in ("gemv_epilogue", "gemv4_partial",
+                                       "qk_norm_rope", "silu_mul"))]
+            if gone:
+                fail(f"{label}: removed kernels in the profile: {gone}")
     except (RuntimeError, AssertionError) as exc:
         log(f"  profiler unavailable ({exc}); device busy share not measured")
     if busy is None:
@@ -1540,10 +1659,6 @@ def kernel_times(rec: Record, card: str, g):
     # the Triton passes at the main path's shapes; no single PyTorch call
     x32, w = randn(1, 2048, dtype=torch.float32), randn(2048)
     w32 = w.float()
-    qkv, qn, kn_ = randn(1, 32 * 128), randn(128), randn(128)
-    cos, sin = (randn(1, 128, dtype=torch.float32),
-                randn(1, 128, dtype=torch.float32))
-    gu = randn(1, 2 * 6144, dtype=torch.float32)
     ptab = randn(16, 3584, 1024)
     logits = randn(1, 2048, dtype=torch.float32)
     codes = torch.zeros(1, 16, dtype=torch.int32, device=dev)
@@ -1557,15 +1672,6 @@ def kernel_times(rec: Record, card: str, g):
          (lambda: F.rms_norm(x32, (2048,), w32, 1e-6))
          if hasattr(F, "rms_norm") else None,
          nbytes(x32, w) + 2048 * 2, 4.0 * 2048, "f32", True),
-        ("qk_norm_rope", "16/8 hd128 bf16", 1,
-         lambda: el.qk_norm_rope(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
-         lambda: el.qk_norm_rope_plain(qkv, qn, kn_, cos, sin, 16, 8, 1e-6),
-         None, nbytes(qkv, qn, kn_, cos, sin, qkv), 10.0 * 24 * 128, "f32",
-         True),
-        ("silu_mul", "F=6144 f32 -> bf16", 1,
-         lambda: el.silu_mul(gu, torch.bfloat16),
-         lambda: el.silu_mul_plain(gu, torch.bfloat16), None,
-         nbytes(gu) + 6144 * 2, 5.0 * 6144, "f32", True),
         ("argmax_gather", "B=1 2048 logits, ptab row 1024 bf16", 1,
          lambda: el.argmax_gather(logits, codes, 3, ptab, 3072, xo),
          lambda: el.argmax_gather_plain(logits, codes, 3, ptab, 3072, xo),
@@ -1588,6 +1694,7 @@ def kernel_times(rec: Record, card: str, g):
             rec.library_ms[name] = lib
             rec.bound[name] = (b_ms, b_by)
     norm_fusion_times(rec, card, g)
+    epilogue_fusion_times(rec, card, g)
 
 
 def norm_fusion_times(rec: Record, card: str, g):
@@ -1662,6 +1769,101 @@ def norm_fusion_times(rec: Record, card: str, g):
             rec.bound["rms_norm_gemv"] = bound(n_b / per, ops / per, "bf16")
 
 
+def epilogue_fusion_times(rec: Record, card: str, g):
+    """The qk epilogue and the silu prologue against the product alone, per
+    product, M=1 bf16, 4 copies of the layer's pair over the L2, device ms
+    (CUDA-graph replay): the qkv product with its norm prologue storing the
+    qkv row, then with the qk epilogue (q, k, v; the predictor's with its
+    KV store); the down product from the silu output in bf16, then from the
+    f32 gate/up with the silu prologue. B at the talker layer, B8 at the
+    predictor layer, B4 at the talker layer. B's cases are the two pieces'
+    entries in the JSON line (bound: the product's weights, its inputs and
+    outputs each once)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    for label, K, nq, nk, F, kind, kv, record in (
+            ("B talker", 2048, 16, 8, 6144, "dense", False, True),
+            ("B8 predictor", 1024, 8, 8, 3072, "int8", True, False),
+            ("B4 talker", 2048, 16, 8, 6144, "int4", False, False)):
+        fn, plain = {"dense": (G.gemv, G.gemv_plain),
+                     "int8": (G.gemv_int8, G.gemv_int8_plain),
+                     "int4": (G.gemv_int4, G.gemv_int4_plain)}[kind]
+
+        def weights(k, n):
+            w = randn(k, n, scale=0.02)
+            return (w.to(bf),) if kind == "dense" else tuple(
+                (quant.quantize(w) if kind == "int8"
+                 else quant.quantize_int4(w)).values())
+        N = (nq + 2 * nk) * 128
+        mats = [(weights(K, N), weights(F, K)) for _ in range(4)]
+        c = qk_case(randn, K, nq, nk, bf, 1)
+        x, ln, qk = c["x"], c["ln"], c["qk"]
+        views = c["views"] if kv else None
+        outs = tuple(torch.empty(1, n, 128, dtype=bf, device=dev)
+                     for n in (nq, nk, nk))
+        gu = randn(1, 2 * F, scale=2.0)
+        act = el.silu_mul_plain(gu, bf)
+        res = randn(1, K)
+
+        def qkv_call(f, fused):
+            def call():
+                for wq, _ in mats:
+                    if fused:
+                        f(x, *wq, norm=(ln, 1e-6), qk=qk, out=outs, kv=views,
+                          dt=bf)
+                    else:
+                        f(x, *wq, norm=(ln, 1e-6), dt=bf)
+            return call
+
+        def down_call(f, fused):
+            def call():
+                for _, wd in mats:
+                    if fused:
+                        f(gu, *wd, epilogue=G.EPI_ADD_F32, out=res, act="silu",
+                          dt=bf)
+                    else:
+                        f(act, *wd, epilogue=G.EPI_ADD_F32, out=res)
+            return call
+
+        per = len(mats)
+        qk_alone = graph_ms(qkv_call(fn, False)) / per
+        qk_fused = graph_ms(qkv_call(fn, True)) / per
+        d_alone = graph_ms(down_call(fn, False)) / per
+        d_fused = graph_ms(down_call(fn, True)) / per
+        log(f"  {'qk_rope_gemv':16s} {label + f' qkv {K}x{N}, M=1 bf16':44s}"
+            f" device: product with the norm, storing the qkv row "
+            f"{qk_alone:.4f} ms, with the qk epilogue"
+            f"{' and the KV store' if kv else ''} {qk_fused:.4f} ms "
+            f"({qk_fused - qk_alone:+.4f}) on {card}")
+        log(f"  {'silu_gemv':16s} {label + f' down {F}x{K}, M=1 bf16':44s}"
+            f" device: product from the bf16 silu output {d_alone:.4f} ms, "
+            f"with the silu prologue {d_fused:.4f} ms "
+            f"({d_fused - d_alone:+.4f}) on {card}")
+        if record:
+            w_b = sum(nbytes(*wq) for wq, _ in mats) / per
+            n_b = w_b + nbytes(x, ln, qk[0], qk[1], qk[2], qk[3], *outs)
+            rec.ms["qk_rope_gemv"] = qk_fused
+            rec.plain_ms["qk_rope_gemv"] = graph_ms(qkv_call(plain, True)) \
+                / per
+            rec.library_ms["qk_rope_gemv"] = None
+            rec.bound["qk_rope_gemv"] = bound(n_b, 2.0 * K * N, "bf16")
+            w_b = sum(nbytes(*wd) for _, wd in mats) / per
+            n_b = w_b + nbytes(gu) + 2 * nbytes(res)
+            rec.ms["silu_gemv"] = d_fused
+            rec.plain_ms["silu_gemv"] = graph_ms(down_call(plain, True)) / per
+            rec.library_ms["silu_gemv"] = None
+            rec.bound["silu_gemv"] = bound(n_b, 2.0 * F * K, "bf16")
+
+
 def split_times(card: str, g):
     """The measurement behind the split plans of the cluster kernels
     (`gemv.gemv_splits`, `gemv.gemv4_splits`,
@@ -1727,7 +1929,7 @@ def split_times(card: str, g):
                 for w in ws:
                     G.gemv(x, w)
             w0 = ws[0]
-        planned = G.launch_splits(x, w0, 1, K, N, kind, bf, False)
+        planned = G.launch_splits(x, w0, 1, K, N, kind, bf, G.PRO_NONE)
         sweep(label, fn, copies, G, "launch_splits", planned)
         del ws
 

@@ -37,10 +37,13 @@ F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a pointer passed
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
-    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
-    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    # csrc/gemv.cu, gemv_int8.cu, gemv_int4.cu: ..., eps, prologue code,
+    # the qk epilogue's arguments (a QkArgs, ops/gemv.py), stream
+    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P],
+    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P],
     "gemv_blocks_per_sm": [I, I, I, I],
-    "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+    "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P,
+                         P],
     "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, P],

@@ -7,14 +7,22 @@ plain PyTorch versions beside them.
                   is the step's hidden); every other norm of the chain is
                   the prologue of the gemv it feeds (`ops/gemv.py`), which
                   takes `rms_norm_plain` as its plain prologue
-  qk_norm_rope    fused qkv row -> q, k (per-head rms + rotate-half RoPE)
-                  and v, each [B, heads, hd] contiguous in dt
-  silu_mul        gate/up [M, 2F] (f32 or dt) -> dt; f32 math, one rounding
   argmax_gather   the predictor's greedy code + next input row
 
 Each wrapper takes its plain version for a tensor on the CPU; on a CUDA
 tensor it launches its kernel (importing `triton` at the first launch) or
 raises.
+
+Two plain functions have no kernel of their own here: on the card their
+work runs inside a gemv launch (`csrc/gemv.cu`), and they are the plain
+halves of those fused products (`ops/gemv.py`):
+
+  qk_norm_rope_plain  fused qkv row -> q, k (per-head rms + rotate-half
+                      RoPE) and v, each [B, heads, hd] in dt: the qkv
+                      product's qk epilogue
+  silu_mul_plain      gate/up [M, 2F] (f32 or dt) -> dt; f32 math, one
+                      rounding: the down product's silu prologue (and the
+                      prefill's SwiGLU, `models/decoder.py`)
 """
 
 from __future__ import annotations
@@ -75,7 +83,9 @@ rms_norm.launches = 0
 def qk_norm_rope_plain(qkv, q_norm, k_norm, cos, sin, nq: int, nk: int,
                        eps: float, out=None):
     """qkv [B, (nq+2nk)*hd] dt; cos/sin [B, hd] f32.
-    Returns (q [B, nq, hd], k [B, nk, hd], v [B, nk, hd]) in qkv.dtype."""
+    Returns (q [B, nq, hd], k [B, nk, hd], v [B, nk, hd]) in qkv.dtype, or
+    writes them into the `out` triple. The plain half of the qkv product's
+    qk epilogue (`ops/gemv.py`, `qk=`)."""
     B = qkv.shape[0]
     dt = qkv.dtype
     hd = q_norm.shape[0]
@@ -99,70 +109,15 @@ def qk_norm_rope_plain(qkv, q_norm, k_norm, cos, sin, nq: int, nk: int,
     return out
 
 
-def qk_norm_rope(qkv, q_norm, k_norm, cos, sin, nq: int, nk: int,
-                 eps: float, out=None):
-    """Split the fused qkv row into q, k, v; rms + RoPE on q and k.
-    `out` is an optional (q, k, v) triple of contiguous buffers (k and v
-    may be slices of the step's stacked new-k/v buffers)."""
-    if qkv.device.type == "cpu":
-        return qk_norm_rope_plain(qkv, q_norm, k_norm, cos, sin, nq, nk, eps,
-                                  out)
-    B = qkv.shape[0]
-    hd = q_norm.shape[0]
-    if out is None:
-        out = (torch.empty(B, nq, hd, dtype=qkv.dtype, device=qkv.device),
-               torch.empty(B, nk, hd, dtype=qkv.dtype, device=qkv.device),
-               torch.empty(B, nk, hd, dtype=qkv.dtype, device=qkv.device))
-    q, k, v = out
-    _check_cuda("qk_norm_rope", qkv, q_norm, k_norm, cos, sin, q, k, v)
-    if (qkv.shape != (B, (nq + 2 * nk) * hd) or k_norm.shape != (hd,)
-            or cos.shape != (B, hd) or sin.shape != (B, hd)
-            or cos.dtype != torch.float32 or sin.dtype != torch.float32
-            or q.shape != (B, nq, hd) or k.shape != (B, nk, hd)
-            or v.shape != (B, nk, hd) or hd % 2 or hd & (hd - 1)
-            or any(t.dtype != qkv.dtype for t in (q, k, v))):
-        raise ValueError("qk_norm_rope: shapes or dtypes do not match")
-    _triton().qk_norm_rope_kernel[(B, nq + 2 * nk)](
-        qkv, q_norm, k_norm, cos, sin, q, k, v, nq, nk, eps,
-        HD=hd, HALF=hd // 2, num_warps=1)
-    qk_norm_rope.launches += 1
-    return out
-
-
-qk_norm_rope.launches = 0
-
-
 # ------------------------------------------------------------------ silu_mul
 def silu_mul_plain(gu, dtype: torch.dtype, out=None) -> torch.Tensor:
+    """silu(gu[:, :F]) * gu[:, F:] for gu [M, 2F] -> dtype, f32 math, one
+    rounding. The plain half of the down product's silu prologue
+    (`ops/gemv.py`, `act="silu"`)."""
     F = gu.shape[-1] // 2
     g = gu[..., :F].float()
     y = (g / (1.0 + torch.exp(-g)) * gu[..., F:].float()).to(dtype)
     return y if out is None else out.copy_(y)
-
-
-_SILU_BLOCK = 1024
-
-
-def silu_mul(gu, dtype: torch.dtype, out=None) -> torch.Tensor:
-    """silu(gu[:, :F]) * gu[:, F:] for gu [M, 2F] (f32 or dt) -> dtype."""
-    if gu.device.type == "cpu":
-        return silu_mul_plain(gu, dtype, out)
-    M, F2 = gu.shape
-    F = F2 // 2
-    if out is None:
-        out = torch.empty(M, F, dtype=dtype, device=gu.device)
-    _check_cuda("silu_mul", gu, out)
-    if F2 % 2 or out.shape != (M, F) or out.dtype != dtype \
-            or gu.dtype not in _FLOATS:
-        raise ValueError("silu_mul: shapes or dtypes do not match")
-    grid = (M, -(-F // _SILU_BLOCK))
-    _triton().silu_mul_kernel[grid](gu, out, F, BLOCK=_SILU_BLOCK,
-                                    num_warps=4)
-    silu_mul.launches += 1
-    return out
-
-
-silu_mul.launches = 0
 
 
 # ------------------------------------------------------------- argmax_gather

@@ -8,9 +8,11 @@ Contract (the same as the TPU kernel's):
               PRE-update stacked cache [L, B, nk, T, hd], plus the current
               token's own k_new/v_new, which is always valid.
 
-The caller writes k_new/v_new into the cache after the call; the current
-token never comes from the cache. Serves the attention of the talker step,
-of every predictor pass, and of `decoder.forward` at S == 1.
+The current token never comes from the cache: the talker step writes
+k_new/v_new into it after the call, and the predictor's qkv launch stores
+them at slot kv_len before it, a slot the call does not read. Serves the
+attention of the talker step, of every predictor pass, and of
+`decoder.forward` at S == 1.
 
 On a CPU tensor it runs `decode_attention_plain`; on a CUDA tensor it
 launches the kernel or raises. The kernel is one CUDA launch: a thread

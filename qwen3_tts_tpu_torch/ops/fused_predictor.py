@@ -14,9 +14,13 @@ kernels (`ops/chain.py`), driven from Python:
 
 Each pass runs all layers for one token; the frame-local KV cache
 [L, B, nk, max_seq, hd] is f32 (holding values rounded to the model dtype,
-as the TPU kernel's is) and is written in place after each layer's
-attention. Codes stay on the device: no `.item()`, no host sync inside the
-frame. Codes out of range select the bias row of ptab; negative codes
+as the TPU kernel's is). Each layer's qkv launch stores the pass's k and v
+at slot p itself, right after QK-norm and RoPE, where the TPU kernel
+stores them (`qwen3_tts_tpu/ops/fused_predictor.py:359-379`): the gemv's
+qk epilogue with the KV store (`ops/gemv.py`, `kv=`), given the slot's
+strided views, with no copy of its own. The pass's attention reads slots
+[0, p) only. Codes stay on the device: no `.item()`, no host sync inside
+the frame. Codes out of range select the bias row of ptab; negative codes
 clamp to 0 (`qwen3_tts_tpu/ops/fused_predictor.py:651-659`).
 
 Weights are dense, int8 or int4, split per layer as the TPU kernel's
@@ -28,6 +32,13 @@ Deliberate divergences from the TPU kernel:
   * the residual stream is f32 (the TPU predictor kernel keeps it in the
     model dtype), the same as the talker step; with f32 weights the two
     are the same;
+  * SwiGLU rounds once: silu(g) * u in f32 from the f32 gate/up product,
+    then one rounding to the model dtype (the silu prologue of the down
+    product), as the TPU talker kernel does. The TPU predictor kernel
+    rounds gate/up to the model dtype, then silu(g) to the model dtype,
+    and multiplies in the model dtype
+    (`qwen3_tts_tpu/ops/fused_predictor.py:409-413`). The two are
+    identical in f32 and differ by bf16 roundings in bf16;
   * the TPU kernel's VMEM-resident int8 weights (`resident`, `kv_res`;
     `qwen3_tts_tpu/ops/fused_predictor.py:52-65`) are not ported. They are
     a placement of the same math, bit-identical to its streamed int8 path
@@ -84,13 +95,12 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
 
     def stack_pass(p: int) -> None:
         for l in range(L):
+            # the qkv launch stores this token's k/v at slot p of the
+            # frame-local cache; the layer's attention reads [0, p) only
             chain.layer_pass(ops, lw, l, cfg, x_res, cos_t[p], sin_t[p],
                              k_cache, v_cache, q_buf, k_new, v_new,
-                             kv_len_t[p], valid_from)
-            # this token's k/v into the frame-local cache, in place, after
-            # the layer's attention read it
-            k_cache[l, :, :, p] = k_new
-            v_cache[l, :, :, p] = v_new
+                             kv_len_t[p], valid_from,
+                             kv=(k_cache[l, :, :, p], v_cache[l, :, :, p]))
 
     def head_slice(qi: int) -> None:
         # the final norm is the head slice's prologue, as in the TPU kernel

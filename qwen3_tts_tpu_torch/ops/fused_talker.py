@@ -2,17 +2,20 @@
 `qwen3_tts_tpu/ops/fused_talker.py::talker_step_fused`.
 
 On the TPU this is one Pallas kernel. Here it is a chain, driven per layer
-from Python, of the port's hand-written kernels (`ops/chain.py`): gemv for
-every product (ln1 and ln2 as the norm prologues of the qkv and gate/up
-products), decode attention over the pre-update cache, and the Triton
-passes for the final norm, QK-norm + RoPE and SwiGLU. Semantics are the
-TPU kernel's:
+from Python, of the port's hand-written kernels (`ops/chain.py`), five
+launches a layer: gemv for every product, with the elementwise work in the
+product's launch (ln1 as the norm prologue and QK-norm + RoPE as the qk
+epilogue of the qkv product, ln2 as the norm prologue of gate/up, SwiGLU
+as the silu prologue of down), and decode attention over the pre-update
+cache; then the Triton `rms_norm` for the final norm and the head's gemv.
+Semantics are the TPU kernel's:
 
   * the residual stream stays f32 across layers; matmul inputs are rounded
     to the model dtype (rms outputs, attention output, silu*up);
   * the current token's k/v fold into the attention last, and the cache is
     written after the whole step, in place, at the row's slot (the
-    pre-update contract of `qwen3_tts_tpu/ops/fused_talker.py:575-596`);
+    pre-update contract of `qwen3_tts_tpu/ops/fused_talker.py:575-596`;
+    the qk epilogue writes k_new / v_new only, no KV store);
   * logits are f32 rounded through the model dtype, for dense and
     quantized heads alike.
 

@@ -208,9 +208,9 @@ def _bit_identical(fn):
 
 
 def test_cluster_kernels_repeat_and_graph_replay_bit_identical(dev):
-    """B, B8, B4 (with and without the norm prologue) and decode attention
-    sum in a fixed order: the same call twice and two replays of a captured
-    call give the same bits."""
+    """B, B8, B4 (with and without the norm prologue, with the silu prologue
+    and the qk epilogue) and decode attention sum in a fixed order: the same
+    call twice and two replays of a captured call give the same bits."""
     g = torch.Generator(device=dev).manual_seed(9)
     x = _randn(g, 2, 2048, dtype=torch.bfloat16)
     w = _randn(g, 2048, 4096, dtype=torch.bfloat16, scale=0.02)
@@ -239,6 +239,22 @@ def test_cluster_kernels_repeat_and_graph_replay_bit_identical(dev):
                                  **nb),
              lambda: flash_decode.decode_attention_stacked(
                  q, kc, vc, kn, vn, 1, lens, vfrom)]
+    gu = _randn(g, 2, 2 * 6144)
+    qkx, qkln, qk, cache, qkk = _qk_case(g, torch.bfloat16, 1, 1024, 8, 8,
+                                         128, True)
+    views = (cache[0, 1, :, :, 3], cache[1, 1, :, :, 3])
+
+    def qk_call(fn, wargs):
+        def call():
+            q, k, v = fn(qkx, *wargs, norm=(qkln, 1e-6), qk=qk, kv=views,
+                         dt=torch.bfloat16)
+            return torch.cat([q.flatten().float(), k.flatten().float(),
+                              v.flatten().float(), cache.flatten()])
+        return call
+    calls += [lambda: G.gemv_int4(gu, q4["q4"], q4["m8"], q4["scale"],
+                                  epilogue=G.EPI_ADD_F32, out=res4.clone(),
+                                  act="silu", dt=torch.bfloat16)]
+    calls += [qk_call(fn, wargs) for fn, _, wargs in qkk]
     for i, fn in enumerate(calls):
         assert _bit_identical(fn), i
 
@@ -249,15 +265,76 @@ def test_elementwise(dev, dtype):
     x, w = _randn(g, 2, 2048), _randn(g, 2048, dtype=dtype)
     _close(el.rms_norm(x, w, 1e-6, dtype), el.rms_norm_plain(x, w, 1e-6,
                                                               dtype), dtype)
-    qkv = _randn(g, 2, 32 * 128, dtype=dtype)
-    qn, kn = _randn(g, 128, dtype=dtype), _randn(g, 128, dtype=dtype)
-    cos, sin = _randn(g, 2, 128), _randn(g, 2, 128)
-    for a, b in zip(el.qk_norm_rope(qkv, qn, kn, cos, sin, 16, 8, 1e-6),
-                    el.qk_norm_rope_plain(qkv, qn, kn, cos, sin, 16, 8,
-                                          1e-6)):
-        _close(a, b, dtype)
-    gu = _randn(g, 2, 2 * 6144)
-    _close(el.silu_mul(gu, dtype), el.silu_mul_plain(gu, dtype), dtype)
+
+
+def _qk_case(g, dtype, M, K, nq, nk, hd, kv):
+    """Inputs of a qkv product with the qk epilogue: the f32 residual, ln1,
+    the three weight kinds, the qk tuple, and (with `kv`) a [2, M, nk, 6,
+    hd] f32 cache whose slot 3 of layer 1 is the KV store's target."""
+    N = (nq + 2 * nk) * hd
+    x = _randn(g, M, K, scale=3.0)
+    ln = (1.0 + 0.1 * _randn(g, K)).to(dtype)
+    w = _randn(g, K, N, scale=0.02)
+    q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+    qk = ((1.0 + 0.1 * _randn(g, hd)).to(dtype),
+          (1.0 + 0.1 * _randn(g, hd)).to(dtype), _randn(g, M, hd),
+          _randn(g, M, hd), nq, nk, 1e-6)
+    cache = _randn(g, 2, 2, M, nk, 6, hd) if kv else None
+    kinds = [(G.gemv, G.gemv_plain, (w.to(dtype),)),
+             (G.gemv_int8, G.gemv_int8_plain, (q8["q"], q8["scale"])),
+             (G.gemv_int4, G.gemv_int4_plain,
+              (q4["q4"], q4["m8"], q4["scale"]))]
+    return x, ln, qk, cache, kinds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,nq,nk,hd,kv", [(1, 2048, 16, 8, 128, False),
+                                             (2, 1024, 8, 8, 128, True),
+                                             (8, 2048, 16, 8, 128, True),
+                                             (3, 512, 4, 2, 64, True),
+                                             (2, 256, 4, 2, 16, True)])
+def test_gemv_qk_epilogue(dev, dtype, M, K, nq, nk, hd, kv):
+    """B, B8 and B4 with the norm prologue and the qk epilogue (QK-norm,
+    RoPE, the q/k/v split and the KV store into a strided f32 cache view)
+    against the plain fused product; the cache's other slots unchanged."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, ln, qk, cache, kinds = _qk_case(g, dtype, M, K, nq, nk, hd, kv)
+    for fn, plain, wargs in kinds:
+        outs = []
+        for f in (fn, plain):
+            c = cache.clone() if kv else None
+            views = (c[0, 1, :, :, 3], c[1, 1, :, :, 3]) if kv else None
+            q, k, v = f(x, *wargs, norm=(ln, 1e-6), qk=qk, kv=views,
+                        dt=dtype)
+            outs.append((q, k, v, c))
+        (q, k, v, c), (qp, kp, vp, cp) = outs
+        for a, b in ((q, qp), (k, kp), (v, vp)):
+            _close(a, b, dtype)
+        if kv:
+            assert torch.equal(c[:, 1, :, :, 3], torch.stack([k, v]).float())
+            c[:, 1, :, :, 3] = cp[:, 1, :, :, 3]
+            assert torch.equal(c, cp)      # every other slot untouched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1, 6144, 2048), (2, 3072, 1024),
+                                   (8, 6144, 2048), (3, 256, 264)])
+def test_gemv_silu_prologue(dev, dtype, M, K, N):
+    """B, B8 and B4 with silu*up as their prologue (x the f32 gate/up
+    product [M, 2K]) against silu_mul_plain + the plain product."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    gu = _randn(g, M, 2 * K)
+    w = _randn(g, K, N, scale=0.02)
+    q8, q4 = quant.quantize(w), quant.quantize_int4(w)
+    res = _randn(g, M, N)
+    for fn, plain, wargs in ((G.gemv, G.gemv_plain, (w.to(dtype),)),
+                             (G.gemv_int8, G.gemv_int8_plain,
+                              (q8["q"], q8["scale"])),
+                             (G.gemv_int4, G.gemv_int4_plain,
+                              (q4["q4"], q4["m8"], q4["scale"]))):
+        kw = dict(epilogue=G.EPI_ADD_F32, act="silu", dt=dtype)
+        _close(fn(gu, *wargs, out=res.clone(), **kw),
+               plain(gu, *wargs, out=res.clone(), **kw), dtype)
 
 
 def test_argmax_gather_exact(dev):

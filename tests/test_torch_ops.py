@@ -164,7 +164,7 @@ def test_silu_mul_plain_matches_jax_formula():
     rng = _rng(8)
     gu = rng.standard_normal((3, 2 * 48)).astype(np.float32)
     g, u = jnp.asarray(gu[:, :48]), jnp.asarray(gu[:, 48:])
-    _close(el.silu_mul(torch.from_numpy(gu), torch.float32),
+    _close(el.silu_mul_plain(torch.from_numpy(gu), torch.float32),
            g / (1.0 + jnp.exp(-g)) * u)
 
 
@@ -182,7 +182,7 @@ def test_qk_norm_rope_plain_matches_jax():
                                             jnp.asarray(qn), 1e-6), jc, js)
     jk = jrope.apply_rope(jdecoder.rms_norm(heads[:, :, nq:nq + nk],
                                             jnp.asarray(kn), 1e-6), jc, js)
-    q, k, v = el.qk_norm_rope(
+    q, k, v = el.qk_norm_rope_plain(
         torch.from_numpy(qkv), torch.from_numpy(qn), torch.from_numpy(kn),
         torch.from_numpy(np.array(jc[:, 0])),
         torch.from_numpy(np.array(js[:, 0])), nq, nk, 1e-6)
