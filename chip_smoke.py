@@ -26,7 +26,13 @@ result line:
                path's 4096-slot cache; the same calls of B, B8, B4 (with
                and without the norm, with the silu prologue and the qk
                epilogue) and decode attention twice and in two CUDA-graph
-               replays give bit-identical outputs
+               replays give bit-identical outputs; the predictor frame
+               kernel (csrc/predictor_frame.cu) against
+               frame_codes_fused_plain: the tiny f32 config's codes equal
+               on the card and to the CPU's at B = 1, 2, 16, and at full
+               width with peaked heads code agreement >= 0.95 for dense
+               bf16 and int8 weights at B = 1, 2, 16, repeats and two
+               CUDA-graph replays of the cooperative launch bit-identical
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
                user runs it, every probe kernel launched; then each of the
@@ -47,16 +53,20 @@ result line:
                TtsEngine(weights=...): B=1, 32 frames, then B=2, with
                gemv_int4, gemv_int8, decode attention, the fused pieces
                and the Triton passes launched; the int8/int8 rung, B=1, 16
-               frames, with qmatmul (int8 prefill) and gemv_int8 launched.
+               frames, with qmatmul (int8 prefill) and gemv_int8 launched;
+               an int4 predictor (int4/int4, B=1, 8 frames), which keeps
+               the chain: B4, decode attention, the KV stores and
+               argmax_gather launched, the frame kernel not.
                The tiny f32 config's greedy codes on the card (its qk
                epilogue at hd 16) equal the CPU reference, dense, int8,
                and int4 on a small int4-capable talker. Counts are set to 0
                just before each of these runs and read just after; every
                full-width run launches the standalone rms_norm once a frame
-               (the talker's final norm), and a frame's gemv launches run
-               327 norm prologues, 156 qk epilogues (28 talker + 128
-               predictor layer passes), 128 KV stores (the predictor's)
-               and 156 silu prologues.
+               (the talker's final norm) and the predictor frame kernel
+               once a frame, and no predictor gemv, decode attention, KV
+               store or argmax_gather: a frame's gemv launches are the
+               talker's 113 (56 norm prologues, 28 qk epilogues, 28 silu
+               prologues) and its decode attention 28.
   7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
                dense bf16 and int4 talker + int8 predictor: a cold call,
                warmup, a warm call, each with the counts set to 0 just
@@ -83,7 +93,9 @@ result line:
                fused norm (and without any norm); the qkv products with
                and without the qk epilogue, the down products with and
                without the silu prologue; B, B8, B4 and decode attention
-               at each split count beside their plans' choice
+               at each split count beside their plans' choice; the
+               predictor frame kernel a frame against its bound, the chain
+               of launches it replaces and its plain version
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -226,6 +238,10 @@ class Record:
                          "qwen3_tts_tpu/ops/fused_talker.py:126"),
         "silu_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cuh",
                       "qwen3_tts_tpu/ops/fused_talker.py:373"),
+        # the predictor's whole frame in one persistent launch
+        "predictor_frame": ("cuda",
+                            "qwen3_tts_tpu_torch/csrc/predictor_frame.cu",
+                            "qwen3_tts_tpu/ops/fused_predictor.py:610"),
     }
 
     def __init__(self):
@@ -461,6 +477,7 @@ def phase_kernels(rec: Record):
     phase_kernels_quant(rec, randn)
     phase_kernels_norm(rec, randn)
     phase_kernels_fused(rec, randn)
+    phase_kernels_frame(rec)
     torch.cuda.synchronize()
 
 
@@ -794,6 +811,95 @@ def phase_kernels_fused(rec: Record, randn):
             f"rel={r16:.2e} (<= 0.008) ok")
 
 
+def frame_case(cfg, kind, B, seed, peak=False):
+    """Seeded predictor weights of `cfg` on the card (dense, or int8 as
+    `quant.quantize_decoder_params` makes them), the ptab of random assets,
+    h1024 [B, H] and code_0 [B] (some out of range, some negative); `peak`
+    makes the head decisive (`peak_head`)."""
+    import torch
+    from qwen3_tts_tpu_torch.assets import tables
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.models import decoder
+    from qwen3_tts_tpu_torch.ops import fused_predictor, quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pp = decoder.init_decoder(g, cfg, device=dev)
+    if peak:
+        pp = peak_head(pp, [(q * P.CODE_VOCAB, P.CODE_VOCAB)
+                            for q in range(P.NUM_CODEBOOKS)], seed=seed)
+    if kind == "int8":
+        pp = quant.quantize_decoder_params(pp, kind="int8")
+    assets = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
+                                  proj_dim=cfg.hidden, device=dev)
+    ptab, rows = fused_predictor.make_ptab(assets, cfg)
+    h = torch.randn(B, cfg.hidden, generator=g, device=dev)
+    code0 = torch.randint(-3, 2300, (B,), generator=g, device=dev)
+    return pp, ptab, rows, h, code0
+
+
+def phase_kernels_frame(rec: Record):
+    """The predictor frame kernel (`csrc/predictor_frame.cu`) against its
+    plain version `frame_codes_fused_plain`: the tiny f32 config's codes
+    equal on the card and to the CPU's, B = 1, 2, 16; at full width with
+    peaked heads, code agreement >= 0.95 for dense bf16 and int8 weights at
+    B = 1, 2, 16 (bf16 sums in another order may flip a near tie); repeats
+    bit-identical, at B = 2 also two CUDA-graph replays of the cooperative
+    launch. max_abs_err: the largest |kernel code - plain code| over every
+    case."""
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+
+    tiny = tiny_engine_config().predictor
+    full = EngineConfig().predictor
+
+    def codes_err(got, want):
+        e = abs_err(got, want)
+        rec.err["predictor_frame"] = max(rec.err["predictor_frame"], e)
+        return e
+
+    for B in (1, 2, 16):
+        pp, ptab, rows, h, c0 = frame_case(tiny, "dense", B, 60 + B)
+        got = fp.predictor_frame_kernel(pp, tiny, ptab, rows, h, c0)
+        want = fp.frame_codes_fused_plain(pp, tiny, ptab, rows, h, c0)
+        cpu = fp.frame_codes_fused_plain(_to(pp, "cpu"), tiny, ptab.cpu(),
+                                         rows, h.cpu(), c0.cpu())
+        codes_err(got, want)
+        same = torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+        log(f"  {'predictor_frame':16s} {f'tiny f32 B={B}':44s} codes "
+            f"{'equal' if same else 'DIFFER'} to the plain version on the "
+            "card and on the CPU")
+        if not same:
+            fail(f"predictor_frame tiny f32 B={B}: codes differ from the "
+                 "plain version")
+    for kind in ("dense", "int8"):
+        for B in (1, 2, 16):
+            pp, ptab, rows, h, c0 = frame_case(full, kind, B, 70 + B,
+                                               peak=True)
+
+            def call(pp=pp, ptab=ptab, rows=rows, h=h, c0=c0):
+                return fp.predictor_frame_kernel(pp, full, ptab, rows, h, c0)
+            got = call()
+            want = fp.frame_codes_fused_plain(pp, full, ptab, rows, h, c0)
+            agree = float((got == want).float().mean())
+            e = codes_err(got, want)
+            # the cooperative launch captures: at B = 2 also two replays
+            same = bit_identical(call) if B == 2 else \
+                torch.equal(got, call())
+            graph = ", 2 graph replays" if B == 2 else ""
+            log(f"  {'predictor_frame':16s} {f'full {kind} B={B} peaked':44s}"
+                f" code agreement {agree:.4f} (gate 0.95), max|d| {e:g}; "
+                f"repeat{graph} {'bit-identical' if same else 'DIFFER'}")
+            if agree < 0.95:
+                fail(f"predictor_frame full {kind} B={B}: agreement "
+                     f"{agree:.4f} < 0.95")
+            if not same:
+                fail(f"predictor_frame full {kind} B={B}: repeats differ")
+            del pp
+
+
 def phase_probes(rec: Record, card: str):
     """The probe tool's path and its eight kernels against their plain
     versions."""
@@ -966,34 +1072,53 @@ def agree_run(eng, models, label, predictor=True):
 
 
 def fused_per_frame(cfg) -> dict:
-    """gemv launches a frame with each fused piece: the norm prologue (ln1
-    and ln2 of every talker layer, of every predictor layer in each of the
-    16 passes, and the final norm of the 15 head slices); the qk epilogue
-    and the silu prologue (once a layer pass: the talker's layers and the
-    predictor's in each of the 16 passes); the KV store (the predictor's
-    layer passes)."""
-    from qwen3_tts_tpu_torch.core import protocol as P
-    nb = P.NUM_CODEBOOKS
-    passes = cfg.talker.n_layers + nb * cfg.predictor.n_layers
-    return {"rms_norm_gemv": 2 * passes + nb - 1, "qk_rope_gemv": passes,
-            "silu_gemv": passes,
-            "kv_store_gemv": nb * cfg.predictor.n_layers}
+    """Launches a frame on a path whose predictor runs the frame kernel
+    (dense or int8 predictor weights, B <= 16): the predictor frame kernel
+    once, and no predictor gemv, decode attention, KV store or
+    argmax_gather; the talker's step: a gemv (any weight kind, `gemv_all`)
+    per product of each layer and its head, the norm prologue at ln1 and
+    ln2 of each layer, the qk epilogue and the silu prologue once a layer,
+    decode attention once a layer."""
+    Lt = cfg.talker.n_layers
+    return {"predictor_frame": 1, "gemv_all": 4 * Lt + 1,
+            "decode_attention": Lt, "rms_norm_gemv": 2 * Lt,
+            "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
+            "argmax_gather": 0}
+
+
+def reset_counts() -> None:
+    """Every launch count to 0: the chain's kernels and the frame kernel."""
+    from qwen3_tts_tpu_torch.ops import chain, fused_predictor
+    chain.reset_launch_counts()
+    fused_predictor.predictor_frame_kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    """`chain.launch_counts()`, the frame kernel's launches
+    (`predictor_frame`) and the gemv launches of every weight kind
+    (`gemv_all`)."""
+    from qwen3_tts_tpu_torch.ops import chain, fused_predictor
+    counts = chain.launch_counts()
+    counts["predictor_frame"] = fused_predictor.predictor_frame_kernel.launches
+    counts["gemv_all"] = sum(counts[k] for k in ("gemv", "gemv_int8",
+                                                 "gemv_int4"))
+    return counts
 
 
 def run_main_path(rec: Record, label: str, fn, need, fused=None):
     """fn() with every launch count set to 0 just before and read just
     after; fails if a kernel in `need` was not launched, or, given `fused`
     (`fused_per_frame`), unless the standalone rms_norm ran once a frame
-    (the talker's final norm) and each fused piece its count a frame."""
+    (the talker's final norm) and every count in `fused` its number a
+    frame."""
     import torch
-    from qwen3_tts_tpu_torch.ops import chain
     torch.cuda.synchronize()
-    chain.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = chain.launch_counts()
+    counts = launch_counts()
     rec.add_launches(counts)
     log(f"  {label}: {wall:.2f} s wall, launches {json.dumps(counts)}")
     missing = [k for k in need if counts[k] <= 0]
@@ -1004,12 +1129,12 @@ def run_main_path(rec: Record, label: str, fn, need, fused=None):
         ok = frames > 0 and all(counts[k] == n * frames
                                 for k, n in fused.items())
         log(f"  {label}: {frames} frames (one standalone rms_norm a frame); "
-            "fused a frame: " + ", ".join(
+            "a frame: " + ", ".join(
                 f"{k} {counts[k] / max(frames, 1):g} (expect {n})"
                 for k, n in fused.items()) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{label}: expected one standalone rms_norm and {fused} "
-                 "fused launches a frame")
+                 "launches a frame")
     return out
 
 
@@ -1027,19 +1152,20 @@ def check_wav(label, wav, max_frames):
 
 
 TEXT = "Hello from the port: one sentence of speech."
-TRITON = ("rms_norm", "argmax_gather")
+# the talker's final norm (the predictor's argmax runs in its frame kernel)
+TRITON = ("rms_norm",)
 # the fused pieces of the gemv launches, each launched on every path
-FUSED = ("rms_norm_gemv", "qk_rope_gemv", "silu_gemv", "kv_store_gemv")
+FUSED = ("rms_norm_gemv", "qk_rope_gemv", "silu_gemv")
+FRAME = ("predictor_frame",)
 
 
 def phase_main(eng, rec: Record, q48, q88):
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
-    from qwen3_tts_tpu_torch.ops import chain
 
     log("[6/8] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
-    dense_need = ("gemv", "decode_attention") + FUSED + TRITON
+    dense_need = ("gemv", "decode_attention") + FUSED + TRITON + FRAME
     fused = fused_per_frame(eng.config)
 
     def engine_runs(e, label, frames, need):
@@ -1066,7 +1192,7 @@ def phase_main(eng, rec: Record, q48, q88):
     spk = os.path.join(REPO, "speakers")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
-    need48 = ("gemv_int4", "gemv_int8", "decode_attention") + FUSED + TRITON
+    need48 = ("gemv_int4", "decode_attention") + FUSED + TRITON + FRAME
     engine_runs(e48, "int4+int8", 32, need48)
     e48.set_max_steps(32)
     pair = run_main_path(
@@ -1080,9 +1206,26 @@ def phase_main(eng, rec: Record, q48, q88):
     e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
     engine_runs(e88, "int8/int8", 16, ("qmatmul", "gemv_int8",
-                                       "decode_attention") + FUSED + TRITON)
-    del e48, e88
-    chain.reset_launch_counts()
+                                       "decode_attention") + FUSED + TRITON
+               + FRAME)
+    # an int4 predictor keeps the chain (ops/fused_predictor.py
+    # frame_route): B4 for its products, decode attention, the KV stores,
+    # argmax_gather; no frame kernel
+    q44 = quantized_models(eng.models, "int4", "int4")
+    e44 = TtsEngine(config=eng.config, weights=(q44, eng.vocoder_params),
+                    speakers_dir=spk, device="cuda")
+    e44.set_max_steps(8)
+    e44.set_sampler_config(SamplerConfig(seed=0))
+    audio = run_main_path(
+        rec, "int4/int4 (predictor chain) B=1 generate_with_voice",
+        lambda: e44.generate_with_voice(TEXT, voice),
+        ("gemv_int4", "decode_attention", "kv_store_gemv", "argmax_gather")
+        + FUSED + TRITON)
+    check_wav("int4/int4 B=1", audio.samples, 8)
+    if launch_counts()["predictor_frame"]:
+        fail("int4/int4: the int4 predictor launched the frame kernel")
+    del e48, e88, e44, q44
+    reset_counts()
 
     tiny_card_vs_cpu()
 
@@ -1251,7 +1394,6 @@ def _fmt(ms):
 
 def phase_stream(eng, rec: Record, card: str, q48):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
-    from qwen3_tts_tpu_torch.ops import chain
 
     frames = 32
     log(f"[7/8] stream: TtsEngine.generate_stream, full width, B=1, "
@@ -1260,9 +1402,10 @@ def phase_stream(eng, rec: Record, card: str, q48):
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=os.path.join(REPO, "speakers"),
                     device="cuda")
-    sets = (("dense bf16", eng, ("gemv", "decode_attention") + FUSED + TRITON),
-            ("int4+int8", e48, ("gemv_int4", "gemv_int8", "decode_attention")
-             + FUSED + TRITON))
+    sets = (("dense bf16", eng, ("gemv", "decode_attention") + FUSED + TRITON
+             + FRAME),
+            ("int4+int8", e48, ("gemv_int4", "decode_attention") + FUSED
+             + TRITON + FRAME))
     fused = fused_per_frame(eng.config)
     for label, e, need in sets:
         e.set_max_steps(frames)
@@ -1285,7 +1428,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
             f"{rtf[0]:.3f}, warm {rtf[1]:.3f} "
             f"({len(runs[1]['samples']) / 24000:.3f} s of audio; cold = the "
             f"engine's first stream, kernels already built) on {card}")
-    chain.reset_launch_counts()
+    reset_counts()
     vocoder_chunk_times(eng, card)
     for label, e, _ in sets:
         stream_frame_times(e, label, card)
@@ -1695,6 +1838,80 @@ def kernel_times(rec: Record, card: str, g):
             rec.bound[name] = (b_ms, b_by)
     norm_fusion_times(rec, card, g)
     epilogue_fusion_times(rec, card, g)
+    frame_kernel_times(rec, card)
+
+
+def frame_bytes_ops(params, cfg, B):
+    """(bytes, operations) the predictor frame must move and do: the layer
+    stack's weights once a pass (16 passes: the stack, 218 MB in bf16, does
+    not stay on a chip with 50 MB of L2 and ~30 MB of shared memory), 15
+    head slices, the 15 ptab rows gathered, h1024 and code_0 read and the
+    codes written; two operations a weight element a row."""
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    nb, cv = P.NUM_CODEBOOKS, P.CODE_VOCAB
+    stack = head = 0
+    for st, w in fp._weights(params).items():
+        n = sum(nbytes(t) for t in (w.values() if isinstance(w, dict)
+                                    else (w,)))
+        if st == "head":
+            head = n * (nb - 1) // nb
+        else:
+            stack += n
+    elt = 1 if isinstance(params["head"], dict) else \
+        params["head"].element_size()
+    n_b = nb * stack + head + (nb - 1) * B * cfg.hidden * elt \
+        + B * cfg.hidden * 4 + B * 4 + B * nb * 4
+    K_N = sum(K * N for K, N in fp.stage_shapes(cfg).values()
+              if (K, N) != (cfg.hidden, cv)) * cfg.n_layers
+    ops = 2.0 * B * (nb * K_N + (nb - 1) * cfg.hidden * cv)
+    return n_b, ops
+
+
+def frame_kernel_times(rec: Record, card: str):
+    """The predictor frame kernel per frame at full width (device ms by
+    CUDA-graph replay: the cooperative launch captures; and by the
+    profiler) against its bound, the chain it replaces (`_frame` over the
+    chain's kernels, ~670 launches) and its plain version (both: the
+    kernels' device time in a profiler trace, so host cost drops out),
+    dense bf16 and int8 at B = 1 and 16. Dense B = 1 is the JSON line's
+    entry; no single PyTorch call computes a frame."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.ops import chain
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+
+    cfg = EngineConfig().predictor
+    for kind in ("dense", "int8"):
+        for B in (1, 16):
+            pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
+            args = (pp, cfg, ptab, rows, h, c0)
+            ms = graph_ms(lambda: fp.predictor_frame_kernel(*args), reps=10)
+            prof = profiled_device_ms(
+                lambda: fp.predictor_frame_kernel(*args), 3)
+            # the chain and the plain version build their RoPE tables from
+            # host data each frame, which a CUDA graph cannot capture: their
+            # kernels' device time from the profiler, after one warm call
+            chain_fn = lambda: fp._frame(chain.KERNELS, *args)  # noqa: E731
+            plain_fn = lambda: fp.frame_codes_fused_plain(*args)  # noqa: E731
+            chain_fn()
+            plain_fn()
+            ch = profiled_device_ms(chain_fn, 2)
+            plain = profiled_device_ms(plain_fn, 1)
+            n_b, ops = frame_bytes_ops(pp, cfg, B)
+            b_ms, b_by = bound(n_b, ops, "int8" if kind == "int8"
+                               else "bf16")
+            log(f"  {'predictor_frame':16s} {f'full {kind} B={B}, a frame':44s}"
+                f" device: kernel {ms:.4f} ms (graph replay; profiler "
+                f"{_fmt4(prof)}), the chain it replaces {_fmt4(ch)} ms, "
+                f"plain {_fmt4(plain)} ms (profiler), bound {b_ms:.4f} ms "
+                f"({b_by}, {b_ms / ms:.1%} of it; {n_b / 1e9:.3f} GB) on "
+                f"{card}")
+            if kind == "dense" and B == 1:
+                rec.ms["predictor_frame"], rec.plain_ms["predictor_frame"] = \
+                    ms, plain
+                rec.library_ms["predictor_frame"] = None
+                rec.bound["predictor_frame"] = (b_ms, b_by)
+            del pp, args
 
 
 def norm_fusion_times(rec: Record, card: str, g):

@@ -47,6 +47,10 @@ SIGNATURES = {
     "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, P],
+    # csrc/predictor_frame.cu: (dtype, x rows a chunk, smem, int[3] out);
+    # (FrameArgs, dtype, x rows a chunk, blocks, smem, stream)
+    "predictor_frame_query": [I, I, I, P],
+    "predictor_frame_launch": [P, I, I, I, I, P],
     # csrc/probes.cu (tools/mosaic_probe.py)
     "probe_hbm_scratch_launch": [P, P, P, I, P],
     "probe_fori_dma_launch": [P, P, I, P],

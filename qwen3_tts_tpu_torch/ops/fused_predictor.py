@@ -1,8 +1,20 @@
 """The predictor's 16-code expansion of a frame: the port of
 `qwen3_tts_tpu/ops/fused_predictor.py::frame_codes_fused` and `make_ptab`.
 
-On the TPU this is one Pallas kernel. Here it is a chain of the port's
-kernels (`ops/chain.py`), driven from Python:
+On the TPU this is one Pallas kernel. Here it takes one of two routes,
+decided by `frame_route` before any launch, from the weights' kinds and the
+batch alone (JAX's own split is `usable` against `predictor.frame_codes`,
+`qwen3_tts_tpu/tts/generate.py:97-104`):
+
+  kernel  dense (f32 / bf16) or int8 weights and B <= MAX_B: one
+          persistent CUDA kernel a frame, `csrc/predictor_frame.cu`
+          (`predictor_frame_kernel`), the TPU kernel's own shape;
+  chain   int4 weights, or B > MAX_B: a chain of the port's kernels
+          (`ops/chain.py`) driven from Python (`_frame`), which with the
+          plain op set is also the kernel's plain version
+          (`frame_codes_fused_plain`).
+
+The chain, pass by pass:
 
   pass 0   x = h1024 (rounded to the model dtype) at position 0
   pass 1   x = ptab[0][sel(code_0)] at position 1; head slice 0 (its
@@ -21,7 +33,9 @@ qk epilogue with the KV store (`ops/gemv.py`, `kv=`), given the slot's
 strided views, with no copy of its own. The pass's attention reads slots
 [0, p) only. Codes stay on the device: no `.item()`, no host sync inside
 the frame. Codes out of range select the bias row of ptab; negative codes
-clamp to 0 (`qwen3_tts_tpu/ops/fused_predictor.py:651-659`).
+clamp to 0 (`qwen3_tts_tpu/ops/fused_predictor.py:651-659`). The kernel
+computes the same at the same rounding points, in one launch (its design:
+the top of `csrc/predictor_frame.cu`).
 
 Weights are dense, int8 or int4, split per layer as the TPU kernel's
 `_split_w` splits them (`qwen3_tts_tpu/ops/fused_predictor.py:596`): values
@@ -49,12 +63,14 @@ Deliberate divergences from the TPU kernel:
 
 from __future__ import annotations
 
+import ctypes
+import weakref
 from typing import Any, Dict, Tuple
 
 import torch
 
 from ..core import protocol
-from . import chain, rope
+from . import chain, quant, rope
 from .elementwise import sel_rows
 from .gemv import EPI_F32_ROUND_DT
 
@@ -126,13 +142,399 @@ def frame_codes_fused(params: Dict[str, Any], cfg, ptab: torch.Tensor,
                       ptab_rows: int, h1024: torch.Tensor,
                       code_0: torch.Tensor) -> torch.Tensor:
     """h1024 [B, H] f32 projected talker hidden; code_0 [B]; ptab from
-    `make_ptab`. Returns codes [B, 16] int32 with code_0 in column 0."""
+    `make_ptab`. Returns codes [B, 16] int32 with code_0 in column 0.
+    Routed by `frame_route`: the frame kernel, or the chain."""
+    if frame_route(params, code_0.shape[0]) == KERNEL:
+        return predictor_frame_kernel(params, cfg, ptab, ptab_rows, h1024,
+                                      code_0)
     return _frame(chain.KERNELS, params, cfg, ptab, ptab_rows, h1024, code_0)
 
 
 def frame_codes_fused_plain(params, cfg, ptab, ptab_rows, h1024, code_0):
-    """The same expansion through the plain PyTorch versions of every op."""
+    """The same expansion through the plain PyTorch versions of every op:
+    the plain version of the chain and of the frame kernel."""
     return _frame(chain.PLAIN, params, cfg, ptab, ptab_rows, h1024, code_0)
+
+
+# ------------------------------------------------------------ frame kernel
+KERNEL, CHAIN = "kernel", "chain"
+# the TPU kernel's own batch limit (`max_b`,
+# qwen3_tts_tpu/ops/fused_predictor.py:905)
+MAX_B = 16
+UNIT = 8            # columns of a work unit (csrc/predictor_frame.cu kUnit)
+MAX_G = 4           # q heads per kv head
+MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kXPer)
+_WARPS = 8          # warps of a block (kFWarps)
+_STAGES = ("qkv", "wo", "gu", "down", "head")
+_WEIGHTS = {"qkv": "wqkv", "wo": "wo", "gu": "w_gu", "down": "w_down"}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _weights(params):
+    return {st: params["layers"][name] for st, name in _WEIGHTS.items()} \
+        | {"head": params["head"]}
+
+
+def frame_route(params: Dict[str, Any], B: int) -> str:
+    """KERNEL for dense or int8 predictor weights (any mix of the two) at
+    B <= MAX_B; CHAIN for int4 weights or B > MAX_B. Decided from the
+    weights' kinds and the batch alone, before any launch, never on a
+    failure: a kernel that does not build or launch raises."""
+    if B > MAX_B or any(quant.is_quantized4(w)
+                        for w in _weights(params).values()):
+        return CHAIN
+    return KERNEL
+
+
+def row_chunk(B: int) -> int:
+    """x rows a block stages at once (kMT): 1, 2, else 4 (B > 4 loops)."""
+    return 1 if B == 1 else 2 if B == 2 else 4
+
+
+def stage_shapes(cfg) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of each weight stage: N the columns dealt over the blocks
+    (the head: one 2048-code slice)."""
+    H, F = cfg.hidden, cfg.ffn_dim
+    nqkv = (cfg.n_q_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    return {"qkv": (H, nqkv), "wo": (cfg.n_q_heads * cfg.head_dim, H),
+            "gu": (H, 2 * F), "down": (F, H),
+            "head": (H, protocol.CODE_VOCAB)}
+
+
+def split_units(units: int, nb: int):
+    """[lo, hi) of each of nb blocks: block i takes [i * units // nb,
+    (i + 1) * units // nb), contiguous and in order (csrc/predictor_frame.cu
+    unit_lo)."""
+    return [(i * units // nb, (i + 1) * units // nb) for i in range(nb)]
+
+
+def frame_plan(cfg, B: int, nb: int) -> Dict[str, list]:
+    """The kernel's work plan over nb blocks: per weight stage, each block's
+    range of 8-column units; "attention", each block's range of (row, kv
+    head) units b * nk + j (whole heads); "residual", each block's columns
+    of the residual it writes from a pass's source row."""
+    plan = {st: split_units(N // UNIT, nb)
+            for st, (_, N) in stage_shapes(cfg).items()}
+    plan["attention"] = split_units(B * cfg.n_kv_heads, nb)
+    plan["residual"] = split_units(cfg.hidden, nb)
+    return plan
+
+
+def frame_smem_fixed(cfg, B: int, t_bytes: int) -> int:
+    """Bytes of a block's shared memory besides the two weight buffers
+    (csrc/predictor_frame.cu fixed_smem): the staged x rows, the
+    reductions' scratch, stage 2's head vectors and scores."""
+    mt = row_chunk(B)
+    kmax = max(cfg.hidden, cfg.n_q_heads * cfg.head_dim, cfg.ffn_dim)
+    xs = -(-(mt * kmax * t_bytes) // 16) * 16
+    return 16 + xs + 4 * (_WARPS * 32 + 32 + 4 * MAX_B
+                     + (2 + MAX_G) * cfg.head_dim + protocol.NUM_CODEBOOKS)
+
+
+def frame_buffer_bytes(cfg, plan: Dict[str, list], w_bytes: Dict[str, int],
+                       fixed: int, smem_max: int) -> int:
+    """Bytes of each of the two weight buffers: the largest block slice of
+    any weight stage under `frame_plan` (units * 8 columns * K rows * bytes
+    a weight), at most what the block's shared memory leaves; a slice
+    larger than the buffer stages its first rows (the rest stream from
+    HBM)."""
+    need = 0
+    for st, (K, _) in stage_shapes(cfg).items():
+        most = max(hi - lo for lo, hi in plan[st])
+        need = max(need, most * UNIT * K * w_bytes[st])
+    room = (smem_max - fixed) // 2 // 16 * 16
+    return max(0, min(-(-need // 16) * 16, room))
+
+
+def pack_units(w: torch.Tensor) -> torch.Tensor:
+    """The frame kernel's weight layout: w [..., K, N] -> [..., N / 8, K, 8],
+    each 8-column unit's K rows contiguous, so a block's slice of a stage
+    (contiguous units) is one contiguous range, copied into its shared
+    memory in bulk (csrc/predictor_frame.cu `issue`). Values unchanged."""
+    N = w.shape[-1]
+    return w.reshape(*w.shape[:-1], N // UNIT, UNIT).transpose(-3, -2) \
+        .contiguous()
+
+
+def unpack_units(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of `pack_units`: [..., N / 8, K, 8] -> [..., K, N]."""
+    U, K, _ = p.shape[-3:]
+    return p.transpose(-3, -2).reshape(*p.shape[:-3], K, U * UNIT)
+
+
+# packed copies of the weights the kernel has read, by the weight's id; an
+# entry holds a weak reference to the weight and its version, so a freed
+# or modified weight is packed anew
+_packed: dict = {}
+
+
+def packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """`pack_units(w)`, made once per weight tensor and kept while it
+    lives (the kernel's extra copy of the predictor weights: 285 MB dense
+    bf16 at full width, half for int8)."""
+    key = id(w)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    ref = weakref.ref(w, lambda _, key=key: _packed.pop(key, None))
+    _packed[key] = (ref, w._version, pack_units(w))
+    return _packed[key][2]
+
+
+def better(v: float, i: int, bv: float, bi: int) -> bool:
+    """The argmax order of the kernel: NaN above every number (the first
+    NaN wins, as torch.argmax), then the larger value, then the lower
+    index: a strict total order, so any reduction tree agrees."""
+    n, bn = v != v, bv != bv
+    if n != bn:
+        return n
+    if not n and v != bv:
+        return v > bv
+    return i < bi
+
+
+def reduce_partials(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain reduction of the head stage's per-block partials, vals / idx
+    [nb, B] (a block with no columns holds (-inf, 2^31 - 1)): the code of
+    each row [B] int64."""
+    out = []
+    for b in range(vals.shape[1]):
+        bv, bi = float("-inf"), 2 ** 31 - 1
+        for v, i in zip(vals[:, b].tolist(), idx[:, b].tolist()):
+            if better(v, i, bv, bi):
+                bv, bi = v, i
+        out.append(bi)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+def block_partials(logits: torch.Tensor, nb: int):
+    """Plain per-block partials of a head slice's logits [B, CV] under the
+    head stage's plan: (vals, idx) [nb, B], each block's argmax over its
+    columns (the lowest index on ties)."""
+    B = logits.shape[0]
+    vals = torch.full((nb, B), float("-inf"))
+    idx = torch.full((nb, B), 2 ** 31 - 1, dtype=torch.int64)
+    for blk, (lo, hi) in enumerate(split_units(logits.shape[1] // UNIT, nb)):
+        if hi > lo:
+            part = logits[:, lo * UNIT:hi * UNIT]
+            k = torch.argmax(part, dim=-1)
+            vals[blk] = part.gather(1, k[:, None])[:, 0]
+            idx[blk] = k + lo * UNIT
+    return vals, idx
+
+
+class _FrameArgs(ctypes.Structure):
+    """`FrameArgs` of csrc/predictor_frame.cu, field for field."""
+    _fields_ = [("w", ctypes.c_void_p * 5), ("sc", ctypes.c_void_p * 5)] \
+        + [(f, ctypes.c_void_p) for f in (
+            "ln1", "ln2", "q_norm", "k_norm", "final_norm", "ptab", "h1024",
+            "code0", "codes", "xres", "qkv", "att", "gu", "kc", "vc", "cos",
+            "sin", "part_v", "part_i", "bar")] \
+        + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
+                                       "CV", "R", "rows0", "buf")] \
+        + [("eps", ctypes.c_float)]
+
+
+def _geometry(cfg):
+    return (cfg.hidden, cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.ffn_dim, cfg.dtype)
+
+
+# made once per (config geometry, device): the RoPE tables of positions
+# 0..15; per (geometry, B, device, stream): the kernel's workspace; per
+# (geometry, B, weight kinds, device): the launch plan
+_tables: dict = {}
+_workspaces: dict = {}
+_plans: dict = {}
+
+
+def _rope_table(cfg, dev):
+    key = (_geometry(cfg), cfg.mrope_sections, cfg.rope_theta, dev)
+    if key not in _tables:
+        pos = torch.arange(protocol.NUM_CODEBOOKS, device=dev)
+        cos, sin = rope.rope_angles(rope.mrope_positions(pos[None]),
+                                    cfg.mrope_sections, cfg.head_dim,
+                                    cfg.rope_theta)
+        _tables[key] = (cos[0].contiguous(), sin[0].contiguous())
+    return _tables[key]
+
+
+def _workspace(cfg, B: int, nb: int, dev):
+    """Scratch of the kernel, kept per (geometry, B, device, stream): the
+    f32 residual, the qkv / attention / gate-up outputs, the frame cache
+    (never zeroed: only the slots a frame wrote are read), the head's
+    per-block partials and the barrier's arrival count and generation, a
+    cache line apart (zeroed once; the kernel leaves them ready for the
+    next launch)."""
+    key = (_geometry(cfg), B, nb, dev,
+           torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _workspaces:
+        H, L, nq, nk, hd = (cfg.hidden, cfg.n_layers, cfg.n_q_heads,
+                            cfg.n_kv_heads, cfg.head_dim)
+        f32 = dict(dtype=torch.float32, device=dev)
+        cache = (L, B, nk, protocol.NUM_CODEBOOKS, hd)
+        _workspaces[key] = dict(
+            xres=torch.empty(B, H, **f32),
+            qkv=torch.empty(B, (nq + 2 * nk) * hd, **f32),
+            att=torch.empty(B, nq * hd, **f32),
+            gu=torch.empty(B, 2 * cfg.ffn_dim, **f32),
+            kc=torch.empty(cache, **f32), vc=torch.empty(cache, **f32),
+            part_v=torch.empty(nb, B, **f32),
+            part_i=torch.empty(nb, B, dtype=torch.int32, device=dev),
+            bar=torch.zeros(64, dtype=torch.int32, device=dev))
+    return _workspaces[key]
+
+
+def _query(dtype: int, mt: int, smem: int):
+    """(resident blocks per SM at smem bytes, opt-in shared memory per
+    block, SM count) of the frame kernel on the current device."""
+    from ..kernels import build
+    out = (ctypes.c_int * 3)()
+    build.check(build.lib().predictor_frame_query(dtype, mt, smem, out),
+                "predictor_frame_query")
+    return out[0], out[1], out[2]
+
+
+def _plan(cfg, B: int, kinds, t_bytes: int, dev):
+    """(x rows a chunk, blocks, bytes a weight buffer, shared memory a
+    block): buffers sized at one block per SM, then the grid SMs x the
+    resident blocks per SM at that shared memory."""
+    key = (_geometry(cfg), B, kinds, dev)
+    if key not in _plans:
+        mt = row_chunk(B)
+        dtype = 0 if t_bytes == 4 else 1
+        _, smem_max, sms = _query(dtype, mt, 0)
+        fixed = frame_smem_fixed(cfg, B, t_bytes)
+        w_bytes = {st: 1 if k == "int8" else t_bytes
+                   for st, k in zip(_STAGES, kinds)}
+        buf = frame_buffer_bytes(cfg, frame_plan(cfg, B, sms), w_bytes, fixed,
+                                 smem_max)
+        smem = fixed + 2 * buf
+        per_sm = _query(dtype, mt, smem)[0]
+        if per_sm < 1:
+            raise RuntimeError(f"predictor_frame: no block fits an SM at "
+                               f"{smem} bytes of shared memory")
+        _plans[key] = (mt, sms * per_sm, buf, smem)
+    return _plans[key]
+
+
+def _check_frame(params, cfg, ptab, h1024, code_0):
+    """Refuse what the frame kernel does not take (ValueError / TypeError):
+    the checks run on every device, so a CPU run refuses what the card
+    would."""
+    B, H = h1024.shape[0], cfg.hidden
+    nq, nk, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = getattr(torch, cfg.dtype)
+    NB, CV = protocol.NUM_CODEBOOKS, protocol.CODE_VOCAB
+    if dt not in _DTYPES:
+        raise TypeError(f"predictor_frame: model dtype {dt}; float32 or "
+                        "bfloat16")
+    if not 1 <= B <= MAX_B or tuple(h1024.shape) != (B, H) \
+            or tuple(code_0.shape) != (B,):
+        raise ValueError(f"predictor_frame: h1024 {tuple(h1024.shape)}, "
+                         f"code_0 {tuple(code_0.shape)}; B in [1, {MAX_B}]")
+    if hd < 8 or hd > 128 or hd & (hd - 1) or nq % nk or nq // nk > MAX_G \
+            or H % UNIT or H > MAX_H or cfg.ffn_dim % UNIT \
+            or cfg.max_seq < NB:
+        raise ValueError("predictor_frame: head_dim a power of two in [8, "
+                         f"128], n_q_heads / n_kv_heads <= {MAX_G}, hidden "
+                         f"<= {MAX_H}, hidden and ffn_dim multiples of "
+                         f"{UNIT}, max_seq >= {NB}")
+    if ptab.dtype != dt or ptab.dim() != 3 or ptab.shape[0] != NB \
+            or ptab.shape[2] != H or not ptab.is_contiguous():
+        raise ValueError(f"predictor_frame: ptab must be contiguous {dt} "
+                         f"[{NB}, R, {H}]")
+    L, F = cfg.n_layers, cfg.ffn_dim
+    want = {"qkv": (L, H, (nq + 2 * nk) * hd), "wo": (L, nq * hd, H),
+            "gu": (L, H, 2 * F), "down": (L, F, H), "head": (H, NB * CV)}
+    kinds = []
+    for st, w in _weights(params).items():
+        q8 = quant.is_quantized(w)
+        v = w["q"] if q8 else w
+        ok = tuple(v.shape) == want[st] and v.is_contiguous() \
+            and v.dtype == (torch.int8 if q8 else dt) \
+            and v.data_ptr() % 16 == 0
+        if q8:
+            sc = w["scale"]
+            ok = ok and sc.dtype == torch.float32 and sc.is_contiguous() \
+                and tuple(sc.shape) == want[st][:-2] + want[st][-1:]
+        if not ok:
+            raise ValueError(f"predictor_frame: {st} weight must be "
+                             f"contiguous 16-byte aligned {dt} or int8 "
+                             f"(with f32 scales) {want[st]}")
+        kinds.append("int8" if q8 else "dense")
+    lw = params["layers"]
+    for name, shape in (("ln1", (L, H)), ("ln2", (L, H)),
+                        ("q_norm", (L, hd)), ("k_norm", (L, hd))):
+        t = lw[name]
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"predictor_frame: {name} must be contiguous "
+                             f"{dt} {shape}")
+    fn = params["final_norm"]
+    if fn.dtype != dt or tuple(fn.shape) != (H,) or not fn.is_contiguous():
+        raise ValueError(f"predictor_frame: final_norm must be contiguous "
+                         f"{dt} ({H},)")
+    return tuple(kinds)
+
+
+def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
+                           ptab_rows: int, h1024: torch.Tensor,
+                           code_0: torch.Tensor) -> torch.Tensor:
+    """The frame in one launch of csrc/predictor_frame.cu (dense or int8
+    weights, B <= MAX_B): codes [B, 16] int32, as `frame_codes_fused_plain`
+    computes them. On a CPU tensor it takes that plain version; on a CUDA
+    tensor it launches the kernel or raises."""
+    kinds = _check_frame(params, cfg, ptab, h1024, code_0)
+    if h1024.device.type == "cpu":
+        return frame_codes_fused_plain(params, cfg, ptab, ptab_rows, h1024,
+                                       code_0)
+    dev = h1024.device
+    tensors = [ptab, code_0] + [t for w in _weights(params).values()
+                                for t in (w.values() if isinstance(w, dict)
+                                          else (w,))]
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"predictor_frame: every tensor must be on {dev}")
+    dt = getattr(torch, cfg.dtype)
+    t_bytes = 4 if dt == torch.float32 else 2
+    B = h1024.shape[0]
+    from ..kernels import build
+    with torch.cuda.device(dev):
+        mt, nb, buf, smem = _plan(cfg, B, kinds, t_bytes, dev)
+        ws = _workspace(cfg, B, nb, dev)
+        cos, sin = _rope_table(cfg, dev)
+        h = h1024.float().contiguous()
+        c0 = code_0.to(torch.int32).contiguous()
+        codes = torch.empty(B, protocol.NUM_CODEBOOKS, dtype=torch.int32,
+                            device=dev)
+        lw = params["layers"]
+        a = _FrameArgs()
+        for i, w in enumerate(_weights(params).values()):
+            q8 = quant.is_quantized(w)
+            a.w[i] = packed_weight(w["q"] if q8 else w).data_ptr()
+            a.sc[i] = w["scale"].data_ptr() if q8 else None
+        for name, t in (("ln1", lw["ln1"]), ("ln2", lw["ln2"]),
+                        ("q_norm", lw["q_norm"]), ("k_norm", lw["k_norm"]),
+                        ("final_norm", params["final_norm"]), ("ptab", ptab),
+                        ("h1024", h), ("code0", c0), ("codes", codes),
+                        ("cos", cos), ("sin", sin)):
+            setattr(a, name, t.data_ptr())
+        for name in ("xres", "qkv", "att", "gu", "kc", "vc", "part_v",
+                     "part_i", "bar"):
+            setattr(a, name, ws[name].data_ptr())
+        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.CV, a.R, a.rows0,
+         a.buf) = (B, cfg.hidden, cfg.n_layers, cfg.n_q_heads,
+                   cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
+                   protocol.CODE_VOCAB, ptab.shape[1], ptab_rows, buf)
+        a.eps = cfg.rms_eps
+        err = build.lib().predictor_frame_launch(
+            ctypes.addressof(a), _DTYPES[dt], mt, nb, smem,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "predictor_frame")
+    predictor_frame_kernel.launches += 1
+    return codes
+
+
+predictor_frame_kernel.launches = 0
 
 
 def make_ptab(assets, cfg) -> Tuple[torch.Tensor, int]:

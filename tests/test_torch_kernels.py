@@ -450,3 +450,90 @@ def test_probe_kernels_edge_indices(dev):
         qt = torch.tensor([q], dtype=torch.int32, device=dev)
         assert torch.equal(mosaic_probe.dyn_col_dma(qt, w),
                            mosaic_probe.dyn_col_dma_plain(qt, w)), q
+
+
+# ------------------------------------------------- the predictor frame kernel
+# a mid size between the tiny config and the full one: bf16, GQA (2 q heads
+# per kv head), four layers
+MID_PREDICTOR = dict(hidden=256, n_layers=4, n_q_heads=4, n_kv_heads=2,
+                     head_dim=64, ffn_dim=512, max_seq=32,
+                     mrope_sections=(32, 0, 0, 0), dtype="bfloat16")
+
+
+def _frame_case(dev, cfg, kind, B, seed, peak=False):
+    """Seeded predictor weights (dense or int8), ptab, h1024 and code_0 on
+    the card. `peak` boosts 4 columns of each head slice 24x, so the argmax
+    races a few well-separated candidates (chip_smoke.py peak_head)."""
+    from qwen3_tts_tpu_torch.assets import tables
+    from qwen3_tts_tpu_torch.core import protocol
+    from qwen3_tts_tpu_torch.models import decoder
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pp = decoder.init_decoder(g, cfg, device=dev)
+    if peak:
+        head = pp["head"].float()
+        for q in range(protocol.NUM_CODEBOOKS):
+            cols = q * protocol.CODE_VOCAB + torch.randperm(
+                protocol.CODE_VOCAB, generator=g, device=dev)[:4]
+            head[:, cols] *= 24.0
+        pp["head"] = head.to(pp["head"].dtype)
+    if kind == "int8":
+        pp = quant.quantize_decoder_params(pp, kind="int8")
+    assets = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
+                                  proj_dim=cfg.hidden, device=dev)
+    ptab, rows = fused_predictor.make_ptab(assets, cfg)
+    h = _randn(g, B, cfg.hidden)
+    code0 = torch.randint(-3, 2300, (B,), generator=g, device=dev)
+    return pp, ptab, rows, h, code0
+
+
+@pytest.mark.parametrize("B", [1, 2, 16])
+def test_predictor_frame_tiny_f32_codes_equal_plain(dev, B):
+    """The frame kernel at the tiny f32 config: codes equal to the plain
+    version on the card and on the CPU; one launch a frame."""
+    cfg = tiny_engine_config().predictor
+    pp, ptab, rows, h, code0 = _frame_case(dev, cfg, "dense", B, 21 + B)
+    before = fused_predictor.predictor_frame_kernel.launches
+    got = fused_predictor.frame_codes_fused(pp, cfg, ptab, rows, h, code0)
+    assert fused_predictor.predictor_frame_kernel.launches == before + 1
+    want = fused_predictor.frame_codes_fused_plain(pp, cfg, ptab, rows, h,
+                                                   code0)
+    assert torch.equal(got, want)
+    cpu = fused_predictor.frame_codes_fused_plain(
+        {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+             else v.cpu()) for k, v in pp.items()},
+        cfg, ptab.cpu(), rows, h.cpu(), code0.cpu())
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8"])
+@pytest.mark.parametrize("B", [1, 2, 16])
+def test_predictor_frame_mid_bf16_agrees_with_plain(dev, kind, B):
+    """A mid size in bf16, dense and int8 weights, peaked heads: codes
+    agree with the plain version in >= 95% of places (bf16 sums in another
+    order may flip a near tie, which then changes the frame's later
+    inputs); code_0 column exact."""
+    import dataclasses
+    cfg = dataclasses.replace(tiny_engine_config().predictor,
+                              **MID_PREDICTOR)
+    pp, ptab, rows, h, code0 = _frame_case(dev, cfg, kind, B, 31 + B,
+                                           peak=True)
+    got = fused_predictor.predictor_frame_kernel(pp, cfg, ptab, rows, h,
+                                                 code0)
+    want = fused_predictor.frame_codes_fused_plain(pp, cfg, ptab, rows, h,
+                                                   code0)
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert float((got == want).float().mean()) >= 0.95
+
+
+def test_predictor_frame_repeats_bit_identical(dev):
+    """No K split, no atomics: the same frame twice gives the same codes,
+    at the tiny f32 config and at the mid size in bf16 and int8, B = 3."""
+    import dataclasses
+    tiny = tiny_engine_config().predictor
+    mid = dataclasses.replace(tiny, **MID_PREDICTOR)
+    for cfg, kind in ((tiny, "dense"), (mid, "dense"), (mid, "int8")):
+        pp, ptab, rows, h, code0 = _frame_case(dev, cfg, kind, 3, 41)
+        a, b = (fused_predictor.predictor_frame_kernel(
+            pp, cfg, ptab, rows, h, code0) for _ in range(2))
+        assert torch.equal(a, b)

@@ -77,7 +77,7 @@ def test_unflatten_npz_paths():
 def test_kernel_sources_and_build_key():
     names = {os.path.basename(p) for p in build.sources()}
     assert {"gemv.cu", "decode_attention.cu", "qmatmul.cu",
-            "probes.cu"} <= names
+            "probes.cu", "predictor_frame.cu"} <= names
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     probes = {f"probe_{n}_launch" for n in (
@@ -86,7 +86,8 @@ def test_kernel_sources_and_build_key():
     assert set(build.SIGNATURES) == {
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
         "gemv_blocks_per_sm", "qmatmul_launch",
-        "decode_attention_launch"} | probes
+        "decode_attention_launch", "predictor_frame_query",
+        "predictor_frame_launch"} | probes
     # every C entry point the build binds is defined in a source
     text = "".join(open(p).read() for p in build.sources())
     for name in build.SIGNATURES:
