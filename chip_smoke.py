@@ -32,7 +32,18 @@ result line:
                on the card and to the CPU's at B = 1, 2, 16, and at full
                width with peaked heads code agreement >= 0.95 for dense
                bf16 and int8 weights at B = 1, 2, 16, repeats and two
-               CUDA-graph replays of the cooperative launch bit-identical
+               CUDA-graph replays of the cooperative launch bit-identical;
+               the talker step kernel (csrc/talker_step.cu) against
+               talker_step_fused_plain: hidden, logits and the cache slot
+               written, every other slot unchanged, at B = 1, 2 and MAX_B,
+               ~100 live slots of a 256 window and ~2100 of a 4096 cache:
+               f32 (rtol/atol 1e-4) at the tiny config, a small int4
+               talker and the full width and depth; bf16 (relative error
+               <= 8e-3) at the full width cut to 2 layers; bf16 at full
+               depth, relative error <= 3e-2, the chain's own error logged
+               beside it, and the plain step without its last layer
+               further than that; repeats and two CUDA-graph replays
+               bit-identical
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
                user runs it, every probe kernel launched; then each of the
@@ -47,26 +58,32 @@ result line:
                int8 talker
   6. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
                width, B=1, 32 frames, generate_with_voice(vivian): a finite
-               waveform, every dense-path kernel's launch count above 0;
-               generate_batch at B=2. The same weights quantized as the JAX
-               bench's headline rung (talker int4, predictor int8) through
-               TtsEngine(weights=...): B=1, 32 frames, then B=2, with
-               gemv_int4, gemv_int8, decode attention, the fused pieces
-               and the Triton passes launched; the int8/int8 rung, B=1, 16
-               frames, with qmatmul (int8 prefill) and gemv_int8 launched;
-               an int4 predictor (int4/int4, B=1, 8 frames), which keeps
-               the chain: B4, decode attention, the KV stores and
-               argmax_gather launched, the frame kernel not.
-               The tiny f32 config's greedy codes on the card (its qk
-               epilogue at hd 16) equal the CPU reference, dense, int8,
-               and int4 on a small int4-capable talker. Counts are set to 0
-               just before each of these runs and read just after; every
-               full-width run launches the standalone rms_norm once a frame
-               (the talker's final norm) and the predictor frame kernel
-               once a frame, and no predictor gemv, decode attention, KV
-               store or argmax_gather: a frame's gemv launches are the
-               talker's 113 (56 norm prologues, 28 qk epilogues, 28 silu
-               prologues) and its decode attention 28.
+               waveform, the talker step kernel and the predictor frame
+               kernel launched; generate_batch at B=2, then at B = MAX_B
+               + 1 (4 frames), where the talker keeps its chain of gemv,
+               decode attention and the Triton rms_norm. The same weights
+               quantized as the JAX bench's headline rung (talker int4,
+               predictor int8) through TtsEngine(weights=...): B=1, 32
+               frames, then B=2, then B = INT4_MAX_B + 1 (3) and MAX_B + 1
+               on the talker's chain (B4, and past 16 rows B8 for the
+               predictor's chain, launched); the int8/int8 rung, B=1, 16
+               frames, with qmatmul (int8 prefill) launched, then B =
+               MAX_B + 1 on the chain (B8 launched); an int4 predictor
+               (int4/int4, B=1, 8 frames), which keeps the predictor's
+               chain: B4, decode attention, the KV stores and
+               argmax_gather launched, the frame kernel not. The tiny f32
+               config's greedy codes on the card equal the CPU reference,
+               dense, int8, and int4 on a small int4-capable talker.
+               Counts are set to 0 just before each of these runs and read
+               just after; every full-width run on the talker kernel's
+               route (B <= 2 here) with a dense
+               or int8 predictor launches the talker step kernel and the
+               predictor frame kernel once a frame and none of the
+               chain's launches (no gemv, decode attention, Triton
+               rms_norm, fused piece, KV store or copy, argmax_gather); on
+               the talker's chain every count a frame is the chains' (113
+               talker gemv, 28 decode attention, one rms_norm, two cache
+               copies, and the predictor's chain past 16 rows).
   7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
                dense bf16 and int4 talker + int8 predictor: a cold call,
                warmup, a warm call, each with the counts set to 0 just
@@ -95,7 +112,10 @@ result line:
                without the silu prologue; B, B8, B4 and decode attention
                at each split count beside their plans' choice; the
                predictor frame kernel a frame against its bound, the chain
-               of launches it replaces and its plain version
+               of launches it replaces and its plain version; the talker
+               step kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8,
+               16, against its bound, the chain it replaces and its plain
+               version (the times behind MAX_B)
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -242,6 +262,9 @@ class Record:
         "predictor_frame": ("cuda",
                             "qwen3_tts_tpu_torch/csrc/predictor_frame.cu",
                             "qwen3_tts_tpu/ops/fused_predictor.py:610"),
+        # the talker's whole decode step in one persistent launch
+        "talker_step": ("cuda", "qwen3_tts_tpu_torch/csrc/talker_step.cu",
+                        "qwen3_tts_tpu/ops/fused_talker.py:428"),
     }
 
     def __init__(self):
@@ -478,6 +501,7 @@ def phase_kernels(rec: Record):
     phase_kernels_norm(rec, randn)
     phase_kernels_fused(rec, randn)
     phase_kernels_frame(rec)
+    phase_kernels_step(rec)
     torch.cuda.synchronize()
 
 
@@ -900,6 +924,161 @@ def phase_kernels_frame(rec: Record):
             del pp
 
 
+# bf16 relative error limit of the talker step at full width and depth
+# (28 layers), against its plain version. On an NVIDIA H100 80GB HBM3
+# (PERF.md) the kernel is 7.1e-3-2.05e-2 from the plain version there and
+# the chain 8.6e-3-2.3e-2 (B = 1, 2, 16; T = 256, 4096; each weight kind):
+# bf16 roundings of the products' inputs flip with the order of the f32
+# sums and 28 layers carry them on; cut to 2 layers they stay within 8e-3.
+# The plain step without its last layer, the control, is 0.146-0.241.
+FULL_DEPTH_REL = 3e-2
+
+
+def drop_last_layer(tp, cfg, inputs):
+    """The control of the full-depth limit: the same step's params, config
+    and inputs with the talker's last layer cut off (its five stages)."""
+    import dataclasses
+    L = cfg.n_layers - 1
+    lw = {k: (v[:L] if not isinstance(v, dict)
+              else {n: t[:L] for n, t in v.items()})
+          for k, v in tp["layers"].items()}
+    x, pos, slot, kv_len, vf, kc, vc = inputs
+    return (dict(tp, layers=lw), dataclasses.replace(cfg, n_layers=L),
+            (x, pos, slot, kv_len, vf, kc[:L].clone(), vc[:L].clone()))
+
+
+def step_check(rec, label, cfg, tp, inputs, tol, control=False):
+    """One talker step through the kernel against its plain version on the
+    same inputs: hidden, logits and the cache slot written within `tol`
+    (f32 rtol/atol, or bf16 relative error `rel`), every other slot
+    bit-unchanged. With `control` (bf16 at full depth) it also logs the
+    chain's relative error to the plain version on the same inputs, and
+    fails unless the plain step without its last layer is further from the
+    plain version than `rel`: the limit tells a dropped stage from
+    rounding."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import chain
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+
+    x, pos, slot, kv_len, vf, kc, vc = inputs
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
+    sl = slot.long()
+    kk, kv = kc.clone(), vc.clone()
+    h, lg, _, _ = ft.talker_step_kernel(tp, cfg, x, pos, slot, kv_len, vf,
+                                        kk, kv)
+    got_slots = []
+    for name, got, orig in (("k", kk, kc), ("v", kv, vc)):
+        got_slots.append(got[:, rows, :, sl].clone())
+        got[:, rows, :, sl] = orig[:, rows, :, sl]
+        if not torch.equal(got, orig):
+            fail(f"talker_step {label}: the step wrote {name} outside its "
+                 "slot")
+    del kk, kv
+    ch = ctl = None
+    if control:
+        ch = ft._step(chain.KERNELS, tp, cfg, x, pos, slot, kv_len, vf,
+                      kc.clone(), vc.clone())[:2]
+        tp_c, cfg_c, in_c = drop_last_layer(tp, cfg, inputs)
+        ctl = ft.talker_step_fused_plain(tp_c, cfg_c, *in_c)[:2]
+        del tp_c, in_c
+    ph, pl, _, _ = ft.talker_step_fused_plain(tp, cfg, x, pos, slot, kv_len,
+                                              vf, kc, vc)
+    want_slots = [kc[:, rows, :, sl], vc[:, rows, :, sl]]
+    for what, a, b in (("hidden", h, ph), ("logits", lg, pl),
+                       ("k slot", got_slots[0], want_slots[0]),
+                       ("v slot", got_slots[1], want_slots[1])):
+        rec.check("talker_step", a, b, f"{label} {what}",
+                  quiet=what.endswith("slot"), **tol)
+    if not control:
+        return
+    for what, c, d, b in (("hidden", ch[0], ctl[0], ph),
+                          ("logits", ch[1], ctl[1], pl)):
+        rc, rd = rel_err(c, b), rel_err(d, b)
+        ok = rd > tol["rel"]
+        log(f"  {'talker_step':16s} {label + ' ' + what:44s} the chain's "
+            f"rel={rc:.2e}; control (plain, last layer dropped) "
+            f"rel={rd:.2e} (> {tol['rel']:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"talker_step {label} {what}: the full-depth limit does not "
+                 "tell a dropped layer from rounding")
+
+
+def phase_kernels_step(rec: Record):
+    """The talker step kernel (`csrc/talker_step.cu`) against its plain
+    version `talker_step_fused_plain` (`step_check`), at B = 1, 2 and
+    MAX_B, ~100 live slots of a 256-slot window and >= 2048 of a 4096-slot
+    cache (a small f32 talker: 300 of 512):
+
+      * f32, rtol/atol 1e-4: the tiny config (dense, int8), the small
+        int4-capable talker (int4), and the full width AND depth (28 x
+        2048, 16/8 heads of 128, ffn 6144, head 2176) for dense, int8 and
+        int4;
+      * bf16 at the full width, depth cut to 2 layers, relative error <=
+        8e-3 (dense, int8, int4);
+      * bf16 at the full width and depth (dense, int8, int4), relative
+        error <= FULL_DEPTH_REL (3e-2), with the chain's own error logged
+        beside it and a control that must exceed the limit (the plain step
+        without its last layer; `step_check`).
+
+    Repeats bit-identical; at B = 2 also two CUDA-graph replays."""
+    import dataclasses
+
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    from qwen3_tts_tpu_torch.tools import frame_measure as fm
+
+    tiny = tiny_engine_config().talker
+    small4 = dataclasses.replace(tiny, hidden=256, n_q_heads=2, n_kv_heads=2,
+                                 head_dim=128, ffn_dim=256,
+                                 mrope_sections=(32, 16, 16, 0))
+    full = EngineConfig().talker
+    f32 = dict(rtol=1e-4, atol=1e-4)
+    batches = sorted({1, 2, ft.MAX_B})
+    windows = ((256, 100), (4096, 2100))
+    groups = [("tiny f32", tiny, ("dense", "int8"), ((512, 100),), f32,
+               False, batches),
+              ("small f32", small4, ("int4",), ((512, 300),), f32, False,
+               batches),
+              ("full f32", dataclasses.replace(full, dtype="float32"),
+               ("dense", "int8", "int4"), windows, f32, False, batches),
+              ("full bf16 2 layers", dataclasses.replace(full, n_layers=2),
+               ("dense", "int8", "int4"), windows, dict(rel=8e-3), False,
+               batches),
+              ("full bf16", full, ("dense", "int8", "int4"), windows,
+               dict(rel=FULL_DEPTH_REL), True, batches)]
+    seed = 100
+    for what, cfg, kinds, wins, tol, control, bs in groups:
+        for kind in kinds:
+            seed += 10
+            tp = fm.step_weights(cfg, kind, seed)
+            for B in bs:
+                for T, live in wins:
+                    seed += 1
+                    inputs = fm.step_inputs(cfg, B, T, live, seed)
+                    label = f"{what} {kind} B={B} T={T} live~{live}"
+                    step_check(rec, label, cfg, tp, inputs, tol, control)
+                    x, pos, slot, kv_len, vf, kc, vc = inputs
+
+                    def out(tp=tp, cfg=cfg, inputs=inputs):
+                        hh, ll, _, _ = ft.talker_step_kernel(tp, cfg, *inputs)
+                        return torch.cat([hh.float().flatten(),
+                                          ll.flatten()])
+                    same = bit_identical(out) if B == 2 else \
+                        torch.equal(out(), out())
+                    graph = ", 2 graph replays" if B == 2 else ""
+                    log(f"  {'talker_step':16s} {label:44s} slot k/v ok, "
+                        f"other slots unchanged; repeat{graph} "
+                        f"{'bit-identical' if same else 'DIFFER'}")
+                    if not same:
+                        fail(f"talker_step {label}: repeats differ")
+                    del inputs, kc, vc
+            del tp
+            torch.cuda.empty_cache()
+
+
 def phase_probes(rec: Record, card: str):
     """The probe tool's path and its eight kernels against their plain
     versions."""
@@ -1072,34 +1251,62 @@ def agree_run(eng, models, label, predictor=True):
 
 
 def fused_per_frame(cfg) -> dict:
-    """Launches a frame on a path whose predictor runs the frame kernel
-    (dense or int8 predictor weights, B <= 16): the predictor frame kernel
-    once, and no predictor gemv, decode attention, KV store or
-    argmax_gather; the talker's step: a gemv (any weight kind, `gemv_all`)
-    per product of each layer and its head, the norm prologue at ln1 and
-    ln2 of each layer, the qk epilogue and the silu prologue once a layer,
-    decode attention once a layer."""
-    Lt = cfg.talker.n_layers
-    return {"predictor_frame": 1, "gemv_all": 4 * Lt + 1,
-            "decode_attention": Lt, "rms_norm_gemv": 2 * Lt,
-            "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
-            "argmax_gather": 0}
+    """Launches a frame on the kernel routes (B <= MAX_B of both steps'
+    kernels, a dense or int8 predictor): the talker step kernel once and
+    the predictor frame kernel once, and none of the chain's launches: no
+    gemv, decode attention, standalone rms_norm, fused piece, KV store or
+    copy, or argmax_gather."""
+    return {"talker_step": 1, "predictor_frame": 1, "gemv_all": 0,
+            "decode_attention": 0, "rms_norm": 0, "rms_norm_gemv": 0,
+            "qk_rope_gemv": 0, "silu_gemv": 0, "kv_store_gemv": 0,
+            "talker_kv_copy": 0, "argmax_gather": 0}
+
+
+def chain_per_frame(cfg, B: int) -> dict:
+    """Launches a frame with the talker on its chain route (B > MAX_B), as
+    every frame launched them before the step kernel: the talker's gemv per
+    product of each layer and its head, the norm prologue at ln1 and ln2,
+    the qk epilogue and the silu prologue once a layer, decode attention
+    once a layer, the standalone rms_norm (the final norm) once and the two
+    cache copies. The predictor: its frame kernel at B <= 16, else its
+    chain too (16 passes of the layer stack with the KV stores, 15 head
+    slices with the norm prologue, 15 argmax_gather)."""
+    Lt, Lp = cfg.talker.n_layers, cfg.predictor.n_layers
+    n = {"talker_step": 0, "predictor_frame": 1, "gemv_all": 4 * Lt + 1,
+         "decode_attention": Lt, "rms_norm": 1, "rms_norm_gemv": 2 * Lt,
+         "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
+         "talker_kv_copy": 2, "argmax_gather": 0}
+    if B > 16:
+        passes, heads = 16, 15
+        n.update(predictor_frame=0, argmax_gather=heads,
+                 gemv_all=n["gemv_all"] + passes * 4 * Lp + heads,
+                 decode_attention=Lt + passes * Lp,
+                 rms_norm_gemv=n["rms_norm_gemv"] + passes * 2 * Lp + heads,
+                 qk_rope_gemv=Lt + passes * Lp, silu_gemv=Lt + passes * Lp,
+                 kv_store_gemv=passes * Lp)
+    return n
 
 
 def reset_counts() -> None:
-    """Every launch count to 0: the chain's kernels and the frame kernel."""
-    from qwen3_tts_tpu_torch.ops import chain, fused_predictor
+    """Every launch count to 0: the chain's kernels, the cache copies of
+    the talker's chain and the two step kernels."""
+    from qwen3_tts_tpu_torch.ops import chain, fused_predictor, fused_talker
     chain.reset_launch_counts()
     fused_predictor.predictor_frame_kernel.launches = 0
+    fused_talker.talker_step_kernel.launches = 0
+    fused_talker.talker_step_fused.kv_copies = 0
 
 
 def launch_counts() -> dict:
-    """`chain.launch_counts()`, the frame kernel's launches
-    (`predictor_frame`) and the gemv launches of every weight kind
+    """`chain.launch_counts()`, the step kernels' launches
+    (`predictor_frame`, `talker_step`), the talker chain's cache copies
+    (`talker_kv_copy`) and the gemv launches of every weight kind
     (`gemv_all`)."""
-    from qwen3_tts_tpu_torch.ops import chain, fused_predictor
+    from qwen3_tts_tpu_torch.ops import chain, fused_predictor, fused_talker
     counts = chain.launch_counts()
     counts["predictor_frame"] = fused_predictor.predictor_frame_kernel.launches
+    counts["talker_step"] = fused_talker.talker_step_kernel.launches
+    counts["talker_kv_copy"] = fused_talker.talker_step_fused.kv_copies
     counts["gemv_all"] = sum(counts[k] for k in ("gemv", "gemv_int8",
                                                  "gemv_int4"))
     return counts
@@ -1108,9 +1315,9 @@ def launch_counts() -> dict:
 def run_main_path(rec: Record, label: str, fn, need, fused=None):
     """fn() with every launch count set to 0 just before and read just
     after; fails if a kernel in `need` was not launched, or, given `fused`
-    (`fused_per_frame`), unless the standalone rms_norm ran once a frame
-    (the talker's final norm) and every count in `fused` its number a
-    frame."""
+    (`fused_per_frame` or `chain_per_frame`), unless every count in it is
+    its number a frame (frames: the talker steps, each one `talker_step`
+    launch or, on the chain, one standalone rms_norm)."""
     import torch
     torch.cuda.synchronize()
     reset_counts()
@@ -1125,16 +1332,15 @@ def run_main_path(rec: Record, label: str, fn, need, fused=None):
     if missing:
         fail(f"{label}: kernels never launched on this path: {missing}")
     if fused is not None:
-        frames = counts["rms_norm"]
+        frames = counts["talker_step"] + counts["rms_norm"]
         ok = frames > 0 and all(counts[k] == n * frames
                                 for k, n in fused.items())
-        log(f"  {label}: {frames} frames (one standalone rms_norm a frame); "
-            "a frame: " + ", ".join(
-                f"{k} {counts[k] / max(frames, 1):g} (expect {n})"
-                for k, n in fused.items()) + f" {'ok' if ok else 'FAIL'}")
+        log(f"  {label}: {frames} frames (talker steps); a frame: "
+            + ", ".join(f"{k} {counts[k] / max(frames, 1):g} (expect {n})"
+                        for k, n in fused.items())
+            + f" {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"{label}: expected one standalone rms_norm and {fused} "
-                 "launches a frame")
+            fail(f"{label}: expected {fused} launches a frame")
     return out
 
 
@@ -1152,20 +1358,19 @@ def check_wav(label, wav, max_frames):
 
 
 TEXT = "Hello from the port: one sentence of speech."
-# the talker's final norm (the predictor's argmax runs in its frame kernel)
-TRITON = ("rms_norm",)
-# the fused pieces of the gemv launches, each launched on every path
+# the fused pieces of the gemv launches, each launched on every chain
 FUSED = ("rms_norm_gemv", "qk_rope_gemv", "silu_gemv")
-FRAME = ("predictor_frame",)
+# the step kernels: the talker's step and the predictor's frame
+STEPS = ("talker_step", "predictor_frame")
 
 
 def phase_main(eng, rec: Record, q48, q88):
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
     log("[6/8] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
-    dense_need = ("gemv", "decode_attention") + FUSED + TRITON + FRAME
     fused = fused_per_frame(eng.config)
 
     def engine_runs(e, label, frames, need):
@@ -1177,14 +1382,30 @@ def phase_main(eng, rec: Record, q48, q88):
         check_wav(f"{label} B=1", audio.samples, frames)
         return audio
 
-    engine_runs(eng, "dense bf16", 32, dense_need)
+    engine_runs(eng, "dense bf16", 32, STEPS)
     # the batched entry point: two ragged prompts, left-padded, B=2
     pair = run_main_path(
         rec, "dense bf16 B=2 generate_batch",
         lambda: eng.generate_batch([TEXT, "A second, shorter one."],
-                                   [voice, voice]), dense_need, fused)
+                                   [voice, voice]), STEPS, fused)
     for i, a in enumerate(pair):
         check_wav(f"dense bf16 B=2 row {i}", a.samples, 32)
+    def chain_run(e, label, gemv, nb=ft.MAX_B + 1):
+        """generate_batch of nb rows past the step kernel's batch limit, 4
+        frames: the talker keeps its chain (ops/fused_talker.py
+        talker_route), with the chains' launches a frame; `gemv`, the
+        weight kinds' gemv."""
+        e.set_max_steps(4)
+        rows = run_main_path(
+            rec, f"{label} B={nb} generate_batch (talker chain)",
+            lambda: e.generate_batch([f"Row {i}: {TEXT}" for i in range(nb)],
+                                     [voice] * nb),
+            gemv + ("decode_attention", "rms_norm") + FUSED,
+            chain_per_frame(e.config, nb))
+        for i, a in enumerate(rows):
+            check_wav(f"{label} B={nb} row {i}", a.samples, 4)
+
+    chain_run(eng, "dense bf16", ("gemv",))
 
     # the JAX bench's headline rung: talker int4, predictor int8; the int4
     # prefill is plain (qmatmul4, as in JAX) and the predictor has no
@@ -1192,7 +1413,7 @@ def phase_main(eng, rec: Record, q48, q88):
     spk = os.path.join(REPO, "speakers")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
-    need48 = ("gemv_int4", "decode_attention") + FUSED + TRITON + FRAME
+    need48 = STEPS
     engine_runs(e48, "int4+int8", 32, need48)
     e48.set_max_steps(32)
     pair = run_main_path(
@@ -1201,13 +1422,16 @@ def phase_main(eng, rec: Record, q48, q88):
                                    [voice, voice]), need48, fused)
     for i, a in enumerate(pair):
         check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
+    # int4 talker weights keep the chain past INT4_MAX_B rows (the
+    # predictor its frame kernel up to 16), and past MAX_B
+    chain_run(e48, "int4+int8", ("gemv_int4",), ft.INT4_MAX_B + 1)
+    chain_run(e48, "int4+int8", ("gemv_int4", "gemv_int8"))
 
     # the second rung, int8/int8: the talker prefill runs kernel A
     e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
-    engine_runs(e88, "int8/int8", 16, ("qmatmul", "gemv_int8",
-                                       "decode_attention") + FUSED + TRITON
-               + FRAME)
+    engine_runs(e88, "int8/int8", 16, ("qmatmul",) + STEPS)
+    chain_run(e88, "int8/int8", ("gemv_int8",))
     # an int4 predictor keeps the chain (ops/fused_predictor.py
     # frame_route): B4 for its products, decode attention, the KV stores,
     # argmax_gather; no frame kernel
@@ -1219,8 +1443,8 @@ def phase_main(eng, rec: Record, q48, q88):
     audio = run_main_path(
         rec, "int4/int4 (predictor chain) B=1 generate_with_voice",
         lambda: e44.generate_with_voice(TEXT, voice),
-        ("gemv_int4", "decode_attention", "kv_store_gemv", "argmax_gather")
-        + FUSED + TRITON)
+        ("gemv_int4", "decode_attention", "kv_store_gemv", "argmax_gather",
+         "talker_step") + FUSED)
     check_wav("int4/int4 B=1", audio.samples, 8)
     if launch_counts()["predictor_frame"]:
         fail("int4/int4: the int4 predictor launched the frame kernel")
@@ -1402,10 +1626,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
                     speakers_dir=os.path.join(REPO, "speakers"),
                     device="cuda")
-    sets = (("dense bf16", eng, ("gemv", "decode_attention") + FUSED + TRITON
-             + FRAME),
-            ("int4+int8", e48, ("gemv_int4", "decode_attention") + FUSED
-             + TRITON + FRAME))
+    sets = (("dense bf16", eng, STEPS), ("int4+int8", e48, STEPS))
     fused = fused_per_frame(eng.config)
     for label, e, need in sets:
         e.set_max_steps(frames)
@@ -1622,6 +1843,11 @@ def frame_times(eng, models, label: str, card: str, g):
             top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
             for k, (ms, n) in top:
                 log(f"    {ms:9.4f} ms/frame  {n:7.1f}x/frame  {k[:70]}")
+            step = sum(ms for k, (ms, _) in per.items() if "talker_step" in k)
+            log(f"  {label}: a frame: CUDA kernels {cnt:.0f}, talker step "
+                f"kernel {step:.3f} device ms, host {kms:.3f} ms; with the "
+                f"talker's chain (PERF.md §5, dense): 220 kernels, the chain "
+                f"1.83 device ms, host 13.5-19.4 ms on {card}")
             gone = [k for k in per if any(
                 name in k for name in ("gemv_epilogue", "gemv4_partial",
                                        "qk_norm_rope", "silu_mul"))]
@@ -1839,6 +2065,7 @@ def kernel_times(rec: Record, card: str, g):
     norm_fusion_times(rec, card, g)
     epilogue_fusion_times(rec, card, g)
     frame_kernel_times(rec, card)
+    step_kernel_times(rec, card)
 
 
 def frame_bytes_ops(params, cfg, B):
@@ -1912,6 +2139,94 @@ def frame_kernel_times(rec: Record, card: str):
                 rec.library_ms["predictor_frame"] = None
                 rec.bound["predictor_frame"] = (b_ms, b_by)
             del pp, args
+
+
+def step_bytes_ops(params, cfg, B, live):
+    """(bytes, operations) the talker step must move and do: every weight
+    once (the 28 layers and the head; 2.83 GB dense bf16 at full width),
+    the live cache slots' keys and values once a row and layer, x read,
+    the hidden, the logits and the new k / v slots written; two operations
+    a weight element a row, four a live slot's element a q head."""
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    w_b = sum(nbytes(*(w.values() if isinstance(w, dict) else (w,)))
+              for w in ft._weights(params).values())
+    t = 2 if cfg.dtype == "bfloat16" else 4
+    L, nk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kv = 2 * L * nk * hd * t
+    n_b = w_b + B * (live * kv + kv + 2 * cfg.hidden * t + cfg.vocab * 4)
+    K_N = sum(K * N for K, N in ft.stage_shapes(cfg).values()
+              if (K, N) != (cfg.hidden, cfg.vocab)) * L \
+        + cfg.hidden * cfg.vocab
+    ops = 2.0 * B * K_N + 4.0 * B * L * cfg.n_q_heads * hd * (live + 1)
+    return n_b, ops
+
+
+def kernel_copy_bytes(params) -> int:
+    """Device bytes of the talker step kernel's own copies of the weights
+    (`ops/fused_talker.py kernel_copy`: the values packed in units, the
+    gate/up scales and multipliers interleaved), kept beside the weights
+    the chain and the prefill read."""
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    n = 0
+    for st, w in ft._weights(params).items():
+        parts = [(w, True)] if not isinstance(w, dict) else \
+            [(t, k in ("q", "q4")) for k, t in w.items()]
+        for t, values in parts:
+            c = ft.kernel_copy(t, st, values)
+            n += 0 if c is t else c.nbytes
+    return n
+
+
+def step_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
+    """The talker step kernel at full width, T = 256 with ~100 live slots
+    (the offline window): device ms a step by CUDA-graph replay (and the
+    profiler) against its bound, the chain it replaces (`_step` over the
+    chain's kernels, ~142 launches; profiler) and its plain version
+    (profiler), dense bf16, int8 and int4, at each B of `batches`: the
+    measurement behind MAX_B. Dense B = 1 is the JSON line's entry; no
+    single PyTorch call computes a step."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.ops import chain
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    from qwen3_tts_tpu_torch.tools import frame_measure as fm
+
+    cfg = EngineConfig().talker
+    for kind in ("dense", "int8", "int4"):
+        for B in batches:
+            tp, x, pos, slot, kv_len, vf, kc, vc = fm.step_case(
+                cfg, kind, B, 256, 100, 300 + B)
+            args = (tp, cfg, x, pos, slot, kv_len, vf, kc, vc)
+            kern = lambda: ft.talker_step_kernel(*args)  # noqa: E731
+            chain_fn = lambda: ft._step(chain.KERNELS, *args)  # noqa: E731
+            plain_fn = lambda: ft.talker_step_fused_plain(*args)  # noqa: E731
+            ms = graph_ms(kern, reps=10)
+            prof = profiled_device_ms(kern, 3)
+            chain_fn()
+            ch = profiled_device_ms(chain_fn, 3)
+            plain_fn()
+            plain = profiled_device_ms(plain_fn, 1)
+            live = float((kv_len - vf).float().mean())
+            n_b, ops = step_bytes_ops(tp, cfg, B, live)
+            b_ms, b_by = bound(n_b, ops, "int8" if kind != "dense"
+                               else "bf16")
+            share = f", {b_ms / ms:.1%} of it"
+            log(f"  {'talker_step':16s} {f'full {kind} B={B}, a step':44s} "
+                f"device: kernel {_fmt4(ms)} ms (graph replay; profiler "
+                f"{_fmt4(prof)}), the chain it replaces {_fmt4(ch)} ms, plain"
+                f" {_fmt4(plain)} ms (profiler), bound {b_ms:.4f} ms "
+                f"({b_by}{share}; {n_b / 1e9:.3f} GB) on {card}")
+            if B == batches[0]:
+                w_b = sum(nbytes(*(w.values() if isinstance(w, dict)
+                                   else (w,)))
+                          for w in ft._weights(tp).values())
+                log(f"  {'talker_step':16s} {f'full {kind} weights':44s} the "
+                    f"kernel's copies {kernel_copy_bytes(tp) / 1e9:.3f} GB "
+                    f"of device memory beside {w_b / 1e9:.3f} GB of weights")
+            if kind == "dense" and B == 1:
+                rec.ms["talker_step"], rec.plain_ms["talker_step"] = ms, plain
+                rec.library_ms["talker_step"] = None
+                rec.bound["talker_step"] = (b_ms, b_by)
+            del tp, args, kc, vc
 
 
 def norm_fusion_times(rec: Record, card: str, g):

@@ -1,0 +1,191 @@
+// Device helpers shared by the persistent kernels (predictor_frame.cu,
+// talker_step.cu): mbarriers and TMA bulk copies, the coherent loads and
+// the atomics of the grid barrier, the self-resetting grid barrier itself,
+// and the 8-wide shared-memory weight loads. Moved here unchanged from
+// predictor_frame.cu, whose results stay bit-identical.
+
+#pragma once
+
+#include "gemv.cuh"
+
+namespace {
+
+constexpr unsigned long long kSpinLimitNs = 5000000000ull;   // 5 s
+constexpr int kGen = 32;              // the barrier's generation word
+
+// ---------------------------------------------------------------- memory
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// arrive on the buffer's barrier, expecting `bytes` from the bulk copies
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ unsigned long long global_ns();
+// wait for the buffer's copies; a wait longer than kSpinLimitNs traps
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - t0 > kSpinLimitNs) __trap();
+}
+// one TMA bulk copy global -> shared, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p) {
+  unsigned v;
+  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The grid barrier: bar[0] counts arrivals, bar[kGen] is the generation,
+// a cache line apart (the spinning loads do not slow the arrivals). A
+// block's thread 0 reads the generation (it cannot change before this
+// block arrives), arrives with an acquire-release add, and the last block
+// resets the count and publishes generation + 1 with a release store;
+// the others spin on an acquire load. A block synchronisation before and
+// after carries the block's writes into the release and the acquire to
+// the block's reads (the pattern of CUTLASS's generic barrier). Data
+// written in the kernel is read with plain loads after it, never through
+// the non-coherent path (__ldg).
+__device__ __forceinline__ void grid_arrive_wait(unsigned* bar) {
+  const unsigned gen = ld_acquire(bar + kGen);
+  if (atom_add_acq_rel(bar) == gridDim.x - 1) {
+    st_relaxed(bar, 0u);
+    st_release(bar + kGen, gen + 1);
+  } else {
+    const unsigned long long t0 = global_ns();
+    unsigned spins = 0;
+    while (ld_acquire(bar + kGen) == gen) {
+      if ((++spins & 1023u) == 0 && global_ns() - t0 > kSpinLimitNs)
+        __trap();                   // blocks not co-resident: fail, not hang
+    }
+  }
+}
+
+// named barrier 1 over the first n threads of the block (a multiple of 32):
+// the block's other warps (a producer) run on
+__device__ __forceinline__ void sync_first(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// The traces of tools/frame_measure.py (block 0's stamps, args.trace) are
+// compiled in only with -DKERNEL_TRACE (kernels/build.py trace_build): a
+// kernel's trace code tests kTrace first, so the library the port runs
+// carries none of it.
+#ifdef KERNEL_TRACE
+constexpr bool kTrace = true;
+#else
+constexpr bool kTrace = false;
+#endif
+
+// the thread that writes a traced launch's stamps: block 0's thread 0
+__device__ __forceinline__ bool trace_thread(const void* trace) {
+  return kTrace && trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+}
+
+// the grid barrier of the blocks' first n threads (all of a block without
+// a producer warp); ti counts the barriers. `tr`: null, or block 0's trace,
+// where its thread 0 stamps the block's arrival at tr[2 ti] and its release
+// at tr[2 ti + 1] (tools/frame_measure.py)
+__device__ __forceinline__ void grid_barrier_first(unsigned* bar, int n,
+                                                   unsigned long long* tr,
+                                                   int& ti) {
+  sync_first(n);
+  if (threadIdx.x == 0) {
+    if (kTrace && tr != nullptr) tr[2 * ti] = global_ns();
+    grid_arrive_wait(bar);
+    if (kTrace && tr != nullptr) tr[2 * ti + 1] = global_ns();
+  }
+  ++ti;
+  sync_first(n);
+}
+
+// 8 weights of one unit row from shared memory
+__device__ __forceinline__ Raw<float> ld_sm(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {q[0], q[1]};
+}
+__device__ __forceinline__ Raw<__nv_bfloat16> ld_sm(const __nv_bfloat16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+__device__ __forceinline__ Raw<int8_t> ld_sm(const int8_t* p) {
+  return {*reinterpret_cast<const uint2*>(p)};
+}
+
+__device__ __forceinline__ void store_x(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_x(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);      // v is already T-rounded: exact
+}
+
+// an mbarrier expecting `count` arrivals a phase (the weight ring's
+// "empty" barriers: one arrival per consumer warp)
+__device__ __forceinline__ void mbar_init_count(unsigned long long* bar,
+                                                unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// one arrival on an mbarrier, no transaction bytes
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+}  // namespace

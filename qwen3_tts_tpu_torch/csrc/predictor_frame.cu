@@ -79,13 +79,18 @@
 //     same registers). The 256 threads of a block split K over a batch of
 //     units (32 sums: 4 units at MT = 1), whose sums reduce through one
 //     warp reduce-scatter (31 shuffles) and the warps in order.
+//   * A trace, as talker_step.cu's (compiled in only with -DKERNEL_TRACE,
+//     on when args.trace is set): block 0's thread 0 writes %globaltimer
+//     at each grid barrier's arrival and release and sums the time to its
+//     products' inputs and their rest, its norm loads and reductions, and
+//     its waits for a stage's copies (tools/frame_measure.py trace).
 // Scope: T = float or bf16; each of the five weights dense in T or int8
 //   with an f32 per-column scale (mixed kinds too); 1 <= B <= 16; hd a
 //   power of two in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, CV
 //   multiples of 8. int4 weights and B > 16 keep the chain (ops/fused_predictor.py
 //   frame_route).
 
-#include "gemv.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -96,11 +101,14 @@ constexpr int kFMaxB = 16;
 constexpr int kCodes = 16;            // protocol.NUM_CODEBOOKS
 constexpr int kFMaxG = 4;             // q heads per kv head
 constexpr int kFMaxHd = 128;
-constexpr unsigned long long kSpinLimitNs = 5000000000ull;   // 5 s
-constexpr int kGen = 32;              // the barrier's generation word
 constexpr int kXPer = 8;              // norm inputs a thread holds: H <= 2048
 constexpr int kYPer = 12;             // wo / down inputs a thread loads at once
 enum { kQkv = 0, kWo = 1, kGu = 2, kDown = 3, kHead = 4 };
+// trace words (tools/frame_measure.py trace): barrier i at 2 i, 2 i + 1;
+// block 0's products kTrProd + 4 mat + 1..3 (to its inputs, the rest,
+// calls), its norm inputs kTrNorm + 0..3 (loads, row reduction, -, calls;
+// + 4 scratch), its waits for a stage's copies kTrWait + 0..1, the start
+constexpr int kTrProd = 1900, kTrNorm = 1960, kTrWait = 1980, kTrT0 = 1999;
 
 // ops/fused_predictor.py _FrameArgs, field for field.
 struct FrameArgs {
@@ -129,132 +137,8 @@ struct FrameArgs {
   int B, H, L, nq, nk, hd, F, CV, R, rows0;
   int buf;                // bytes of each weight buffer
   float eps;
+  unsigned long long* trace;  // null, or block 0's timeline (kTr*)
 };
-
-// ---------------------------------------------------------------- memory
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-// arrive on the buffer's barrier, expecting `bytes` from the bulk copies
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try(unsigned long long* bar,
-                                         unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-__device__ __forceinline__ unsigned long long global_ns();
-// wait for the buffer's copies; a wait longer than kSpinLimitNs traps
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  if (mbar_try(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try(bar, parity))
-    if (global_ns() - t0 > kSpinLimitNs) __trap();
-}
-// one TMA bulk copy global -> shared, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p) {
-  unsigned v;
-  asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
-  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// The grid barrier: bar[0] counts arrivals, bar[kGen] is the generation,
-// a cache line apart (the spinning loads do not slow the arrivals). A
-// block's thread 0 reads the generation (it cannot change before this
-// block arrives), arrives with an acquire-release add, and the last block
-// resets the count and publishes generation + 1 with a release store;
-// the others spin on an acquire load. __syncthreads before and after
-// carries the block's writes into the release and the acquire to the
-// block's reads (the pattern of CUTLASS's generic barrier). Data written
-// in the kernel is read with plain loads after it, never through the
-// non-coherent path (__ldg).
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned gen = ld_acquire(bar + kGen);
-    if (atom_add_acq_rel(bar) == gridDim.x - 1) {
-      st_relaxed(bar, 0u);
-      st_release(bar + kGen, gen + 1);
-    } else {
-      const unsigned long long t0 = global_ns();
-      unsigned spins = 0;
-      while (ld_acquire(bar + kGen) == gen) {
-        if ((++spins & 1023u) == 0 && global_ns() - t0 > kSpinLimitNs)
-          __trap();                 // blocks not co-resident: fail, not hang
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// 8 weights of one unit row from shared memory
-__device__ __forceinline__ Raw<float> ld_sm(const float* p) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-  return {q[0], q[1]};
-}
-__device__ __forceinline__ Raw<__nv_bfloat16> ld_sm(const __nv_bfloat16* p) {
-  return {*reinterpret_cast<const uint4*>(p)};
-}
-__device__ __forceinline__ Raw<int8_t> ld_sm(const int8_t* p) {
-  return {*reinterpret_cast<const uint2*>(p)};
-}
-
-__device__ __forceinline__ void store_x(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_x(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);      // v is already T-rounded: exact
-}
 
 // ---------------------------------------------------------------- argmax
 // The argmax order: NaN above every number (the first NaN wins, as
@@ -513,6 +397,8 @@ __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
                            const Src<T>& src, const T* ln, int c0, int mt,
                            Hook&& loaded) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool tr = trace_thread(a.trace);
+  if (tr) a.trace[kTrNorm + 4] = global_ns();
   const int K = a.H;
   float xr[kMT][kXPer], lw[kXPer];
 #pragma unroll
@@ -533,6 +419,7 @@ __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
     for (int o = 16; o > 0; o /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (lane == 0) sm.red[warp * 32 + m] = ss;
   }
+  const unsigned long long tn0 = tr ? global_ns() : 0;
   __syncthreads();
   if (threadIdx.x < mt) {
     float t = 0.f;
@@ -541,6 +428,11 @@ __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
     sm.rinv[threadIdx.x] = rsqrtf(t / static_cast<float>(K) + a.eps);
   }
   __syncthreads();
+  if (tr) {
+    a.trace[kTrNorm] += tn0 - a.trace[kTrNorm + 4];
+    a.trace[kTrNorm + 1] += global_ns() - tn0;
+    a.trace[kTrNorm + 3] += 1;
+  }
 #pragma unroll
   for (int q = 0; q < kXPer; ++q) {
     const int k = threadIdx.x + q * kFThreads;
@@ -615,6 +507,9 @@ __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
   const W* wbase = static_cast<const W*>(a.w[mat]) + d.off;
   const int B = a.B, K = d.K;
   constexpr int kUB = UnitsABatch<kMT>::value;
+  const bool tr = trace_thread(a.trace);
+  const unsigned long long tp0 = tr ? global_ns() : 0;
+  unsigned long long tp1 = tp0;
 
   if (mat == kHead && threadIdx.x < B) {
     sm.bestv[threadIdx.x] = -INFINITY;
@@ -635,6 +530,7 @@ __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
       else
         stage_plain<T, kMT>(a, sm, mat == kDown, K, c0, mt, loaded);
       __syncthreads();
+      if (tr && c0 == 0) tp1 = global_ns();
       // wo / down add into the residual: the first batch's old values
       // load before its sums (the later batches' in their epilogue)
       float res0 = 0.f;
@@ -687,6 +583,11 @@ __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
         __syncthreads();                 // red / outv are reused
       }
     }
+  }
+  if (tr) {
+    a.trace[kTrProd + mat * 4 + 1] += tp1 - tp0;
+    a.trace[kTrProd + mat * 4 + 2] += global_ns() - tp1;
+    a.trace[kTrProd + mat * 4 + 3] += 1;
   }
   if (mat == kHead && threadIdx.x < B) {
     a.part_v[blockIdx.x * B + threadIdx.x] = sm.bestv[threadIdx.x];
@@ -885,7 +786,11 @@ predictor_frame(FrameArgs a) {
   const Smem<T, kMT> sm = carve<T, kMT>(smem_raw, a);
   const int L = a.L, B = a.B;
   const int n_stages = 4 * L + (kCodes - 1) * (4 * L + 1);
-  int s = 0;
+  const bool tr = trace_thread(a.trace);
+  if (tr) a.trace[kTrT0] = global_ns();
+  unsigned long long* btr = kTrace && blockIdx.x == 0 ? a.trace : nullptr;
+  int s = 0, ti = 0;
+  auto barrier = [&] { grid_barrier_first(a.bar, kFThreads, btr, ti); };
   if (threadIdx.x == 0) {
     mbar_init(sm.bar);
     mbar_init(sm.bar + 1);
@@ -901,13 +806,18 @@ predictor_frame(FrameArgs a) {
   // buffer (free since the last barrier), run the products, meet the grid
   auto weight_stage = [&](const Src<T>& src, int mat, int layer,
                           int slice) {
+    const unsigned long long tw0 = tr ? global_ns() : 0;
     mbar_wait(sm.bar + (s & 1), (s >> 1) & 1);
+    if (tr) {
+      a.trace[kTrWait] += global_ns() - tw0;
+      a.trace[kTrWait + 1] += 1;
+    }
     product_any<T, kMT>(a, sm, src, mat, layer, slice, sm.buf[s & 1], [&] {
       issue<T>(a, s + 1, n_stages, sm.buf[(s + 1) & 1],
                sm.bar + ((s + 1) & 1));
     });
     ++s;
-    grid_barrier(a.bar);
+    barrier();
   };
 
   for (int p = 0; p < kCodes; ++p) {
@@ -944,7 +854,7 @@ predictor_frame(FrameArgs a) {
     for (int l = 0; l < L; ++l) {
       weight_stage(l == 0 ? src : res, kQkv, l, 0);
       attention<T, kMT>(a, sm, p, l);
-      grid_barrier(a.bar);
+      barrier();
       weight_stage(res, kWo, l, 0);
       weight_stage(res, kGu, l, 0);
       weight_stage(res, kDown, l, 0);

@@ -26,6 +26,11 @@ BUILD_DIR = os.path.join(PKG_DIR, "kernels", "_build")
 LIB_NAME = "libqwen3_tts_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+# extra nvcc defines of this process's library, part of its key: the
+# persistent kernels' traces (csrc/persistent.cuh kTrace) are compiled in
+# only with KERNEL_TRACE, which tools/frame_measure.py sets (`trace_build`)
+# before the first build of a measuring process
+DEFINES: list = []
 
 _lock = threading.Lock()
 _lib = None
@@ -51,6 +56,10 @@ SIGNATURES = {
     # (FrameArgs, dtype, x rows a chunk, blocks, smem, stream)
     "predictor_frame_query": [I, I, I, P],
     "predictor_frame_launch": [P, I, I, I, I, P],
+    # csrc/talker_step.cu: (dtype, x rows a pass, smem, int[3] out);
+    # (StepArgs, dtype, x rows a pass, blocks, smem, stream)
+    "talker_step_query": [I, I, I, P],
+    "talker_step_launch": [P, I, I, I, I, P],
     # csrc/probes.cu (tools/mosaic_probe.py)
     "probe_hbm_scratch_launch": [P, P, P, I, P],
     "probe_fori_dma_launch": [P, P, I, P],
@@ -87,7 +96,7 @@ def source_hash() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + DEFINES).encode())
     return h.hexdigest()[:16]
 
 
@@ -124,7 +133,7 @@ def build(verbose: bool = False) -> str:
         objs = [os.path.join(tmp_dir, os.path.basename(p) + ".o")
                 for p in cu]
         extra = ["-Xptxas=-v"] if verbose else []
-        _run([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, p]
+        _run([[nvcc, *NVCC_FLAGS, *DEFINES, *extra, "-c", "-o", o, p]
               for p, o in zip(cu, objs)], verbose)
         tmp_lib = os.path.join(tmp_dir, LIB_NAME)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs]], verbose)
@@ -148,6 +157,16 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def trace_build() -> None:
+    """Make this process's library the one with the persistent kernels'
+    traces compiled in (a key of its own); before the process loads one."""
+    if "-DKERNEL_TRACE" in DEFINES:
+        return
+    if _lib is not None:
+        raise RuntimeError("trace_build: the library is already loaded")
+    DEFINES.append("-DKERNEL_TRACE")
 
 
 def check(err: int, name: str) -> None:

@@ -36,14 +36,15 @@ def step(params: decoder.DecoderParams, cfg, feedback: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One autoregressive step at cache slot `slot` (a host int, shared by
     the rows), through the fused step; `plain` runs the plain versions of
-    its kernels instead (the on-card baseline). Returns (hidden [B, H],
-    logits [B, vocab], cache updated in place)."""
+    its kernels instead (the on-card baseline). The step takes the slot,
+    the positions and the prefix bounds as device int32 [B]. Returns
+    (hidden [B, H], logits [B, vocab], cache updated in place)."""
     B = feedback.shape[0]
     slot_b = torch.full((B,), slot, dtype=torch.int32,
                         device=feedback.device)
     fn = fused_talker.talker_step_fused_plain if plain \
         else fused_talker.talker_step_fused
     h, logits, k, v = fn(
-        params, cfg, feedback, slot_b - pad_offset, slot, slot_b,
+        params, cfg, feedback, slot_b - pad_offset, slot_b, slot_b,
         pad_offset, cache["k"], cache["v"])
     return h, logits, {"k": k, "v": v}

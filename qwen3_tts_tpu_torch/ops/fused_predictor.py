@@ -262,23 +262,29 @@ def unpack_units(p: torch.Tensor) -> torch.Tensor:
     return p.transpose(-3, -2).reshape(*p.shape[:-3], K, U * UNIT)
 
 
-# packed copies of the weights the kernel has read, by the weight's id; an
-# entry holds a weak reference to the weight and its version, so a freed
-# or modified weight is packed anew
-_packed: dict = {}
+# copies of the weights the kernels have read, by (the weight's id, the
+# copy's kind); an entry holds a weak reference to the weight and its
+# version, so a freed or modified weight is copied anew
+_derived: dict = {}
+
+
+def derived(w: torch.Tensor, kind: str, fn) -> torch.Tensor:
+    """fn(w), made once per (weight tensor, kind) and kept while the weight
+    lives and is unchanged."""
+    key = (id(w), kind)
+    hit = _derived.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    ref = weakref.ref(w, lambda _, key=key: _derived.pop(key, None))
+    _derived[key] = (ref, w._version, fn(w))
+    return _derived[key][2]
 
 
 def packed_weight(w: torch.Tensor) -> torch.Tensor:
     """`pack_units(w)`, made once per weight tensor and kept while it
     lives (the kernel's extra copy of the predictor weights: 285 MB dense
     bf16 at full width, half for int8)."""
-    key = id(w)
-    hit = _packed.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
-        return hit[2]
-    ref = weakref.ref(w, lambda _, key=key: _packed.pop(key, None))
-    _packed[key] = (ref, w._version, pack_units(w))
-    return _packed[key][2]
+    return derived(w, "units", pack_units)
 
 
 def better(v: float, i: int, bv: float, bi: int) -> bool:
@@ -332,7 +338,13 @@ class _FrameArgs(ctypes.Structure):
             "sin", "part_v", "part_i", "bar")] \
         + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
                                        "CV", "R", "rows0", "buf")] \
-        + [("eps", ctypes.c_float)]
+        + [("eps", ctypes.c_float), ("trace", ctypes.c_void_p)]
+
+
+# a [trace words] int64 CUDA tensor, or None: block 0's stage timeline
+# (tools/frame_measure.py trace; written only by a library built with
+# kernels/build.py trace_build)
+TRACE = None
 
 
 def _geometry(cfg):
@@ -526,6 +538,7 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
                    cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
                    protocol.CODE_VOCAB, ptab.shape[1], ptab_rows, buf)
         a.eps = cfg.rms_eps
+        a.trace = None if TRACE is None else TRACE.data_ptr()
         err = build.lib().predictor_frame_launch(
             ctypes.addressof(a), _DTYPES[dt], mt, nb, smem,
             torch.cuda.current_stream(dev).cuda_stream)

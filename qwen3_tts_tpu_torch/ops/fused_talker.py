@@ -1,36 +1,54 @@
 """One talker decode step over all layers: the port of
 `qwen3_tts_tpu/ops/fused_talker.py::talker_step_fused`.
 
-On the TPU this is one Pallas kernel. Here it is a chain, driven per layer
-from Python, of the port's hand-written kernels (`ops/chain.py`), five
-launches a layer: gemv for every product, with the elementwise work in the
-product's launch (ln1 as the norm prologue and QK-norm + RoPE as the qk
-epilogue of the qkv product, ln2 as the norm prologue of gate/up, SwiGLU
-as the silu prologue of down), and decode attention over the pre-update
-cache; then the Triton `rms_norm` for the final norm and the head's gemv.
-Semantics are the TPU kernel's:
+On the TPU this is one Pallas kernel. Here it takes one of two routes,
+decided by `talker_route` before any launch, from the weights and the batch
+alone:
+
+  kernel  dense (f32 / bf16) or int8 weights and B <= MAX_B, int4
+          weights and B <= INT4_MAX_B: one persistent CUDA kernel a step,
+          `csrc/talker_step.cu` (`talker_step_kernel`), the TPU kernel's
+          own shape;
+  chain   larger batches: a chain of the port's kernels (`ops/chain.py`)
+          driven per layer from Python (`_step`), which with the plain op
+          set is also the kernel's plain version (`talker_step_fused_plain`).
+
+The chain is five launches a layer: gemv for every product, with the
+elementwise work in the product's launch (ln1 as the norm prologue and
+QK-norm + RoPE as the qk epilogue of the qkv product, ln2 as the norm
+prologue of gate/up, SwiGLU as the silu prologue of down), and decode
+attention over the pre-update cache; then the Triton `rms_norm` for the
+final norm and the head's gemv. Semantics are the TPU kernel's:
 
   * the residual stream stays f32 across layers; matmul inputs are rounded
     to the model dtype (rms outputs, attention output, silu*up);
   * the current token's k/v fold into the attention last, and the cache is
-    written after the whole step, in place, at the row's slot (the
-    pre-update contract of `qwen3_tts_tpu/ops/fused_talker.py:575-596`;
-    the qk epilogue writes k_new / v_new only, no KV store);
+    written in place at the row's slot once no launch of the step reads it
+    (the pre-update contract of `qwen3_tts_tpu/ops/fused_talker.py:575-596`):
+    the chain copies k/v in after the whole step; the kernel stores them
+    at the end of each layer's attention;
   * logits are f32 rounded through the model dtype, for dense and
     quantized heads alike.
 
 Weights are dense, int8 or int4, split per layer as the TPU kernel's
 `_split_w` splits them (`qwen3_tts_tpu/ops/fused_talker.py:72-82`): values
-to gemv B / B8 / B4, the f32 per-channel scales into their epilogues.
+to gemv B / B8 / B4 (or the kernel's packed copy), the f32 per-channel
+scales into their epilogues. The kernel's design is at the top of
+`csrc/talker_step.cu`; its plan (work units, attention splits, the weight
+ring) is mirrored here for the CPU tests.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
-from . import chain, rope
+from . import chain, quant, rope
+from .flash_decode import NEG_INF
+from .fused_predictor import derived, pack_units, split_units
 from .gemv import EPI_F32_ROUND_DT
 
 
@@ -72,6 +90,8 @@ def _step(ops, params: Dict[str, Any], cfg, x, positions, slot, kv_len,
     rows = torch.arange(B, device=dev)
     k_cache[:, rows, :, slot_b] = k_new.transpose(0, 1).to(k_cache.dtype)
     v_cache[:, rows, :, slot_b] = v_new.transpose(0, 1).to(v_cache.dtype)
+    if ops is chain.KERNELS:
+        talker_step_fused.kv_copies += 2
     return h, logits, k_cache, v_cache
 
 
@@ -87,10 +107,17 @@ def talker_step_fused(
     v_cache: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (hidden [B, H] cfg.dtype post final-norm, logits [B, vocab]
-    f32, k_cache, v_cache). On CUDA tensors every op is one of the port's
-    kernels."""
+    f32, k_cache, v_cache). Routed by `talker_route`: the step kernel, or
+    the chain (on CUDA tensors every op one of the port's kernels)."""
+    if talker_route(params, x.shape[0]) == KERNEL:
+        return talker_step_kernel(params, cfg, x, positions, slot, kv_len,
+                                  valid_from, k_cache, v_cache)
     return _step(chain.KERNELS, params, cfg, x, positions, slot, kv_len,
                  valid_from, k_cache, v_cache)
+
+
+# the chain's two indexed cache copies a step (none on the kernel route)
+talker_step_fused.kv_copies = 0
 
 
 def talker_step_fused_plain(params, cfg, x, positions, slot, kv_len,
@@ -98,3 +125,473 @@ def talker_step_fused_plain(params, cfg, x, positions, slot, kv_len,
     """The same step through the plain PyTorch versions of every op."""
     return _step(chain.PLAIN, params, cfg, x, positions, slot, kv_len,
                  valid_from, k_cache, v_cache)
+
+
+# ------------------------------------------------------------- step kernel
+KERNEL, CHAIN = "kernel", "chain"
+# The route's batch limits, from times at B = 1, 2, 4, 8, 16 on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, "the route's batch limit"): device ms
+# a step, kernel vs chain
+# (chip_smoke.py step_kernel_times), and ms a frame of generate_codes on
+# each route (tools/frame_measure.py route). From B = 4 a frame is
+# device-bound on both routes. Dense and int8 weights: the kernel's step is
+# the chain's or faster from B = 4 (int8 at B = 4: 0.11 ms slower), so the
+# limit is the kernel's cap. int4 weights: the chain's step is faster at
+# every B (1.46 vs 2.28 ms at B = 1, 5.18 vs 7.24 at 16) and its frame
+# 1.1-1.4 ms faster at 16, so the kernel keeps B = 1 and 2, which the main
+# path runs, where it takes ~140 host launches a step out of the frame.
+MAX_B = 16          # the kernel's batch cap (csrc/talker_step.cu kSMaxB)
+INT4_MAX_B = 2
+UNIT = 8            # columns of a work unit (csrc/talker_step.cu kSUnit)
+MAX_G = 4           # q heads per kv head
+MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kSXPer)
+MAX_SPLITS = 16     # attention splits per (row, kv head)
+MIN_SPLIT_SLOTS = 32    # cache slots a split at least
+MAX_RING = 8        # ring buffers
+CHUNK = 32 * 1024   # bytes of a ring buffer
+_WARPS = 8          # consumer warps of a block
+_STAGES = ("qkv", "wo", "gu", "down", "head")
+_WEIGHTS = {"qkv": "wqkv", "wo": "wo", "gu": "w_gu", "down": "w_down"}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = {"dense": 0, "int8": 1, "int4": 2}
+
+
+def _weights(params):
+    return {st: params["layers"][name] for st, name in _WEIGHTS.items()} \
+        | {"head": params["head"]}
+
+
+def weight_kind(w) -> str:
+    return "int4" if quant.is_quantized4(w) else \
+        "int8" if quant.is_quantized(w) else "dense"
+
+
+def talker_route(params: Dict[str, Any], B: int) -> str:
+    """KERNEL at B <= MAX_B for dense and int8 talker weights (in any mix)
+    and at B <= INT4_MAX_B for int4 weights (all or none, as the TPU kernel
+    and the chain refuse a mix); else CHAIN. Decided from the weights and
+    the batch alone, before any launch, never on a failure: a kernel that
+    does not build or launch raises."""
+    kinds = {weight_kind(w) for w in _weights(params).values()}
+    if "int4" in kinds and len(kinds) > 1:
+        return CHAIN
+    return KERNEL if B <= (INT4_MAX_B if "int4" in kinds else MAX_B) \
+        else CHAIN
+
+
+def row_pass(B: int, t_bytes: int) -> int:
+    """x rows a row pass stages (kMT): 1, 2, 4, else 8 in bf16 and 4 in
+    f32, so the staged rows take at most 16 bytes a K element and leave
+    the ring room at every B (B > kMT: ceil(B / kMT) passes over each
+    stage, the weights streamed once a pass)."""
+    mt = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
+    return min(mt, 16 // t_bytes)
+
+
+def units_a_batch(mt: int) -> int:
+    """Units a batch: a thread holds 32 sums (64 at 8 rows)."""
+    return max(32, 8 * mt) // (8 * mt)
+
+
+def stage_shapes(cfg) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of each weight stage: K the x width, N the columns dealt over
+    the blocks."""
+    H, F = cfg.hidden, cfg.ffn_dim
+    nqkv = (cfg.n_q_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    return {"qkv": (H, nqkv), "wo": (cfg.n_q_heads * cfg.head_dim, H),
+            "gu": (H, 2 * F), "down": (F, H), "head": (H, cfg.vocab)}
+
+
+def step_splits(B: int, nk: int, T: int, nb: int) -> int:
+    """Splits S of each (row, kv head)'s live range: doubled while the B *
+    nk * S attention units fit the grid's nb blocks, up to MAX_SPLITS, and
+    while the cache holds at least MIN_SPLIT_SLOTS slots a split. From B,
+    nk, the grid and the capacity T only, never from kv_len: the kernel
+    divides each row's live range itself."""
+    s = 1
+    while (s * 2 <= MAX_SPLITS and B * nk * s * 2 <= nb
+           and s * 2 * MIN_SPLIT_SLOTS <= T):
+        s *= 2
+    return s
+
+
+def split_range(lo: int, hi: int, S: int, s: int) -> Tuple[int, int]:
+    """Split s of the live range [lo, hi) as the kernel takes it: ceil of
+    an S-th each, the last ones shorter or empty (lo > hi reads as
+    empty)."""
+    live = max(hi - lo, 0)
+    per = -(-live // S)
+    s0 = lo + s * per
+    return s0, max(s0, min(s0 + per, hi))
+
+
+def step_plan(cfg, B: int, nb: int, T: int) -> Dict[str, list]:
+    """The kernel's work plan over nb blocks: per weight stage, each block's
+    range of 8-column units; "attention", each block's range of (row, kv
+    head, split) units (b * nk + j) * S + s; "residual", each block's
+    columns of the residual it writes from x (and of the hidden from the
+    final norm)."""
+    plan = {st: split_units(N // UNIT, nb)
+            for st, (_, N) in stage_shapes(cfg).items()}
+    S = step_splits(B, cfg.n_kv_heads, T, nb)
+    plan["attention"] = split_units(B * cfg.n_kv_heads * S, nb)
+    plan["residual"] = split_units(cfg.hidden, nb)
+    return plan
+
+
+def step_smem_fixed(cfg, B: int, t_bytes: int) -> int:
+    """Bytes of a block's shared memory besides the ring
+    (csrc/talker_step.cu s_fixed): the ring's mbarriers, the staged x rows,
+    the sums' scratch, the attention unit's head vectors and warp states."""
+    mt = row_pass(B, t_bytes)
+    hd = cfg.head_dim
+    kmax = max(cfg.hidden, cfg.n_q_heads * hd, cfg.ffn_dim)
+    xs = -(-(mt * kmax * t_bytes) // 16) * 16
+    return 2 * MAX_RING * 8 + xs + 4 * (
+        2 * _WARPS * 32 + 64 + 8 + (2 + MAX_G) * hd
+        + _WARPS * MAX_G * (hd + 2) + MAX_G + 4)
+
+
+def ring_plan(fixed: int, smem_max: int) -> Tuple[int, int]:
+    """(bytes a buffer, buffers) of the weight ring: CHUNK-byte buffers,
+    as many as the block's shared memory leaves, at most MAX_RING; at least
+    two or the plan raises."""
+    n = min(MAX_RING, (smem_max - fixed) // CHUNK)
+    if n < 2:
+        raise ValueError(f"talker_step: {fixed} bytes of fixed shared memory "
+                         f"leave no room for two {CHUNK}-byte ring buffers "
+                         f"in {smem_max}")
+    return CHUNK, n
+
+
+def row_bytes(kind: str, t_bytes: int) -> int:
+    """Bytes of one packed row of a unit (8 columns): T, int8, or 8 bytes
+    of two nibbles a column (int4, half the rows)."""
+    return UNIT * (t_bytes if kind == "dense" else 1)
+
+
+def chunk_rows(chunk: int, nub: int, wb: int, Kp: int) -> int:
+    """Rows of a batch of nub units a ring buffer holds (even: whole
+    16-byte copies), at most Kp (csrc/talker_step.cu s_chunk_rows)."""
+    return min(Kp, (chunk // (nub * wb)) & ~1)
+
+
+def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
+                   chunk: int) -> list:
+    """Block blk's ring chunks in the order producer and consumers walk
+    them: (stage, layer, row pass, first unit, units, first row, rows)."""
+    out = []
+    mt = row_pass(B, t_bytes)
+    ub_n = units_a_batch(mt)
+    shapes = stage_shapes(cfg)
+    seq = [(st, l) for l in range(cfg.n_layers)
+           for st in _STAGES[:4]] + [("head", 0)]
+    for st, l in seq:
+        K, N = shapes[st]
+        kind = kinds[_STAGES.index(st)]
+        Kp = K // 2 if kind == "int4" else K
+        wb = row_bytes(kind, t_bytes)
+        lo, hi = split_units(N // UNIT, nb)[blk]
+        for rc in range(-(-B // mt)):
+            for ul in range(lo, hi, ub_n):
+                nub = min(ub_n, hi - ul)
+                R = chunk_rows(chunk, nub, wb, Kp)
+                for r0 in range(0, Kp, R):
+                    out.append((st, l, rc, ul, nub, r0, min(R, Kp - r0)))
+    return out
+
+
+def interleave_gu(t: torch.Tensor) -> torch.Tensor:
+    """Gate/up columns [..., g (F) | u (F)] -> [..., 2F] with each 8-column
+    unit [g 4f..4f+3 | u 4f..4f+3]: the kernel's gate/up stage then holds
+    a feature's gate and up sums in one unit and writes silu(g) * u itself.
+    Applied alike to the values, the int8 / int4 scales and the int4
+    multipliers."""
+    F = t.shape[-1] // 2
+    lead = t.shape[:-1]
+    g = t[..., :F].reshape(*lead, F // 4, 4)
+    u = t[..., F:].reshape(*lead, F // 4, 4)
+    return torch.cat([g, u], dim=-1).reshape(t.shape).contiguous()
+
+
+def kernel_copy(t: torch.Tensor, stage: str, values: bool = False):
+    """The kernel's copy of a weight part, made once per tensor: gate/up
+    parts interleaved (`interleave_gu`), values packed in units
+    (`pack_units`); other parts as they are."""
+    if stage != "gu" and not values:
+        return t
+    fn = interleave_gu if stage == "gu" else (lambda x: x)
+    if values:
+        return derived(t, f"talker {stage} values",
+                       lambda x: pack_units(fn(x)))
+    return derived(t, "talker gu", fn)
+
+
+def split_attention_plain(q, k_all, v_all, k_new, v_new, layer: int,
+                          kv_len, valid_from, S: int) -> torch.Tensor:
+    """The kernel's attention, in its merge order, in plain PyTorch: per
+    (row, kv head), S online-softmax states over `split_range`'s splits of
+    the live range, each state a max and its rescaled sums; the states
+    merged in split order (their max, then the sums rescaled to it), the
+    current token folded in last, the output divided by max(l, 1e-30)."""
+    B, nq, hd = q.shape
+    nk, T = k_all.shape[2], k_all.shape[3]
+    g = nq // nk
+    qf = q.float().reshape(B, nk, g, hd) / math.sqrt(hd)
+    out = torch.empty(B, nk, g, hd)
+    for b in range(B):
+        lo = max(int(valid_from[b]), 0)
+        hi = min(int(kv_len[b]), T)
+        for j in range(nk):
+            ms, ls, accs = [], [], []
+            for s in range(S):
+                s0, s1 = split_range(lo, hi, S, s)
+                k = k_all[layer, b, j, s0:s1].float()
+                v = v_all[layer, b, j, s0:s1].float()
+                sc = qf[b, j] @ k.T                              # [g, n]
+                m = sc.amax(-1) if s1 > s0 else torch.full((g,), NEG_INF)
+                p = torch.exp(sc - m[:, None])
+                ms.append(m)
+                ls.append(p.sum(-1))
+                accs.append(p @ v)
+            mm = torch.stack(ms).amax(0)
+            ll = torch.zeros(g)
+            aa = torch.zeros(g, hd)
+            for m, l_, a in zip(ms, ls, accs):
+                c = torch.exp(m - mm)
+                ll = ll + l_ * c
+                aa = aa + a * c[:, None]
+            sn = qf[b, j] @ k_new[b, j].float()
+            mf = torch.maximum(mm, sn)
+            c, pn = torch.exp(mm - mf), torch.exp(sn - mf)
+            lf = (ll * c + pn).clamp_min(1e-30)
+            out[b, j] = (aa * c[:, None] + pn[:, None]
+                         * v_new[b, j].float()) / lf[:, None]
+    return out.reshape(B, nq, hd).to(q.dtype)
+
+
+class _StepArgs(ctypes.Structure):
+    """`StepArgs` of csrc/talker_step.cu, field for field."""
+    _fields_ = [("w", ctypes.c_void_p * 5), ("m8", ctypes.c_void_p * 5),
+                ("sc", ctypes.c_void_p * 5)] \
+        + [(f, ctypes.c_void_p) for f in (
+            "ln1", "ln2", "q_norm", "k_norm", "final_norm", "x", "cos", "sin",
+            "slot", "kv_len", "valid_from", "kc", "vc", "hidden", "logits",
+            "xres", "qkv", "att", "act", "part", "cnt", "bar", "trace")] \
+        + [("kind", ctypes.c_int * 5)] \
+        + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
+                                       "V", "Tc", "S", "chunk", "nbuf")] \
+        + [("eps", ctypes.c_float)]
+
+
+# a [trace words] int64 CUDA tensor, or None: block 0's stage timeline
+# (tools/frame_measure.py talker; written only by a library built with
+# kernels/build.py trace_build)
+TRACE = None
+
+
+def _geometry(cfg):
+    return (cfg.hidden, cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.ffn_dim, cfg.vocab, cfg.dtype)
+
+
+# per (geometry, B, S, device, stream): the kernel's workspace; per
+# (geometry, B, dtype, device): the launch plan
+_workspaces: dict = {}
+_plans: dict = {}
+
+
+def _workspace(cfg, B: int, S: int, dev):
+    """Scratch of the kernel, kept per (geometry, B, splits, device,
+    stream): the f32 residual, the qkv product, the attention output and
+    silu(g) * u, the split states, and the split counters and the grid
+    barrier's words (zeroed once; the kernel leaves them ready for the next
+    launch)."""
+    key = (_geometry(cfg), B, S, dev,
+           torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _workspaces:
+        H, nq, nk, hd = (cfg.hidden, cfg.n_q_heads, cfg.n_kv_heads,
+                         cfg.head_dim)
+        f32 = dict(dtype=torch.float32, device=dev)
+        _workspaces[key] = dict(
+            xres=torch.empty(B, H, **f32),
+            qkv=torch.empty(B, (nq + 2 * nk) * hd, **f32),
+            att=torch.empty(B, nq * hd, **f32),
+            act=torch.empty(B, cfg.ffn_dim, **f32),
+            part=torch.empty(B * nk * S, (nq // nk) * (hd + 2), **f32),
+            cnt=torch.zeros(B * nk, dtype=torch.int32, device=dev),
+            bar=torch.zeros(64, dtype=torch.int32, device=dev))
+    return _workspaces[key]
+
+
+def _query(dtype: int, mt: int, smem: int):
+    """(resident blocks per SM at smem bytes, opt-in shared memory per
+    block, SM count) of the step kernel on the current device."""
+    from ..kernels import build
+    out = (ctypes.c_int * 3)()
+    build.check(build.lib().talker_step_query(dtype, mt, smem, out),
+                "talker_step_query")
+    return out[0], out[1], out[2]
+
+
+def _plan(cfg, B: int, t_bytes: int, dev):
+    """(x rows a pass, blocks, bytes a ring buffer, buffers, shared memory a
+    block): the ring from what the fixed part leaves, the grid SMs x the
+    resident blocks per SM at that shared memory."""
+    key = (_geometry(cfg), B, t_bytes, dev)
+    if key not in _plans:
+        mt = row_pass(B, t_bytes)
+        dtype = 0 if t_bytes == 4 else 1
+        _, smem_max, sms = _query(dtype, mt, 0)
+        fixed = step_smem_fixed(cfg, B, t_bytes)
+        chunk, nbuf = ring_plan(fixed, smem_max)
+        smem = fixed + nbuf * chunk
+        per_sm = _query(dtype, mt, smem)[0]
+        if per_sm < 1:
+            raise RuntimeError(f"talker_step: no block fits an SM at {smem} "
+                               "bytes of shared memory")
+        _plans[key] = (mt, sms * per_sm, chunk, nbuf, smem)
+    return _plans[key]
+
+
+def _check_step(params, cfg, x, k_cache, v_cache):
+    """Refuse what the step kernel does not take (ValueError / TypeError):
+    the checks run on every device, so a CPU run refuses what the card
+    would. Returns the five weights' kinds."""
+    chain.check_weights(params, cfg, "talker")
+    B, H = x.shape[0], cfg.hidden
+    L, nq, nk, hd = cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    F, V = cfg.ffn_dim, cfg.vocab
+    dt = getattr(torch, cfg.dtype)
+    if dt not in _DTYPES:
+        raise TypeError(f"talker_step: model dtype {dt}; float32 or bfloat16")
+    if not 1 <= B <= MAX_B or tuple(x.shape) != (B, H) or x.dtype != dt:
+        raise ValueError(f"talker_step: x {tuple(x.shape)} {x.dtype}; "
+                         f"[B, {H}] {dt}, B in [1, {MAX_B}]")
+    if hd < 8 or hd > 128 or hd & (hd - 1) or nq % nk or nq // nk > MAX_G \
+            or H % UNIT or H > MAX_H or F % UNIT or V % UNIT \
+            or (nq * hd) % UNIT:
+        raise ValueError("talker_step: head_dim a power of two in [8, 128], "
+                         f"n_q_heads / n_kv_heads <= {MAX_G}, hidden <= "
+                         f"{MAX_H}, hidden, ffn_dim, vocab and n_q_heads * "
+                         f"head_dim multiples of {UNIT}")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.dim() != 5 or tuple(c.shape[:3]) != (L, B, nk) \
+                or c.shape[4] != hd or c.dtype != dt \
+                or not c.is_contiguous() or c.device != x.device:
+            raise ValueError(f"talker_step: {name} must be contiguous {dt} "
+                             f"[{L}, {B}, {nk}, T, {hd}] on {x.device}, got "
+                             f"{tuple(c.shape)} {c.dtype}")
+    if k_cache.shape != v_cache.shape:
+        raise ValueError("talker_step: k_cache and v_cache differ in shape")
+    want = {st: (L,) + kn for st, kn in stage_shapes(cfg).items()}
+    want["head"] = stage_shapes(cfg)["head"]
+    kinds = []
+    for st, w in _weights(params).items():
+        kind = weight_kind(w)
+        K, N = want[st][-2:]
+        lead = want[st][:-2]
+        if kind == "int4":
+            parts = {"q4": (lead + (K // 2, N), torch.int8),
+                     "m8": (lead + (K // quant.GROUP4, N), torch.int8),
+                     "scale": (lead + (N,), torch.float32)}
+        elif kind == "int8":
+            parts = {"q": (want[st], torch.int8),
+                     "scale": (lead + (N,), torch.float32)}
+        else:
+            parts = {None: (want[st], dt)}
+        for k, (shape, dtype) in parts.items():
+            t = w if k is None else w[k]
+            if tuple(t.shape) != shape or t.dtype != dtype \
+                    or not t.is_contiguous() or t.data_ptr() % 16 \
+                    or t.device != x.device:
+                part = st if k is None else f"{st} {k}"
+                raise ValueError(f"talker_step: {part} must be contiguous "
+                                 f"16-byte aligned {dtype} {shape} on "
+                                 f"{x.device}")
+        kinds.append(kind)
+    lw = params["layers"]
+    for name, shape in (("ln1", (L, H)), ("ln2", (L, H)),
+                        ("q_norm", (L, hd)), ("k_norm", (L, hd))):
+        t = lw[name]
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"talker_step: {name} must be contiguous {dt} "
+                             f"{shape}")
+    fn = params["final_norm"]
+    if fn.dtype != dt or tuple(fn.shape) != (H,) or not fn.is_contiguous():
+        raise ValueError(f"talker_step: final_norm must be contiguous {dt} "
+                         f"({H},)")
+    return tuple(kinds)
+
+
+def _rows_i32(v, B: int, dev) -> torch.Tensor:
+    return torch.as_tensor(v, device=dev).to(torch.int32).reshape(-1) \
+        .expand(B).contiguous()
+
+
+def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
+                       kv_len, valid_from, k_cache, v_cache):
+    """The step in one launch of csrc/talker_step.cu (B <= MAX_B): (hidden,
+    logits, k_cache, v_cache) as `talker_step_fused_plain` computes them,
+    the caches updated in place. On a CPU tensor it takes that plain
+    version; on a CUDA tensor it launches the kernel or raises. positions,
+    slot, kv_len and valid_from become device int32 [B]; the RoPE tables
+    are made on the device from positions."""
+    kinds = _check_step(params, cfg, x, k_cache, v_cache)
+    if x.device.type == "cpu":
+        return talker_step_fused_plain(params, cfg, x, positions, slot,
+                                       kv_len, valid_from, k_cache, v_cache)
+    dev = x.device
+    dt = getattr(torch, cfg.dtype)
+    t_bytes = 4 if dt == torch.float32 else 2
+    B, hd = x.shape[0], cfg.head_dim
+    from ..kernels import build
+    with torch.cuda.device(dev):
+        mt, nb, chunk, nbuf, smem = _plan(cfg, B, t_bytes, dev)
+        S = step_splits(B, cfg.n_kv_heads, k_cache.shape[3], nb)
+        ws = _workspace(cfg, B, S, dev)
+        pos = _rows_i32(positions, B, dev)
+        cos, sin = rope.rope_angles(rope.mrope_positions(pos[:, None]),
+                                    cfg.mrope_sections, hd, cfg.rope_theta)
+        cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
+        ints = [_rows_i32(v, B, dev) for v in (slot, kv_len, valid_from)]
+        xc = x.contiguous()
+        hidden = torch.empty(B, cfg.hidden, dtype=dt, device=dev)
+        logits = torch.empty(B, cfg.vocab, dtype=torch.float32, device=dev)
+        lw = params["layers"]
+        a = _StepArgs()
+        for i, (st, w) in enumerate(_weights(params).items()):
+            kind = kinds[i]
+            vals = w["q4"] if kind == "int4" else w["q"] if kind == "int8" \
+                else w
+            a.w[i] = kernel_copy(vals, st, True).data_ptr()
+            a.m8[i] = kernel_copy(w["m8"], st).data_ptr() \
+                if kind == "int4" else None
+            a.sc[i] = kernel_copy(w["scale"], st).data_ptr() \
+                if kind != "dense" else None
+            a.kind[i] = _KINDS[kind]
+        for name, t in (("ln1", lw["ln1"]), ("ln2", lw["ln2"]),
+                        ("q_norm", lw["q_norm"]), ("k_norm", lw["k_norm"]),
+                        ("final_norm", params["final_norm"]), ("x", xc),
+                        ("cos", cos), ("sin", sin), ("slot", ints[0]),
+                        ("kv_len", ints[1]), ("valid_from", ints[2]),
+                        ("kc", k_cache), ("vc", v_cache), ("hidden", hidden),
+                        ("logits", logits)):
+            setattr(a, name, t.data_ptr())
+        for name in ("xres", "qkv", "att", "act", "part", "cnt", "bar"):
+            setattr(a, name, ws[name].data_ptr())
+        a.trace = None if TRACE is None else TRACE.data_ptr()
+        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.V, a.Tc, a.S, a.chunk,
+         a.nbuf) = (B, cfg.hidden, cfg.n_layers, cfg.n_q_heads,
+                    cfg.n_kv_heads, hd, cfg.ffn_dim, cfg.vocab,
+                    k_cache.shape[3], S, chunk, nbuf)
+        a.eps = cfg.rms_eps
+        err = build.lib().talker_step_launch(
+            ctypes.addressof(a), _DTYPES[dt], mt, nb, smem,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "talker_step")
+    talker_step_kernel.launches += 1
+    return hidden, logits, k_cache, v_cache
+
+
+talker_step_kernel.launches = 0

@@ -28,6 +28,24 @@ def section_ids(sections: Sequence[int]) -> list:
     return out
 
 
+# per (sections, head_dim, theta, device): the inverse frequencies and the
+# stream of each rotary index, made once, so that a call makes no host
+# tensor (the talker step kernel's tables are made inside CUDA graphs)
+_freq_tables: dict = {}
+
+
+def _freqs(sections, head_dim: int, theta: float, dev):
+    key = (tuple(sections), head_dim, theta, dev)
+    if key not in _freq_tables:
+        half = head_dim // 2
+        inv_freq = 1.0 / (theta ** (torch.arange(
+            0, half, dtype=torch.float32, device=dev) * 2.0 / head_dim))
+        stream = torch.tensor(section_ids(sections), dtype=torch.long,
+                              device=dev)
+        _freq_tables[key] = (inv_freq, stream)
+    return _freq_tables[key]
+
+
 def rope_angles(
     pos4: torch.Tensor,
     sections: Tuple[int, int, int, int],
@@ -36,11 +54,7 @@ def rope_angles(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables: pos4 [4, B, S] -> (cos, sin) each [B, S, head_dim] f32
     in the rotate-half layout."""
-    half = head_dim // 2
-    dev = pos4.device
-    inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                             device=dev) * 2.0 / head_dim))
-    stream = torch.tensor(section_ids(sections), dtype=torch.long, device=dev)
+    inv_freq, stream = _freqs(sections, head_dim, theta, pos4.device)
     pos_sel = pos4[stream].movedim(0, -1).to(torch.float32)   # [B, S, half]
     ang = pos_sel * inv_freq
     ang = torch.cat([ang, ang], dim=-1)

@@ -1,20 +1,35 @@
-"""On-card measurements of the predictor frame kernel, beside
-`chip_smoke.py` (PERF.md's PR 7 numbers come from here):
+"""On-card measurements of the persistent kernels, beside `chip_smoke.py`
+(PERF.md's stage traces and A/B numbers come from here). Run from the
+repo's root (each mode imports its `chip_smoke.py`):
 
-    python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace DIR [--nowork]
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure talker
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure int8mm
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py ab TAG
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py talker-ab TAG
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py route
 
-trace   copies the package into DIR (a directory `.gitignore` lists),
-        gives the copy's `csrc/predictor_frame.cu` a stage timeline (block
-        0's thread 0 writes %globaltimer at each grid barrier's arrival and
-        release, and sums the time to its norm inputs and of its products)
-        and builds that kernel alone there; then, full width, dense bf16
-        and int8, B = 1 and 16: ms a frame (CUDA events over 10 frames),
-        and per stage kind (qkv, attention, wo, gate/up, down, head) block
-        0's work, its barrier wait and the stage's total, in us a stage.
-        `--nowork` also cuts the stages' work out, leaving the barriers
-        and the weight copies: the floor of the design.
+Both persistent kernels carry a trace that is compiled in only for
+`trace` and `talker` (`kernels/build.py trace_build`, -DKERNEL_TRACE: a
+library of its own, built in the measuring process) and on while a
+trace buffer is set (`fused_predictor.TRACE`, `fused_talker.TRACE`):
+block 0's thread 0 writes %globaltimer at each grid barrier's arrival and
+release (`csrc/persistent.cuh grid_barrier_first`) and sums some phases of
+its stages. The library the port runs has none of it.
+
+trace   the predictor frame kernel's stage timeline: full width, dense
+        bf16 and int8, B = 1 and 16: ms a frame (CUDA events over 10
+        frames), per stage kind (qkv, attention, wo, gate/up, down, head)
+        block 0's work, its barrier wait and the stage's total, in us a
+        stage; block 0's products (to their inputs, the rest), its norm
+        inputs (loads, row reduction) and its waits for a stage's copies.
+talker  the talker step kernel's stage timeline: full width,
+        dense bf16, int8 and int4, B = 1 and 2, a 256-slot cache with ~100
+        live slots; ms a step (CUDA events over 10 steps) and per stage
+        kind (qkv, attention, wo, gate/up, down, the head) block 0's work
+        and its barrier wait, us a stage; the consumers' waits for full
+        ring buffers and the producer's for free ones, us a step; the
+        last layer's attention unit 0 and block 0's products by phase.
 int8mm  whether `torch._weight_int8pack_mm` runs on CUDA, and its device
         time (CUDA-graph replay) at B8's predictor layer (M = 1) and A's
         talker layer (M = 64), weights rotating past the 50 MB L2: the
@@ -25,137 +40,46 @@ ab      one tree's side of a parent-vs-change A/B, run from the tree's
         CUDA kernels a frame), then two warm `generate_stream` calls per
         set (first-chunk ms, streaming RTF including vocoding). Run the
         trees in turns in one call: parent, change, change, parent.
-
-The timeline variant is a measuring copy, not a second kernel: its
-arithmetic is the kernel's.
+talker-ab  the same with the talker step first: `talker_step_fused` at
+        full width, dense, int8 and int4, B = 1 and 2, device ms a step
+        (profiler) and ms a step of eager calls (CUDA events); then `ab`.
+route   the measurement behind the talker route's batch limits
+        (`ops/fused_talker.py MAX_B`, `INT4_MAX_B`), end to end:
+        `generate_codes` (ignore_eos) at full width, dense bf16 and
+        int4+int8, B = 1, 2, 4, 8, 16, with the talker on its step kernel
+        (both limits set to MAX_B) and on its chain (both set to 0), in
+        turns kernel, chain,
+        chain, kernel: ms a frame (CUDA events over 16 frames, the
+        prefill subtracted; the host loop's pace where it bounds the
+        frame) and device ms a frame (profiler, prefill + 4 frames less
+        the prefill).
 """
 
 from __future__ import annotations
 
 import os
-import shutil
-import subprocess
 import sys
 
-PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ("qkv", "attn", "wo", "gu", "down")
 TRACE_WORDS = 2000          # the timeline buffer, int64 words
-T0, PHASES, NORM, WAIT = 1999, 1900, 1960, 1980   # its fixed slots
+# csrc/predictor_frame.cu kTrT0, kTrProd, kTrNorm, kTrWait
+T0, PHASES, NORM, WAIT = 1999, 1900, 1960, 1980
 
 
-def _insert(src: str, anchor: str, text: str, before: bool = True) -> str:
-    if anchor not in src:
-        raise RuntimeError(f"frame_measure: anchor not found: {anchor!r}")
-    return src.replace(anchor, text + anchor if before else anchor + text, 1)
-
-
-def _timeline(cu: str, nowork: bool) -> str:
-    """The kernel source with the stage timeline (and without the stages'
-    work when `nowork`)."""
-    rec = "if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) "
-    cu = cu.replace("  float eps;\n};",
-                    "  float eps;\n  unsigned long long* trace;\n};", 1)
-    cu = cu.replace(
-        "void grid_barrier(unsigned* bar) {\n  __syncthreads();",
-        "void grid_barrier(unsigned* bar, unsigned long long* tr, int& ti) {"
-        "\n  __syncthreads();\n  if (tr != nullptr && blockIdx.x == 0 && "
-        "threadIdx.x == 0) tr[2 * ti] = global_ns();", 1)
-    k = cu.index("void grid_barrier(")
-    e = cu.index("\n  __syncthreads();\n}", k)
-    cu = cu[:e] + ("\n  if (tr != nullptr && blockIdx.x == 0 && threadIdx.x "
-                   "== 0) tr[2 * ti + 1] = global_ns();\n  ++ti;") + cu[e:]
-    cu = cu.replace("grid_barrier(a.bar);", "grid_barrier(a.bar, a.trace, ti);")
-    cu = cu.replace("  int s = 0;\n",
-                    f"  int s = 0, ti = 0;\n  {rec}a.trace[{T0}] = "
-                    "global_ns();\n", 1)
-    # block 0's products: time to its inputs, then to its stores
-    cu = _insert(cu, "  if (mat == kHead && threadIdx.x < B) {\n    sm.bestv",
-                 "  const unsigned long long tp0 = global_ns();\n"
-                 "  unsigned long long tp1 = tp0;\n")
-    cu = _insert(cu, "      // wo / down add into the residual",
-                 "      if (c0 == 0) tp1 = global_ns();\n")
-    cu = _insert(cu, "  if (mat == kHead && threadIdx.x < B) {\n    a.part_v",
-                 f"  {rec}{{\n    a.trace[{PHASES} + mat * 4 + 1] += tp1 - tp0;"
-                 f"\n    a.trace[{PHASES} + mat * 4 + 2] += global_ns() - tp1;"
-                 f"\n    a.trace[{PHASES} + mat * 4 + 3] += 1;\n  }}\n")
-    # block 0's norm inputs: its loads, then the row reduction
-    k = cu.index("__device__ void stage_norm(")
-    b = cu.index("  const int K = a.H;\n", k)
-    cu = cu[:b] + f"  {rec}a.trace[{NORM + 4}] = global_ns();\n" + cu[b:]
-    red = "  __syncthreads();\n  if (threadIdx.x < mt) {\n    float t = 0.f;"
-    cu = _insert(cu, red, f"  unsigned long long tn0 = 0;\n  {rec}tn0 = "
-                 "global_ns();\n")
-    done = ("    sm.rinv[threadIdx.x] = rsqrtf(t / static_cast<float>(K) + "
-            "a.eps);\n  }\n  __syncthreads();\n")
-    cu = _insert(cu, done, f"  {rec}{{\n    a.trace[{NORM}] += tn0 - "
-                 f"a.trace[{NORM + 4}];\n    a.trace[{NORM + 1}] += "
-                 f"global_ns() - tn0;\n    a.trace[{NORM + 3}] += 1;\n  }}\n",
-                 before=False)
-    wait = "    mbar_wait(sm.bar + (s & 1), (s >> 1) & 1);\n"
-    cu = _insert(cu, wait, "    const unsigned long long tw0 = global_ns();\n")
-    cu = _insert(cu, wait, f"    {rec}{{\n      a.trace[{WAIT}] += global_ns()"
-                 f" - tw0;\n      a.trace[{WAIT + 1}] += 1;\n    }}\n",
-                 before=False)
-    if nowork:
-        cu = _insert(cu, "  if (a.sc[mat] != nullptr)\n    product<",
-                     "  after_inputs();\n  return;\n")
-        cu = _insert(cu, "  const float rs = sqrtf(static_cast<float>(hd));\n",
-                     "  return;\n", before=False)
-    return cu
-
-
-def make_trace_copy(out: str, nowork: bool) -> None:
-    """The package copied into `out`, with the timeline in its frame kernel
-    and a build of that kernel alone."""
-    dst = os.path.join(out, "qwen3_tts_tpu_torch")
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(PKG, dst, ignore=shutil.ignore_patterns(
-        "_build", "__pycache__"))
-    csrc = os.path.join(dst, "csrc")
-    for f in os.listdir(csrc):
-        if f not in ("predictor_frame.cu", "gemv.cuh"):
-            os.remove(os.path.join(csrc, f))
-    path = os.path.join(csrc, "predictor_frame.cu")
-    with open(path) as f:
-        cu = _timeline(f.read(), nowork)
-    with open(path, "w") as f:
-        f.write(cu)
-    path = os.path.join(dst, "kernels", "build.py")
-    with open(path) as f:
-        text = f.read()
-    i = text.index("SIGNATURES = {")
-    j = text.index("}\n", i)
-    text = text[:i] + ('SIGNATURES = {\n'
-                       '    "predictor_frame_query": [I, I, I, P],\n'
-                       '    "predictor_frame_launch": [P, I, I, I, I, P],\n'
-                       ) + text[j:]
-    with open(path, "w") as f:
-        f.write(text)
-    path = os.path.join(dst, "ops", "fused_predictor.py")
-    with open(path) as f:
-        text = f.read()
-    text = text.replace('        + [("eps", ctypes.c_float)]',
-                        '        + [("eps", ctypes.c_float), '
-                        '("trace", ctypes.c_void_p)]', 1)
-    text = text.replace("        a.eps = cfg.rms_eps\n",
-                        "        a.eps = cfg.rms_eps\n        a.trace = "
-                        "None if TRACE is None else TRACE.data_ptr()\n", 1)
-    text = text.replace("_tables: dict = {}\n",
-                        "_tables: dict = {}\nTRACE = None\n", 1)
-    with open(path, "w") as f:
-        f.write(text)
-
-
-def run_trace(tag: str) -> None:
-    """The timeline of the copy this runs from (its package first on the
-    path)."""
+def run_trace() -> None:
+    """The predictor frame kernel's timeline (module docstring, `trace`)."""
     import torch
+    import chip_smoke as c
     from qwen3_tts_tpu_torch.assets import tables
     from qwen3_tts_tpu_torch.core.config import EngineConfig
     from qwen3_tts_tpu_torch.models import decoder
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    from qwen3_tts_tpu_torch.kernels import build
     from qwen3_tts_tpu_torch.ops import quant
 
+    card = c.phase_device()
+    build.trace_build()
+    c.phase_build()
     dev = torch.device("cuda")
     cfg = EngineConfig().predictor
     fp.TRACE = torch.zeros(TRACE_WORDS, dtype=torch.int64, device=dev)
@@ -189,26 +113,228 @@ def run_trace(tag: str) -> None:
                 work.setdefault(k, []).append(tr[2 * i] - prev)
                 wait.setdefault(k, []).append(tr[2 * i + 1] - tr[2 * i])
                 prev = tr[2 * i + 1]
-            line = (f"{tag} {kind} B={B}: {s.elapsed_time(e) / 10:.3f} ms a "
-                    f"frame (CUDA events); timeline {(prev - tr[T0]) / 1e6:.3f}"
-                    " ms; us a stage, block 0's work / barrier wait / total:")
+            line = (f"predictor {kind} B={B}: {s.elapsed_time(e) / 10:.3f} "
+                    f"ms a frame (CUDA events) on {card}; timeline "
+                    f"{(prev - tr[T0]) / 1e6:.3f} ms; us a stage, block 0's "
+                    "work / barrier wait / total:")
             for k in (*STAGES, "head"):
                 w = sum(work[k]) / len(work[k]) / 1e3
                 b = sum(wait[k]) / len(wait[k]) / 1e3
                 line += f" {k} {w:.2f}/{b:.2f}/{w + b:.2f}"
             print(line, flush=True)
             ph = tr[PHASES:PHASES + 20]
-            if any(ph):
-                line = "   block 0's products, us a call (to inputs / rest):"
-                for i, k in enumerate(("qkv", "wo", "gu", "down", "head")):
-                    n = max(ph[i * 4 + 3], 1)
-                    line += (f" {k} {ph[i * 4 + 1] / n / 1e3:.2f}/"
-                             f"{ph[i * 4 + 2] / n / 1e3:.2f}")
-                n = max(tr[NORM + 3], 1)
-                line += (f"; norm inputs: loads {tr[NORM] / n / 1e3:.2f}, "
-                         f"row reduction {tr[NORM + 1] / n / 1e3:.2f}; copy "
-                         f"wait {tr[WAIT] / max(tr[WAIT + 1], 1) / 1e3:.2f}")
-                print(line, flush=True)
+            line = "   block 0's products, us a call (to inputs / rest):"
+            for i, k in enumerate(("qkv", "wo", "gu", "down", "head")):
+                n = max(ph[i * 4 + 3], 1)
+                line += (f" {k} {ph[i * 4 + 1] / n / 1e3:.2f}/"
+                         f"{ph[i * 4 + 2] / n / 1e3:.2f}")
+            n = max(tr[NORM + 3], 1)
+            line += (f"; norm inputs: loads {tr[NORM] / n / 1e3:.2f}, "
+                     f"row reduction {tr[NORM + 1] / n / 1e3:.2f}; copy "
+                     f"wait {tr[WAIT] / max(tr[WAIT + 1], 1) / 1e3:.2f}")
+            print(line, flush=True)
+    fp.TRACE = None
+
+
+def step_weights(cfg, kind, seed):
+    """Seeded talker weights of `cfg` on the card: dense, or int8 / int4 as
+    `quant.quantize_decoder_params` makes them."""
+    import torch
+    from qwen3_tts_tpu_torch.models import decoder
+    from qwen3_tts_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tp = decoder.init_decoder(g, cfg, device="cuda")
+    return tp if kind == "dense" else quant.quantize_decoder_params(tp, kind)
+
+
+def step_inputs(cfg, B, T, live, seed):
+    """The step's input x [B, H] and a random [L, B, nk, T, hd] cache whose
+    rows have ragged live ranges [valid_from, kv_len) of about `live` slots
+    (left pad 3 b, kv_len growing 7 a row): (x, positions, slot, kv_len,
+    valid_from, k_cache, v_cache), the step writing at slot kv_len."""
+    import torch
+    dev = torch.device("cuda")
+    dt = getattr(torch, cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (0.1 * torch.randn(B, cfg.hidden, generator=g, device=dev)).to(dt)
+    shape = (cfg.n_layers, B, cfg.n_kv_heads, T, cfg.head_dim)
+    kc = torch.randn(shape, generator=g, device=dev).to(dt)
+    vc = torch.randn(shape, generator=g, device=dev).to(dt)
+    rows = torch.arange(B, device=dev, dtype=torch.int32)
+    vf = 3 * rows
+    kv_len = torch.clamp(vf + live + 7 * rows, max=T - 1)
+    return x, kv_len - vf, kv_len, kv_len, vf, kc, vc
+
+
+def step_case(cfg, kind, B, T, live, seed):
+    """`step_weights` and `step_inputs`: (params, x, positions, slot,
+    kv_len, valid_from, k_cache, v_cache)."""
+    return (step_weights(cfg, kind, seed),) + step_inputs(cfg, B, T, live,
+                                                          seed + 1)
+
+
+TALKER_STAGES = ("qkv", "attn", "wo", "gu", "down")
+T_T0, T_END, T_WAIT, T_PWAIT = 500, 501, 502, 504   # csrc/talker_step.cu kTr*
+T_ATTN, T_PROD = 510, 520
+PROD_PHASES = ("inputs", "first chunk", "chunks", "sums + epilogue")
+ATTN_PHASES = ("head vectors", "slots + warp states", "unit merge",
+               "count", "split merge + k/v store")
+
+
+def talker_trace() -> None:
+    """The step kernel's timeline (module docstring, `talker`)."""
+    import torch
+    import chip_smoke as c
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.kernels import build
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+
+    card = c.phase_device()
+    build.trace_build()
+    c.phase_build()
+    cfg = EngineConfig().talker
+    ft.TRACE = torch.zeros(TRACE_WORDS, dtype=torch.int64, device="cuda")
+    steps = 10
+    for kind in ("dense", "int8", "int4"):
+        for B in (1, 2):
+            tp, *rest = step_case(cfg, kind, B, 256, 100, 400 + B)
+            for _ in range(3):
+                ft.talker_step_kernel(tp, cfg, *rest)
+            ft.TRACE.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(steps):
+                ft.talker_step_kernel(tp, cfg, *rest)
+            e.record()
+            torch.cuda.synchronize()
+            tr = ft.TRACE.cpu().tolist()
+            work, wait = {}, {}
+            prev = tr[T_T0]
+            for i in range(5 * cfg.n_layers):    # the last step's timeline
+                k = TALKER_STAGES[i % 5]
+                work.setdefault(k, []).append(tr[2 * i] - prev)
+                wait.setdefault(k, []).append(tr[2 * i + 1] - tr[2 * i])
+                prev = tr[2 * i + 1]
+            line = (f"talker {kind} B={B}: {s.elapsed_time(e) / steps:.4f} ms "
+                    f"a step (CUDA events); timeline "
+                    f"{(tr[T_END] - tr[T_T0]) / 1e6:.4f} ms; us a stage, block "
+                    "0's work / barrier wait:")
+            for k in TALKER_STAGES:
+                line += (f" {k} {sum(work[k]) / len(work[k]) / 1e3:.2f}/"
+                         f"{sum(wait[k]) / len(wait[k]) / 1e3:.2f}")
+            line += (f" head {(tr[T_END] - prev) / 1e3:.2f}; ring waits, us "
+                     f"a step: consumers {tr[T_WAIT] / steps / 1e3:.2f} over "
+                     f"{tr[T_WAIT + 1] // steps} chunks, producer "
+                     f"{tr[T_PWAIT] / steps / 1e3:.2f} on {card}")
+            print(line, flush=True)
+            ph = tr[T_ATTN:T_ATTN + 6]
+            print("   attention unit 0, last layer, us: " + ", ".join(
+                f"{n} {(ph[i + 1] - ph[i]) / 1e3:.2f}"
+                for i, n in enumerate(ATTN_PHASES)), flush=True)
+            parts = []
+            for m, k in enumerate(("qkv", "wo", "gu", "down", "head")):
+                ps = tr[T_PROD + 8 * m:T_PROD + 8 * m + 5]
+                parts.append(k + " " + "/".join(
+                    f"{(ps[i + 1] - ps[i]) / 1e3:.2f}" for i in range(4)))
+            print("   block 0's products, last layer, us (" + ", ".join(
+                PROD_PHASES) + "): " + "; ".join(parts), flush=True)
+            del tp, rest
+    ft.TRACE = None
+
+
+def talker_ab(tag: str) -> None:
+    """One tree's side of a talker A/B (module docstring, `talker-ab`)."""
+    import chip_smoke as c
+    card = c.phase_device()
+    c.phase_build()
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    cfg = EngineConfig().talker
+    for kind in ("dense", "int8", "int4"):
+        for B in (1, 2):
+            tp, *rest = step_case(cfg, kind, B, 256, 100, 500 + B)
+
+            def fn(tp=tp, rest=rest):
+                ft.talker_step_fused(tp, cfg, *rest)
+            fn()
+            dev = c.profiled_device_ms(fn, 3)
+            host = c.cuda_ms(fn, reps=10, warmup=2)
+            print(f"  {tag} talker_step_fused {kind} B={B}: device "
+                  f"{c._fmt4(dev)} ms a step (profiler), {host:.4f} ms a "
+                  f"step of eager calls (CUDA events) on {card}", flush=True)
+            del tp, rest
+    ab(tag)
+
+
+def route_times() -> None:
+    """Both talker routes end to end (module docstring, `route`)."""
+    import torch
+    import chip_smoke as c
+    card = c.phase_device()
+    c.phase_build()
+    from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    from qwen3_tts_tpu_torch.tts import generate
+
+    spk = os.path.join(c.REPO, "speakers")
+    eng = TtsEngine(config=EngineConfig(), random_weights=True, seed=0,
+                    speakers_dir=spk, device="cuda")
+    cfg, dev = eng.config, eng.device
+    q48 = c.quantized_models(eng.models, "int4", "int8")
+    g = torch.Generator(device=dev).manual_seed(7)
+    frames, limits = 16, (ft.MAX_B, ft.INT4_MAX_B)
+    for label, models in (("dense bf16", eng.models), ("int4+int8", q48)):
+        for B in (1, 2, 4, 8, 16):
+            prompt = 0.1 * torch.randn(B, 64, cfg.talker.hidden,
+                                       generator=g, device=dev)
+            pad = torch.zeros(B, dtype=torch.int32, device=dev)
+
+            def run(steps, models=models, prompt=prompt, pad=pad):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                with torch.inference_mode():
+                    generate.generate_codes(
+                        models, cfg.talker, cfg.predictor, prompt, pad, gen,
+                        0.7, 40, 0.9, frames, ignore_eos=True,
+                        step_cap=steps)
+
+            def timed(steps):
+                torch.cuda.synchronize()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                run(steps)
+                e.record()
+                torch.cuda.synchronize()
+                return s.elapsed_time(e)
+
+            wall, device = {}, {}
+            try:
+                for route in ("kernel", "chain", "chain", "kernel"):
+                    ft.MAX_B = ft.INT4_MAX_B = \
+                        limits[0] if route == "kernel" else 0
+                    run(2)                               # warm up
+                    n0 = ft.talker_step_kernel.launches
+                    total = timed(frames)
+                    if (ft.talker_step_kernel.launches > n0) != \
+                            (route == "kernel"):
+                        raise RuntimeError(f"route: B={B} did not take the "
+                                           f"talker's {route} route")
+                    wall.setdefault(route, []).append(
+                        (total - timed(0)) / frames)
+                    if route not in device:
+                        d4 = c.profiled_device_ms(lambda: run(4), 1)
+                        d0 = c.profiled_device_ms(lambda: run(0), 1)
+                        device[route] = None if d4 is None or d0 is None \
+                            else (d4 - d0) / 4
+            finally:
+                ft.MAX_B, ft.INT4_MAX_B = limits
+            print(f"  route {label} B={B}: ms a frame (CUDA events) kernel "
+                  f"{[round(v, 3) for v in wall['kernel']]}, chain "
+                  f"{[round(v, 3) for v in wall['chain']]}; device ms a "
+                  f"frame (profiler) kernel {c._fmt(device['kernel'])}, "
+                  f"chain {c._fmt(device['chain'])} on {card}", flush=True)
 
 
 def int8mm() -> None:
@@ -283,23 +409,24 @@ def ab(tag: str) -> None:
 
 
 def main(argv) -> int:
-    if len(argv) >= 2 and argv[0] == "trace":
-        out = os.path.abspath(argv[1])
-        nowork = "--nowork" in argv[2:]
-        make_trace_copy(out, nowork)
-        env = dict(os.environ, PYTHONPATH=out)
-        code = ("import sys; sys.path.insert(0, '.'); "
-                "from qwen3_tts_tpu_torch.kernels import build; build.lib(); "
-                "from qwen3_tts_tpu_torch.tools import frame_measure as m; "
-                f"m.run_trace({'nowork' if nowork else 'timeline'!r})")
-        return subprocess.run([sys.executable, "-c", code], cwd=out,
-                              env=env).returncode
     sys.path.insert(0, os.getcwd())
+    if argv[:1] == ["trace"]:
+        run_trace()
+        return 0
     if argv[:1] == ["int8mm"]:
         int8mm()
         return 0
     if len(argv) == 2 and argv[0] == "ab":
         ab(argv[1])
+        return 0
+    if argv[:1] == ["talker"]:
+        talker_trace()
+        return 0
+    if len(argv) == 2 and argv[0] == "talker-ab":
+        talker_ab(argv[1])
+        return 0
+    if argv[:1] == ["route"]:
+        route_times()
         return 0
     print(__doc__)
     return 2

@@ -537,3 +537,90 @@ def test_predictor_frame_repeats_bit_identical(dev):
         a, b = (fused_predictor.predictor_frame_kernel(
             pp, cfg, ptab, rows, h, code0) for _ in range(2))
         assert torch.equal(a, b)
+
+
+def _step_case(dev, kind, B, dtype, seed, T=256):
+    """A small int4-capable talker (hidden 256, 2/2 heads of 128, ffn 256,
+    2 layers) in `dtype` with `kind` weights, x, and a random cache with
+    ragged live ranges; the step writes at slot kv_len."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.models import decoder
+
+    tc = dataclasses.replace(tiny_engine_config().talker, hidden=256,
+                             n_q_heads=2, n_kv_heads=2, head_dim=128,
+                             ffn_dim=256, mrope_sections=(32, 16, 16, 0),
+                             dtype="float32" if dtype == torch.float32
+                             else "bfloat16")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tp = decoder.init_decoder(g, tc, device=dev)
+    if kind != "dense":
+        tp = quant.quantize_decoder_params(tp, kind=kind)
+    cache = decoder.init_kv_cache(tc, B, length=T, device=dev)
+    for c in cache.values():
+        c.copy_(_randn(g, *c.shape))
+    x = _randn(g, B, tc.hidden, dtype=dtype, scale=0.1)
+    pad = torch.arange(B, dtype=torch.int32, device=dev) * 5
+    slot = pad + 60 + 3 * torch.arange(B, dtype=torch.int32, device=dev)
+    return tc, tp, x, slot - pad, slot, slot, pad, cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
+@pytest.mark.parametrize("B", [1, 2])
+def test_talker_step_kernel_matches_plain(dev, dtype, kind, B):
+    """The step kernel against talker_step_fused_plain: hidden, logits and
+    the cache slot written (f32 rtol/atol 1e-4; bf16 max |d| <= 8e-3 of the
+    largest magnitude, chip_smoke.py's bound); every other slot unchanged;
+    one launch a step through talker_step_fused."""
+    tc, tp, x, pos, slot, kv_len, vf, cache = _step_case(dev, kind, B, dtype,
+                                                         50 + B)
+    before = fused_talker.talker_step_kernel.launches
+    kk, kv = cache["k"].clone(), cache["v"].clone()
+    a = fused_talker.talker_step_fused(tp, tc, x, pos, slot, kv_len, vf, kk,
+                                       kv)
+    assert fused_talker.talker_step_kernel.launches == before + 1
+    b = fused_talker.talker_step_fused_plain(tp, tc, x, pos, slot, kv_len,
+                                             vf, cache["k"].clone(),
+                                             cache["v"].clone())
+    rows = torch.arange(B, device=dev)
+    sl = slot.long()
+    for u, v in zip(a[:2] + tuple(t[:, rows, :, sl] for t in a[2:]),
+                    b[:2] + tuple(t[:, rows, :, sl] for t in b[2:])):
+        if dtype == torch.float32:
+            torch.testing.assert_close(u.float(), v.float(), rtol=1e-4,
+                                       atol=1e-4)
+        else:
+            err = (u.float() - v.float()).abs().max()
+            assert err <= 8e-3 * v.float().abs().max(), float(err)
+    for got, orig in ((kk, cache["k"]), (kv, cache["v"])):
+        got[:, rows, :, sl] = orig[:, rows, :, sl]
+        assert torch.equal(got, orig)
+
+
+def test_talker_step_repeats_and_graph_replay_bit_identical(dev):
+    """No K split, no atomics on data: the same step twice, and two
+    replays of a CUDA graph of it, give the same bits (bf16, int8 and
+    int4, B = 2)."""
+    for kind in ("dense", "int8", "int4"):
+        tc, tp, x, pos, slot, kv_len, vf, cache = _step_case(
+            dev, kind, 2, torch.bfloat16, 61)
+
+        def step():
+            h, lg, _, _ = fused_talker.talker_step_kernel(
+                tp, tc, x, pos, slot, kv_len, vf, cache["k"], cache["v"])
+            return torch.cat([h.float().flatten(), lg.flatten()])
+        first, second = step().clone(), step().clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(out.clone())
+        assert all(torch.equal(first, t) for t in (second, *replays)), kind

@@ -74,10 +74,27 @@ def test_unflatten_npz_paths():
     assert tuple(params["layers"]["wqkv"].shape) == (2, 3)
 
 
+def test_trace_build_has_its_own_key(monkeypatch):
+    """The persistent kernels' traces build into a library of their own
+    key (-DKERNEL_TRACE), set once before the process loads one."""
+    monkeypatch.setattr(build, "DEFINES", [])
+    monkeypatch.setattr(build, "_lib", None)
+    key = build.source_hash()
+    build.trace_build()
+    build.trace_build()
+    assert build.DEFINES == ["-DKERNEL_TRACE"]
+    assert build.source_hash() != key
+    monkeypatch.setattr(build, "DEFINES", [])
+    monkeypatch.setattr(build, "_lib", object())
+    with pytest.raises(RuntimeError, match="already loaded"):
+        build.trace_build()
+
+
 def test_kernel_sources_and_build_key():
     names = {os.path.basename(p) for p in build.sources()}
     assert {"gemv.cu", "decode_attention.cu", "qmatmul.cu",
-            "probes.cu", "predictor_frame.cu"} <= names
+            "probes.cu", "predictor_frame.cu", "persistent.cuh",
+            "talker_step.cu"} <= names
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     probes = {f"probe_{n}_launch" for n in (
@@ -87,7 +104,8 @@ def test_kernel_sources_and_build_key():
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
         "gemv_blocks_per_sm", "qmatmul_launch",
         "decode_attention_launch", "predictor_frame_query",
-        "predictor_frame_launch"} | probes
+        "predictor_frame_launch", "talker_step_query",
+        "talker_step_launch"} | probes
     # every C entry point the build binds is defined in a source
     text = "".join(open(p).read() for p in build.sources())
     for name in build.SIGNATURES:

@@ -224,6 +224,7 @@ def test_quantized_engine_matches_jax(engines, monkeypatch):
     prefill) did run."""
     jeng, teng = engines
     from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.ops import chain as tchain
     from qwen3_tts_tpu_torch.ops import gemv as tgemv
     from qwen3_tts_tpu_torch.ops import quant as tquant
 
@@ -238,6 +239,10 @@ def test_quantized_engine_matches_jax(engines, monkeypatch):
     calls.update(gemv_int8_plain=0, qmatmul=0)
     monkeypatch.setattr(tgemv, "gemv_int8_plain",
                         counted("gemv_int8_plain", tgemv.gemv_int8_plain))
+    # the step kernels' plain versions (their CPU route) take the int8
+    # product from the chain's plain op set, bound at import
+    monkeypatch.setattr(tchain.PLAIN, "gemv_int8",
+                        counted("gemv_int8_plain", tchain.PLAIN.gemv_int8))
     monkeypatch.setattr(tquant, "qmatmul",
                         counted("qmatmul", tquant.qmatmul))
     jm = dict(jeng.models)

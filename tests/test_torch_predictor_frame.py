@@ -13,6 +13,8 @@ its round trip.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -314,21 +316,57 @@ def test_kernel_refuses_what_it_does_not_take():
                                   torch.from_numpy(code0))
 
 
-@pytest.mark.parametrize("nowork", [False, True])
-def test_timeline_copy_patches_the_kernel(tmp_path, nowork):
-    """`tools/frame_measure.py trace` finds every anchor it patches in the
-    kernel's source: the copy has the timeline field, a record at each
-    barrier and, with nowork, the stages' work cut out."""
-    from qwen3_tts_tpu_torch.tools import frame_measure
+def _c_fields(src: str, struct: str) -> list:
+    """The field names of `struct` in a kernel source, in order."""
+    body = src[src.index(f"struct {struct} {{"):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("{") + 1:body.index("};")])
+    names = []
+    for decl in body.split(";"):
+        parts = [p.strip() for p in decl.split(",") if p.strip()]
+        if parts:
+            names += [re.findall(r"\w+", re.sub(r"\[.*?\]", "", p))[-1]
+                      for p in parts]
+    return names
 
-    out = tmp_path / "timeline"
-    frame_measure.make_trace_copy(str(out), nowork)
-    pkg = out / "qwen3_tts_tpu_torch"
-    cu = (pkg / "csrc" / "predictor_frame.cu").read_text()
-    assert "unsigned long long* trace;" in cu
-    assert "grid_barrier(a.bar, a.trace, ti);" in cu
-    assert "grid_barrier(a.bar);" not in cu
-    assert ("  after_inputs();\n  return;\n" in cu) == nowork
-    assert sorted(p.name for p in (pkg / "csrc").iterdir()) == [
-        "gemv.cuh", "predictor_frame.cu"]
-    assert "TRACE = None" in (pkg / "ops" / "fused_predictor.py").read_text()
+
+@pytest.mark.parametrize("kernel", ["predictor_frame", "talker_step"])
+def test_args_and_trace_words_match_the_kernel(kernel):
+    """The ctypes args of a persistent kernel name its C struct's fields in
+    order (the trace pointer last for the predictor), its trace is guarded
+    by the compile-time kTrace, and the trace words
+    `tools/frame_measure.py` reads are the kernel's kTr constants, their
+    words after every barrier's two stamps, apart and inside the trace
+    buffer."""
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    from qwen3_tts_tpu_torch.tools import frame_measure as fm
+
+    src = (pathlib.Path(fp.__file__).parent.parent / "csrc"
+           / f"{kernel}.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"\b(kTr\w+) = (\d+)", src)}
+    full = tconfig.EngineConfig()
+    if kernel == "predictor_frame":
+        struct, args = "FrameArgs", fp._FrameArgs
+        read = {"kTrT0": fm.T0, "kTrProd": fm.PHASES, "kTrNorm": fm.NORM,
+                "kTrWait": fm.WAIT}
+        words = {"kTrT0": 1, "kTrProd": 4 * 5, "kTrNorm": 5, "kTrWait": 2}
+        L = full.predictor.n_layers
+        barriers = 16 * 5 * L + 15
+    else:
+        struct, args = "StepArgs", ft._StepArgs
+        read = {"kTrT0": fm.T_T0, "kTrEnd": fm.T_END, "kTrWait": fm.T_WAIT,
+                "kTrPWait": fm.T_PWAIT, "kTrAttn": fm.T_ATTN,
+                "kTrProd": fm.T_PROD}
+        words = {"kTrT0": 1, "kTrEnd": 1, "kTrWait": 2, "kTrPWait": 2,
+                 "kTrAttn": 6, "kTrProd": 8 * 5}
+        barriers = 5 * full.talker.n_layers
+    # every trace guard tests kTrace first (-DKERNEL_TRACE builds only)
+    assert "a.trace != nullptr" not in src.replace(
+        "kTrace && a.trace != nullptr", "")
+    assert _c_fields(src, struct) == [f[0] for f in args._fields_]
+    assert args._fields_[-1][0] == "trace" or kernel == "talker_step"
+    assert const == read
+    # each constant's words: after the barriers' stamps, apart, in the buffer
+    spans = sorted((const[k], const[k] + n) for k, n in words.items())
+    assert 2 * barriers <= spans[0][0] and spans[-1][1] <= fm.TRACE_WORDS
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
