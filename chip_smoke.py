@@ -12,7 +12,10 @@ result line:
   3. kernels   every kernel against its plain PyTorch version at the
                shapes of the slice (f32 allclose, bf16 relative error),
                the quantized ones included: A (qmatmul) at the talker's
-               prefill shapes, B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
+               five prefill shapes and M = 1, 37, 64, 128, 192, 1088, x
+               bf16 and f32 (rtol = atol = 1e-4), a column view of a wider
+               weight, repeats and two CUDA-graph replays bit-identical;
+               B8 / B4 (gemv_int8 / gemv_int4) at M = 1, 2,
                8, 32, every epilogue and the predictor head's slices;
                B, B8 and B4 with the rms norm as their prologue against
                rms_norm_plain + the plain product at the talker's and the
@@ -102,7 +105,9 @@ result line:
                plain versions (CUDA events), dense and int4+int8 (and
                int8/int8), the device busy share of the kernel paths and
                the device ms and CUDA kernels per frame by kernel name
-               (torch.profiler: prefill + 4 frames less the prefill), and
+               (torch.profiler: prefill + 4 frames less the prefill), the
+               prefill's CUDA kernels, device ms and the share of it in
+               dequant4_dt (the int4 dequantisation), and
                each kernel's device time (CUDA graph replay) against its
                plain version, a PyTorch call of the same function and its
                bound, at the earlier timing shapes and the main path's;
@@ -115,7 +120,11 @@ result line:
                of launches it replaces and its plain version; the talker
                step kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8,
                16, against its bound, the chain it replaces and its plain
-               version (the times behind MAX_B)
+               version (the times behind MAX_B); kernel A a talker layer
+               at M = 64, 128, 192 and 1088 against its bound, its plain
+               version, torch._weight_int8pack_mm and cuBLAS on bf16
+               weights (a reference), and each product with the plan's
+               tiles against the other tiles, K splits and row tiles
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -601,22 +610,10 @@ def phase_kernels_quant(rec: Record, randn):
     from qwen3_tts_tpu_torch.ops import gemv as G
     from qwen3_tts_tpu_torch.ops import quant
 
-    # A: the talker's int8 prefill products (qkv, wo, gate/up, down, head)
-    # at M = B x prompt bucket (64, 128) and a ragged M; f32 out from bf16
-    # inputs, exact products: f32 tolerances
     talker = [(2048, 4096, "qkv"), (2048, 2048, "wo"),
               (2048, 12288, "gate/up"), (6144, 2048, "down"),
               (2048, 2176, "head")]
-    for K, N, what in talker:
-        qw = quant.quantize(randn(K, N, scale=0.02))
-        for M in (64, 128, 37):
-            for dt in (torch.bfloat16, torch.float32):
-                x = randn(M, K, dtype=dt)
-                rec.check("qmatmul",
-                          quant.qmatmul_kernel(x, qw["q"], qw["scale"]),
-                          quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
-                          f"talker {what} {K}x{N} M={M} x {str(dt)[6:]}",
-                          rtol=1e-4, atol=1e-4)
+    phase_kernels_a(rec, randn, talker)
 
     # B8 / B4: the decode shapes, M = 1, 2, 8, 32, every epilogue; the
     # predictor head's codebook slices
@@ -675,6 +672,52 @@ def phase_kernels_quant(rec: Record, randn):
                     label, rel=8e-3, quiet=True)[1])
     log(f"  gemv_int8/int4   predictor head 1024x32768 slices @0,7,15 x "
         f"2048, M=1,2,8,32, bf16: rel {r8:.2e} / {r4:.2e} (<= 0.008) ok")
+
+
+A_ROWS = (1, 37, 64, 128, 192, 1088)   # kernel A's M: B x the 64-token
+#                                        bucket (B = 1-3, 17), one, ragged
+
+
+def phase_kernels_a(rec: Record, randn, talker):
+    """Kernel A against its plain version: the talker's int8 prefill
+    products (qkv, wo, gate/up, down, head) at every M of A_ROWS, x in bf16
+    and f32 (f32 out from bf16 inputs, exact products: rtol = atol =
+    1e-4); a column view of a wider weight (row stride > N, as a head
+    slice); a repeat and two CUDA-graph replays bit-identical at M = 64 and
+    1088 (the cluster sums its K ranks in rank order)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import quant
+
+    for K, N, what in talker:
+        qw = quant.quantize(randn(K, N, scale=0.02))
+        err = 0.0
+        for M in A_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = randn(M, K, dtype=dt)
+                e, _ = rec.check(
+                    "qmatmul", quant.qmatmul_kernel(x, qw["q"], qw["scale"]),
+                    quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
+                    f"talker {what} {K}x{N} M={M} x {str(dt)[6:]}",
+                    rtol=1e-4, atol=1e-4, quiet=True)
+                err = max(err, e)
+        same = all(bit_identical(
+            lambda x=randn(M, K, dtype=torch.bfloat16): quant.qmatmul_kernel(
+                x, qw["q"], qw["scale"])) for M in (64, 1088))
+        plans = ", ".join(f"M={M}: {quant.qmatmul_plan(M, K, N)}"
+                          for M in (64, 1088))
+        log(f"  qmatmul          talker {what} {K}x{N}, M={A_ROWS}, x bf16 "
+            f"/ f32: max|d|={err:.3e} (rtol/atol 1e-4) ok; repeat + 2 graph "
+            f"replays {'bit-identical' if same else 'DIFFER'} ({plans})")
+        if not same:
+            fail(f"qmatmul talker {what}: repeats or graph replays differ")
+    wide = quant.quantize(randn(2048, 4096, scale=0.02))
+    q, sc = wide["q"][:, 1024:1024 + 2176], wide["scale"][1024:1024 + 2176]
+    for M in (1, 64, 300):
+        x = randn(M, 2048, dtype=torch.bfloat16)
+        rec.check("qmatmul", quant.qmatmul_kernel(x, q, sc),
+                  quant.qmatmul_kernel_plain(x, q, sc),
+                  f"column view 2048x2176 of 4096 M={M}", rtol=1e-4,
+                  atol=1e-4)
 
 
 def phase_kernels_norm(rec: Record, randn):
@@ -1141,18 +1184,30 @@ def phase_probes(rec: Record, card: str):
     log(f"  edge indices: {len(edge)} cases (one-hot codes outside [0, 256), "
         "clamped device-held starts) equal")
 
+    # the one PyTorch call of a probe's function, where there is one; none
+    # for dyn_sublane and dyn_col_dma (a start read on the device, clamped
+    # as lax.dynamic_slice clamps it), rot (rotate-half negates one half)
+    # and int8_panel (no call multiplies bf16 by int8 weights as they are)
+    library = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
+               "fori_dma": lambda w: torch.sum(w, 0),
+               "argmax": lambda x: torch.argmax(x, -1),
+               "onehot": lambda codes, tab: torch.index_select(
+                   tab, 0, codes[:, 0])}
     for p in mp.PROBES:
         args = inputs[p.name]
         name = PROBE + p.name
         rec.ms[name] = graph_ms(lambda: p.kernel(*args))
         rec.plain_ms[name] = graph_ms(lambda: p.plain(*args))
-        # each input read once, the output written once; no PyTorch call
-        # computes a probe's function
+        lib = library.get(p.name)
+        rec.library_ms[name] = None if lib is None else graph_ms(
+            lambda: lib(*args))
+        # each input read once, the output written once
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         rec.bound[name] = bound(nbytes(*ins, p.kernel(*args)))
         log(f"  {name:22s} device: kernel {rec.ms[name]:.4f} ms, plain "
-            f"{rec.plain_ms[name]:.4f} ms, bound {rec.bound[name][0]:.5f} ms "
-            f"({rec.bound[name][1]}) on {card}")
+            f"{rec.plain_ms[name]:.4f} ms, library "
+            f"{_fmt4(rec.library_ms[name])} ms, bound "
+            f"{rec.bound[name][0]:.5f} ms ({rec.bound[name][1]}) on {card}")
 
 
 def quantized_models(models, talker_kind, predictor_kind):
@@ -1758,6 +1813,37 @@ def tiny_stream_card_vs_cpu():
              "from the CPU")
 
 
+def prefill_trace(run):
+    """A profiled run(): {CUDA kernel: (device us, launches)} and the device
+    us spent inside `quant.dequant4_dt` (the int4 prefill's dequantisation,
+    wrapped in a profiler range for this trace only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from qwen3_tts_tpu_torch.ops import quant
+
+    orig = quant.dequant4_dt
+
+    def ranged(*args, **kw):
+        with record_function("dequant4_dt"):
+            return orig(*args, **kw)
+
+    quant.dequant4_dt = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        quant.dequant4_dt = orig
+    events = prof.key_averages()
+    kern = {e.key: (e.self_device_time_total, e.count) for e in events
+            if getattr(e, "device_type", None) == DeviceType.CUDA}
+    dq = sum(getattr(e, "device_time_total", 0) for e in events
+             if e.key == "dequant4_dt")
+    return kern, dq
+
+
 def frame_times(eng, models, label: str, card: str, g):
     """ms/frame of generate_codes(ignore_eos) through the kernels and
     through their plain versions, in alternating runs (kernel, plain, plain,
@@ -1825,7 +1911,20 @@ def frame_times(eng, models, label: str, card: str, g):
                     if getattr(e, "device_type", None) == DeviceType.CUDA}
 
         wall = timed(False, 4)
-        kern, pre = trace(4), trace(0)
+        kern = trace(4)
+        pre, dq_us = prefill_trace(lambda: run(False, 0))
+        pre_us = sum(us for us, _ in pre.values())
+        pre_a = sum(n for k, (_, n) in pre.items() if "qmatmul" in k)
+        log(f"  {label}: prefill of 64 tokens, B=1 (profiler): "
+            f"{sum(n for _, n in pre.values())} CUDA kernels ({pre_a} of "
+            f"kernel A), {pre_us / 1e3:.3f} device ms, of which "
+            f"dequant4_dt {dq_us / 1e3:.3f} ms = {dq_us / max(pre_us, 1):.1%}"
+            f"; host ms (CUDA events) {[round(v, 3) for v in prefills[False]]}"
+            f" on {card}")
+        old_a = [k for k in pre if "qmatmul_tile" in k
+                 or "qmatmul_reduce" in k]
+        if old_a:
+            fail(f"{label}: removed kernels in the prefill: {old_a}")
         dev_us = sum(us for us, _ in kern.values())
         if dev_us > 0:
             busy = dev_us / 1e3 / wall
@@ -1873,6 +1972,7 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
         frame_times(eng, models, label, card, g)
     kernel_times(rec, card, g)
     split_times(card, g)
+    qmatmul_plan_times(card, g)
 
 
 def kernel_times(rec: Record, card: str, g):
@@ -1939,9 +2039,9 @@ def kernel_times(rec: Record, card: str, g):
                       nbytes(head, x) + 16 * M * 2048 * 4,
                       2.0 * M * head.numel(), "bf16", False))
 
-    # B8, B4, A: one layer per call (B8 the predictor's int8 layer at M=1,
-    # 13.6 MB a copy; B4 the talker's int4 layer at M=1, 25 MB; A the
-    # talker's int8 layer at M=64, 50 MB); no PyTorch call computes them
+    # B8, B4: one layer per call (B8 the predictor's int8 layer at M=1,
+    # 13.6 MB a copy; B4 the talker's int4 layer at M=1, 25 MB); no
+    # PyTorch call computes them (kernel A: qmatmul_times)
     def qlayers(shapes, n_copies, kind, M):
         fn = quant.quantize if kind == "int8" else quant.quantize_int4
         return [(randn(M, k), fn(randn(k, n, scale=0.02)), {})
@@ -1954,16 +2054,9 @@ def kernel_times(rec: Record, card: str, g):
     def qops(mats):
         return sum(2.0 * x.numel() * w["scale"].shape[0] for x, w, _ in mats)
 
-    a_mats = qlayers(talker, 4, "int8", 64)
     b8_mats = qlayers(pred, 8, "int8", 1)
     b4_mats = qlayers(talker, 4, "int4", 1)
     cases += [
-        ("qmatmul", "one talker layer int8: qkv+wo+gate/up+down, M=64 bf16",
-         4, over(a_mats, lambda x, w: quant.qmatmul_kernel(x, w["q"],
-                                                           w["scale"])),
-         over(a_mats, lambda x, w: quant.qmatmul_kernel_plain(
-             x, w["q"], w["scale"])), None, qbytes(a_mats, 4),
-         qops(a_mats), "bf16", True),
         ("gemv_int8", "one predictor layer int8: qkv+wo+gate/up+down, M=1 "
          "bf16", 8,
          over(b8_mats, lambda x, w: G.gemv_int8(x, w["q"], w["scale"])),
@@ -2062,10 +2155,131 @@ def kernel_times(rec: Record, card: str, g):
             rec.ms[name], rec.plain_ms[name] = ms, plain
             rec.library_ms[name] = lib
             rec.bound[name] = (b_ms, b_by)
+    qmatmul_times(rec, card, g)
     norm_fusion_times(rec, card, g)
     epilogue_fusion_times(rec, card, g)
     frame_kernel_times(rec, card)
     step_kernel_times(rec, card)
+
+
+TALKER_INT8 = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
+
+
+def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088)):
+    """Kernel A a talker layer (qkv + wo + gate/up + down, int8) at each M
+    of `rows` (B = 1, 2, 3 and 17 prompts of 64 tokens): device ms by
+    CUDA-graph replay, weights rotating over copies past the 50 MB L2, its
+    plain version, the one PyTorch call of the same function
+    (`torch._weight_int8pack_mm`: x bf16 @ int8 [N, K]^T * scale, out bf16)
+    and, as a reference only, cuBLAS on a bf16 copy of the weights
+    (`torch.matmul`, twice the weight bytes); the bound from the layer's
+    bytes or operations, the larger. M = 64 goes into the JSON line (the
+    comparable case of earlier PRs)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
+    int8mm = getattr(torch, "_weight_int8pack_mm", None)
+    for M in rows:
+        copies = 4
+        mats = []
+        for _ in range(copies):
+            for K, N in TALKER_INT8:
+                w = quant.quantize(
+                    0.02 * torch.randn(K, N, generator=g, device=dev))
+                mats.append((torch.randn(M, K, generator=g, device=dev)
+                             .bfloat16(), w))
+
+        def run(fn, mats=mats):
+            def call():
+                for x, w in mats:
+                    fn(x, w)
+            return call
+
+        kern = run(lambda x, w: quant.qmatmul_kernel(x, w["q"], w["scale"]))
+        ms = graph_ms(kern) / copies
+        plain = graph_ms(run(lambda x, w: quant.qmatmul_kernel_plain(
+            x, w["q"], w["scale"]))) / copies
+        lib = None
+        if int8mm is not None:
+            packed = [(x, w["q"].t().contiguous(), w["scale"].bfloat16())
+                      for x, w in mats]
+            try:
+                def lcall(packed=packed):
+                    for x, wt, sc in packed:
+                        int8mm(x, wt, sc)
+                lib = graph_ms(lcall, reps=2) / copies
+            except (RuntimeError, NotImplementedError) as exc:
+                log(f"  torch._weight_int8pack_mm at M={M}: "
+                    f"{str(exc).splitlines()[0][:120]}")
+            del packed
+        dense = [(x, (w["q"].float() * w["scale"]).bfloat16())
+                 for x, w in mats[:len(TALKER_INT8)]]
+
+        def dcall(dense=dense):
+            for x, wd in dense:
+                torch.matmul(x, wd)
+        ref = graph_ms(dcall)
+        del dense
+        n_b = sum(nbytes(x, w["q"], w["scale"]) + 4 * M * w["q"].shape[1]
+                  for x, w in mats) / copies
+        ops = sum(2.0 * M * w["q"].numel() for _, w in mats) / copies
+        b_ms, b_by = bound(n_b, ops, "bf16")
+        host = cuda_ms(kern) / copies
+        log(f"  qmatmul          talker layer int8 qkv+wo+gate/up+down, M={M}"
+            f" bf16: device kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"_weight_int8pack_mm {_fmt4(lib)} ms, bound {b_ms:.4g} ms "
+            f"({b_by}, {b_ms / ms:.1%} of it); reference cuBLAS bf16 "
+            f"weights (2x the weight bytes) {ref:.4f} ms; eager host-timed "
+            f"{host:.4f} ms on {card}")
+        if M == 64:
+            rec.ms["qmatmul"], rec.plain_ms["qmatmul"] = ms, plain
+            rec.library_ms["qmatmul"] = lib
+            rec.bound["qmatmul"] = (b_ms, b_by)
+        del mats
+
+
+def qmatmul_plan_times(card: str, g, rows=(64, 1088)):
+    """The measurement behind kernel A's plan (`quant.qmatmul_plan`): device
+    ms of each talker product at M in `rows` with the plan's tiles, then
+    with each column tile, row tile near M and K split (each with as many
+    stages as fit), through the wrapper with only the planner
+    replaced."""
+    from unittest import mock
+    import torch
+    from qwen3_tts_tpu_torch.ops import quant
+
+    dev = g.device
+    for M in rows:
+        for K, N in TALKER_INT8 + [(2048, 2176), (128, 128)]:
+            copies = max(2, min(64, -(-64 * 2**20 // (K * N))))
+            ws = [quant.quantize(0.02 * torch.randn(K, N, generator=g,
+                                                    device=dev))
+                  for _ in range(copies)]
+            x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+
+            def fn(ws=ws, x=x):
+                for w in ws:
+                    quant.qmatmul_kernel(x, w["q"], w["scale"])
+            p = quant.qmatmul_plan(M, K, N)
+            alts = [p] + [quant.QPlan(bn, mt, s, 0)
+                          for bn in (128, 256) for mt in quant.A_MT
+                          for s in quant.A_SPLITS
+                          if N % bn == 0 and (K // quant.A_BK) % s == 0
+                          and (bn == 128 or mt <= quant.A_WIDE_MT)
+                          and (M // 2 < mt <= 2 * M or M > 192 <= mt + 64)
+                          and (bn, mt, s) != (p.bn, p.mt, p.splits)]
+            out = []
+            for a in alts:
+                a = quant.qmatmul_ring(a.bn, a.mt, a.splits,
+                                       K // quant.A_BK // a.splits)
+                with mock.patch.object(quant, "qmatmul_plan",
+                                       lambda *_, a=a: a):
+                    out.append((a, graph_ms(fn) / copies))
+            log(f"  qmatmul plan {K}x{N} M={M}: " + "; ".join(
+                f"bn{a.bn} mt{a.mt} s{a.splits} st{a.stages} {t:.4f}"
+                for a, t in out) + f" ms (first: the plan) on {card}")
+            del ws
 
 
 def frame_bytes_ops(params, cfg, B):

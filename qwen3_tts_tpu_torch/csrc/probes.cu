@@ -22,10 +22,11 @@
 // at fixed small shapes, launch latency first. They are right and simple,
 // not fast. Every launch function returns cudaGetLastError().
 
-#include <cuda.h>           // CUtensorMap and its enums only; no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -366,52 +367,6 @@ int8_panel_kernel(const __grid_constant__ CUtensorMap wmap,
 }
 
 // ------------------------------------------------------------ host side
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links without -lcuda
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a row-major [rows, cols] tensor map with a (box_rows x box_cols) box, no
-// swizzle, out-of-range elements read as zero
-cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
-                     const void* base, int rows, int cols, int box_rows,
-                     int box_cols) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  cuuint32_t estr[2] = {1, 1};
-  CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 cudaError_t allow_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -496,8 +451,8 @@ int probe_dyn_col_dma_launch(const void* q, const void* w, void* out,
       cols < width || cols % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
-  cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w,
-                             rows, cols, rows, width);
+  cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, rows,
+                             cols, cols * 4LL, rows, width);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = rows * width * 4 + 128;
   err = allow_smem(reinterpret_cast<const void*>(&dyn_col_dma_kernel), smem);
@@ -514,8 +469,8 @@ int probe_int8_panel_launch(const void* x, const void* w, void* out, int ldw,
                             void* stream) {
   if (ldw < kPN || ldw % 16) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
-  cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, kPK,
-                             ldw, kPBoxK, kPN);
+  cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kPK,
+                             ldw, ldw, kPBoxK, kPN);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = kPanelBytes + kXBytes + 128;
   err = allow_smem(reinterpret_cast<const void*>(&int8_panel_kernel), smem);

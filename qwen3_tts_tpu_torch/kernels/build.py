@@ -49,7 +49,10 @@ SIGNATURES = {
     "gemv_blocks_per_sm": [I, I, I, I],
     "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P,
                          P],
-    "qmatmul_launch": [P, P, P, P, P, I, I, I, I, I, P],
+    # csrc/qmatmul.cu: (map out, q, K, N, ldq); (x, map, scale, out, M, K,
+    # N, bn, mt, splits, stages, stream)
+    "qmatmul_map": [P, P, I, I, I],
+    "qmatmul_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
     "decode_attention_launch": [P, P, P, P, P, P, P, P,
                                 I, I, I, I, I, I, I, I, I, P],
     # csrc/predictor_frame.cu: (dtype, x rows a chunk, smem, int[3] out);

@@ -33,7 +33,9 @@ Products:
 
 from __future__ import annotations
 
-from typing import Dict, Union
+import ctypes
+import functools
+from typing import Dict, NamedTuple, Union
 
 import torch
 
@@ -169,27 +171,120 @@ def qmatmul_kernel_plain(x: torch.Tensor, q: torch.Tensor,
     return (x.to(torch.bfloat16).float() @ q.float()) * scale
 
 
-_A_TILE_M, _A_TILE_N, _A_TILE_K = 64, 64, 64    # csrc/qmatmul.cu
-_A_TARGET_BLOCKS = 264                          # two waves on 132 SMs
+# csrc/qmatmul.cu's geometry: a ring stage is one 64-deep K chunk of
+# BN / 128 int8 weight boxes (64 x 128) and x's box (MT x 64 bf16)
+A_BK, A_BOX_N = 64, 128
+A_MT = (16, 32, 64, 128, 192)         # the kernel's row tiles (wgmma's N)
+A_WIDE_MT = 64        # the largest row tile of a 256-column tile
+A_SPLITS = (1, 2, 4, 8)               # the cluster's K ranks
+A_MAX_STAGES = 8
+A_SMEM = 232448                       # 227 KB of shared memory a block
+A_SMEM_MIN = 118 * 1024               # one block an SM
+_A_PAD = 8                            # f32 pad of a partial-tile row
+# the plan's cost model, fitted to kernel A's times on the H100 (chip_smoke.py
+# qmatmul_plan_times): a block costs _A_FIXED_US plus, per 64-row K chunk,
+# _A_CHUNK_US + _A_COL_US a column + _A_ROW_US a row of its tile (about 17
+# KB/us of weights a block); a cluster of 8 ranks adds _A_RANKS8_US; up to
+# `sms` blocks run at once, but 128 blocks in clusters of 4 or 8 ran as two
+# waves, 68 as one (at most _A_CLUSTER_BLOCKS at once)
+_A_FIXED_US, _A_CHUNK_US, _A_COL_US, _A_ROW_US = 6.0, 0.10, 0.0018, 0.0022
+_A_RANKS8_US = 1.0
+_A_CLUSTER_BLOCKS = 96
 
 
-def qmatmul_splits(M: int, K: int, N: int) -> int:
-    """K splits of kernel A: enough blocks for two waves when the output
-    tiles alone are fewer, each split a whole number of K tiles."""
-    tiles = -(-M // _A_TILE_M) * (N // _A_TILE_N)
-    k_tiles = K // _A_TILE_K
-    splits = 1
-    while (tiles * splits * 2 <= _A_TARGET_BLOCKS and splits * 2 <= k_tiles
-           and k_tiles % (splits * 2) == 0):
-        splits *= 2
-    return splits
+class QPlan(NamedTuple):
+    """Kernel A's launch: BN columns and MT rows a block, the K split
+    across a cluster's ranks, the ring's stages (`qmatmul_plan`)."""
+    bn: int
+    mt: int
+    splits: int
+    stages: int
+
+
+def qmatmul_smem(mt: int, bn: int, stages: int) -> int:
+    """Shared memory of a block (csrc/qmatmul.cu smem_bytes): the ring, or
+    the f32 partial tile it becomes, the mbarriers, 1024 to align; at
+    least A_SMEM_MIN, so that the grid spreads one block an SM."""
+    stage = bn * A_BK + mt * A_BK * 2
+    part = mt * (bn + _A_PAD) * 4
+    return max(A_SMEM_MIN,
+               max(stages * stage, part) + 2 * A_MAX_STAGES * 8 + 1024)
+
+
+def _a_cost(M, K, N, bn, mt, splits, sms) -> float:
+    """Estimated us of one product by the fitted model above."""
+    blocks = (N // bn) * -(-M // mt) * splits
+    at_once = sms if splits <= 2 else min(sms, _A_CLUSTER_BLOCKS)
+    chunks = K // A_BK // splits
+    block = (_A_FIXED_US + (_A_RANKS8_US if splits == 8 else 0.0)
+             + chunks * (_A_CHUNK_US + _A_COL_US * bn + _A_ROW_US * mt))
+    return -(-blocks // at_once) * block
+
+
+@functools.lru_cache(maxsize=None)
+def qmatmul_plan(M: int, K: int, N: int, sms: int = 132) -> QPlan:
+    """Kernel A's tiles for (M, K, N) on `sms` SMs: the column tile (256
+    where it divides N), the row tile, and the K split across a cluster's
+    ranks (whole 64-deep TMA boxes a rank), by `_a_cost`; then as many ring
+    stages as the rank's chunks take and 227 KB hold."""
+    if M < 1 or K % _LANE or N % _LANE:
+        raise ValueError(f"qmatmul_plan: M={M}, K={K}, N={N}: M >= 1, K "
+                         "and N multiples of 128")
+    chunks = K // A_BK
+    best = None
+    for bn in (256, 128):
+        if N % bn:
+            continue
+        for mt in A_MT:
+            if bn > A_BOX_N and mt > A_WIDE_MT or mt >= 2 * M and mt > 16:
+                continue
+            for splits in A_SPLITS:
+                if chunks % splits:
+                    continue
+                cost = _a_cost(M, K, N, bn, mt, splits, sms)
+                if best is None or cost < best[0]:
+                    best = (cost, bn, mt, splits)
+    _, bn, mt, splits = best
+    return qmatmul_ring(bn, mt, splits, chunks // splits)
+
+
+def qmatmul_ring(bn: int, mt: int, splits: int, chunks: int) -> QPlan:
+    """The ring of a rank with `chunks` 64-row chunks: as many stages as
+    227 KB hold, up to the rank's chunks and A_MAX_STAGES."""
+    stages = min(A_MAX_STAGES, chunks)
+    while stages > 1 and qmatmul_smem(mt, bn, stages) > A_SMEM:
+        stages -= 1
+    return QPlan(bn, mt, splits, stages)
+
+
+_A_MAPS: dict = {}
+_A_MAPS_MAX = 4096
+
+
+def _weight_map(lib, q: torch.Tensor, K: int, N: int, ldq: int):
+    """The TMA map of the weight view q (128 bytes of host memory), encoded
+    once per view: a map holds only the view's address, shape and row
+    stride, so a key of those is never stale."""
+    key = (q.device.index, q.data_ptr(), K, N, ldq)
+    buf = _A_MAPS.get(key)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128)
+        from ..kernels import build
+        build.check(lib.qmatmul_map(ctypes.addressof(buf), q.data_ptr(), K, N,
+                                    ldq), "qmatmul_map")
+        if len(_A_MAPS) >= _A_MAPS_MAX:
+            _A_MAPS.clear()
+        _A_MAPS[key] = buf
+    return buf
 
 
 def qmatmul_kernel(x: torch.Tensor, q: torch.Tensor,
                    scale: torch.Tensor) -> torch.Tensor:
     """Kernel A (`csrc/qmatmul.cu`, the port of `_pallas_qmatmul`):
     out [M, N] f32 = f32( bf16(x) [M, K] @ bf16(q) [K, N] ) * scale [N].
-    Any M; K and N multiples of 128. On a CPU tensor: the plain version."""
+    Any M; K and N multiples of 128; q a view with unit column stride, a
+    row stride and base 16-byte aligned. One launch a product. On a CPU
+    tensor: the plain version; a CUDA tensor it cannot take raises."""
     if x.device.type == "cpu":
         return qmatmul_kernel_plain(x, q, scale)
     if not x.is_cuda or q.device != x.device or scale.device != x.device:
@@ -207,17 +302,20 @@ def qmatmul_kernel(x: torch.Tensor, q: torch.Tensor,
             or K % _LANE or N % _LANE or ldq % 16 or q.data_ptr() % 16:
         raise ValueError(f"qmatmul: x {tuple(x.shape)}, q {tuple(q.shape)}"
                          f" (row stride {ldq}), scale {tuple(scale.shape)}:"
-                         " K and N must be multiples of 128")
+                         " K and N must be multiples of 128, q's rows and "
+                         "base 16-byte aligned")
     xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    splits = qmatmul_splits(M, K, N)
-    part = torch.empty(splits if splits > 1 else 0, M, N,
-                       dtype=torch.float32, device=x.device)
 
     from ..kernels import build
-    err = build.lib().qmatmul_launch(
-        xb.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        part.data_ptr(), M, K, N, ldq, splits,
+    plan = qmatmul_plan(M, K, N, build.sm_count(x.device))
+    lib = build.lib()
+    wmap = _weight_map(lib, q, K, N, ldq)
+    err = lib.qmatmul_launch(
+        xb.data_ptr(), ctypes.addressof(wmap), scale.data_ptr(),
+        out.data_ptr(), M, K, N, plan.bn, plan.mt, plan.splits, plan.stages,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "qmatmul")
     qmatmul_kernel.launches += 1

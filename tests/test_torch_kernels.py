@@ -132,18 +132,54 @@ def test_gemv_fused_norm(dev, dtype, M, K, N, col0, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(64, 2048, 4096), (37, 6144, 2048),
-                                   (128, 2048, 2176), (1, 128, 128),
-                                   (300, 256, 384)])
+@pytest.mark.parametrize("M", [1, 37, 64, 128, 192, 1088])
+@pytest.mark.parametrize("K,N", [(2048, 4096), (2048, 2048), (2048, 12288),
+                                 (6144, 2048), (2048, 2176), (256, 384)])
 def test_qmatmul(dev, dtype, M, K, N):
-    """Kernel A against its plain version; ragged M is masked in the
-    kernel, K is split where the output tiles are few."""
+    """Kernel A against its plain version at the talker's prefill shapes:
+    ragged M is zero-filled by TMA and never stored, K is split across a
+    cluster where the output tiles are few; a repeat gives the same bits
+    (the cluster sums its ranks in rank order)."""
     g = torch.Generator(device=dev).manual_seed(6)
     x = _randn(g, M, K, dtype=dtype)
     qw = quant.quantize(_randn(g, K, N, scale=0.02))
-    _close(quant.qmatmul_kernel(x, qw["q"], qw["scale"]),
-           quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
+    got = quant.qmatmul_kernel(x, qw["q"], qw["scale"])
+    _close(got, quant.qmatmul_kernel_plain(x, qw["q"], qw["scale"]),
            torch.float32)
+    assert torch.equal(got, quant.qmatmul_kernel(x, qw["q"], qw["scale"]))
+
+
+@pytest.mark.parametrize("M", [1, 64, 300])
+def test_qmatmul_column_view(dev, M):
+    """Kernel A on a column view of a wider int8 weight (row stride > N),
+    as a slice of a head: the TMA map reads the view's N columns only."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(g, M, 2048, dtype=torch.bfloat16)
+    qw = quant.quantize(_randn(g, 2048, 4096, scale=0.02))
+    q, sc = qw["q"][:, 1024:1024 + 2176], qw["scale"][1024:1024 + 2176]
+    assert q.stride(0) == 4096
+    _close(quant.qmatmul_kernel(x, q, sc),
+           quant.qmatmul_kernel_plain(x, q, sc), torch.float32)
+
+
+@pytest.mark.parametrize("case", ["k_not_128", "n_not_128", "ldq_odd",
+                                  "q_misaligned", "scale_f16"])
+def test_qmatmul_refuses(dev, case):
+    """No fallback: a CUDA tensor kernel A cannot take raises."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    K, N = (192 if case == "k_not_128" else 256,
+            192 if case == "n_not_128" else 256)
+    x = _randn(g, 4, K, dtype=torch.bfloat16)
+    qw = quant.quantize(_randn(g, K, N + 16, scale=0.02))
+    q, sc = qw["q"][:, :N], qw["scale"][:N].contiguous()
+    if case == "ldq_odd":
+        q = quant.quantize(_randn(g, K, N + 1))["q"][:, :N]
+    if case == "q_misaligned":
+        q = qw["q"][:, 8:8 + N]
+    if case == "scale_f16":
+        sc = sc.half()
+    with pytest.raises((ValueError, TypeError)):
+        quant.qmatmul_kernel(x, q, sc)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -102,7 +102,7 @@ def test_kernel_sources_and_build_key():
         "dyn_col_dma", "int8_panel")}
     assert set(build.SIGNATURES) == {
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
-        "gemv_blocks_per_sm", "qmatmul_launch",
+        "gemv_blocks_per_sm", "qmatmul_map", "qmatmul_launch",
         "decode_attention_launch", "predictor_frame_query",
         "predictor_frame_launch", "talker_step_query",
         "talker_step_launch"} | probes
@@ -214,17 +214,42 @@ def test_signatures_match_the_c_entry_points():
         assert [code[a] for a in argtypes] == _c_params(name, text), name
 
 
-@pytest.mark.parametrize("M,K,N,splits", [(64, 2048, 4096, 4),
-                                            (64, 6144, 2048, 8),
-                                            (37, 2048, 2176, 4),
-                                            (128, 2048, 12288, 1),
-                                            (128, 128, 128, 2)])
-def test_qmatmul_splits_whole_k_tiles(M, K, N, splits):
-    """Kernel A splits K only while the output tiles are fewer than two
-    waves, and only into whole 64-deep K tiles."""
+_TALKER_INT8 = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048),
+                (2048, 2176)]
+
+
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for M in (64, 128, 192, 1088)
+                                   for K, N in _TALKER_INT8]
+                         + [(1, 128, 128), (37, 2048, 2176), (300, 256, 384),
+                            (1, 2048, 4096)])
+def test_qmatmul_plan_covers_each_tile_once(M, K, N):
+    """Kernel A's plan: its blocks cover every (output row, column, K
+    element) exactly once, each rank's K range whole 64 x 128 TMA boxes;
+    the cluster is at most 8 ranks, the row tile one the kernel has, and
+    the ring (two stages at least where a rank has more than one chunk)
+    and the partial tile fit 227 KB of shared memory."""
     from qwen3_tts_tpu_torch.ops import quant
-    assert quant.qmatmul_splits(M, K, N) == splits
-    assert (K // 64) % splits == 0
+    p = quant.qmatmul_plan(M, K, N, sms=132)
+    nx, ny, nz = N // p.bn, -(-M // p.mt), p.splits     # the launch's grid
+    assert p.bn in (128, 256) and p.mt in quant.A_MT
+    assert p.bn == 128 or p.mt <= quant.A_WIDE_MT
+    assert p.splits in quant.A_SPLITS and p.splits <= 8
+    assert 1 <= p.stages <= quant.A_MAX_STAGES
+    assert quant.qmatmul_smem(p.mt, p.bn, p.stages) <= quant.A_SMEM
+    assert (K // quant.A_BK) % p.splits == 0
+    chunks = K // quant.A_BK // p.splits
+    assert min(2, chunks) <= p.stages <= chunks
+    cover = np.zeros((M, N // quant.A_BOX_N, K // quant.A_BK), np.int32)
+    for bx in range(nx):
+        for by in range(ny):
+            for bz in range(nz):
+                rows = slice(by * p.mt, min(M, (by + 1) * p.mt))
+                cols = slice(bx * p.bn // quant.A_BOX_N,
+                             (bx + 1) * p.bn // quant.A_BOX_N)
+                ks = slice(bz * chunks, (bz + 1) * chunks)
+                assert rows.start < M
+                cover[rows, cols, ks] += 1
+    assert (cover == 1).all()
 
 
 @pytest.mark.parametrize("B,nk,T", [(1, 8, 256), (1, 8, 1024), (1, 8, 32),
