@@ -32,7 +32,7 @@ result line:
                replays give bit-identical outputs; the predictor frame
                kernel (csrc/predictor_frame.cu) against
                frame_codes_fused_plain: the tiny f32 config's codes equal
-               on the card and to the CPU's at B = 1, 2, 16, and at full
+               on the card and to the CPU's at B = 1, 2, 3, 16, and at full
                width with peaked heads code agreement >= 0.95 for dense
                bf16 and int8 weights at B = 1, 2, 16, repeats and two
                CUDA-graph replays of the cooperative launch bit-identical;
@@ -116,8 +116,9 @@ result line:
                and without the qk epilogue, the down products with and
                without the silu prologue; B, B8, B4 and decode attention
                at each split count beside their plans' choice; the
-               predictor frame kernel a frame against its bound, the chain
-               of launches it replaces and its plain version; the talker
+               predictor frame kernel a frame, dense / int8 at B = 1, 2, 4,
+               8, 16, against its bound and the chain of launches it
+               replaces (its plain version at B = 1); the talker
                step kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8,
                16, against its bound, the chain it replaces and its plain
                version (the times behind MAX_B); kernel A a talker layer
@@ -908,7 +909,7 @@ def frame_case(cfg, kind, B, seed, peak=False):
 def phase_kernels_frame(rec: Record):
     """The predictor frame kernel (`csrc/predictor_frame.cu`) against its
     plain version `frame_codes_fused_plain`: the tiny f32 config's codes
-    equal on the card and to the CPU's, B = 1, 2, 16; at full width with
+    equal on the card and to the CPU's, B = 1, 2, 3, 16; at full width with
     peaked heads, code agreement >= 0.95 for dense bf16 and int8 weights at
     B = 1, 2, 16 (bf16 sums in another order may flip a near tie); repeats
     bit-identical, at B = 2 also two CUDA-graph replays of the cooperative
@@ -927,7 +928,7 @@ def phase_kernels_frame(rec: Record):
         rec.err["predictor_frame"] = max(rec.err["predictor_frame"], e)
         return e
 
-    for B in (1, 2, 16):
+    for B in (1, 2, 3, 16):
         pp, ptab, rows, h, c0 = frame_case(tiny, "dense", B, 60 + B)
         got = fp.predictor_frame_kernel(pp, tiny, ptab, rows, h, c0)
         want = fp.frame_codes_fused_plain(pp, tiny, ptab, rows, h, c0)
@@ -1306,32 +1307,32 @@ def agree_run(eng, models, label, predictor=True):
 
 
 def fused_per_frame(cfg) -> dict:
-    """Launches a frame on the kernel routes (B <= MAX_B of both steps'
-    kernels, a dense or int8 predictor): the talker step kernel once and
-    the predictor frame kernel once, and none of the chain's launches: no
-    gemv, decode attention, standalone rms_norm, fused piece, KV store or
-    copy, or argmax_gather."""
+    """Launches a frame on the kernel routes (the talker at B <= its
+    MAX_B, a dense or int8 predictor at B <= its ROUTE_MAX_B): the talker
+    step kernel once and the predictor frame kernel once, and none of the
+    chain's launches: no gemv, decode attention, standalone rms_norm, fused
+    piece, KV store or copy, or argmax_gather."""
     return {"talker_step": 1, "predictor_frame": 1, "gemv_all": 0,
             "decode_attention": 0, "rms_norm": 0, "rms_norm_gemv": 0,
             "qk_rope_gemv": 0, "silu_gemv": 0, "kv_store_gemv": 0,
             "talker_kv_copy": 0, "argmax_gather": 0}
 
 
-def chain_per_frame(cfg, B: int) -> dict:
+def chain_per_frame(cfg, predictor_kernel: bool) -> dict:
     """Launches a frame with the talker on its chain route (B > MAX_B), as
     every frame launched them before the step kernel: the talker's gemv per
     product of each layer and its head, the norm prologue at ln1 and ln2,
     the qk epilogue and the silu prologue once a layer, decode attention
     once a layer, the standalone rms_norm (the final norm) once and the two
-    cache copies. The predictor: its frame kernel at B <= 16, else its
-    chain too (16 passes of the layer stack with the KV stores, 15 head
-    slices with the norm prologue, 15 argmax_gather)."""
+    cache copies. The predictor: its frame kernel where `frame_route` takes
+    it, else its chain too (16 passes of the layer stack with the KV
+    stores, 15 head slices with the norm prologue, 15 argmax_gather)."""
     Lt, Lp = cfg.talker.n_layers, cfg.predictor.n_layers
     n = {"talker_step": 0, "predictor_frame": 1, "gemv_all": 4 * Lt + 1,
          "decode_attention": Lt, "rms_norm": 1, "rms_norm_gemv": 2 * Lt,
          "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
          "talker_kv_copy": 2, "argmax_gather": 0}
-    if B > 16:
+    if not predictor_kernel:
         passes, heads = 16, 15
         n.update(predictor_frame=0, argmax_gather=heads,
                  gemv_all=n["gemv_all"] + passes * 4 * Lp + heads,
@@ -1422,6 +1423,7 @@ STEPS = ("talker_step", "predictor_frame")
 def phase_main(eng, rec: Record, q48, q88):
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
     log("[6/8] main path: TtsEngine.generate_with_voice, full width")
@@ -1448,15 +1450,17 @@ def phase_main(eng, rec: Record, q48, q88):
     def chain_run(e, label, gemv, nb=ft.MAX_B + 1):
         """generate_batch of nb rows past the step kernel's batch limit, 4
         frames: the talker keeps its chain (ops/fused_talker.py
-        talker_route), with the chains' launches a frame; `gemv`, the
+        talker_route), with the chains' launches a frame (the predictor's
+        as ops/fused_predictor.py frame_route takes it); `gemv`, the
         weight kinds' gemv."""
+        kern = fp.frame_route(e.models["predictor"], nb) == fp.KERNEL
         e.set_max_steps(4)
         rows = run_main_path(
             rec, f"{label} B={nb} generate_batch (talker chain)",
             lambda: e.generate_batch([f"Row {i}: {TEXT}" for i in range(nb)],
                                      [voice] * nb),
             gemv + ("decode_attention", "rms_norm") + FUSED,
-            chain_per_frame(e.config, nb))
+            chain_per_frame(e.config, kern))
         for i, a in enumerate(rows):
             check_wav(f"{label} B={nb} row {i}", a.samples, 4)
 
@@ -1477,8 +1481,8 @@ def phase_main(eng, rec: Record, q48, q88):
                                    [voice, voice]), need48, fused)
     for i, a in enumerate(pair):
         check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
-    # int4 talker weights keep the chain past INT4_MAX_B rows (the
-    # predictor its frame kernel up to 16), and past MAX_B
+    # int4 talker weights keep the chain past INT4_MAX_B rows, and past
+    # MAX_B (the predictor takes the route its frame_route gives)
     chain_run(e48, "int4+int8", ("gemv_int4",), ft.INT4_MAX_B + 1)
     chain_run(e48, "int4+int8", ("gemv_int4", "gemv_int8"))
 
@@ -2309,21 +2313,23 @@ def frame_bytes_ops(params, cfg, B):
     return n_b, ops
 
 
-def frame_kernel_times(rec: Record, card: str):
+def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
     """The predictor frame kernel per frame at full width (device ms by
     CUDA-graph replay: the cooperative launch captures; and by the
-    profiler) against its bound, the chain it replaces (`_frame` over the
-    chain's kernels, ~670 launches) and its plain version (both: the
-    kernels' device time in a profiler trace, so host cost drops out),
-    dense bf16 and int8 at B = 1 and 16. Dense B = 1 is the JSON line's
-    entry; no single PyTorch call computes a frame."""
+    profiler) against its bound and the chain it replaces (`_frame` over
+    the chain's kernels, ~670 launches; the kernels' device time in a
+    profiler trace, so host cost drops out), dense bf16 and int8 at each B
+    of `batches`, on the device (`fused_predictor.ROUTE_MAX_B` comes from
+    the end-to-end times, `tools/frame_measure.py route predictor`). The
+    plain version (profiler) at the first B. Dense at the first B is the
+    JSON line's entry; no single PyTorch call computes a frame."""
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.ops import chain
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
 
     cfg = EngineConfig().predictor
     for kind in ("dense", "int8"):
-        for B in (1, 16):
+        for B in batches:
             pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
             args = (pp, cfg, ptab, rows, h, c0)
             ms = graph_ms(lambda: fp.predictor_frame_kernel(*args), reps=10)
@@ -2333,11 +2339,13 @@ def frame_kernel_times(rec: Record, card: str):
             # host data each frame, which a CUDA graph cannot capture: their
             # kernels' device time from the profiler, after one warm call
             chain_fn = lambda: fp._frame(chain.KERNELS, *args)  # noqa: E731
-            plain_fn = lambda: fp.frame_codes_fused_plain(*args)  # noqa: E731
             chain_fn()
-            plain_fn()
             ch = profiled_device_ms(chain_fn, 2)
-            plain = profiled_device_ms(plain_fn, 1)
+            plain = None
+            if B == batches[0]:
+                plain_fn = lambda: fp.frame_codes_fused_plain(*args)  # noqa
+                plain_fn()
+                plain = profiled_device_ms(plain_fn, 1)
             n_b, ops = frame_bytes_ops(pp, cfg, B)
             b_ms, b_by = bound(n_b, ops, "int8" if kind == "int8"
                                else "bf16")
@@ -2347,7 +2355,7 @@ def frame_kernel_times(rec: Record, card: str):
                 f"plain {_fmt4(plain)} ms (profiler), bound {b_ms:.4f} ms "
                 f"({b_by}, {b_ms / ms:.1%} of it; {n_b / 1e9:.3f} GB) on "
                 f"{card}")
-            if kind == "dense" and B == 1:
+            if kind == "dense" and B == batches[0]:
                 rec.ms["predictor_frame"], rec.plain_ms["predictor_frame"] = \
                     ms, plain
                 rec.library_ms["predictor_frame"] = None

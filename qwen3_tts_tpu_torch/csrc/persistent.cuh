@@ -1,8 +1,7 @@
 // Device helpers shared by the persistent kernels (predictor_frame.cu,
-// talker_step.cu): mbarriers and TMA bulk copies, the coherent loads and
-// the atomics of the grid barrier, the self-resetting grid barrier itself,
-// and the 8-wide shared-memory weight loads. Moved here unchanged from
-// predictor_frame.cu, whose results stay bit-identical.
+// talker_step.cu): mbarriers and TMA bulk copies, the atomics of the
+// talker's split counters, the counting grid barrier, and the 8-wide
+// shared-memory weight loads.
 
 #pragma once
 
@@ -11,7 +10,6 @@
 namespace {
 
 constexpr unsigned long long kSpinLimitNs = 5000000000ull;   // 5 s
-constexpr int kGen = 32;              // the barrier's generation word
 
 // ---------------------------------------------------------------- memory
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -61,14 +59,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -83,38 +73,58 @@ __device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p) {
                : "memory");
   return v;
 }
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
 __device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
   asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
 }
 
-// The grid barrier: bar[0] counts arrivals, bar[kGen] is the generation,
-// a cache line apart (the spinning loads do not slow the arrivals). A
-// block's thread 0 reads the generation (it cannot change before this
-// block arrives), arrives with an acquire-release add, and the last block
-// resets the count and publishes generation + 1 with a release store;
-// the others spin on an acquire load. A block synchronisation before and
-// after carries the block's writes into the release and the acquire to
-// the block's reads (the pattern of CUTLASS's generic barrier). Data
-// written in the kernel is read with plain loads after it, never through
-// the non-coherent path (__ldg).
-__device__ __forceinline__ void grid_arrive_wait(unsigned* bar) {
-  const unsigned gen = ld_acquire(bar + kGen);
-  if (atom_add_acq_rel(bar) == gridDim.x - 1) {
-    st_relaxed(bar, 0u);
-    st_release(bar + kGen, gen + 1);
-  } else {
+__device__ __forceinline__ unsigned long long ld_acquire64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The counting grid barrier: cnt is a 64-bit arrival count that only grows
+// (by the grid size at every barrier; it never wraps in practice). A
+// block's thread 0 adds its arrival with a release reduction, which
+// returns nothing (the arrivals pipeline at the L2 and no block has to be
+// the last one), and spins with acquire loads until the count reaches
+// `next`, the barrier's multiple of the grid size. A block synchronisation
+// before and after carries the block's writes into the release and the
+// acquire to the block's reads (the pattern of CUTLASS's generic barrier).
+// Data written in the kernel is read with plain loads after it, never
+// through the non-coherent path (__ldg). grid_count_base gives the first
+// `next` of a launch: read before the block's first arrival, the count
+// lies in [C0, C0 + nb) with C0 the multiple of nb that the last launch
+// left (the first barrier cannot complete without this block), so a
+// count word serves launches of one grid size only (the workspaces that
+// hold it are kept per grid). Why a count and not an arrive-and-reset
+// barrier (an acquire-release add, the last arriver resetting the count
+// and publishing a generation): from the last arrival to the first
+// release it took 0.62-1.11 us against 1.01-2.02 on an H100 80GB HBM3 at
+// 700 W (PERF.md).
+__device__ __forceinline__ unsigned long long grid_count_base(
+    const unsigned long long* cnt) {
+  const unsigned long long v = ld_acquire64(cnt);
+  return v - v % gridDim.x + gridDim.x;
+}
+__device__ __forceinline__ void grid_count_wait(unsigned long long* cnt,
+                                                unsigned long long& next) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], 1;\n" ::"l"(cnt)
+               : "memory");
+  if (ld_acquire64(cnt) < next) {
     const unsigned long long t0 = global_ns();
     unsigned spins = 0;
-    while (ld_acquire(bar + kGen) == gen) {
+    while (ld_acquire64(cnt) < next) {
       if ((++spins & 1023u) == 0 && global_ns() - t0 > kSpinLimitNs)
         __trap();                   // blocks not co-resident: fail, not hang
     }
   }
+  next += gridDim.x;
 }
 
 // named barrier 1 over the first n threads of the block (a multiple of 32):
@@ -139,16 +149,19 @@ __device__ __forceinline__ bool trace_thread(const void* trace) {
 }
 
 // the grid barrier of the blocks' first n threads (all of a block without
-// a producer warp); ti counts the barriers. `tr`: null, or block 0's trace,
-// where its thread 0 stamps the block's arrival at tr[2 ti] and its release
-// at tr[2 ti + 1] (tools/frame_measure.py)
-__device__ __forceinline__ void grid_barrier_first(unsigned* bar, int n,
+// a producer warp) on the count `cnt`, `next` thread 0's (grid_count_base
+// at the launch's start); ti counts the barriers. `tr`: null, or the
+// block's trace, where its thread 0 stamps the block's arrival at tr[2 ti]
+// and its release at tr[2 ti + 1] (tools/frame_measure.py)
+__device__ __forceinline__ void grid_barrier_first(unsigned long long* cnt,
+                                                   unsigned long long& next,
+                                                   int n,
                                                    unsigned long long* tr,
                                                    int& ti) {
   sync_first(n);
   if (threadIdx.x == 0) {
     if (kTrace && tr != nullptr) tr[2 * ti] = global_ns();
-    grid_arrive_wait(bar);
+    grid_count_wait(cnt, next);
     if (kTrace && tr != nullptr) tr[2 * ti + 1] = global_ns();
   }
   ++ti;

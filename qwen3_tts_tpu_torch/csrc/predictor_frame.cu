@@ -24,95 +24,136 @@
 //   bf16 at the full predictor width), a head slice 4.2 MB: 3.55 GB a frame
 //   dense bf16, 1.06 ms at 3.35 TB/s; half of it int8. At B <= 16 each
 //   weight element is used B times, far below the tensor cores' balance
-//   point. What the chain paid on top was a fixed cost per launch (host
-//   launch, x staging, cluster reductions), ~670 times a frame.
+//   point. What a frame pays on top is latency: 527 dependent stages, each
+//   a grid barrier, its first activation loads and its epilogue (measured
+//   on the H100: ~9 us a stage against ~2 us of its bytes; PERF.md).
 //
-// Design, simple first:
-//   * One cooperative launch (cudaLaunchKernelEx with the cooperative
-//     attribute): grid = SMs x resident blocks per SM at the kernel's
-//     shared memory, so every block is resident at once. Dependent stages
-//     meet at a grid barrier on a self-resetting generation counter
-//     (arrivals reset by the last block, which then bumps the generation
-//     with release semantics; waiters spin on an acquire load). It needs no
-//     memset per launch, so the kernel replays in a CUDA graph. A wait
-//     longer than kSpinLimitNs traps (an error, never a hang).
-//   * Stages of a layer pass (each a grid barrier apart):
-//       1. qkv: every block computes the ln1 norm of the whole residual
-//          itself, its 8-column units of the qkv product over the whole K,
-//          f32 out to scratch. Layer 0 of a pass reads its input row from
-//          the source (h1024 at pass 0, else the ptab row of the last code)
-//          and each block writes its share of the residual from it;
-//       2. per (row, kv head): the k / v / q heads rounded to T, QK-norm and
-//          RoPE, k and v stored at slot p of the frame cache, then
-//          attention over slots [0, p) and the current token;
-//       3. wo, added into the residual;
-//       4. gate / up with the ln2 norm, f32 out;
-//       5. down with silu(g) * u as its prologue, added into the residual.
+// Design:
+//   * One cooperative launch, one block per SM: 8 consumer warps and one
+//     producer warp. Dependent stages meet at a grid barrier of the
+//     consumer threads (named barrier 1, then a counting barrier: every
+//     block adds one to a 64-bit arrival count that never resets, with
+//     release semantics and no returned value, and spins with acquire loads
+//     until the count reaches its next multiple of the grid; the base is
+//     read at the start, when the first barrier cannot have completed).
+//     It needs no memset per launch, so the kernel replays in a CUDA graph.
+//     A wait longer than kSpinLimitNs traps (an error, never a hang).
+//   * Four grid barriers a layer pass:
+//       1. qkv, the ln1 norm its prologue, f32 out to scratch. Layer 0 of
+//          a pass reads its input row from the source (h1024 at pass 0,
+//          else the ptab row of the last code) and each block writes its
+//          share of the residual from it;
+//       2. wo, with attention as its prologue: every block that holds wo
+//          columns computes the attention output of every (row, kv head)
+//          it needs itself, a warp a unit (the k / v / q heads rounded to
+//          T, QK-norm and RoPE, slots [0, p) of the frame cache and the
+//          current token), straight into its staged x rows (at B = 1 each
+//          of 128 blocks reads the same 8 KB x p of cache); the block that
+//          owns wo unit (b nk + j) mod (H / 8) stores k and v at slot p.
+//          Added into the residual;
+//       3. gate / up with the ln2 norm, f32 out;
+//       4. down with silu(g) * u as its prologue, added into the residual.
 //     After a pass p >= 1, the head stage: the final norm, the product over
 //     slice p - 1, each block's logits reduced to a per-row (max, index)
 //     partial. After the barrier every block reduces the partials (the
 //     order does not matter: the comparison is a total order), block 0
 //     writes codes[:, p], and each block gathers the ptab row itself in
-//     the next pass's layer 0.
+//     the next pass's layer 0. 64 L + 15 barriers a frame (527 at L = 8).
 //   * Work plan: a stage's N columns are 8-column units, dealt over the
 //     blocks in contiguous ranges [blk * U / nb, (blk + 1) * U / nb) (the
 //     same formula as ops/fused_predictor.py split_units). Each output
 //     column is computed by one block over the whole K in a fixed order:
-//     no K split, no atomics, so repeats are bit-identical.
-//   * The weights do not depend on the activations. They are read from a
-//     packed copy (ops/fused_predictor.py pack_units: each 8-column unit's
-//     rows contiguous), so a block's slice of a stage is one contiguous
-//     range, which one thread copies into shared memory with a TMA bulk
-//     copy completing on an mbarrier. A stage starts the copy of the NEXT
-//     weight stage's slice into the other buffer as soon as its own inputs
-//     are in flight, so the activations' loads do not queue behind the
-//     weights (issued two stages ahead at the end of a stage, the frame
-//     measured ~0.5 ms slower on the H100): HBM reads run under the rest
-//     of the stage and the barrier waits. A
-//     slice larger than a buffer stages its first rows; the rest are read
-//     from global memory in the product's loop (f32 weights at full width
-//     only).
-//   * x rows (MT = 1, 2 or 4 a chunk; B > 4 loops over chunks) are staged
-//     in shared memory in T after their prologue (every product's input is
-//     a T-rounded value, so this is exact); a thread loads all its inputs
-//     of a row at once (one round trip; the norm's sum of squares from the
-//     same registers). The 256 threads of a block split K over a batch of
-//     units (32 sums: 4 units at MT = 1), whose sums reduce through one
-//     warp reduce-scatter (31 shuffles) and the warps in order.
-//   * A trace, as talker_step.cu's (compiled in only with -DKERNEL_TRACE,
-//     on when args.trace is set): block 0's thread 0 writes %globaltimer
-//     at each grid barrier's arrival and release and sums the time to its
-//     products' inputs and their rest, its norm loads and reductions, and
-//     its waits for a stage's copies (tools/frame_measure.py trace).
+//     no K split, no atomics on data, so repeats are bit-identical.
+//   * The weight ring. The weights do not depend on the activations. They
+//     are read from a packed copy (ops/fused_predictor.py pack_units: each
+//     8-column unit's rows contiguous). A block takes its units of a stage
+//     in batches (4 units at one x row, 2 at two, 1 at four or eight) and
+//     each batch's rows in chunks of at most `chunk` bytes. The producer's
+//     one thread walks the frame's whole chunk sequence (16 passes x L
+//     layers x qkv, wo, gate/up, down, and each head slice after its pass)
+//     copying chunk after chunk with TMA bulk copies into a ring of kFRing
+//     buffers, each completing on its "full" mbarrier; it waits only for a
+//     free buffer, which the consumer warps release on its "empty"
+//     mbarrier once they have read it. It never waits at a grid barrier,
+//     so the weight stream runs on through barriers and prologues as deep
+//     as the ring: 6 buffers of 16 KiB, the largest stage share of a block
+//     at full width (gate/up, dense bf16 at one x row). A deeper ring ran
+//     slower: the shared memory it takes comes out of the SM's L1, which
+//     caches the spills below (on the H100, dense B = 1: 13 buffers 4.84
+//     ms a frame, 6 buffers 4.57; PERF.md).
+//   * One loop over the frame's stages calls one stage function, so its
+//     code is emitted once: with a call site per stage kind the kernel was
+//     19k instructions, which thrashed the instruction caches at every
+//     stage (on the H100 each stage's first loads took ~1 us longer). A
+//     producer warp beside 8 consumer warps caps a thread at 168 registers
+//     (three warps share an SM sub-partition's register file): attention
+//     loads its cached keys and values in two rounds, and ~360 bytes a
+//     thread spill to local memory.
+//   * x rows: a row pass stages up to kMT rows (1, 2, 4, or 8 in bf16 and
+//     4 in f32; B > kMT takes ceil(B / kMT) passes over a stage, its
+//     weights streamed once a pass) in shared memory in T after their
+//     prologue (every product's input is a T-rounded value, so this is
+//     exact); a thread holds kMT * 8 sums for each unit of a batch (32 or
+//     64), reduced through one warp reduce-scatter per 32 sums and the
+//     warps in order.
+//   * A trace, compiled in only with -DKERNEL_TRACE (persistent.cuh
+//     kTrace) and on when args.trace is set: every block's consumer thread
+//     0 writes %globaltimer at each grid barrier's arrival and release,
+//     sums the time from a stage's start to its first activation data, its
+//     products and its waits for full ring buffers; the producer sums its
+//     waits for free ones (tools/frame_measure.py trace). args.mode, read
+//     in those builds only, cuts the products out (kNoWork: no copies, no
+//     sums; what is left is barriers, prologues and epilogues).
 // Scope: T = float or bf16; each of the five weights dense in T or int8
 //   with an f32 per-column scale (mixed kinds too); 1 <= B <= 16; hd a
 //   power of two in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, CV
-//   multiples of 8. int4 weights and B > 16 keep the chain (ops/fused_predictor.py
+//   multiples of 8. int4 weights keep the chain (ops/fused_predictor.py
 //   frame_route).
 
 #include "persistent.cuh"
 
 namespace {
 
-constexpr int kFThreads = 256;
+constexpr int kFThreads = 256;           // consumer threads
 constexpr int kFWarps = kFThreads / 32;
-constexpr int kUnit = 8;              // columns of a unit (one 8-wide vector)
+constexpr int kFBlock = kFThreads + 32;  // + the producer warp
+constexpr int kUnit = 8;                 // columns of a unit
 constexpr int kFMaxB = 16;
-constexpr int kCodes = 16;            // protocol.NUM_CODEBOOKS
-constexpr int kFMaxG = 4;             // q heads per kv head
+constexpr int kFMaxMT = 8;
+constexpr int kCodes = 16;               // protocol.NUM_CODEBOOKS
+constexpr int kFMaxG = 4;                // q heads per kv head
 constexpr int kFMaxHd = 128;
-constexpr int kXPer = 8;              // norm inputs a thread holds: H <= 2048
-constexpr int kYPer = 12;             // wo / down inputs a thread loads at once
+constexpr int kXPer = 8;                 // norm inputs a thread holds
+constexpr int kFRing = 6;                // ring buffers
 enum { kQkv = 0, kWo = 1, kGu = 2, kDown = 3, kHead = 4 };
-// trace words (tools/frame_measure.py trace): barrier i at 2 i, 2 i + 1;
-// block 0's products kTrProd + 4 mat + 1..3 (to its inputs, the rest,
-// calls), its norm inputs kTrNorm + 0..3 (loads, row reduction, -, calls;
-// + 4 scratch), its waits for a stage's copies kTrWait + 0..1, the start
-constexpr int kTrProd = 1900, kTrNorm = 1960, kTrWait = 1980, kTrT0 = 1999;
+// args.mode bits (-DKERNEL_TRACE builds only)
+enum { kNoWork = 1 };
+// trace words (tools/frame_measure.py trace), a block's kTrStride words
+// from blk * kTrStride: barrier i's arrival and release at 2 i, 2 i + 1 (i
+// < kTrBars); the start, the end, the barriers counted; per stage kind
+// (qkv, wo, gu, down, head) the time from the stage's start to its first
+// activation data and the calls (kTrFirst + 2 mat + 0..1); the consumers'
+// waits for full buffers (time, chunks); the producer's for free ones
+// (time, chunks); the wo stage's attention prologue (time, calls); per
+// stage kind the products from their start to the first chunk in, to the
+// last chunk read, to the epilogue's end, and the calls (kTrProd + 4 mat +
+// 0..3). The consumers sum in shared memory (kTrSums words from
+// kTrFirst) and add the sums into the trace at the end.
+constexpr int kTrStride = 2048, kTrBars = 960;
+constexpr int kTrT0 = 1920, kTrEnd = 1921, kTrNBar = 1922, kTrFirst = 1924,
+              kTrCWait = 1934, kTrPWait = 1936, kTrAttn = 1938,
+              kTrProd = 1940;
+constexpr int kTrSums = 40;
+
+// grid barriers a frame: 4 a layer pass, one after each head slice
+// (ops/fused_predictor.py frame_barriers)
+__host__ __device__ constexpr int frame_barriers(int L) {
+  return kCodes * 4 * L + kCodes - 1;
+}
 
 // ops/fused_predictor.py _FrameArgs, field for field.
 struct FrameArgs {
-  const void* w[5];       // qkv, wo, gu, down [L, K, N]; head [H, 16 * CV]
+  const void* w[5];       // packed [L, N / 8, K, 8] (head [16 CV / 8, H, 8])
   const float* sc[5];     // int8 column scales [L, N] / [16 * CV]; null dense
   const void* ln1;        // [L, H] T
   const void* ln2;        // [L, H] T
@@ -125,7 +166,6 @@ struct FrameArgs {
   int* codes;             // [B, 16] out
   float* xres;            // [B, H] the residual
   float* qkv;             // [B, (nq + 2 nk) hd]
-  float* att;             // [B, nq hd] (T-rounded values)
   float* gu;              // [B, 2F]
   float* kc;              // [L, B, nk, 16, hd] the frame cache
   float* vc;
@@ -133,11 +173,12 @@ struct FrameArgs {
   const float* sin;
   float* part_v;          // [nb, B] the head's per-block partials
   int* part_i;
-  unsigned* bar;          // [2 kGen]: arrivals at 0, generation at kGen
+  unsigned long long* bar;  // the grid barrier's arrival count
   int B, H, L, nq, nk, hd, F, CV, R, rows0;
-  int buf;                // bytes of each weight buffer
+  int chunk;              // bytes of a ring buffer
+  int mode;               // kNoWork (trace builds only)
   float eps;
-  unsigned long long* trace;  // null, or block 0's timeline (kTr*)
+  unsigned long long* trace;  // null, or nb x kTrStride words
 };
 
 // ---------------------------------------------------------------- argmax
@@ -151,34 +192,47 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return i < bi;
 }
 
-// ---------------------------------------------------------------- stages
-// A weight stage in the packed layout (ops/fused_predictor.py pack_units:
-// [units][K][8], unit u's rows contiguous): its rows K, columns N, the
-// element offset of its first unit (the layer's, or the head slice's) and
-// of its first column scale.
-struct StageDims {
-  int K, N;
+// ---------------------------------------------------------------- geometry
+// (32-bit: blk * units and (x + 1) * nb stay far below 2^32)
+__device__ __forceinline__ int unit_lo(int units, int blk, int nb) {
+  return static_cast<int>(static_cast<unsigned>(blk * units) /
+                          static_cast<unsigned>(nb));
+}
+
+// the block that owns unit x of U dealt over nb blocks
+__device__ __forceinline__ int unit_owner(int x, int U, int nb) {
+  return static_cast<int>(static_cast<unsigned>((x + 1) * nb - 1) /
+                          static_cast<unsigned>(U));
+}
+
+// A weight stage in the packed layout: its x width K, columns N, the bytes
+// of a unit row (8 columns), the element offsets of its layer (or head
+// slice) in the values and the scales, the block's units [u0, u0 + nu).
+struct FGeom {
+  int mat, layer, slice, K, N, wb, u0, nu;
   long long off, soff;
 };
 
-__device__ __forceinline__ StageDims dims(const FrameArgs& a, int mat,
-                                          int layer, int slice) {
-  const int nqkv = (a.nq + 2 * a.nk) * a.hd;
-  StageDims d;
+template <typename T>
+__device__ __forceinline__ FGeom geom(const FrameArgs& a, int mat, int layer,
+                                      int slice) {
+  FGeom d;
+  d.mat = mat;
+  d.layer = layer;
+  d.slice = slice;
   switch (mat) {
-    case kQkv: d.K = a.H; d.N = nqkv; break;
+    case kQkv: d.K = a.H; d.N = (a.nq + 2 * a.nk) * a.hd; break;
     case kWo: d.K = a.nq * a.hd; d.N = a.H; break;
     case kGu: d.K = a.H; d.N = 2 * a.F; break;
     case kDown: d.K = a.F; d.N = a.H; break;
     default: d.K = a.H; d.N = a.CV; break;
   }
-  if (mat == kHead) {
-    d.soff = static_cast<long long>(slice) * a.CV;
-    d.off = d.soff * a.H;
-  } else {
-    d.soff = static_cast<long long>(layer) * d.N;
-    d.off = d.soff * d.K;
-  }
+  d.wb = kUnit * (a.sc[mat] != nullptr ? 1 : static_cast<int>(sizeof(T)));
+  d.soff = static_cast<long long>(mat == kHead ? slice : layer) * d.N;
+  d.off = d.soff * d.K;
+  const int U = d.N / kUnit;
+  d.u0 = unit_lo(U, blockIdx.x, gridDim.x);
+  d.nu = unit_lo(U, blockIdx.x + 1, gridDim.x) - d.u0;
   return d;
 }
 
@@ -186,8 +240,9 @@ __device__ __forceinline__ StageDims dims(const FrameArgs& a, int mat,
 // 4 L stages (qkv, wo, gu, down a layer), every later pass 4 L + 1 (its
 // head slice last).
 __device__ __forceinline__ void stage_of(int s, int L, int& mat, int& layer,
-                                         int& slice) {
-  int r = s, p = 0;
+                                         int& slice, int& p) {
+  int r = s;
+  p = 0;
   if (s >= 4 * L) {
     const int t = s - 4 * L;
     p = 1 + t / (4 * L + 1);
@@ -200,70 +255,23 @@ __device__ __forceinline__ void stage_of(int s, int L, int& mat, int& layer,
   }
 }
 
-__device__ __forceinline__ int unit_lo(int units, int blk, int nb) {
-  return static_cast<int>(static_cast<long long>(blk) * units / nb);
+// sums a thread holds for a batch of units: 32, or 64 at 8 rows
+__host__ __device__ constexpr int f_acc(int mt) {
+  return mt * kUnit > 32 ? mt * kUnit : 32;
+}
+__host__ __device__ constexpr int f_units_a_batch(int mt) {
+  return f_acc(mt) / (mt * kUnit);
 }
 
-// rows of each unit of the block's slice that fit a buffer (the rest are
-// read from global memory), even so that every copy is whole 16 bytes
-__device__ __forceinline__ int staged_rows(int K, int nu, int vb, int buf) {
-  return nu > 0 ? min(K, buf / (nu * vb)) & ~1 : 0;
+// rows of a chunk of a batch of nub units: as many as `chunk` bytes hold,
+// even (whole 16-byte copies), at most K (ops/fused_predictor.py
+// chunk_rows)
+__device__ __forceinline__ int f_chunk_rows(int chunk, int nub, int wb,
+                                            int K) {
+  return min(K, (chunk / (nub * wb)) & ~1);
 }
 
-// Thread 0 starts the bulk copies of weight stage s's block slice into
-// `buf` ([unit][row][8], the first kpre rows of each unit: one copy of
-// the whole slice, contiguous in the packed layout, or one a unit when
-// only the first rows fit) and arms the buffer's barrier
-// with their bytes (none past the last stage: the phase completes at
-// once). The caller has synchronised the block since the buffer's last
-// reads.
-template <typename T>
-__device__ void issue(const FrameArgs& a, int s, int n_stages,
-                      unsigned char* buf, unsigned long long* bar) {
-  if (threadIdx.x != 0) return;
-  int nu = 0, kpre = 0, vb = 0, u0 = 0, mat = 0;
-  StageDims d{};
-  if (s < n_stages) {
-    int layer, slice;
-    stage_of(s, a.L, mat, layer, slice);
-    d = dims(a, mat, layer, slice);
-    const int U = d.N / kUnit;
-    u0 = unit_lo(U, blockIdx.x, gridDim.x);
-    nu = unit_lo(U, blockIdx.x + 1, gridDim.x) - u0;
-    vb = kUnit * (a.sc[mat] != nullptr ? 1 : static_cast<int>(sizeof(T)));
-    kpre = staged_rows(d.K, nu, vb, a.buf);
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  mbar_expect(bar, static_cast<unsigned>(nu * kpre * vb));
-  const char* g = static_cast<const char*>(a.w[mat]) +
-                  (d.off + static_cast<long long>(u0) * d.K * kUnit) *
-                      (vb / kUnit);
-  if (kpre == d.K && nu > 0)          // the whole slice: one range
-    bulk_copy(buf, g, static_cast<unsigned>(nu * kpre * vb), bar);
-  else
-    for (int u = 0; u < nu && kpre > 0; ++u)
-      bulk_copy(buf + static_cast<long long>(u) * kpre * vb,
-                g + static_cast<long long>(u) * d.K * vb,
-                static_cast<unsigned>(kpre * vb), bar);
-}
-
-// Shared memory of a block: two weight buffers, then the fixed part
-// (ops/fused_predictor.py frame_smem_fixed computes the same size).
-template <typename T, int kMT>
-struct Smem {
-  unsigned char* buf[2];
-  unsigned long long* bar;   // [2] the buffers' mbarriers
-  T* xs;          // [kMT][Kmax] staged x rows
-  float* red;     // [kFWarps][32] the warps' unit sums / row sums
-  float* outv;    // [32] a batch's sums
-  float* rinv;    // [kFMaxB]
-  float* bestv;   // [kFMaxB] the block's argmax
-  int* besti;     // [kFMaxB]
-  int* code;      // [kFMaxB] the codes of the pass's input rows
-  float* hb;      // [2 + kFMaxG][hd] k, v, q heads of stage 2
-  float* sc;      // [kCodes] attention scores
-};
-
+// ---------------------------------------------------------------- smem
 __host__ __device__ inline int align16(int n) { return (n + 15) & ~15; }
 
 __host__ __device__ inline int kmax_of(int H, int nq, int hd, int F) {
@@ -271,109 +279,193 @@ __host__ __device__ inline int kmax_of(int H, int nq, int hd, int F) {
   return a > F ? a : F;
 }
 
+// Bytes of a block's shared memory besides the ring (ops/fused_predictor.py
+// frame_smem_fixed): the ring's mbarriers, the staged x rows, the sums'
+// scratch, the head's argmax and codes, the warps' head vectors.
 __host__ __device__ inline int fixed_smem(int mt, int kmax, int hd,
                                           int tsize) {
-  return 16 + align16(mt * kmax * tsize) +
-         (kFWarps * 32 + 32 + 4 * kFMaxB + (2 + kFMaxG) * hd +
-          kCodes) * 4;
+  return 2 * kFRing * 8 + kTrSums * 8 + align16(mt * kmax * tsize) +
+         4 * (2 * kFWarps * 32 + 64 + kFMaxMT + 3 * kFMaxB + kFWarps * hd +
+              kFWarps * kFMaxG * (kCodes + 1));
 }
+
+template <typename T, int kMT>
+struct Smem {
+  unsigned char* ring;          // [kFRing][chunk]
+  unsigned long long* full;     // [kFRing]
+  unsigned long long* empty;    // [kFRing]
+  unsigned long long* tsum;     // [kTrSums] the trace's sums
+  T* xs;          // [kMT][Kmax] staged x rows
+  float* red;     // [2][kFWarps][32] the warps' unit sums / row sums
+  float* outv;    // [64] a batch's sums
+  float* rinv;    // [kFMaxMT]
+  float* bestv;   // [kFMaxB] the block's argmax
+  int* besti;     // [kFMaxB]
+  int* code;      // [kFMaxB] the codes of the pass's input rows
+  float* hv;      // [kFWarps][hd] a warp's head vector (RoPE's partner)
+  float* sc;      // [kFWarps][kFMaxG][kCodes + 1] a warp's attention
+                  // scores (the current token's last)
+};
 
 template <typename T, int kMT>
 __device__ Smem<T, kMT> carve(unsigned char* base, const FrameArgs& a) {
   Smem<T, kMT> s;
-  s.buf[0] = base;
-  s.buf[1] = base + a.buf;
-  unsigned char* p = base + 2 * a.buf;
-  s.bar = reinterpret_cast<unsigned long long*>(p);
-  p += 16;
+  s.ring = base;
+  unsigned char* p = base + kFRing * a.chunk;
+  s.full = reinterpret_cast<unsigned long long*>(p);
+  s.empty = s.full + kFRing;
+  p += 2 * kFRing * 8;
+  s.tsum = reinterpret_cast<unsigned long long*>(p);
+  p += kTrSums * 8;
   s.xs = reinterpret_cast<T*>(p);
   p += align16(kMT * kmax_of(a.H, a.nq, a.hd, a.F) * sizeof(T));
   s.red = reinterpret_cast<float*>(p);
-  s.outv = s.red + kFWarps * 32;
-  s.rinv = s.outv + 32;
-  s.bestv = s.rinv + kFMaxB;
+  s.outv = s.red + 2 * kFWarps * 32;
+  s.rinv = s.outv + 64;
+  s.bestv = s.rinv + kFMaxMT;
   s.besti = reinterpret_cast<int*>(s.bestv + kFMaxB);
   s.code = s.besti + kFMaxB;
-  s.hb = reinterpret_cast<float*>(s.code + kFMaxB);
-  s.sc = s.hb + (2 + kFMaxG) * a.hd;
+  s.hv = reinterpret_cast<float*>(s.code + kFMaxB);
+  s.sc = s.hv + kFWarps * a.hd;
   return s;
 }
 
-// Units a batch: kUB units of kMT rows of 8 columns are 32 sums, one a lane
-// after the warp's reduce-scatter.
-template <int kMT>
-struct UnitsABatch {
-  static constexpr int value = 32 / (kMT * kVec);
-};
+__device__ __forceinline__ void csync() { sync_first(kFThreads); }
 
-// The sums of a batch of nub <= kUB units for the staged rows: threads
-// over k (each unit's smem rows first, then its rows past the buffer from
-// global memory), then the warp's 32 sums reduced and scattered at once (at
-// each butterfly step a lane keeps one half of its values and adds its
-// partner's copy of that half: 31 shuffles, lane l ends with sum l), then
-// the warps in order, into sm.outv[(ub * kMT + m) * 8 + j]. Ends
-// synchronised.
-template <typename T, typename W, int kMT>
-__device__ void batch_sums(const Smem<T, kMT>& sm, const W* wsm,
-                           const W* wg, int K, int kpre, int nub) {
-  constexpr int kUB = UnitsABatch<kMT>::value;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float v[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) v[i] = 0.f;
-  for (int k = threadIdx.x; k < K; k += kFThreads) {
-    float xv[kMT];
-#pragma unroll
-    for (int m = 0; m < kMT; ++m) xv[m] = to_f32(sm.xs[m * K + k]);
-#pragma unroll
-    for (int ub = 0; ub < kUB; ++ub)
-      if (ub < nub) {
-        const Raw<W> r =
-            k < kpre ? ld_sm(wsm + (static_cast<long long>(ub) * kpre + k) *
-                                       kUnit)
-                     : ld_raw(wg + (static_cast<long long>(ub) * K + k) *
-                                       kUnit);
-        float wv[kVec];
-        cvt8(r, wv);
-#pragma unroll
-        for (int m = 0; m < kMT; ++m)
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            float& acc = v[(ub * kMT + m) * kVec + j];
-            acc = fmaf(xv[m], wv[j], acc);
-          }
-      }
-  }
-#pragma unroll
-  for (int o = 16, n = 32; o > 0; o /= 2) {
-    const bool up = (lane & o) != 0;
-    n /= 2;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      if (i < n) {
-        const float send = up ? v[i] : v[i + n];
-        const float keep = up ? v[i + n] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-      }
-  }
-  sm.red[warp * 32 + lane] = v[0];
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kFWarps; ++w) t += sm.red[w * 32 + threadIdx.x];
-    sm.outv[threadIdx.x] = t;
-  }
-  __syncthreads();
+// thread 0's trace sum of word w (kTrFirst <= w < kTrFirst + kTrSums)
+template <typename T, int kMT>
+__device__ __forceinline__ void tsum_add(const Smem<T, kMT>& sm, int w,
+                                         unsigned long long v) {
+  sm.tsum[w - kTrFirst] += v;
 }
 
+__device__ __forceinline__ bool no_work(const FrameArgs& a) {
+  return kTrace && (a.mode & kNoWork) != 0;
+}
+
+// this block's trace words, or null
+__device__ __forceinline__ unsigned long long* block_trace(
+    const FrameArgs& a) {
+  return kTrace && a.trace != nullptr
+             ? a.trace + static_cast<long long>(blockIdx.x) * kTrStride
+             : nullptr;
+}
+
+// ---------------------------------------------------------------- ring
+// The chunks of the frame in the order the consumers read them: stage
+// after stage (stage_of), each row pass, each batch of units, each batch's
+// rows in chunks (stages where the block has no units have none).
+template <typename T, int kMT>
+struct FrameWalk {
+  static constexpr int kUB = f_units_a_batch(kMT);
+  const FrameArgs* a;
+  FGeom d;
+  const char* g;
+  int s, n_stages, rc, ul, r0, passes;
+  bool done;
+
+  __device__ void start(const FrameArgs& args) {
+    a = &args;
+    passes = (a->B + kMT - 1) / kMT;
+    n_stages = 4 * a->L + (kCodes - 1) * (4 * a->L + 1);
+    s = -1;
+    next_stage();
+  }
+  __device__ void next_stage() {
+    rc = ul = r0 = 0;
+    do {
+      if (++s >= n_stages) {
+        done = true;
+        return;
+      }
+      int mat, layer, slice, p;
+      stage_of(s, a->L, mat, layer, slice, p);
+      d = geom<T>(*a, mat, layer, slice);
+    } while (d.nu == 0);
+    g = static_cast<const char*>(a->w[d.mat]) + d.off * (d.wb / kUnit);
+    done = false;
+  }
+  __device__ int nub() const { return min(kUB, d.nu - ul); }
+  __device__ int rows() const {
+    return f_chunk_rows(a->chunk, nub(), d.wb, d.K);
+  }
+  // bytes of each unit's copy of the chunk, and unit i's source
+  __device__ unsigned bytes() const {
+    return static_cast<unsigned>(min(rows(), d.K - r0) * d.wb);
+  }
+  __device__ const char* src(int i) const {
+    return g + (static_cast<long long>(d.u0 + ul + i) * d.K + r0) * d.wb;
+  }
+  __device__ void advance() {
+    r0 += rows();
+    if (r0 < d.K) return;
+    r0 = 0;
+    ul += kUB;
+    if (ul < d.nu) return;
+    ul = 0;
+    if (++rc < passes) return;
+    next_stage();
+  }
+};
+
+// The producer (lane 0 of the block's last warp): every chunk of the frame
+// in the consumers' order, each into ring buffer ci % kFRing once the
+// consumers have released its last use.
+template <typename T, int kMT>
+__device__ void produce(const FrameArgs& a, const Smem<T, kMT>& sm) {
+  if (no_work(a)) return;
+  unsigned long long* tb = block_trace(a);
+  unsigned long long waited = 0;
+  FrameWalk<T, kMT> fw;
+  fw.start(a);
+  int ci = 0;
+  for (; !fw.done; fw.advance(), ++ci) {
+    const int b = ci % kFRing;
+    if (ci >= kFRing) {
+      const unsigned long long t0 = tb != nullptr ? global_ns() : 0;
+      mbar_wait(sm.empty + b, ((ci / kFRing) - 1) & 1);
+      if (tb != nullptr) waited += global_ns() - t0;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned bytes = fw.bytes();
+    const int nub = fw.nub();
+    mbar_expect(sm.full + b, bytes * nub);
+    unsigned char* dst = sm.ring + static_cast<long long>(b) * a.chunk;
+    for (int i = 0; i < nub; ++i)
+      bulk_copy(dst + static_cast<long long>(i) * bytes, fw.src(i), bytes,
+                sm.full + b);
+  }
+  if (tb != nullptr) {
+    tb[kTrPWait] += waited;
+    tb[kTrPWait + 1] += ci;
+  }
+}
+
+// ---------------------------------------------------------------- barrier
+// The consumers' grid barrier (persistent.cuh grid_barrier_first on the
+// counting barrier), stamped into the block's trace up to kTrBars.
+struct Barrier {
+  unsigned long long next;   // thread 0: the count this barrier waits for
+  int ti;
+
+  __device__ void start(const FrameArgs& a) {
+    ti = 0;
+    next = threadIdx.x == 0 ? grid_count_base(a.bar) : 0;
+  }
+  __device__ void sync(const FrameArgs& a, unsigned long long* tb) {
+    grid_barrier_first(a.bar, next, kFThreads, ti < kTrBars ? tb : nullptr,
+                       ti);
+  }
+};
+
+// ---------------------------------------------------------------- prologues
 // The stage's input value of row b, column k, before its rounding to T:
-// the residual (or the pass's source row) normed, the attention output, or
-// silu(g) * u of the gate / up product.
+// the residual, or at layer 0 the pass's source row (h1024 at pass 0, else
+// the ptab row of slice p - 1 that the row's code selects).
 template <typename T>
 struct Src {
-  const float* h1024;      // pass 0's source rows, else null
-  const T* prow[kFMaxB];   // ptab rows of the pass's codes (layer 0, p >= 1)
+  const int* code;         // the pass's codes (shared memory), null at pass 0
+  int q;                   // the ptab slice, p - 1
   bool source;             // layer 0: read the source, not the residual
 };
 
@@ -381,24 +473,25 @@ template <typename T>
 __device__ __forceinline__ float resid(const FrameArgs& a, const Src<T>& src,
                                        int b, int k) {
   if (!src.source) return a.xres[b * a.H + k];
-  if (src.h1024 != nullptr)
-    return round_t(src.h1024[b * a.H + k], (T*)nullptr);
-  return to_f32(src.prow[b][k]);
+  if (src.code == nullptr) return round_t(a.h1024[b * a.H + k], (T*)nullptr);
+  const int c = max(src.code[b], 0);
+  const int row = c < a.rows0 ? c : a.R - 1;
+  return to_f32(static_cast<const T*>(
+      a.ptab)[(static_cast<long long>(src.q) * a.R + row) * a.H + k]);
 }
 
-// The norm stages' inputs of a chunk of mt rows into xs: every thread
-// loads its columns k = t + 256 q of the rows (the residual, or the
-// pass's source) and of the norm weight at once, into registers (one
-// round trip; H <= 256 kXPer), sums the squares in order, the rows' sums
-// reduce through the warp's butterfly and the warps in order, and each
-// value is normed and rounded once: T(x * rsqrt(mean(x^2) + eps) * w).
-template <typename T, int kMT, typename Hook>
+// The norm stages' inputs of rows [c0, c0 + mt) into xs: every thread
+// loads its columns k = t + 256 q of the rows (the residual, or the pass's
+// source) and of the norm weight at once, into registers (one round trip;
+// H <= 256 kXPer), sums the squares in order, the rows' sums reduce
+// through the warp's butterfly and the warps in order, and each value is
+// normed and rounded once: T(x * rsqrt(mean(x^2) + eps) * w). `first`:
+// thread 0's stamp once its loads are in.
+template <typename T, int kMT, typename Mark>
 __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
                            const Src<T>& src, const T* ln, int c0, int mt,
-                           Hook&& loaded) {
+                           Mark&& first) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool tr = trace_thread(a.trace);
-  if (tr) a.trace[kTrNorm + 4] = global_ns();
   const int K = a.H;
   float xr[kMT][kXPer], lw[kXPer];
 #pragma unroll
@@ -409,30 +502,24 @@ __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
     for (int m = 0; m < kMT; ++m)
       xr[m][q] = m < mt && k < K ? resid<T>(a, src, c0 + m, k) : 0.f;
   }
-  loaded();
 #pragma unroll
   for (int m = 0; m < kMT; ++m) {
     float ss = 0.f;
 #pragma unroll
     for (int q = 0; q < kXPer; ++q) ss = fmaf(xr[m][q], xr[m][q], ss);
+    if (m == 0) first();
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (lane == 0) sm.red[warp * 32 + m] = ss;
   }
-  const unsigned long long tn0 = tr ? global_ns() : 0;
-  __syncthreads();
+  csync();
   if (threadIdx.x < mt) {
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < kFWarps; ++w) t += sm.red[w * 32 + threadIdx.x];
     sm.rinv[threadIdx.x] = rsqrtf(t / static_cast<float>(K) + a.eps);
   }
-  __syncthreads();
-  if (tr) {
-    a.trace[kTrNorm] += tn0 - a.trace[kTrNorm + 4];
-    a.trace[kTrNorm + 1] += global_ns() - tn0;
-    a.trace[kTrNorm + 3] += 1;
-  }
+  csync();
 #pragma unroll
   for (int q = 0; q < kXPer; ++q) {
     const int k = threadIdx.x + q * kFThreads;
@@ -445,299 +532,376 @@ __device__ void stage_norm(const FrameArgs& a, const Smem<T, kMT>& sm,
   }
 }
 
-// wo's and down's inputs of a chunk into xs: the attention output, or
-// silu(g) * u of the gate / up product rounded once; a thread loads kYPer
-// columns' inputs of a row at once (one round trip for K <= 256 kYPer).
-template <typename T, int kMT, typename Hook>
-__device__ void stage_plain(const FrameArgs& a, const Smem<T, kMT>& sm,
-                            bool down, int K, int c0, int mt,
-                            Hook&& loaded) {
+// down's inputs of rows [c0, c0 + mt) into xs: silu(g) * u of the gate /
+// up product, in f32, rounded once. A thread loads kYP columns of every
+// row at once (one round trip for F <= 256 kYP at one row).
+template <typename T, int kMT, typename Mark>
+__device__ void stage_silu(const FrameArgs& a, const Smem<T, kMT>& sm,
+                           int c0, int mt, Mark&& first) {
+  constexpr int kYP = 12 / kMT > 2 ? 12 / kMT : 2;
+  const int K = a.F;
+  for (int k0 = threadIdx.x; k0 < K; k0 += kYP * kFThreads) {
+    float g[kMT][kYP], u[kMT][kYP];
 #pragma unroll
-  for (int m = 0; m < kMT; ++m) {
-    const int b = c0 + m;
-    for (int k0 = threadIdx.x; k0 < K; k0 += kYPer * kFThreads) {
-      float x0[kYPer], x1[kYPer];
+    for (int m = 0; m < kMT; ++m)
 #pragma unroll
-      for (int q = 0; q < kYPer; ++q) {
+      for (int q = 0; q < kYP; ++q) {
         const int k = k0 + q * kFThreads;
-        x0[q] = x1[q] = 0.f;
-        if (m < mt && k < K) {
-          if (down) {
-            const float* row = a.gu + static_cast<long long>(b) * 2 * K;
-            x0[q] = row[k];
-            x1[q] = row[K + k];
-          } else {
-            x0[q] = a.att[b * K + k];
-          }
-        }
+        const float* row = a.gu + static_cast<long long>(c0 + m) * 2 * K;
+        const bool ok = m < mt && k < K;
+        g[m][q] = ok ? row[k] : 0.f;
+        u[m][q] = ok ? row[K + k] : 0.f;
       }
-      if (m == 0 && k0 == static_cast<int>(threadIdx.x)) loaded();
 #pragma unroll
-      for (int q = 0; q < kYPer; ++q) {
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int q = 0; q < kYP; ++q) {
         const int k = k0 + q * kFThreads;
         if (k < K)
           store_x(sm.xs + m * K + k,
-                  m >= mt ? 0.f
-                  : down  ? round_t(x0[q] / (1.f + expf(-x0[q])) * x1[q],
-                                    (T*)nullptr)
-                          : x0[q]);
+                  m < mt ? round_t(g[m][q] / (1.f + expf(-g[m][q])) * u[m][q],
+                                   (T*)nullptr)
+                         : 0.f);
       }
-    }
+    if (k0 == static_cast<int>(threadIdx.x)) first();
   }
 }
 
-// A product stage of the block: the units [u0, u0 + nu) of weight stage
-// (mat, layer, slice), its slice staged in `buf` (kpre rows a unit), and
-// the stage's epilogue.
-template <typename T, int kMT, typename W, typename Hook>
-__device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
-                        const Src<T>& src, int mat, int layer, int slice,
-                        const unsigned char* buf, Hook&& after_inputs) {
-  const StageDims d = dims(a, mat, layer, slice);
-  const int U = d.N / kUnit;
-  const int u0 = unit_lo(U, blockIdx.x, gridDim.x);
-  const int nu = unit_lo(U, blockIdx.x + 1, gridDim.x) - u0;
-  const int kpre = staged_rows(d.K, nu, kUnit * sizeof(W), a.buf);
-  const bool norm = mat == kQkv || mat == kGu || mat == kHead;
-  const T* ln = static_cast<const T*>(
-      mat == kQkv ? a.ln1 : mat == kGu ? a.ln2 : a.final_norm);
-  if (mat != kHead) ln += static_cast<long long>(layer) * a.H;
-  // scales: [L, N] a layer, [16 * CV] for the head (its slice's offset)
-  const float* scale = a.sc[mat] == nullptr ? nullptr : a.sc[mat] + d.soff;
-  const W* wbase = static_cast<const W*>(a.w[mat]) + d.off;
-  const int B = a.B, K = d.K;
-  constexpr int kUB = UnitsABatch<kMT>::value;
-  const bool tr = trace_thread(a.trace);
-  const unsigned long long tp0 = tr ? global_ns() : 0;
-  unsigned long long tp1 = tp0;
-
-  if (mat == kHead && threadIdx.x < B) {
-    sm.bestv[threadIdx.x] = -INFINITY;
-    sm.besti[threadIdx.x] = 0x7fffffff;
-  }
-  __syncthreads();
-  if (nu == 0) after_inputs();
-  if (nu > 0) {
-    for (int c0 = 0; c0 < B; c0 += kMT) {
-      const int mt = min(kMT, B - c0);
-      // the next stage's copies start once this chunk's inputs are on
-      // their way, so these loads do not queue behind them
-      auto loaded = [&] {
-        if (c0 == 0) after_inputs();
-      };
-      if (norm)
-        stage_norm<T, kMT>(a, sm, src, ln, c0, mt, loaded);
-      else
-        stage_plain<T, kMT>(a, sm, mat == kDown, K, c0, mt, loaded);
-      __syncthreads();
-      if (tr && c0 == 0) tp1 = global_ns();
-      // wo / down add into the residual: the first batch's old values
-      // load before its sums (the later batches' in their epilogue)
-      float res0 = 0.f;
-      {
-        const int i = threadIdx.x;
-        const int ub = i / (kMT * kVec), m = i / kVec % kMT;
-        if ((mat == kWo || mat == kDown) && i < 32 && ub < min(kUB, nu) &&
-            m < mt)
-          res0 = a.xres[(c0 + m) * a.H + (u0 + ub) * kUnit + i % kVec];
-      }
-      for (int ul = 0; ul < nu; ul += kUB) {
-        const int nub = min(kUB, nu - ul);
-        batch_sums<T, W, kMT>(
-            sm, reinterpret_cast<const W*>(buf) +
-                    static_cast<long long>(ul) * kpre * kUnit,
-            wbase + static_cast<long long>(u0 + ul) * K * kUnit, K, kpre,
-            nub);
-        const int i = threadIdx.x;
-        const int ub = i / (kMT * kVec), m = i / kVec % kMT;
-        if (i < 32 && ub < nub && m < mt) {
-          const int n = (u0 + ul + ub) * kUnit + i % kVec;
-          const int b = c0 + m;
-          float s = sm.outv[i];
-          if (scale != nullptr) s *= scale[n];
-          switch (mat) {
-            case kQkv: a.qkv[static_cast<long long>(b) * d.N + n] = s; break;
-            case kGu: a.gu[static_cast<long long>(b) * d.N + n] = s; break;
-            case kHead: sm.outv[i] = round_t(s, (T*)nullptr); break;
-            default:                                        // wo, down
-              a.xres[b * a.H + n] =
-                  (ul == 0 ? res0 : a.xres[b * a.H + n]) + s;
-          }
-        }
-        if (mat == kHead) {
-          __syncthreads();
-          if (threadIdx.x < mt) {        // the row's logits in column order
-            const int r = threadIdx.x, b = c0 + r;
-            float bv = sm.bestv[b];
-            int bi = sm.besti[b];
-            for (int u = 0; u < nub; ++u)
-              for (int j = 0; j < kVec; ++j) {
-                const float lv = sm.outv[(u * kMT + r) * kVec + j];
-                const int col = (u0 + ul + u) * kUnit + j;
-                if (better(lv, col, bv, bi)) { bv = lv; bi = col; }
-              }
-            sm.bestv[b] = bv;
-            sm.besti[b] = bi;
-          }
-        }
-        __syncthreads();                 // red / outv are reused
-      }
+// One head vector of a warp (lane holds dims e = lane + 32 r): QK-norm and
+// rotate-half RoPE, one rounding each (ops/gemv.cuh qk_finish's
+// arithmetic); the partner dims e ^ hd / 2 through the warp's hv.
+template <typename T>
+__device__ __forceinline__ void qk_norm_rope(float (&v)[kFMaxHd / 32],
+                                             const float (&w)[kFMaxHd / 32],
+                                             const float (&c)[kFMaxHd / 32],
+                                             const float (&sn)[kFMaxHd / 32],
+                                             float* hv, int hd, float eps) {
+  constexpr int kR = kFMaxHd / 32;
+  const int lane = threadIdx.x % 32, half = hd / 2;
+  float ss = 0.f;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) ss = fmaf(v[r], v[r], ss);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float rr = rsqrtf(ss / static_cast<float>(hd) + eps);
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < hd) {
+      v[r] = round_t(v[r] * rr * w[r], (T*)nullptr);
+      hv[e] = v[r];
     }
   }
-  if (tr) {
-    a.trace[kTrProd + mat * 4 + 1] += tp1 - tp0;
-    a.trace[kTrProd + mat * 4 + 2] += global_ns() - tp1;
-    a.trace[kTrProd + mat * 4 + 3] += 1;
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < hd) {
+      const float pr = hv[e ^ half];
+      const float rot = e < half ? -pr : pr;
+      v[r] = round_t(__fadd_rn(__fmul_rn(v[r], c[r]), __fmul_rn(rot, sn[r])),
+                     (T*)nullptr);
+    }
   }
-  if (mat == kHead && threadIdx.x < B) {
-    a.part_v[blockIdx.x * B + threadIdx.x] = sm.bestv[threadIdx.x];
-    a.part_i[blockIdx.x * B + threadIdx.x] = sm.besti[threadIdx.x];
-  }
+  __syncwarp();
 }
 
-// Stage 2 of layer l in pass p, for the block's (row, kv head) units: a
-// warp per head vector (k, v, then the group's q heads) rounds it to T,
-// QK-norms and RoPEs q and k (one rounding each, ops/gemv.cuh qk_finish's
-// arithmetic), stores k and v at slot p of the frame cache; then per q
-// head the scores over slots [0, p) and the current token (a warp per
-// slot), the softmax in f32 and the weighted sum of the values, rounded to
-// T into the attention output.
-template <typename T, int kMT>
-__device__ void attention(const FrameArgs& a, const Smem<T, kMT>& sm, int p,
-                          int l) {
+// 16 sums of a warp's lanes (one per cache slot) reduced and scattered at
+// once: at each butterfly step over lane bits 4..1 a lane keeps one half of
+// its values and adds its partner's copy of that half (15 shuffles), then
+// the last step over bit 0; lane l ends with the sum of slot l / 2
+__device__ __forceinline__ float scatter16(float (&w)[kCodes], int lane) {
+#pragma unroll
+  for (int o = 16, n = kCodes; o > 1; o /= 2) {
+    const bool up = (lane & o) != 0;
+    n /= 2;
+#pragma unroll
+    for (int i = 0; i < kCodes / 2; ++i)
+      if (i < n) {
+        const float send = up ? w[i] : w[i + n];
+        const float keep = up ? w[i + n] : w[i];
+        w[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+  }
+  return w[0] + __shfl_xor_sync(0xffffffffu, w[0], 1);
+}
+
+// wo's inputs of rows [c0, c0 + mt) into xs: the attention of layer l in
+// pass p, a warp a (row, kv head) unit, in two rounds of loads (the cached
+// keys of slots [0, p) with the head vectors, then the cached values: with
+// a producer warp beside 8 consumer warps a thread has 168 registers).
+// The unit's k, v and q heads rounded to T,
+// k and q QK-normed and RoPEd; the block that owns wo unit (b nk + j) mod
+// (H / 8) stores k and v at slot p; per q head the scores over slots
+// [0, p) and the current token, the softmax in f32 and the weighted sum of
+// the values (the current token last), rounded to T into xs.
+template <typename T, int kMT, typename Mark>
+__device__ void stage_attention(const FrameArgs& a, const Smem<T, kMT>& sm,
+                                int p, int l, int c0, int mt, Mark&& first) {
+  constexpr int kR = kFMaxHd / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int hd = a.hd, half = hd / 2, g = a.nq / a.nk;
-  const int nqkv = (a.nq + 2 * a.nk) * hd;
-  const int U = a.B * a.nk;
-  const int u1 = unit_lo(U, blockIdx.x + 1, gridDim.x);
+  const int hd = a.hd, nk = a.nk, g = a.nq / a.nk;
+  const int nqkv = (a.nq + 2 * nk) * hd, K = a.nq * hd, Uwo = a.H / kUnit;
   const float rs = sqrtf(static_cast<float>(hd));
-  constexpr int kR = kFMaxHd / 32;             // a lane's head dims
-  constexpr int kSlots = kCodes / kFWarps;      // a warp's cached slots
-  for (int u = unit_lo(U, blockIdx.x, gridDim.x); u < u1; ++u) {
-    const int b = u / a.nk, j = u % a.nk;
+  float* hv = sm.hv + warp * hd;
+  float* scw = sm.sc + warp * kFMaxG * (kCodes + 1);
+  const T* kw = static_cast<const T*>(a.k_norm) + l * hd;
+  const T* qw = static_cast<const T*>(a.q_norm) + l * hd;
+  for (int u = warp; u < mt * nk; u += kFWarps) {
+    const int m = u / nk, j = u % nk, b = c0 + m;
     const long long slot0 =
-        ((static_cast<long long>(l) * a.B + b) * a.nk + j) * kCodes * hd;
-    // every load that does not depend on this stage's results, in flight
-    // together: the cached keys of the warp's slots, the cached values of
-    // the thread's dim e, the head vectors with their norm weight and cos /
-    // sin
-    float kr[kSlots][kR];
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i)
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int t = warp + kFWarps * i, e = lane + 32 * r;
-        kr[i][r] = t < p && e < hd ? a.kc[slot0 + t * hd + e] : 0.f;
-      }
-    float vt[kCodes];
+        ((static_cast<long long>(l) * a.B + b) * nk + j) * kCodes * hd;
+    const float* row = a.qkv + static_cast<long long>(b) * nqkv;
+    // the first round of loads, in flight at once: the cached keys of
+    // slots [0, p) (a lane's 4 dims of each), the head vectors, the norm
+    // weights and cos / sin; the cached values come after the scores (the
+    // two would not fit in registers together)
+    float kc[kCodes][kR];
 #pragma unroll
     for (int t = 0; t < kCodes; ++t)
-      vt[t] = t < p && threadIdx.x < hd
-                  ? a.vc[slot0 + t * hd + threadIdx.x] : 0.f;
-    if (warp < 2 + g) {
-      const int h = warp == 0 ? a.nq + j
-                    : warp == 1 ? a.nq + a.nk + j
-                                : j * g + warp - 2;
-      const T* wn = static_cast<const T*>(warp == 0 ? a.k_norm : a.q_norm)
-                    + static_cast<long long>(l) * hd;
-      float* hv = sm.hb + warp * hd;
-      float v[kR], w[kR], c[kR], sn[kR];
-      float ss = 0.f;
 #pragma unroll
-      for (int t = 0; t < kR; ++t) {
-        const int e = lane + 32 * t;
-        v[t] = w[t] = c[t] = sn[t] = 0.f;
-        if (e < hd) {
-          v[t] = round_t(a.qkv[static_cast<long long>(b) * nqkv + h * hd + e],
-                         (T*)nullptr);
-          w[t] = to_f32(wn[e]);
-          c[t] = round_t(a.cos[p * hd + e], (T*)nullptr);
-          sn[t] = round_t(a.sin[p * hd + e], (T*)nullptr);
-          ss = fmaf(v[t], v[t], ss);
-        }
+      for (int r = 0; r < kR; ++r) {
+        const int e = lane + 32 * r;
+        kc[t][r] = t < p && e < hd ? a.kc[slot0 + t * hd + e] : 0.f;
       }
-      if (warp != 1) {                       // q or k: norm, RoPE
+    float kv[kR], vv[kR], kwr[kR], qwr[kR], c[kR], sn[kR], qv[kR];
 #pragma unroll
-        for (int o = 16; o > 0; o /= 2)
-          ss += __shfl_xor_sync(0xffffffffu, ss, o);
-        const float r = rsqrtf(ss / static_cast<float>(hd) + a.eps);
-#pragma unroll
-        for (int t = 0; t < kR; ++t) {
-          const int e = lane + 32 * t;
-          if (e < hd) {
-            v[t] = round_t(v[t] * r * w[t], (T*)nullptr);
-            hv[e] = v[t];
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < kR; ++t) {
-          const int e = lane + 32 * t;
-          if (e < hd) {
-            const float pr = hv[e ^ half];
-            const float rot = e < half ? -pr : pr;
-            v[t] = round_t(__fadd_rn(__fmul_rn(v[t], c[t]),
-                                     __fmul_rn(rot, sn[t])),
-                           (T*)nullptr);
-          }
-        }
-        __syncwarp();
-      }
-      float* cache = warp == 0 ? a.kc : warp == 1 ? a.vc : nullptr;
-#pragma unroll
-      for (int t = 0; t < kR; ++t) {
-        const int e = lane + 32 * t;
-        if (e < hd) {
-          hv[e] = v[t];
-          if (cache != nullptr) cache[slot0 + p * hd + e] = v[t];
-        }
-      }
+    for (int r = 0; r < kR; ++r) {
+      const int e = lane + 32 * r;
+      const bool ok = e < hd;
+      kv[r] = ok ? round_t(row[(a.nq + j) * hd + e], (T*)nullptr) : 0.f;
+      vv[r] = ok ? round_t(row[(a.nq + nk + j) * hd + e], (T*)nullptr) : 0.f;
+      qv[r] = ok ? round_t(row[j * g * hd + e], (T*)nullptr) : 0.f;
+      kwr[r] = ok ? to_f32(kw[e]) : 0.f;
+      qwr[r] = ok ? to_f32(qw[e]) : 0.f;
+      c[r] = ok ? round_t(a.cos[p * hd + e], (T*)nullptr) : 0.f;
+      sn[r] = ok ? round_t(a.sin[p * hd + e], (T*)nullptr) : 0.f;
     }
-    __syncthreads();
+    if (u == warp) first();
+    qk_norm_rope<T>(kv, kwr, c, sn, hv, hd, a.eps);
+    if (unit_owner((b * nk + j) % Uwo, Uwo, gridDim.x) ==
+        static_cast<int>(blockIdx.x))
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int e = lane + 32 * r;
+        if (e < hd) {
+          a.kc[slot0 + p * hd + e] = kv[r];
+          a.vc[slot0 + p * hd + e] = vv[r];
+        }
+      }
+    // per q head (the group's others loaded in their turn; the loops over
+    // q heads are not unrolled, so that their code is emitted once) the
+    // scores: each lane's dims in order, then the warp's reduce-scatter
+    // (lane l ends with slot l / 2) into the warp's scw, the current
+    // token's by the butterfly into scw's slot kCodes
+#pragma unroll 1
     for (int i = 0; i < g; ++i) {
-      const float* qv = sm.hb + (2 + i) * hd;
-      // scores: slot t of the cache from the warp's registers, slot p (the
-      // current token) from the k head in shared memory
+      if (i > 0)
 #pragma unroll
-      for (int n = 0; n < kSlots + 1; ++n) {
-        const int t = n < kSlots ? warp + kFWarps * n : p;
-        if (n < kSlots ? t < p : warp == 0) {
-          float sc = 0.f;
-#pragma unroll
-          for (int r = 0; r < kR; ++r) {
-            const int e = lane + 32 * r;
-            if (e < hd)
-              sc = fmaf(__fdiv_rn(qv[e], rs),
-                        n < kSlots ? kr[n < kSlots ? n : 0][r] : sm.hb[e],
-                        sc);
-          }
-#pragma unroll
-          for (int o = 16; o > 0; o /= 2)
-            sc += __shfl_xor_sync(0xffffffffu, sc, o);
-          if (lane == 0) sm.sc[t] = sc;
+        for (int r = 0; r < kR; ++r) {
+          const int e = lane + 32 * r;
+          qv[r] = e < hd ? round_t(row[(j * g + i) * hd + e], (T*)nullptr)
+                         : 0.f;
         }
-      }
-      __syncthreads();
-      if (threadIdx.x < hd) {
-        const int e = threadIdx.x;
-        float mx = sm.sc[0];
-        for (int t = 1; t <= p; ++t) mx = fmaxf(mx, sm.sc[t]);
-        float lsum = 0.f, acc = 0.f;
+      qk_norm_rope<T>(qv, qwr, c, sn, hv, hd, a.eps);
+      float q[kR], w[kCodes];
 #pragma unroll
-        for (int t = 0; t < kCodes; ++t)
-          if (t < p) {
-            const float ew = expf(sm.sc[t] - mx);
-            lsum += ew;
-            acc = fmaf(ew, vt[t], acc);
-          }
-        const float ew = expf(sm.sc[p] - mx);
-        lsum += ew;
-        acc = fmaf(ew, sm.hb[hd + e], acc);
-        a.att[static_cast<long long>(b) * a.nq * hd + (j * g + i) * hd + e] =
-            round_t(acc / fmaxf(lsum, 1e-30f), (T*)nullptr);
+      for (int r = 0; r < kR; ++r) q[r] = __fdiv_rn(qv[r], rs);
+#pragma unroll
+      for (int t = 0; t < kCodes; ++t) {
+        w[t] = 0.f;
+#pragma unroll
+        for (int r = 0; r < kR; ++r) w[t] = fmaf(q[r], kc[t][r], w[t]);
       }
-      __syncthreads();
+      float* sc = scw + i * (kCodes + 1);
+      const float st = scatter16(w, lane);
+      if ((lane & 1) == 0 && lane / 2 < p) sc[lane / 2] = st;
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) s = fmaf(q[r], kv[r], s);
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) sc[kCodes] = s;
     }
+    __syncwarp();
+    // the second round: the cached values; per q head the softmax in f32
+    // and the weighted sum (the current token last), rounded to T into xs
+    float vc[kCodes][kR];
+#pragma unroll
+    for (int t = 0; t < kCodes; ++t)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int e = lane + 32 * r;
+        vc[t][r] = t < p && e < hd ? a.vc[slot0 + t * hd + e] : 0.f;
+      }
+#pragma unroll 1
+    for (int i = 0; i < g; ++i) {
+      const float* sc = scw + i * (kCodes + 1);
+      const float scur = sc[kCodes];
+      float mx = p > 0 ? sc[0] : scur;
+      for (int t = 1; t < p; ++t) mx = fmaxf(mx, sc[t]);
+      if (p > 0) mx = fmaxf(mx, scur);
+      float lsum = 0.f, acc[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) acc[r] = 0.f;
+#pragma unroll
+      for (int t = 0; t < kCodes; ++t)
+        if (t < p) {
+          const float ew = expf(sc[t] - mx);
+          lsum += ew;
+#pragma unroll
+          for (int r = 0; r < kR; ++r) acc[r] = fmaf(ew, vc[t][r], acc[r]);
+        }
+      const float ew = expf(scur - mx);
+      lsum += ew;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int e = lane + 32 * r;
+        if (e < hd)
+          store_x(sm.xs + m * K + (j * g + i) * hd + e,
+                  round_t(fmaf(ew, vv[r], acc[r]) / fmaxf(lsum, 1e-30f),
+                          (T*)nullptr));
+      }
+    }
+    __syncwarp();                  // scw and hv are the next unit's
+  }
+}
+
+// ---------------------------------------------------------------- products
+// 32 sums of a warp reduced and scattered at once (at each butterfly step
+// a lane keeps one half of its values and adds its partner's copy of that
+// half: 31 shuffles), lane l ending with sum l of v[32 kH .. 32 kH + 31]
+template <int kAcc, int kH>
+__device__ __forceinline__ float f_scatter(float (&v)[kAcc], int lane) {
+  float* w = v + kH * 32;          // in place: the sums are spent after
+#pragma unroll
+  for (int o = 16, n = 32; o > 0; o /= 2) {
+    const bool up = (lane & o) != 0;
+    n /= 2;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (i < n) {
+        const float send = up ? w[i] : w[i + n];
+        const float keep = up ? w[i + n] : w[i];
+        w[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+  }
+  return w[0];
+}
+
+// A product of rows [c0, c0 + mt): the block's units in batches, each
+// batch's rows chunk by chunk from the ring (ci counts the chunks as the
+// producer does), then the batch's sums reduced over the block and the
+// stage's epilogue: qkv / gate-up f32 out, wo / down added into the
+// residual, the head's logits rounded through T into the rows' argmax.
+template <typename T, int kMT, typename W>
+__device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
+                        const FGeom& d, int c0, int mt, int& ci,
+                        unsigned long long* tb) {
+  constexpr int kAcc = f_acc(kMT);
+  constexpr int kUB = f_units_a_batch(kMT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool tr = tb != nullptr && threadIdx.x == 0;
+  const bool work = !no_work(a);
+  const int K = d.K;
+  const float* scale = a.sc[d.mat] == nullptr ? nullptr : a.sc[d.mat] + d.soff;
+  unsigned long long waited = 0, tp1 = 0, tp2 = 0;
+  const unsigned long long tp0 = tr ? global_ns() : 0;
+  int chunks = 0;
+  for (int ul = 0; ul < d.nu; ul += kUB) {
+    const int nub = min(kUB, d.nu - ul);
+    const int R = f_chunk_rows(a.chunk, nub, d.wb, K);
+    float v[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) v[i] = 0.f;
+    for (int r0 = 0; work && r0 < K; r0 += R, ++ci) {
+      const int rn = min(R, K - r0);
+      const int b = ci % kFRing;
+      const unsigned long long t0 = tr ? global_ns() : 0;
+      mbar_wait(sm.full + b, (ci / kFRing) & 1);
+      if (tr) {
+        const unsigned long long t1 = global_ns();
+        waited += t1 - t0;
+        if (chunks++ == 0) tp1 = t1;
+      }
+      const unsigned char* buf = sm.ring + static_cast<long long>(b) * a.chunk;
+      for (int r = threadIdx.x; r < rn; r += kFThreads) {
+        const int k = r0 + r;
+        float xv[kMT];
+#pragma unroll
+        for (int m = 0; m < kMT; ++m) xv[m] = to_f32(sm.xs[m * K + k]);
+#pragma unroll
+        for (int ub = 0; ub < kUB; ++ub)
+          if (ub < nub) {
+            float wv[kUnit];
+            cvt8(ld_sm(reinterpret_cast<const W*>(
+                     buf + (static_cast<long long>(ub) * rn + r) * d.wb)),
+                 wv);
+#pragma unroll
+            for (int m = 0; m < kMT; ++m)
+#pragma unroll
+              for (int j = 0; j < kUnit; ++j) {
+                float& acc = v[(ub * kMT + m) * kUnit + j];
+                acc = fmaf(xv[m], wv[j], acc);
+              }
+          }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty + b);    // the buffer is free
+    }
+    if (tr) tp2 = global_ns();
+    sm.red[warp * 32 + lane] = f_scatter<kAcc, 0>(v, lane);
+    if constexpr (kAcc == 64)
+      sm.red[(kFWarps + warp) * 32 + lane] = f_scatter<kAcc, 1>(v, lane);
+    csync();
+    if (threadIdx.x < kAcc) {
+      const int h = threadIdx.x / 32, l = threadIdx.x % 32;
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kFWarps; ++w) t += sm.red[(h * kFWarps + w) * 32 + l];
+      sm.outv[threadIdx.x] = t;
+    }
+    csync();
+    const int i = threadIdx.x;
+    const int ub = i / (kMT * kUnit), m = i / kUnit % kMT;
+    if (i < kAcc && ub < nub && m < mt) {
+      const int n = (d.u0 + ul + ub) * kUnit + i % kUnit;
+      const int b = c0 + m;
+      float s = sm.outv[i];
+      if (scale != nullptr) s *= scale[n];
+      switch (d.mat) {
+        case kQkv: a.qkv[static_cast<long long>(b) * d.N + n] = s; break;
+        case kGu: a.gu[static_cast<long long>(b) * d.N + n] = s; break;
+        case kHead: sm.outv[i] = round_t(s, (T*)nullptr); break;
+        default: a.xres[b * a.H + n] += s;               // wo, down
+      }
+    }
+    if (d.mat == kHead) {
+      csync();
+      if (threadIdx.x < mt) {            // the row's logits in column order
+        const int r = threadIdx.x, b = c0 + r;
+        float bv = sm.bestv[b];
+        int bi = sm.besti[b];
+        for (int u = 0; u < nub; ++u)
+          for (int j = 0; j < kUnit; ++j) {
+            const float lv = sm.outv[(u * kMT + r) * kUnit + j];
+            const int col = (d.u0 + ul + u) * kUnit + j;
+            if (better(lv, col, bv, bi)) { bv = lv; bi = col; }
+          }
+        sm.bestv[b] = bv;
+        sm.besti[b] = bi;
+      }
+    }
+    csync();                             // red / outv are reused
+  }
+  if (tr) {
+    tsum_add(sm, kTrCWait, waited);
+    tsum_add(sm, kTrCWait + 1, chunks);
+    const int w = kTrProd + 4 * d.mat;
+    tsum_add(sm, w, (chunks > 0 ? tp1 : tp2) - tp0);
+    tsum_add(sm, w + 1, tp2 - tp0);
+    tsum_add(sm, w + 2, global_ns() - tp0);
+    tsum_add(sm, w + 3, 1);
   }
 }
 
@@ -768,126 +932,161 @@ __device__ void reduce_codes(const FrameArgs& a, const Smem<T, kMT>& sm,
   }
 }
 
-template <typename T, int kMT, typename Hook>
-__device__ void product_any(const FrameArgs& a, const Smem<T, kMT>& sm,
-                            const Src<T>& src, int mat, int layer, int slice,
-                            const unsigned char* buf, Hook&& after_inputs) {
-  if (a.sc[mat] != nullptr)
-    product<T, kMT, int8_t>(a, sm, src, mat, layer, slice, buf,
-                            after_inputs);
-  else
-    product<T, kMT, T>(a, sm, src, mat, layer, slice, buf, after_inputs);
+// A weight stage: per row pass, the prologue into xs (the norm, the
+// attention, or silu(g) * u), then the product of the weight's kind; the
+// head writes the block's argmax partials (every block, units or none).
+template <typename T, int kMT>
+__device__ void stage(const FrameArgs& a, const Smem<T, kMT>& sm,
+                      const Src<T>& src, int mat, int layer, int slice, int p,
+                      int& ci, unsigned long long* tb) {
+  const FGeom d = geom<T>(a, mat, layer, slice);
+  const bool tr = tb != nullptr && threadIdx.x == 0;
+  const unsigned long long t0 = tr ? global_ns() : 0;
+  auto first = [&] {
+    if (tr) {
+      tsum_add(sm, kTrFirst + 2 * mat, global_ns() - t0);
+      tsum_add(sm, kTrFirst + 2 * mat + 1, 1);
+    }
+  };
+  if (mat == kHead && threadIdx.x < a.B) {
+    sm.bestv[threadIdx.x] = -INFINITY;
+    sm.besti[threadIdx.x] = 0x7fffffff;
+  }
+  const T* ln = static_cast<const T*>(
+      mat == kQkv ? a.ln1 : mat == kGu ? a.ln2 : a.final_norm);
+  if (mat != kHead) ln += static_cast<long long>(layer) * a.H;
+  for (int c0 = 0; c0 < a.B && d.nu > 0; c0 += kMT) {
+    const int mt = min(kMT, a.B - c0);
+    auto once = [&] {
+      if (c0 == 0) first();
+    };
+    if (mat == kWo) {
+      const unsigned long long ta = tr ? global_ns() : 0;
+      stage_attention<T, kMT>(a, sm, p, layer, c0, mt, once);
+      if (tr) {
+        tsum_add(sm, kTrAttn, global_ns() - ta);
+        tsum_add(sm, kTrAttn + 1, 1);
+      }
+    } else if (mat == kDown) {
+      stage_silu<T, kMT>(a, sm, c0, mt, once);
+    } else {
+      stage_norm<T, kMT>(a, sm, src, ln, c0, mt, once);
+    }
+    csync();
+    if (a.sc[mat] != nullptr)
+      product<T, kMT, int8_t>(a, sm, d, c0, mt, ci, tb);
+    else
+      product<T, kMT, T>(a, sm, d, c0, mt, ci, tb);
+  }
+  if (mat == kHead) {
+    csync();
+    if (threadIdx.x < a.B) {
+      a.part_v[blockIdx.x * a.B + threadIdx.x] = sm.bestv[threadIdx.x];
+      a.part_i[blockIdx.x * a.B + threadIdx.x] = sm.besti[threadIdx.x];
+    }
+  }
 }
 
 template <typename T, int kMT>
-__global__ void __launch_bounds__(kFThreads, 1)
-predictor_frame(FrameArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__global__ void __launch_bounds__(kFBlock, 1) predictor_frame(FrameArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const Smem<T, kMT> sm = carve<T, kMT>(smem_raw, a);
-  const int L = a.L, B = a.B;
-  const int n_stages = 4 * L + (kCodes - 1) * (4 * L + 1);
-  const bool tr = trace_thread(a.trace);
-  if (tr) a.trace[kTrT0] = global_ns();
-  unsigned long long* btr = kTrace && blockIdx.x == 0 ? a.trace : nullptr;
-  int s = 0, ti = 0;
-  auto barrier = [&] { grid_barrier_first(a.bar, kFThreads, btr, ti); };
   if (threadIdx.x == 0) {
-    mbar_init(sm.bar);
-    mbar_init(sm.bar + 1);
+    for (int i = 0; i < kFRing; ++i) {
+      mbar_init(sm.full + i);
+      mbar_init_count(sm.empty + i, kFWarps);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; kTrace && i < kTrSums; ++i) sm.tsum[i] = 0;
   }
   __syncthreads();
-  issue<T>(a, 0, n_stages, sm.buf[0], sm.bar);
+  if (threadIdx.x >= kFThreads) {            // the producer warp
+    if (threadIdx.x == kFThreads) produce<T, kMT>(a, sm);
+    return;
+  }
+  const int L = a.L, B = a.B;
+  unsigned long long* tb = block_trace(a);
+  if (tb != nullptr && threadIdx.x == 0) tb[kTrT0] = global_ns();
+  Barrier bar;
+  bar.start(a);
+  int ci = 0;
   if (blockIdx.x == 0 && threadIdx.x < B)
     a.codes[threadIdx.x * kCodes] = a.code0[threadIdx.x];
 
-  // weight stage s: wait for its copies (buffer s & 1, its (s / 2)-th
-  // use), load its inputs, start the copies of stage s + 1 into the other
-  // buffer (free since the last barrier), run the products, meet the grid
-  auto weight_stage = [&](const Src<T>& src, int mat, int layer,
-                          int slice) {
-    const unsigned long long tw0 = tr ? global_ns() : 0;
-    mbar_wait(sm.bar + (s & 1), (s >> 1) & 1);
-    if (tr) {
-      a.trace[kTrWait] += global_ns() - tw0;
-      a.trace[kTrWait + 1] += 1;
-    }
-    product_any<T, kMT>(a, sm, src, mat, layer, slice, sm.buf[s & 1], [&] {
-      issue<T>(a, s + 1, n_stages, sm.buf[(s + 1) & 1],
-               sm.bar + ((s + 1) & 1));
-    });
-    ++s;
-    barrier();
-  };
-
-  for (int p = 0; p < kCodes; ++p) {
+  // one loop over the frame's stages, so that the stage code is compiled
+  // once (the kernel's code stays small enough for the instruction caches)
+  const int n_stages = 4 * L + (kCodes - 1) * (4 * L + 1);
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+    int mat, layer, slice, p;
+    stage_of(s, L, mat, layer, slice, p);
+    const bool first = mat == kQkv && layer == 0;
     // the pass's source rows: h1024 at pass 0, else ptab[p - 1][sel(code)]
-    Src<T> src{};
-    src.source = true;
-    if (p == 0) {
-      src.h1024 = a.h1024;
-    } else {
+    const Src<T> src{p == 0 ? nullptr : sm.code, p - 1, first};
+    if (first) {
       if (p == 1) {
         if (threadIdx.x < B) sm.code[threadIdx.x] = a.code0[threadIdx.x];
-      } else {
+      } else if (p > 1) {
         reduce_codes<T, kMT>(a, sm, p - 1);
       }
-      __syncthreads();
-      for (int b = 0; b < B; ++b) {
-        const int c = max(sm.code[b], 0);
-        const int row = c < a.rows0 ? c : a.R - 1;
-        src.prow[b] = static_cast<const T*>(a.ptab) +
-                      (static_cast<long long>(p - 1) * a.R + row) * a.H;
-      }
-    }
-    // this block's share of the residual, from the source
-    {
+      csync();
+      // this block's share of the residual, from the source
       const int k0 = unit_lo(a.H, blockIdx.x, gridDim.x);
-      const int k1 = unit_lo(a.H, blockIdx.x + 1, gridDim.x);
-      const int n = k1 - k0;
+      const int n = unit_lo(a.H, blockIdx.x + 1, gridDim.x) - k0;
       for (int i = threadIdx.x; i < B * n; i += kFThreads) {
         const int b = i / n, k = k0 + i % n;
         a.xres[b * a.H + k] = resid<T>(a, src, b, k);
       }
     }
-    const Src<T> res{};
-    for (int l = 0; l < L; ++l) {
-      weight_stage(l == 0 ? src : res, kQkv, l, 0);
-      attention<T, kMT>(a, sm, p, l);
-      barrier();
-      weight_stage(res, kWo, l, 0);
-      weight_stage(res, kGu, l, 0);
-      weight_stage(res, kDown, l, 0);
-    }
-    if (p >= 1) weight_stage(res, kHead, 0, p - 1);
+    stage<T, kMT>(a, sm, src, mat, layer, slice, p, ci, tb);
+    bar.sync(a, tb);
   }
   if (blockIdx.x == 0) reduce_codes<T, kMT>(a, sm, kCodes - 1);
+  if (bar.ti != frame_barriers(L)) __trap();   // the host counts the same
+  if (tb != nullptr && threadIdx.x == 0) {
+    tb[kTrEnd] = global_ns();
+    tb[kTrNBar] = bar.ti;
+    for (int i = 0; i < kTrSums; ++i)      // the producer adds its own
+      if (kTrFirst + i != kTrPWait && kTrFirst + i != kTrPWait + 1)
+        tb[kTrFirst + i] += sm.tsum[i];
+  }
 }
 
-template <typename T>
 using FrameKernel = void (*)(FrameArgs);
 
 template <typename T>
-FrameKernel<T> frame_kernel(int mt) {
+FrameKernel frame_kernel(int mt) {
   if (mt == 1) return predictor_frame<T, 1>;
   if (mt == 2) return predictor_frame<T, 2>;
-  return predictor_frame<T, 4>;
+  if constexpr (sizeof(T) > 2) {
+    return predictor_frame<T, 4>;    // f32: at most 4 rows a pass
+  } else {
+    if (mt == 4) return predictor_frame<T, 4>;
+    return predictor_frame<T, 8>;
+  }
 }
 
-template <typename F>
-int with_kernel(int dtype, int mt, F&& f) {
-  if (dtype == 0) return f(frame_kernel<float>(mt), 4);
-  return f(frame_kernel<__nv_bfloat16>(mt), 2);
+FrameKernel frame_kernel_of(int dtype, int mt) {
+  return dtype == 0 ? frame_kernel<float>(mt)
+                    : frame_kernel<__nv_bfloat16>(mt);
 }
 
-bool bad_frame(const FrameArgs& a, int mt) {
+// x rows a pass (ops/fused_predictor.py row_pass): 1, 2, 4, else 8 in bf16
+// and 4 in f32, so the staged rows take at most 16 bytes a K element
+int frame_rows(int B, int tsize) {
+  const int mt = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
+  return mt * tsize > 16 ? 16 / tsize : mt;
+}
+
+bool bad_frame(const FrameArgs& a, int mt, int tsize) {
   const bool pow2 = a.hd >= 8 && a.hd <= kFMaxHd && !(a.hd & (a.hd - 1));
-  return a.B < 1 || a.B > kFMaxB || (mt != 1 && mt != 2 && mt != 4) ||
+  for (int i = 0; i < 5; ++i)
+    if (a.w[i] == nullptr) return true;
+  return a.B < 1 || a.B > kFMaxB || mt != frame_rows(a.B, tsize) ||
          a.L < 1 || !pow2 || a.nk < 1 || a.nq % a.nk ||
          a.nq / a.nk > kFMaxG || a.H % kUnit || a.F % kUnit ||
-         a.H > kXPer * kFThreads ||
-         a.CV % kUnit || a.buf < 0 || a.buf % 16 || a.R < 1 ||
-         a.rows0 < 0 || a.rows0 > a.R;
+         a.H > kXPer * kFThreads || a.CV % kUnit || a.R < 1 ||
+         a.rows0 < 0 || a.rows0 > a.R || a.chunk < 1024 || a.chunk % 16;
 }
 
 }  // namespace
@@ -895,9 +1094,9 @@ bool bad_frame(const FrameArgs& a, int mt) {
 extern "C" {
 
 // out[0] = resident blocks per SM of the kernel (dtype: 0 float32, 1
-// bfloat16; mt: x rows a chunk, 1, 2 or 4) at `smem` bytes of dynamic
-// shared memory, out[1] the device's opt-in shared memory per block, out[2]
-// its SM count; returns a cudaError_t.
+// bfloat16; mt: x rows a pass, 1, 2, 4 or, in bf16, 8) at `smem` bytes of
+// dynamic shared memory, out[1] the device's opt-in shared memory per
+// block, out[2] its SM count; returns a cudaError_t.
 int predictor_frame_query(int dtype, int mt, int smem, int* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -907,46 +1106,46 @@ int predictor_frame_query(int dtype, int mt, int smem, int* out) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > out[1] || (mt != 1 && mt != 2 && mt != 4))
+  if (smem > out[1] || (mt != 1 && mt != 2 && mt != 4 && mt != 8) ||
+      mt * (dtype == 0 ? 4 : 2) > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_kernel(dtype, mt, [&](auto kernel, int) {
-    cudaError_t r = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (r == cudaSuccess)
-      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
-                                                        kFThreads, smem);
-    return static_cast<int>(r);
-  });
+  const FrameKernel kernel = frame_kernel_of(dtype, mt);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kFBlock,
+                                                      smem);
+  return static_cast<int>(e);
 }
 
 // One frame: `args` a FrameArgs (ops/fused_predictor.py _FrameArgs), nb
-// blocks (SMs x resident blocks), smem = the fixed part + 2 * args.buf.
+// blocks (SMs x resident blocks), smem = the fixed part + kFRing * chunk.
 int predictor_frame_launch(const void* args, int dtype, int mt, int nb,
                            int smem, void* stream) {
   if (args == nullptr || (dtype != 0 && dtype != 1) || nb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const FrameArgs a = *static_cast<const FrameArgs*>(args);
-  if (bad_frame(a, mt) ||
-      smem != fixed_smem(mt, kmax_of(a.H, a.nq, a.hd, a.F), a.hd,
-                         dtype == 0 ? 4 : 2) + 2 * a.buf)
+  const int tsize = dtype == 0 ? 4 : 2;
+  if (bad_frame(a, mt, tsize) ||
+      smem != fixed_smem(mt, kmax_of(a.H, a.nq, a.hd, a.F), a.hd, tsize) +
+                  kFRing * a.chunk)
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_kernel(dtype, mt, [&](auto kernel, int) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(nb, 1, 1);
-    cfg.blockDim = dim3(kFThreads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, kernel, a);
-    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-  });
+  const FrameKernel kernel = frame_kernel_of(dtype, mt);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb, 1, 1);
+  cfg.blockDim = dim3(kFBlock, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // extern "C"

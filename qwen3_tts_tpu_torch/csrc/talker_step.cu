@@ -26,8 +26,8 @@
 // Design (the machinery of predictor_frame.cu, csrc/persistent.cuh):
 //   * One cooperative launch, one block per SM. A block is 8 consumer
 //     warps and one producer warp. Dependent stages meet at a grid barrier
-//     of the consumer threads (named barrier 1, then the self-resetting
-//     generation counter); the producer never waits for one.
+//     of the consumer threads (named barrier 1, then the counting grid
+//     barrier of persistent.cuh); the producer never waits for one.
 //   * Stages of a layer, each a grid barrier apart: qkv (ln1 as its norm
 //     prologue, f32 out); attention; wo (added into the residual); gate /
 //     up (ln2; its packed columns interleave each 4 gate features with
@@ -76,7 +76,8 @@
 //     depends on timing; what it computes does not.
 //   * positions, slot, kv_len and valid_from are device int32 [B]; the grid
 //     and the plan depend on shapes only, so the launch replays in a CUDA
-//     graph. The grid barrier and the split counters reset themselves.
+//     graph. The split counters reset themselves; the grid barrier's
+//     count only grows, and each launch starts from where it stands.
 //   * A trace, compiled in only with -DKERNEL_TRACE (persistent.cuh
 //     kTrace) and on when args.trace is set: block 0's consumer thread 0
 //     writes %globaltimer at each grid barrier's arrival and release and
@@ -141,7 +142,7 @@ struct StepArgs {
   float* act;             // [B, F] silu(g) * u (T-rounded values)
   float* part;            // [B nk S][g (hd + 2)] split states
   unsigned* cnt;          // [B nk] split counters
-  unsigned* bar;          // [2 kGen]
+  unsigned long long* bar;  // the grid barrier's arrival count
   unsigned long long* trace;
   int kind[5];            // kDense, kInt8, kInt4
   int B, H, L, nq, nk, hd, F, V, Tc, S;
@@ -960,7 +961,10 @@ __global__ void __launch_bounds__(kSBlock, 1) talker_step(StepArgs a) {
   int ci = 0, ti = 0;
   unsigned long long waited = 0;
   unsigned long long* btr = kTrace && blockIdx.x == 0 ? a.trace : nullptr;
-  auto barrier = [&] { grid_barrier_first(a.bar, kSThreads, btr, ti); };
+  unsigned long long next = threadIdx.x == 0 ? grid_count_base(a.bar) : 0;
+  auto barrier = [&] {
+    grid_barrier_first(a.bar, next, kSThreads, btr, ti);
+  };
   for (int l = 0; l < a.L; ++l) {
     s_stage<T, kMT>(a, sm, 4 * l + kSQkv, ci, waited);
     barrier();

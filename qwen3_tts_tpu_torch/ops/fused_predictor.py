@@ -6,10 +6,11 @@ decided by `frame_route` before any launch, from the weights' kinds and the
 batch alone (JAX's own split is `usable` against `predictor.frame_codes`,
 `qwen3_tts_tpu/tts/generate.py:97-104`):
 
-  kernel  dense (f32 / bf16) or int8 weights and B <= MAX_B: one
-          persistent CUDA kernel a frame, `csrc/predictor_frame.cu`
-          (`predictor_frame_kernel`), the TPU kernel's own shape;
-  chain   int4 weights, or B > MAX_B: a chain of the port's kernels
+  kernel  dense (f32 / bf16) or int8 weights and B <= ROUTE_MAX_B of
+          their kinds: one persistent CUDA kernel a frame,
+          `csrc/predictor_frame.cu` (`predictor_frame_kernel`, which takes
+          B <= MAX_B), the TPU kernel's own shape;
+  chain   int4 weights, or a larger B: a chain of the port's kernels
           (`ops/chain.py`) driven from Python (`_frame`), which with the
           plain op set is also the kernel's plain version
           (`frame_codes_fused_plain`).
@@ -158,13 +159,21 @@ def frame_codes_fused_plain(params, cfg, ptab, ptab_rows, h1024, code_0):
 
 # ------------------------------------------------------------ frame kernel
 KERNEL, CHAIN = "kernel", "chain"
-# the TPU kernel's own batch limit (`max_b`,
-# qwen3_tts_tpu/ops/fused_predictor.py:905)
+# the kernel's batch cap (csrc/predictor_frame.cu kFMaxB), the TPU kernel's
+# own (`max_b`, qwen3_tts_tpu/ops/fused_predictor.py:905)
 MAX_B = 16
+# the route's, per weight kind: the largest B at which every end-to-end run
+# of a frame on the kernel beat every run on the chain (PERF.md's predictor
+# route table, tools/frame_measure.py route predictor); past it the runs
+# overlap (dense B = 12, both kinds at 16) or were not taken
+ROUTE_MAX_B = {"dense": 9, "int8": 12}
 UNIT = 8            # columns of a work unit (csrc/predictor_frame.cu kUnit)
 MAX_G = 4           # q heads per kv head
 MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kXPer)
-_WARPS = 8          # warps of a block (kFWarps)
+RING = 6            # ring buffers (kFRing): a deeper ring takes L1 the
+                    # kernel's spills need (PERF.md)
+CHUNK = 16 * 1024   # bytes of a ring buffer
+_WARPS = 8          # consumer warps of a block (kFWarps)
 _STAGES = ("qkv", "wo", "gu", "down", "head")
 _WEIGHTS = {"qkv": "wqkv", "wo": "wo", "gu": "w_gu", "down": "w_down"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -177,18 +186,29 @@ def _weights(params):
 
 def frame_route(params: Dict[str, Any], B: int) -> str:
     """KERNEL for dense or int8 predictor weights (any mix of the two) at
-    B <= MAX_B; CHAIN for int4 weights or B > MAX_B. Decided from the
-    weights' kinds and the batch alone, before any launch, never on a
-    failure: a kernel that does not build or launch raises."""
-    if B > MAX_B or any(quant.is_quantized4(w)
-                        for w in _weights(params).values()):
+    B <= ROUTE_MAX_B of each kind present; CHAIN for int4 weights or a
+    larger B. Decided from the weights' kinds and the batch alone, before
+    any launch, never on a failure: a kernel that does not build or launch
+    raises."""
+    weights = _weights(params).values()
+    if any(quant.is_quantized4(w) for w in weights):
         return CHAIN
-    return KERNEL
+    kinds = {"int8" if quant.is_quantized(w) else "dense" for w in weights}
+    return KERNEL if B <= min(ROUTE_MAX_B[k] for k in kinds) else CHAIN
 
 
-def row_chunk(B: int) -> int:
-    """x rows a block stages at once (kMT): 1, 2, else 4 (B > 4 loops)."""
-    return 1 if B == 1 else 2 if B == 2 else 4
+def row_pass(B: int, t_bytes: int) -> int:
+    """x rows a row pass stages (kMT): 1, 2, 4, else 8 in bf16 and 4 in
+    f32, so the staged rows take at most 16 bytes a K element (B > kMT:
+    ceil(B / kMT) passes over each stage, the weights streamed once a
+    pass; csrc/predictor_frame.cu frame_rows)."""
+    mt = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
+    return min(mt, 16 // t_bytes)
+
+
+def units_a_batch(mt: int) -> int:
+    """Units a batch: a thread holds 32 sums (64 at 8 rows)."""
+    return max(32, 8 * mt) // (8 * mt)
 
 
 def stage_shapes(cfg) -> Dict[str, Tuple[int, int]]:
@@ -208,49 +228,114 @@ def split_units(units: int, nb: int):
     return [(i * units // nb, (i + 1) * units // nb) for i in range(nb)]
 
 
+def unit_owner(x: int, units: int, nb: int) -> int:
+    """The block that owns unit x under `split_units` (csrc/
+    predictor_frame.cu unit_owner)."""
+    return ((x + 1) * nb - 1) // units
+
+
+def frame_barriers(cfg) -> int:
+    """Grid barriers a frame: four a layer pass (after qkv, wo with its
+    attention prologue, gate/up, down) and one after each of the 15 head
+    slices (csrc/predictor_frame.cu frame_barriers)."""
+    NB = protocol.NUM_CODEBOOKS
+    return NB * 4 * cfg.n_layers + NB - 1
+
+
 def frame_plan(cfg, B: int, nb: int) -> Dict[str, list]:
     """The kernel's work plan over nb blocks: per weight stage, each block's
-    range of 8-column units; "attention", each block's range of (row, kv
-    head) units b * nk + j (whole heads); "residual", each block's columns
-    of the residual it writes from a pass's source row."""
+    range of 8-column units; "attention", the (row, kv head) units b * nk +
+    j each block computes in wo's prologue (all of them where it holds wo
+    units, none elsewhere); "kv_store", the block that stores each unit's k
+    and v at slot p (the owner of wo unit u mod H / 8); "residual", each
+    block's columns of the residual it writes from a pass's source row."""
     plan = {st: split_units(N // UNIT, nb)
             for st, (_, N) in stage_shapes(cfg).items()}
-    plan["attention"] = split_units(B * cfg.n_kv_heads, nb)
+    units = B * cfg.n_kv_heads
+    plan["attention"] = [(0, units) if hi > lo else (0, 0)
+                         for lo, hi in plan["wo"]]
+    n_wo = cfg.hidden // UNIT
+    plan["kv_store"] = [unit_owner(u % n_wo, n_wo, nb) for u in range(units)]
     plan["residual"] = split_units(cfg.hidden, nb)
     return plan
 
 
 def frame_smem_fixed(cfg, B: int, t_bytes: int) -> int:
-    """Bytes of a block's shared memory besides the two weight buffers
-    (csrc/predictor_frame.cu fixed_smem): the staged x rows, the
-    reductions' scratch, stage 2's head vectors and scores."""
-    mt = row_chunk(B)
-    kmax = max(cfg.hidden, cfg.n_q_heads * cfg.head_dim, cfg.ffn_dim)
+    """Bytes of a block's shared memory besides the ring
+    (csrc/predictor_frame.cu fixed_smem): the ring's mbarriers, the trace's
+    sums, the staged x rows, the sums' scratch, the head's argmax and
+    codes, the warps' head vectors and attention scores."""
+    mt = row_pass(B, t_bytes)
+    hd, NB = cfg.head_dim, protocol.NUM_CODEBOOKS
+    kmax = max(cfg.hidden, cfg.n_q_heads * hd, cfg.ffn_dim)
     xs = -(-(mt * kmax * t_bytes) // 16) * 16
-    return 16 + xs + 4 * (_WARPS * 32 + 32 + 4 * MAX_B
-                     + (2 + MAX_G) * cfg.head_dim + protocol.NUM_CODEBOOKS)
+    return 2 * RING * 8 + TRACE_SUMS * 8 + xs + 4 * (
+        2 * _WARPS * 32 + 64 + 8 + 3 * MAX_B + _WARPS * hd
+        + _WARPS * MAX_G * (NB + 1))
 
 
-def frame_buffer_bytes(cfg, plan: Dict[str, list], w_bytes: Dict[str, int],
-                       fixed: int, smem_max: int) -> int:
-    """Bytes of each of the two weight buffers: the largest block slice of
-    any weight stage under `frame_plan` (units * 8 columns * K rows * bytes
-    a weight), at most what the block's shared memory leaves; a slice
-    larger than the buffer stages its first rows (the rest stream from
-    HBM)."""
-    need = 0
-    for st, (K, _) in stage_shapes(cfg).items():
-        most = max(hi - lo for lo, hi in plan[st])
-        need = max(need, most * UNIT * K * w_bytes[st])
-    room = (smem_max - fixed) // 2 // 16 * 16
-    return max(0, min(-(-need // 16) * 16, room))
+def frame_smem(fixed: int, smem_max: int) -> int:
+    """Bytes of a block's shared memory: the fixed part and the ring's RING
+    buffers of CHUNK bytes; raises where that exceeds smem_max."""
+    smem = fixed + RING * CHUNK
+    if smem > smem_max:
+        raise ValueError(f"predictor_frame: {fixed} bytes of fixed shared "
+                         f"memory leave no room for {RING} {CHUNK}-byte ring "
+                         f"buffers in {smem_max}")
+    return smem
+
+
+def row_bytes(kind: str, t_bytes: int) -> int:
+    """Bytes of one packed row of a unit (8 columns): T or int8."""
+    return UNIT * (t_bytes if kind == "dense" else 1)
+
+
+def chunk_rows(chunk: int, nub: int, wb: int, K: int) -> int:
+    """Rows of a batch of nub units a ring buffer holds (even: whole
+    16-byte copies), at most K (csrc/predictor_frame.cu f_chunk_rows)."""
+    return min(K, (chunk // (nub * wb)) & ~1)
+
+
+def frame_stages(cfg) -> list:
+    """The frame's weight stages in the kernel's order: (stage, layer,
+    head slice) for the 4 of each layer of pass 0, then per pass p >= 1
+    the layers' and head slice p - 1 (csrc/predictor_frame.cu stage_of)."""
+    layers = [(st, l, 0) for l in range(cfg.n_layers)
+              for st in _STAGES[:4]]
+    out = list(layers)
+    for p in range(1, protocol.NUM_CODEBOOKS):
+        out += layers + [("head", 0, p - 1)]
+    return out
+
+
+def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
+                   chunk: int) -> list:
+    """Block blk's ring chunks in the order producer and consumers walk
+    them (csrc/predictor_frame.cu FrameWalk): (stage index, stage, layer,
+    head slice, row pass, first unit, units, first row, rows)."""
+    out = []
+    mt = row_pass(B, t_bytes)
+    ub_n = units_a_batch(mt)
+    shapes = stage_shapes(cfg)
+    for s, (st, l, q) in enumerate(frame_stages(cfg)):
+        K, N = shapes[st]
+        wb = row_bytes(kinds[_STAGES.index(st)], t_bytes)
+        lo, hi = split_units(N // UNIT, nb)[blk]
+        for rc in range(-(-B // mt)):
+            for ul in range(lo, hi, ub_n):
+                nub = min(ub_n, hi - ul)
+                R = chunk_rows(chunk, nub, wb, K)
+                for r0 in range(0, K, R):
+                    out.append((s, st, l, q, rc, ul, nub, r0,
+                                min(R, K - r0)))
+    return out
 
 
 def pack_units(w: torch.Tensor) -> torch.Tensor:
     """The frame kernel's weight layout: w [..., K, N] -> [..., N / 8, K, 8],
-    each 8-column unit's K rows contiguous, so a block's slice of a stage
-    (contiguous units) is one contiguous range, copied into its shared
-    memory in bulk (csrc/predictor_frame.cu `issue`). Values unchanged."""
+    each 8-column unit's K rows contiguous, so a chunk of a block's batch of
+    units is one bulk copy a unit (csrc/predictor_frame.cu FrameWalk).
+    Values unchanged."""
     N = w.shape[-1]
     return w.reshape(*w.shape[:-1], N // UNIT, UNIT).transpose(-3, -2) \
         .contiguous()
@@ -334,17 +419,22 @@ class _FrameArgs(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p * 5), ("sc", ctypes.c_void_p * 5)] \
         + [(f, ctypes.c_void_p) for f in (
             "ln1", "ln2", "q_norm", "k_norm", "final_norm", "ptab", "h1024",
-            "code0", "codes", "xres", "qkv", "att", "gu", "kc", "vc", "cos",
-            "sin", "part_v", "part_i", "bar")] \
+            "code0", "codes", "xres", "qkv", "gu", "kc", "vc", "cos", "sin",
+            "part_v", "part_i", "bar")] \
         + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
-                                       "CV", "R", "rows0", "buf")] \
+                                       "CV", "R", "rows0", "chunk", "mode")] \
         + [("eps", ctypes.c_float), ("trace", ctypes.c_void_p)]
 
 
-# a [trace words] int64 CUDA tensor, or None: block 0's stage timeline
-# (tools/frame_measure.py trace; written only by a library built with
-# kernels/build.py trace_build)
+# a [blocks x TRACE_STRIDE] int64 CUDA tensor, or None: every block's stage
+# timeline (tools/frame_measure.py trace); MODE: NO_WORK cuts the products
+# out. Both are read only by a library built with kernels/build.py
+# trace_build.
 TRACE = None
+TRACE_STRIDE = 2048     # csrc/predictor_frame.cu kTrStride
+TRACE_SUMS = 40         # kTrSums: the trace's sums in shared memory
+MODE = 0
+NO_WORK = 1         # kNoWork
 
 
 def _geometry(cfg):
@@ -373,11 +463,10 @@ def _rope_table(cfg, dev):
 
 def _workspace(cfg, B: int, nb: int, dev):
     """Scratch of the kernel, kept per (geometry, B, device, stream): the
-    f32 residual, the qkv / attention / gate-up outputs, the frame cache
-    (never zeroed: only the slots a frame wrote are read), the head's
-    per-block partials and the barrier's arrival count and generation, a
-    cache line apart (zeroed once; the kernel leaves them ready for the
-    next launch)."""
+    f32 residual, the qkv and gate-up outputs, the frame cache (never
+    zeroed: only the slots a frame wrote are read), the head's per-block
+    partials and the grid barrier's arrival count (zeroed once: it only
+    grows, by the grid at every barrier, so it serves one grid size)."""
     key = (_geometry(cfg), B, nb, dev,
            torch.cuda.current_stream(dev).cuda_stream)
     if key not in _workspaces:
@@ -388,12 +477,11 @@ def _workspace(cfg, B: int, nb: int, dev):
         _workspaces[key] = dict(
             xres=torch.empty(B, H, **f32),
             qkv=torch.empty(B, (nq + 2 * nk) * hd, **f32),
-            att=torch.empty(B, nq * hd, **f32),
             gu=torch.empty(B, 2 * cfg.ffn_dim, **f32),
             kc=torch.empty(cache, **f32), vc=torch.empty(cache, **f32),
             part_v=torch.empty(nb, B, **f32),
             part_i=torch.empty(nb, B, dtype=torch.int32, device=dev),
-            bar=torch.zeros(64, dtype=torch.int32, device=dev))
+            bar=torch.zeros(1, dtype=torch.int64, device=dev))
     return _workspaces[key]
 
 
@@ -407,26 +495,21 @@ def _query(dtype: int, mt: int, smem: int):
     return out[0], out[1], out[2]
 
 
-def _plan(cfg, B: int, kinds, t_bytes: int, dev):
-    """(x rows a chunk, blocks, bytes a weight buffer, shared memory a
-    block): buffers sized at one block per SM, then the grid SMs x the
-    resident blocks per SM at that shared memory."""
-    key = (_geometry(cfg), B, kinds, dev)
+def _plan(cfg, B: int, t_bytes: int, dev):
+    """(x rows a pass, blocks, shared memory a block): the fixed part and
+    the ring, the grid SMs x the resident blocks per SM at that shared
+    memory."""
+    key = (_geometry(cfg), B, t_bytes, CHUNK, dev)
     if key not in _plans:
-        mt = row_chunk(B)
+        mt = row_pass(B, t_bytes)
         dtype = 0 if t_bytes == 4 else 1
         _, smem_max, sms = _query(dtype, mt, 0)
-        fixed = frame_smem_fixed(cfg, B, t_bytes)
-        w_bytes = {st: 1 if k == "int8" else t_bytes
-                   for st, k in zip(_STAGES, kinds)}
-        buf = frame_buffer_bytes(cfg, frame_plan(cfg, B, sms), w_bytes, fixed,
-                                 smem_max)
-        smem = fixed + 2 * buf
+        smem = frame_smem(frame_smem_fixed(cfg, B, t_bytes), smem_max)
         per_sm = _query(dtype, mt, smem)[0]
         if per_sm < 1:
             raise RuntimeError(f"predictor_frame: no block fits an SM at "
                                f"{smem} bytes of shared memory")
-        _plans[key] = (mt, sms * per_sm, buf, smem)
+        _plans[key] = (mt, sms * per_sm, smem)
     return _plans[key]
 
 
@@ -511,7 +594,7 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
     B = h1024.shape[0]
     from ..kernels import build
     with torch.cuda.device(dev):
-        mt, nb, buf, smem = _plan(cfg, B, kinds, t_bytes, dev)
+        mt, nb, smem = _plan(cfg, B, t_bytes, dev)
         ws = _workspace(cfg, B, nb, dev)
         cos, sin = _rope_table(cfg, dev)
         h = h1024.float().contiguous()
@@ -530,14 +613,18 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
                         ("h1024", h), ("code0", c0), ("codes", codes),
                         ("cos", cos), ("sin", sin)):
             setattr(a, name, t.data_ptr())
-        for name in ("xres", "qkv", "att", "gu", "kc", "vc", "part_v",
-                     "part_i", "bar"):
+        for name in ("xres", "qkv", "gu", "kc", "vc", "part_v", "part_i",
+                     "bar"):
             setattr(a, name, ws[name].data_ptr())
-        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.CV, a.R, a.rows0,
-         a.buf) = (B, cfg.hidden, cfg.n_layers, cfg.n_q_heads,
-                   cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
-                   protocol.CODE_VOCAB, ptab.shape[1], ptab_rows, buf)
+        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.CV, a.R, a.rows0, a.chunk,
+         a.mode) = (B, cfg.hidden, cfg.n_layers, cfg.n_q_heads,
+                    cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
+                    protocol.CODE_VOCAB, ptab.shape[1], ptab_rows, CHUNK,
+                    MODE)
         a.eps = cfg.rms_eps
+        if TRACE is not None and TRACE.numel() < nb * TRACE_STRIDE:
+            raise ValueError(f"predictor_frame: TRACE holds {TRACE.numel()} "
+                             f"words; {nb} blocks need {nb * TRACE_STRIDE}")
         a.trace = None if TRACE is None else TRACE.data_ptr()
         err = build.lib().predictor_frame_launch(
             ctypes.addressof(a), _DTYPES[dt], mt, nb, smem,

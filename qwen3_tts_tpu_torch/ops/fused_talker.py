@@ -395,19 +395,20 @@ def _geometry(cfg):
             cfg.head_dim, cfg.ffn_dim, cfg.vocab, cfg.dtype)
 
 
-# per (geometry, B, S, device, stream): the kernel's workspace; per
+# per (geometry, B, S, blocks, device, stream): the kernel's workspace; per
 # (geometry, B, dtype, device): the launch plan
 _workspaces: dict = {}
 _plans: dict = {}
 
 
-def _workspace(cfg, B: int, S: int, dev):
-    """Scratch of the kernel, kept per (geometry, B, splits, device,
-    stream): the f32 residual, the qkv product, the attention output and
-    silu(g) * u, the split states, and the split counters and the grid
-    barrier's words (zeroed once; the kernel leaves them ready for the next
-    launch)."""
-    key = (_geometry(cfg), B, S, dev,
+def _workspace(cfg, B: int, S: int, nb: int, dev):
+    """Scratch of the kernel, kept per (geometry, B, splits, blocks,
+    device, stream): the f32 residual, the qkv product, the attention output
+    and silu(g) * u, the split states, the split counters (zeroed once; the
+    kernel leaves them ready for the next launch) and the grid barrier's
+    arrival count (zeroed once: it only grows, by the grid at every
+    barrier, so it serves one grid size)."""
+    key = (_geometry(cfg), B, S, nb, dev,
            torch.cuda.current_stream(dev).cuda_stream)
     if key not in _workspaces:
         H, nq, nk, hd = (cfg.hidden, cfg.n_q_heads, cfg.n_kv_heads,
@@ -420,7 +421,7 @@ def _workspace(cfg, B: int, S: int, dev):
             act=torch.empty(B, cfg.ffn_dim, **f32),
             part=torch.empty(B * nk * S, (nq // nk) * (hd + 2), **f32),
             cnt=torch.zeros(B * nk, dtype=torch.int32, device=dev),
-            bar=torch.zeros(64, dtype=torch.int32, device=dev))
+            bar=torch.zeros(1, dtype=torch.int64, device=dev))
     return _workspaces[key]
 
 
@@ -549,7 +550,7 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
     with torch.cuda.device(dev):
         mt, nb, chunk, nbuf, smem = _plan(cfg, B, t_bytes, dev)
         S = step_splits(B, cfg.n_kv_heads, k_cache.shape[3], nb)
-        ws = _workspace(cfg, B, S, dev)
+        ws = _workspace(cfg, B, S, nb, dev)
         pos = _rows_i32(positions, B, dev)
         cos, sin = rope.rope_angles(rope.mrope_positions(pos[:, None]),
                                     cfg.mrope_sections, hd, cfg.rope_theta)

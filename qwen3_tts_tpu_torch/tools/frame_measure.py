@@ -2,27 +2,35 @@
 (PERF.md's stage traces and A/B numbers come from here). Run from the
 repo's root (each mode imports its `chip_smoke.py`):
 
-    python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace [B ...]
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure talker
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure int8mm
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py talker-ab TAG
-    python3 qwen3_tts_tpu_torch/tools/frame_measure.py route
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py route [predictor] [B ...]
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py frame-ab TAG
 
 Both persistent kernels carry a trace that is compiled in only for
 `trace` and `talker` (`kernels/build.py trace_build`, -DKERNEL_TRACE: a
 library of its own, built in the measuring process) and on while a
-trace buffer is set (`fused_predictor.TRACE`, `fused_talker.TRACE`):
-block 0's thread 0 writes %globaltimer at each grid barrier's arrival and
-release (`csrc/persistent.cuh grid_barrier_first`) and sums some phases of
-its stages. The library the port runs has none of it.
+trace buffer is set (`fused_predictor.TRACE`, `fused_talker.TRACE`). The
+library the port runs has none of it.
 
-trace   the predictor frame kernel's stage timeline: full width, dense
-        bf16 and int8, B = 1 and 16: ms a frame (CUDA events over 10
-        frames), per stage kind (qkv, attention, wo, gate/up, down, head)
-        block 0's work, its barrier wait and the stage's total, in us a
-        stage; block 0's products (to their inputs, the rest), its norm
-        inputs (loads, row reduction) and its waits for a stage's copies.
+trace   the predictor frame kernel's timeline: full width, dense bf16 and
+        int8, at each B given (1 and 16 by default), each in two modes
+        (`fused_predictor.MODE`): as built, and with the products cut out
+        (nowork: no weight copies, no sums; barriers, prologues and
+        epilogues are left). Per run: ms a frame (CUDA events over 10
+        frames), the grid barriers the kernel met against the host's
+        count, us a layer pass; from every block's stamps of every grid
+        barrier (arrival, release), per stage kind (qkv, wo with its
+        attention prologue, gate/up, down, head) the median block's work,
+        the spread of arrivals, last arrival to first release, the spread
+        of releases and the stage's time; per block on average the time
+        from a stage's start to its first activation data, the products'
+        phases (first chunk in, last chunk read, end), the attention
+        prologue, and a frame's ring waits: the consumers' for full
+        buffers, the producer's for free ones.
 talker  the talker step kernel's stage timeline: full width,
         dense bf16, int8 and int4, B = 1 and 2, a 256-slot cache with ~100
         live slots; ms a step (CUDA events over 10 steps) and per stage
@@ -43,16 +51,28 @@ ab      one tree's side of a parent-vs-change A/B, run from the tree's
 talker-ab  the same with the talker step first: `talker_step_fused` at
         full width, dense, int8 and int4, B = 1 and 2, device ms a step
         (profiler) and ms a step of eager calls (CUDA events); then `ab`.
-route   the measurement behind the talker route's batch limits
-        (`ops/fused_talker.py MAX_B`, `INT4_MAX_B`), end to end:
-        `generate_codes` (ignore_eos) at full width, dense bf16 and
-        int4+int8, B = 1, 2, 4, 8, 16, with the talker on its step kernel
-        (both limits set to MAX_B) and on its chain (both set to 0), in
-        turns kernel, chain,
-        chain, kernel: ms a frame (CUDA events over 16 frames, the
-        prefill subtracted; the host loop's pace where it bounds the
-        frame) and device ms a frame (profiler, prefill + 4 frames less
-        the prefill).
+route [predictor] [B ...]
+        the measurement behind the talker route's batch limits
+        (`ops/fused_talker.py MAX_B`, `INT4_MAX_B`), or with `predictor`
+        the frame route's (`ops/fused_predictor.py ROUTE_MAX_B`), end to
+        end: `generate_codes` (ignore_eos) at full width, at each B given
+        (1, 2, 4, 8, 16 by default), the talker with dense bf16 and
+        int4+int8 weights (the predictor: dense bf16 and int8/int8) on its
+        kernel (the limits set to the kernel's cap) and on its chain (set
+        to 0), in turns
+        kernel, chain, chain, kernel: ms a frame (CUDA events over 16
+        frames, the prefill subtracted; the host loop's pace where it
+        bounds the frame) and device ms a frame (profiler, prefill + 4
+        frames less the prefill).
+frame-ab  one tree's side of a parent-vs-change A/B of both persistent
+        kernels, run from the tree's root like `ab`: device ms of the
+        talker step kernel (dense and int8 at B = 1 and 16, int4 at B =
+        1) and of the frame kernel (dense and int8 at B = 1, 4, 8, 16) by
+        CUDA-graph replay; then `generate_codes` ms a frame as `route`
+        times it, dense bf16 and int8/int8 at B = 1, 4, 8, 16, twice on
+        the frame kernel's route and, at B = 8 and 16, once on the chain.
+        Run the trees in turns, parent, change, change, parent, ..., five
+        processes a side.
 """
 
 from __future__ import annotations
@@ -60,13 +80,85 @@ from __future__ import annotations
 import os
 import sys
 
-STAGES = ("qkv", "attn", "wo", "gu", "down")
-TRACE_WORDS = 2000          # the timeline buffer, int64 words
-# csrc/predictor_frame.cu kTrT0, kTrProd, kTrNorm, kTrWait
-T0, PHASES, NORM, WAIT = 1999, 1900, 1960, 1980
+TRACE_WORDS = 2000          # the talker's timeline buffer, int64 words
+# csrc/predictor_frame.cu: a block's trace words from blk * kTrStride
+# (fused_predictor.TRACE_STRIDE): kTrT0, kTrEnd, kTrNBar, kTrFirst,
+# kTrCWait, kTrPWait, kTrAttn, kTrProd
+F_T0, F_END, F_NBAR, F_FIRST = 1920, 1921, 1922, 1924
+F_CWAIT, F_PWAIT, F_ATTN, F_PROD = 1934, 1936, 1938, 1940
+F_BARS = 960                # barriers stamped (kTrBars)
+FRAME_STAGES = ("qkv", "wo", "gu", "down", "head")
+MODES = {"": 0, "nowork": 1}     # fused_predictor.MODE
 
 
-def run_trace() -> None:
+def frame_kinds(cfg) -> list:
+    """The stage kind ending at each grid barrier of a frame: per pass the
+    layers' qkv, wo (with attention), gu, down, then the head slice after
+    passes 1..15 (csrc/predictor_frame.cu's order)."""
+    out = []
+    for p in range(16):
+        out += list(FRAME_STAGES[:4]) * cfg.n_layers + (["head"] if p else [])
+    return out
+
+
+def read_trace(tr, nb: int, cfg, frames: int) -> dict:
+    """Every block's words of a traced run (`tr`: the flat int64 trace as a
+    list; the barrier stamps are the last frame's, the sums over `frames`):
+    per stage kind the median block's work (its arrival less its previous
+    release), the blocks' arrival spread (last less first arrival), the
+    barrier's latency (first release less last arrival) and release spread,
+    the stage's time (median release less the previous median release);
+    us a layer pass; per block on average the time to a stage's first
+    activation data, the products, the attention prologue, the consumers'
+    waits for full buffers and the producer's for free ones, us a frame."""
+    import statistics as st
+    S = 2048
+    blk = [tr[b * S:(b + 1) * S] for b in range(nb)]
+    kinds = frame_kinds(cfg)
+    nbar = blk[0][F_NBAR]
+    out = {"barriers": nbar, "host_barriers": len(kinds)}
+    n = min(nbar, F_BARS, len(kinds))
+    prev = [b[F_T0] for b in blk]
+    prev_med = st.median(prev)
+    per = {k: {"work": [], "spread": [], "latency": [], "rspread": [],
+               "stage": []} for k in FRAME_STAGES}
+    for i in range(n):
+        arr = [b[2 * i] for b in blk]
+        rel = [b[2 * i + 1] for b in blk]
+        d = per[kinds[i]]
+        d["work"].append(st.median(a - p for a, p in zip(arr, prev)))
+        d["spread"].append(max(arr) - min(arr))
+        d["latency"].append(min(rel) - max(arr))
+        d["rspread"].append(max(rel) - min(rel))
+        med = st.median(rel)
+        d["stage"].append(med - prev_med)
+        prev, prev_med = rel, med
+    for k, d in per.items():
+        out[k] = {m: (sum(v) / len(v) / 1e3 if v else 0.0)
+                  for m, v in d.items()}
+    layer = sum(sum(per[k]["stage"]) for k in FRAME_STAGES[:4])
+    out["us_layer_pass"] = layer / (16 * cfg.n_layers) / 1e3
+    out["timeline_ms"] = (max(b[F_END] for b in blk)
+                          - min(b[F_T0] for b in blk)) / 1e6
+
+    def mean(f):
+        return sum(f(b) for b in blk) / nb
+
+    out["first"] = {k: mean(lambda b, m=m: b[F_FIRST + 2 * m]
+                            / max(b[F_FIRST + 2 * m + 1], 1)) / 1e3
+                    for m, k in enumerate(FRAME_STAGES)}
+    out["prod"] = {k: tuple(mean(lambda b, m=m, i=i: b[F_PROD + 4 * m + i]
+                                 / max(b[F_PROD + 4 * m + 3], 1)) / 1e3
+                            for i in range(3))
+                   for m, k in enumerate(FRAME_STAGES)}
+    out["attn"] = mean(lambda b: b[F_ATTN] / max(b[F_ATTN + 1], 1)) / 1e3
+    out["cwait"] = mean(lambda b: b[F_CWAIT]) / frames / 1e3
+    out["chunks"] = mean(lambda b: b[F_CWAIT + 1]) / frames
+    out["pwait"] = mean(lambda b: b[F_PWAIT]) / frames / 1e3
+    return out
+
+
+def run_trace(batches=(1, 16), modes=("", "nowork")) -> None:
     """The predictor frame kernel's timeline (module docstring, `trace`)."""
     import torch
     import chip_smoke as c
@@ -82,58 +174,63 @@ def run_trace() -> None:
     c.phase_build()
     dev = torch.device("cuda")
     cfg = EngineConfig().predictor
-    fp.TRACE = torch.zeros(TRACE_WORDS, dtype=torch.int64, device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
     dense = decoder.init_decoder(g, cfg, device=dev)
     assets = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
                                   proj_dim=cfg.hidden, device=dev)
     ptab, rows = fp.make_ptab(assets, cfg)
-    seq = []
-    for p in range(16):
-        seq += list(STAGES) * cfg.n_layers + (["head"] if p else [])
+    frames = 10
     for kind, pp in (("dense", dense),
                      ("int8", quant.quantize_decoder_params(dense, "int8"))):
-        for B in (1, 16):
+        for B in batches:
             h = torch.randn(B, cfg.hidden, generator=g, device=dev)
             c0 = torch.randint(0, 2048, (B,), generator=g, device=dev)
-            for _ in range(3):
-                fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
-            fp.TRACE.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(10):
-                fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
-            e.record()
-            torch.cuda.synchronize()
-            tr = fp.TRACE.cpu().tolist()
-            work, wait = {}, {}
-            prev = tr[T0]
-            for i, k in enumerate(seq):        # the last frame's timeline
-                work.setdefault(k, []).append(tr[2 * i] - prev)
-                wait.setdefault(k, []).append(tr[2 * i + 1] - tr[2 * i])
-                prev = tr[2 * i + 1]
-            line = (f"predictor {kind} B={B}: {s.elapsed_time(e) / 10:.3f} "
-                    f"ms a frame (CUDA events) on {card}; timeline "
-                    f"{(prev - tr[T0]) / 1e6:.3f} ms; us a stage, block 0's "
-                    "work / barrier wait / total:")
-            for k in (*STAGES, "head"):
-                w = sum(work[k]) / len(work[k]) / 1e3
-                b = sum(wait[k]) / len(wait[k]) / 1e3
-                line += f" {k} {w:.2f}/{b:.2f}/{w + b:.2f}"
-            print(line, flush=True)
-            ph = tr[PHASES:PHASES + 20]
-            line = "   block 0's products, us a call (to inputs / rest):"
-            for i, k in enumerate(("qkv", "wo", "gu", "down", "head")):
-                n = max(ph[i * 4 + 3], 1)
-                line += (f" {k} {ph[i * 4 + 1] / n / 1e3:.2f}/"
-                         f"{ph[i * 4 + 2] / n / 1e3:.2f}")
-            n = max(tr[NORM + 3], 1)
-            line += (f"; norm inputs: loads {tr[NORM] / n / 1e3:.2f}, "
-                     f"row reduction {tr[NORM + 1] / n / 1e3:.2f}; copy "
-                     f"wait {tr[WAIT] / max(tr[WAIT + 1], 1) / 1e3:.2f}")
-            print(line, flush=True)
-    fp.TRACE = None
+            with torch.cuda.device(dev):
+                nb = fp._plan(cfg, B, 2, dev)[1]
+            fp.TRACE = torch.zeros(nb * fp.TRACE_STRIDE, dtype=torch.int64,
+                                   device=dev)
+            for mode in modes:
+                fp.MODE = MODES[mode]
+                for _ in range(3):
+                    fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
+                fp.TRACE.zero_()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                for _ in range(frames):
+                    fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
+                e.record()
+                torch.cuda.synchronize()
+                r = read_trace(fp.TRACE.cpu().tolist(), nb, cfg, frames)
+                tag = f"predictor {kind} B={B}{' ' + mode if mode else ''}"
+                print(f"{tag}: {s.elapsed_time(e) / frames:.4f} ms a frame "
+                      f"(CUDA events, traced build) on {card}; {nb} blocks; "
+                      f"timeline {r['timeline_ms']:.4f} ms; grid barriers "
+                      f"{r['barriers']} (host {r['host_barriers']}); "
+                      f"{r['us_layer_pass']:.2f} us a layer pass", flush=True)
+                print("   us a stage (median block's work / arrival spread "
+                      "/ last arrival to first release / release spread / "
+                      "stage): " + "; ".join(
+                          f"{k} " + "/".join(f"{r[k][m]:.2f}" for m in (
+                              "work", "spread", "latency", "rspread",
+                              "stage"))
+                          for k in FRAME_STAGES), flush=True)
+                print("   a block's mean us: to first data " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in r["first"].items())
+                    + "; products (first chunk in / last chunk read / "
+                    "end) " + ", ".join(
+                        f"{k} " + "/".join(f"{x:.2f}" for x in v)
+                        for k, v in r["prod"].items())
+                    + f"; attention prologue {r['attn']:.2f}; ring waits a "
+                    f"frame: consumers {r['cwait']:.1f} over "
+                    f"{r['chunks']:.0f} chunks, producer {r['pwait']:.1f}",
+                    flush=True)
+                if r["barriers"] != r["host_barriers"]:
+                    raise RuntimeError(
+                        f"predictor_frame: the kernel met {r['barriers']} "
+                        f"grid barriers, the host counts "
+                        f"{r['host_barriers']}")
+    fp.TRACE, fp.MODE = None, 0
 
 
 def step_weights(cfg, kind, seed):
@@ -268,59 +365,91 @@ def talker_ab(tag: str) -> None:
     ab(tag)
 
 
-def route_times() -> None:
-    """Both talker routes end to end (module docstring, `route`)."""
+def codes_runs(models, cfg, prompt, pad, frames):
+    """(run, timed) for `generate_codes` (ignore_eos) of `models` at the
+    engine config `cfg` on a [B, 64, H] prompt: run(steps) generates
+    `steps` frames, timed(steps) returns its ms (CUDA events)."""
+    import torch
+    from qwen3_tts_tpu_torch.tts import generate
+    dev = prompt.device
+
+    def run(steps):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.inference_mode():
+            generate.generate_codes(
+                models, cfg.talker, cfg.predictor, prompt, pad, gen, 0.7, 40,
+                0.9, frames, ignore_eos=True, step_cap=steps)
+
+    def timed(steps):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        run(steps)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e)
+
+    return run, timed
+
+
+def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
+    """Both routes of the talker step, or of the predictor frame, end to
+    end (module docstring, `route`)."""
     import torch
     import chip_smoke as c
     card = c.phase_device()
     c.phase_build()
     from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
-    from qwen3_tts_tpu_torch.tts import generate
 
     spk = os.path.join(c.REPO, "speakers")
     eng = TtsEngine(config=EngineConfig(), random_weights=True, seed=0,
                     speakers_dir=spk, device="cuda")
     cfg, dev = eng.config, eng.device
-    q48 = c.quantized_models(eng.models, "int4", "int8")
     g = torch.Generator(device=dev).manual_seed(7)
-    frames, limits = 16, (ft.MAX_B, ft.INT4_MAX_B)
-    for label, models in (("dense bf16", eng.models), ("int4+int8", q48)):
-        for B in (1, 2, 4, 8, 16):
+    frames = 16
+    if which == "talker":
+        sets = (("dense bf16", eng.models),
+                ("int4+int8", c.quantized_models(eng.models, "int4", "int8")))
+        kernel = ft.talker_step_kernel
+        limits = (ft.MAX_B, ft.INT4_MAX_B)
+
+        def set_route(route):
+            ft.MAX_B = ft.INT4_MAX_B = limits[0] if route == "kernel" else 0
+
+        def restore():
+            ft.MAX_B, ft.INT4_MAX_B = limits
+    else:
+        sets = (("dense bf16", eng.models),
+                ("int8/int8", c.quantized_models(eng.models, "int8", "int8")))
+        kernel = fp.predictor_frame_kernel
+        limits = fp.ROUTE_MAX_B
+
+        def set_route(route):
+            fp.ROUTE_MAX_B = {k: fp.MAX_B if route == "kernel" else 0
+                              for k in limits}
+
+        def restore():
+            fp.ROUTE_MAX_B = limits
+    for label, models in sets:
+        for B in batches:
             prompt = 0.1 * torch.randn(B, 64, cfg.talker.hidden,
                                        generator=g, device=dev)
             pad = torch.zeros(B, dtype=torch.int32, device=dev)
 
-            def run(steps, models=models, prompt=prompt, pad=pad):
-                gen = torch.Generator(device=dev).manual_seed(0)
-                with torch.inference_mode():
-                    generate.generate_codes(
-                        models, cfg.talker, cfg.predictor, prompt, pad, gen,
-                        0.7, 40, 0.9, frames, ignore_eos=True,
-                        step_cap=steps)
-
-            def timed(steps):
-                torch.cuda.synchronize()
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                run(steps)
-                e.record()
-                torch.cuda.synchronize()
-                return s.elapsed_time(e)
-
+            run, timed = codes_runs(models, cfg, prompt, pad, frames)
             wall, device = {}, {}
             try:
                 for route in ("kernel", "chain", "chain", "kernel"):
-                    ft.MAX_B = ft.INT4_MAX_B = \
-                        limits[0] if route == "kernel" else 0
+                    set_route(route)
                     run(2)                               # warm up
-                    n0 = ft.talker_step_kernel.launches
+                    n0 = kernel.launches
                     total = timed(frames)
-                    if (ft.talker_step_kernel.launches > n0) != \
-                            (route == "kernel"):
+                    if (kernel.launches > n0) != (route == "kernel"):
                         raise RuntimeError(f"route: B={B} did not take the "
-                                           f"talker's {route} route")
+                                           f"{which}'s {route} route")
                     wall.setdefault(route, []).append(
                         (total - timed(0)) / frames)
                     if route not in device:
@@ -329,12 +458,82 @@ def route_times() -> None:
                         device[route] = None if d4 is None or d0 is None \
                             else (d4 - d0) / 4
             finally:
-                ft.MAX_B, ft.INT4_MAX_B = limits
-            print(f"  route {label} B={B}: ms a frame (CUDA events) kernel "
-                  f"{[round(v, 3) for v in wall['kernel']]}, chain "
+                restore()
+            print(f"  route {which} {label} B={B}: ms a frame (CUDA events) "
+                  f"kernel {[round(v, 3) for v in wall['kernel']]}, chain "
                   f"{[round(v, 3) for v in wall['chain']]}; device ms a "
                   f"frame (profiler) kernel {c._fmt(device['kernel'])}, "
                   f"chain {c._fmt(device['chain'])} on {card}", flush=True)
+
+
+def frame_ab(tag: str) -> None:
+    """One tree's side of an A/B of both persistent kernels (module
+    docstring, `frame-ab`)."""
+    import torch
+    import chip_smoke as c
+    card = c.phase_device()
+    c.phase_build()
+    from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+
+    cfg = EngineConfig()
+    for kind, batches in (("dense", (1, 16)), ("int8", (1, 16)),
+                          ("int4", (1,))):
+        for B in batches:
+            args = (step_weights(cfg.talker, kind, 300 + B), cfg.talker) \
+                + step_inputs(cfg.talker, B, 256, 100, 301 + B)
+            ms = c.graph_ms(lambda: ft.talker_step_kernel(*args), reps=10)
+            print(f"  {tag} talker_step {kind} B={B}: {ms:.4f} ms a step "
+                  f"(graph replay) on {card}", flush=True)
+            del args
+    for kind in ("dense", "int8"):
+        for B in (1, 4, 8, 16):
+            pp, *rest = c.frame_case(cfg.predictor, kind, B, 90 + B)
+            args = (pp, cfg.predictor, *rest)
+            ms = c.graph_ms(lambda: fp.predictor_frame_kernel(*args),
+                            reps=10)
+            print(f"  {tag} predictor_frame {kind} B={B}: {ms:.4f} ms a "
+                  f"frame (graph replay) on {card}", flush=True)
+            del pp, rest, args
+    spk = os.path.join(c.REPO, "speakers")
+    eng = TtsEngine(config=cfg, random_weights=True, seed=0,
+                    speakers_dir=spk, device="cuda")
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    frames = 16
+    route = fp.frame_route
+    kernel = fp.predictor_frame_kernel
+    try:
+        for label, models in (
+                ("dense bf16", eng.models),
+                ("int8/int8", c.quantized_models(eng.models, "int8",
+                                                 "int8"))):
+            for B in (1, 4, 8, 16):
+                prompt = 0.1 * torch.randn(B, 64, cfg.talker.hidden,
+                                           generator=g, device=dev)
+                pad = torch.zeros(B, dtype=torch.int32, device=dev)
+                run, timed = codes_runs(models, cfg, prompt, pad, frames)
+                wall = {}
+                for way in ("kernel", "kernel") + (
+                        ("chain",) if B >= 8 else ()):
+                    fp.frame_route = (lambda params, b, w=way: fp.KERNEL
+                                      if w == "kernel" else fp.CHAIN)
+                    run(2)                               # warm up
+                    n0 = kernel.launches
+                    total = timed(frames)
+                    if (kernel.launches > n0) != (way == "kernel"):
+                        raise RuntimeError(f"frame-ab: B={B} did not take "
+                                           f"the {way} route")
+                    wall.setdefault(way, []).append(
+                        (total - timed(0)) / frames)
+                print(f"  {tag} route predictor {label} B={B}: ms a frame "
+                      f"(CUDA events) " + ", ".join(
+                          f"{w} {[round(v, 3) for v in vs]}"
+                          for w, vs in wall.items()) + f" on {card}",
+                      flush=True)
+    finally:
+        fp.frame_route = route
 
 
 def int8mm() -> None:
@@ -411,7 +610,7 @@ def ab(tag: str) -> None:
 def main(argv) -> int:
     sys.path.insert(0, os.getcwd())
     if argv[:1] == ["trace"]:
-        run_trace()
+        run_trace(tuple(int(b) for b in argv[1:]) or (1, 16))
         return 0
     if argv[:1] == ["int8mm"]:
         int8mm()
@@ -425,8 +624,13 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "talker-ab":
         talker_ab(argv[1])
         return 0
+    if len(argv) == 2 and argv[0] == "frame-ab":
+        frame_ab(argv[1])
+        return 0
     if argv[:1] == ["route"]:
-        route_times()
+        which = argv[1] if argv[1:2] and not argv[1].isdigit() else "talker"
+        batches = tuple(int(b) for b in argv[1:] if b.isdigit())
+        route_times(which, batches or (1, 2, 4, 8, 16))
         return 0
     print(__doc__)
     return 2

@@ -523,15 +523,23 @@ def _frame_case(dev, cfg, kind, B, seed, peak=False):
     return pp, ptab, rows, h, code0
 
 
-@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("B", [1, 2, 3, 16])
 def test_predictor_frame_tiny_f32_codes_equal_plain(dev, B):
     """The frame kernel at the tiny f32 config: codes equal to the plain
-    version on the card and on the CPU; one launch a frame."""
+    version on the card and on the CPU; the routed entry launches it once
+    a frame where frame_route takes it (B <= 9 dense), and the kernel
+    itself takes every B <= MAX_B."""
     cfg = tiny_engine_config().predictor
     pp, ptab, rows, h, code0 = _frame_case(dev, cfg, "dense", B, 21 + B)
+    routed = fused_predictor.frame_route(pp, B) == fused_predictor.KERNEL
+    assert routed == (B <= fused_predictor.ROUTE_MAX_B["dense"])
     before = fused_predictor.predictor_frame_kernel.launches
     got = fused_predictor.frame_codes_fused(pp, cfg, ptab, rows, h, code0)
-    assert fused_predictor.predictor_frame_kernel.launches == before + 1
+    assert fused_predictor.predictor_frame_kernel.launches == before + routed
+    if not routed:
+        got = fused_predictor.predictor_frame_kernel(pp, cfg, ptab, rows, h,
+                                                     code0)
+        assert fused_predictor.predictor_frame_kernel.launches == before + 1
     want = fused_predictor.frame_codes_fused_plain(pp, cfg, ptab, rows, h,
                                                    code0)
     assert torch.equal(got, want)

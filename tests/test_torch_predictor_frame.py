@@ -70,14 +70,18 @@ def _meta_params(cfg, kind):
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
-@pytest.mark.parametrize("B", [1, 16, 17])
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 9, 10, 12, 13, 16, 17])
 def test_route(config, kind, B, monkeypatch):
-    """Dense or int8 weights at B <= 16 go to the frame kernel; int4
-    weights or B > 16 to the chain, and frame_codes_fused takes that
-    route."""
+    """Dense weights at B <= 9 and int8 weights at B <= 12 go to the
+    frame kernel (every end-to-end run on it beat every run on the chain
+    there on the card); int4 weights or larger batches to the chain, and
+    frame_codes_fused takes that route."""
+    assert fp.ROUTE_MAX_B == {"dense": 9, "int8": 12}
+    assert max(fp.ROUTE_MAX_B.values()) <= fp.MAX_B
     cfg = CONFIGS[config]
     params = _meta_params(cfg, kind)
-    want = fp.CHAIN if kind == "int4" or B > fp.MAX_B else fp.KERNEL
+    want = fp.CHAIN if kind == "int4" or B > fp.ROUTE_MAX_B[kind] \
+        else fp.KERNEL
     assert fp.frame_route(params, B) == want
     taken = []
     monkeypatch.setattr(fp, "predictor_frame_kernel",
@@ -92,6 +96,9 @@ def test_route_mixed_dense_int8_is_kernel_and_int4_anywhere_is_chain():
     params = _meta_params(TINY, "dense")
     mixed = dict(params, head=_meta_params(TINY, "int8")["head"])
     assert fp.frame_route(mixed, 4) == fp.KERNEL
+    assert fp.frame_route(mixed, 9) == fp.KERNEL
+    assert fp.frame_route(mixed, 10) == fp.CHAIN    # the dense limit
+    assert fp.frame_route(mixed, fp.MAX_B + 1) == fp.CHAIN
     one4 = dict(params, head=_meta_params(TINY, "int4")["head"])
     assert fp.frame_route(one4, 1) == fp.CHAIN
 
@@ -101,16 +108,19 @@ def test_route_mixed_dense_int8_is_kernel_and_int4_anywhere_is_chain():
 @pytest.mark.parametrize("B", [1, 2, 16])
 def test_work_plan_covers_each_column_once(config, nb, B):
     """Every output column of every stage goes to exactly one block, in
-    contiguous ranges in block order; stage 2's units are whole (row, kv
-    head) pairs, each once; the residual's columns once."""
+    contiguous ranges in block order; the residual's columns once. Every
+    block holding wo columns computes every (row, kv head) attention unit
+    in wo's prologue, the others none; each unit's k / v store at slot p
+    falls to one block, and that block holds wo columns."""
     cfg = CONFIGS[config]
     plan = fp.frame_plan(cfg, B, nb)
     shapes = fp.stage_shapes(cfg)
+    units = B * cfg.n_kv_heads
     for stage, ranges in plan.items():
+        if stage in ("attention", "kv_store"):
+            continue
         assert len(ranges) == nb
-        if stage == "attention":
-            total = B * cfg.n_kv_heads
-        elif stage == "residual":
+        if stage == "residual":
             total = cfg.hidden
         else:
             total = shapes[stage][1] // fp.UNIT
@@ -122,50 +132,143 @@ def test_work_plan_covers_each_column_once(config, nb, B):
             owner[lo:hi] = blk
         assert (owner >= 0).all(), stage
         assert (np.diff(owner) >= 0).all()      # contiguous, block order
-        if stage not in ("attention", "residual"):
-            cols = np.repeat(owner, fp.UNIT)
-            assert cols.shape == (shapes[stage][1],)
-    # stage 2: a unit is one row's kv head with its whole q group
-    for lo, hi in plan["attention"]:
-        for u in range(lo, hi):
-            b, j = divmod(u, cfg.n_kv_heads)
-            assert 0 <= b < B and 0 <= j < cfg.n_kv_heads
-    assert fp.row_chunk(B) == {1: 1, 2: 2}.get(B, 4)
+        if stage != "residual":
+            for x in range(total):
+                assert fp.unit_owner(x, total, nb) == owner[x]
+    assert set(plan) == set(fp._STAGES) | {"attention", "kv_store",
+                                           "residual"}
+    for (lo, hi), (a0, a1) in zip(plan["wo"], plan["attention"]):
+        assert (a0, a1) == ((0, units) if hi > lo else (0, 0))
+    assert len(plan["kv_store"]) == units
+    for u, blk in enumerate(plan["kv_store"]):
+        lo, hi = plan["wo"][blk]
+        assert hi > lo and plan["attention"][blk] == (0, units)
+    assert fp.row_pass(B, 2) == {1: 1, 2: 2}.get(B, 4 if B <= 4 else 8)
+    assert fp.row_pass(B, 4) == {1: 1, 2: 2}.get(B, 4)
+
+
+# the ring's walk at three widths: the tiny CPU config, a small one with
+# grouped heads, and the full predictor cut to 2 layers
+SMALL = PredictorConfig(hidden=256, n_layers=2, n_q_heads=4, n_kv_heads=2,
+                        head_dim=64, ffn_dim=512, max_seq=32,
+                        mrope_sections=(32, 0, 0, 0), dtype="bfloat16")
+WALKS = {"tiny": TINY, "small": SMALL,
+         "full": dataclasses.replace(FULL, n_layers=2)}
+MIXED = ("int8", "dense", "int8", "dense", "int8")
+
+
+@pytest.mark.parametrize("config", sorted(WALKS))
+@pytest.mark.parametrize("kinds", ["dense", "int8", "mixed"])
+@pytest.mark.parametrize("B", [1, 2, 5, 16])
+def test_ring_chunks_cover_each_weight_row_once(config, kinds, B):
+    """The producer's and the consumers' chunk sequence of a block, bf16
+    and f32: stage after stage in the kernel's order (each layer's qkv,
+    wo, gate/up, down, the head slice after each pass from the second),
+    within a stage row pass, unit batch and rows in order; per stage and
+    row pass, every packed row of every unit the block owns in exactly one
+    chunk, each chunk at most a buffer, whole 16-byte copies, at least
+    two rows."""
+    cfg = WALKS[config]
+    kinds = MIXED if kinds == "mixed" else (kinds,) * 5
+    nb = 132
+    stages = fp.frame_stages(cfg)
+    assert len(stages) == fp.frame_barriers(cfg)
+    for t_bytes in (2, 4):
+        mt = fp.row_pass(B, t_bytes)
+        for blk in (0, 57, nb - 1):
+            seq = fp.chunk_sequence(cfg, B, nb, blk, kinds, t_bytes,
+                                    fp.CHUNK)
+            keys = [(s, rc, ul, r0) for s, _, _, _, rc, ul, _, r0, _ in seq]
+            assert keys == sorted(keys) and len(set(keys)) == len(keys)
+            seen = {}
+            for s, st, l, q, rc, ul, nub, r0, rn in seq:
+                assert stages[s] == (st, l, q)
+                wb = fp.row_bytes(kinds[fp._STAGES.index(st)], t_bytes)
+                assert nub * rn * wb <= fp.CHUNK and (rn * wb) % 16 == 0
+                assert rn >= 2 and 1 <= nub <= fp.units_a_batch(mt)
+                for u in range(ul, ul + nub):
+                    seen.setdefault((s, rc, u), []).append((r0, rn))
+            shapes = fp.stage_shapes(cfg)
+            for s, (st, l, q) in enumerate(stages):
+                K, N = shapes[st]
+                lo, hi = fp.split_units(N // fp.UNIT, nb)[blk]
+                for rc in range(-(-B // mt)):
+                    for u in range(lo, hi):
+                        rows = sorted(seen.pop((s, rc, u)))
+                        assert rows[0][0] == 0
+                        assert all(a + n == b for (a, n), (b, _)
+                                   in zip(rows, rows[1:]))
+                        assert rows[-1][0] + rows[-1][1] == K
+            assert not seen
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("kind", ["dense", "int8"])
-@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
 def test_shared_memory_plan_fits_a_block(config, kind, B):
-    """The two weight buffers and the fixed part fit the H100's opt-in
-    shared memory per block; at the full bf16 and int8 widths every stage's
-    whole block slice fits its buffer at one block per SM (132 SMs)."""
+    """In bf16 and in f32, the fixed part (staged x rows, scratch, the
+    warps' head vectors) and the kernel's ring (kFRing buffers of CHUNK
+    bytes) fit the H100's opt-in shared memory per block at every B <= 16,
+    and the plan refuses what does not fit; a buffer holds at least two
+    rows of every batch of every stage."""
+    src = (pathlib.Path(fp.__file__).parent.parent / "csrc"
+           / "predictor_frame.cu").read_text()
+    assert int(re.search(r"constexpr int kFRing = (\d+);", src)[1]) \
+        == fp.RING >= 2 and fp.CHUNK % 16 == 0
     cfg = CONFIGS[config]
-    t_bytes = 4 if cfg.dtype == "float32" else 2
-    w_bytes = {st: 1 if kind == "int8" else t_bytes for st in fp._STAGES}
-    fixed = fp.frame_smem_fixed(cfg, B, t_bytes)
-    buf = fp.frame_buffer_bytes(cfg, fp.frame_plan(cfg, B, 132), w_bytes,
-                                fixed, H100_SMEM)
-    assert buf % 16 == 0 and fixed + 2 * buf <= H100_SMEM
-    for st, (K, N) in fp.stage_shapes(cfg).items():
-        most = max(hi - lo for lo, hi in fp.split_units(N // fp.UNIT, 132))
-        if most:
-            assert buf >= most * fp.UNIT * K * w_bytes[st]
-    if config == "full" and kind == "dense":
-        # the largest slice: gate/up, 6 units of 1024 bf16 rows (96 KiB)
-        assert buf == 6 * fp.UNIT * 1024 * 2
+    for t_bytes in (2, 4):
+        fixed = fp.frame_smem_fixed(cfg, B, t_bytes)
+        assert fp.frame_smem(fixed, H100_SMEM) == fixed + fp.RING * fp.CHUNK \
+            <= H100_SMEM
+        with pytest.raises(ValueError, match="no room"):
+            fp.frame_smem(fixed, fixed + fp.RING * fp.CHUNK - 1)
+        wb = fp.row_bytes(kind, t_bytes)
+        nub = fp.units_a_batch(fp.row_pass(B, t_bytes))
+        for K, _ in fp.stage_shapes(cfg).values():
+            assert fp.chunk_rows(fp.CHUNK, nub, wb, K) >= 2
 
 
-def test_shared_memory_plan_caps_f32_full_width():
-    """f32 weights at the full width do not fit whole: the buffers take
-    what the block leaves, and the slice's first rows are staged."""
-    cfg = dataclasses.replace(FULL, dtype="float32")
-    fixed = fp.frame_smem_fixed(cfg, 1, 4)
-    buf = fp.frame_buffer_bytes(cfg, fp.frame_plan(cfg, 1, 132),
-                                {st: 4 for st in fp._STAGES}, fixed,
-                                H100_SMEM)
-    assert fixed + 2 * buf <= H100_SMEM
-    assert buf < 6 * fp.UNIT * 1024 * 4
+def test_ring_holds_a_stage_share_at_full_width():
+    """At the full width, one x row, the ring holds the busiest block's
+    largest stage (gate/up: 96 KiB dense bf16 of its 208 KiB a layer), so
+    the producer runs at least a stage ahead of the consumers; in f32
+    every row still streams through the ring (no first-rows-only
+    staging)."""
+    shapes = fp.stage_shapes(FULL)
+    plan = fp.frame_plan(FULL, 1, 132)
+
+    def share(blk, t_bytes, stages=fp._STAGES[:4]):
+        return sum((plan[st][blk][1] - plan[st][blk][0]) * fp.UNIT
+                   * shapes[st][0] * t_bytes for st in stages)
+
+    busiest = max(range(132), key=lambda b: share(b, 2))
+    assert share(busiest, 2) == 208 * 1024
+    assert max(share(b, 2, (st,)) for b in range(132)
+               for st in fp._STAGES) == 96 * 1024 <= fp.RING * fp.CHUNK
+    f32 = dataclasses.replace(FULL, dtype="float32", n_layers=1)
+    seq = fp.chunk_sequence(f32, 1, 132, busiest, ("dense",) * 5, 4,
+                            fp.CHUNK)
+    streamed = sum(nub * rn * fp.UNIT * 4 for s, st, *_, nub, r0, rn in seq
+                   if st != "head")
+    assert streamed == share(busiest, 4) * 16
+
+
+def test_frame_barriers_match_the_kernel():
+    """The host's count of grid barriers a frame (and the trace reader's
+    stage list) is the kernel's frame_barriers: 64 L + 15, 527 at the full
+    predictor's 8 layers."""
+    from qwen3_tts_tpu_torch.tools import frame_measure as fm
+
+    src = (pathlib.Path(fp.__file__).parent.parent / "csrc"
+           / "predictor_frame.cu").read_text()
+    body = re.search(r"constexpr int frame_barriers\(int L\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    for L in (1, 2, 8):
+        cfg = dataclasses.replace(FULL, n_layers=L)
+        kernel = eval(body, {"kCodes": protocol.NUM_CODEBOOKS, "L": L})
+        assert fp.frame_barriers(cfg) == kernel == len(fm.frame_kinds(cfg))
+        assert len(fp.frame_stages(cfg)) == kernel
+    assert fp.frame_barriers(FULL) == 527
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -336,7 +439,8 @@ def test_args_and_trace_words_match_the_kernel(kernel):
     by the compile-time kTrace, and the trace words
     `tools/frame_measure.py` reads are the kernel's kTr constants, their
     words after every barrier's two stamps, apart and inside the trace
-    buffer."""
+    buffer (the predictor's: a block's kTrStride words, its mode bits
+    those of `fused_predictor.MODE`)."""
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
     from qwen3_tts_tpu_torch.tools import frame_measure as fm
 
@@ -347,11 +451,24 @@ def test_args_and_trace_words_match_the_kernel(kernel):
     full = tconfig.EngineConfig()
     if kernel == "predictor_frame":
         struct, args = "FrameArgs", fp._FrameArgs
-        read = {"kTrT0": fm.T0, "kTrProd": fm.PHASES, "kTrNorm": fm.NORM,
-                "kTrWait": fm.WAIT}
-        words = {"kTrT0": 1, "kTrProd": 4 * 5, "kTrNorm": 5, "kTrWait": 2}
-        L = full.predictor.n_layers
-        barriers = 16 * 5 * L + 15
+        read = {"kTrT0": fm.F_T0, "kTrEnd": fm.F_END, "kTrNBar": fm.F_NBAR,
+                "kTrFirst": fm.F_FIRST, "kTrCWait": fm.F_CWAIT,
+                "kTrPWait": fm.F_PWAIT, "kTrAttn": fm.F_ATTN,
+                "kTrProd": fm.F_PROD}
+        words = {"kTrT0": 1, "kTrEnd": 1, "kTrNBar": 1, "kTrFirst": 2 * 5,
+                 "kTrCWait": 2, "kTrPWait": 2, "kTrAttn": 2, "kTrProd": 4 * 5}
+        barriers = fp.frame_barriers(full.predictor)
+        size = fp.TRACE_STRIDE
+        assert const.pop("kTrStride") == size
+        assert const.pop("kTrBars") == fm.F_BARS >= barriers
+        sums = const.pop("kTrSums")
+        assert sums == fp.TRACE_SUMS and fm.F_PROD + 4 * 5 <= fm.F_FIRST + sums
+        barriers = fm.F_BARS
+        enum = src[src.index("enum { kNoWork"):]
+        modes = dict(re.findall(r"\b(k[A-Z]\w+) = (\d+)",
+                                enum[:enum.index("}")]))
+        assert modes == {"kNoWork": str(fp.NO_WORK)}
+        assert fm.MODES == {"": 0, "nowork": fp.NO_WORK}
     else:
         struct, args = "StepArgs", ft._StepArgs
         read = {"kTrT0": fm.T_T0, "kTrEnd": fm.T_END, "kTrWait": fm.T_WAIT,
@@ -360,6 +477,7 @@ def test_args_and_trace_words_match_the_kernel(kernel):
         words = {"kTrT0": 1, "kTrEnd": 1, "kTrWait": 2, "kTrPWait": 2,
                  "kTrAttn": 6, "kTrProd": 8 * 5}
         barriers = 5 * full.talker.n_layers
+        size = fm.TRACE_WORDS
     # every trace guard tests kTrace first (-DKERNEL_TRACE builds only)
     assert "a.trace != nullptr" not in src.replace(
         "kTrace && a.trace != nullptr", "")
@@ -368,5 +486,5 @@ def test_args_and_trace_words_match_the_kernel(kernel):
     assert const == read
     # each constant's words: after the barriers' stamps, apart, in the buffer
     spans = sorted((const[k], const[k] + n) for k, n in words.items())
-    assert 2 * barriers <= spans[0][0] and spans[-1][1] <= fm.TRACE_WORDS
+    assert 2 * barriers <= spans[0][0] and spans[-1][1] <= size
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
