@@ -67,7 +67,7 @@ result line:
                decode attention and the Triton rms_norm. The same weights
                quantized as the JAX bench's headline rung (talker int4,
                predictor int8) through TtsEngine(weights=...): B=1, 32
-               frames, then B=2, then B = INT4_MAX_B + 1 (3) and MAX_B + 1
+               frames, then B=2, then B = INT4_MAX_B + 1 (9) and MAX_B + 1
                on the talker's chain (B4, and past 16 rows B8 for the
                predictor's chain, launched); the int8/int8 rung, B=1, 16
                frames, with qmatmul (int8 prefill) launched, then B =
@@ -1065,7 +1065,7 @@ def phase_kernels_step(rec: Record):
         beside it and a control that must exceed the limit (the plain step
         without its last layer; `step_check`).
 
-    Repeats bit-identical; at B = 2 also two CUDA-graph replays."""
+    Repeats and two CUDA-graph replays bit-identical to the eager call."""
     import dataclasses
 
     import torch
@@ -1110,11 +1110,9 @@ def phase_kernels_step(rec: Record):
                         hh, ll, _, _ = ft.talker_step_kernel(tp, cfg, *inputs)
                         return torch.cat([hh.float().flatten(),
                                           ll.flatten()])
-                    same = bit_identical(out) if B == 2 else \
-                        torch.equal(out(), out())
-                    graph = ", 2 graph replays" if B == 2 else ""
+                    same = bit_identical(out)
                     log(f"  {'talker_step':16s} {label:44s} slot k/v ok, "
-                        f"other slots unchanged; repeat{graph} "
+                        f"other slots unchanged; repeat, 2 graph replays "
                         f"{'bit-identical' if same else 'DIFFER'}")
                     if not same:
                         fail(f"talker_step {label}: repeats differ")
@@ -2383,18 +2381,18 @@ def step_bytes_ops(params, cfg, B, live):
     return n_b, ops
 
 
-def kernel_copy_bytes(params) -> int:
+def kernel_copy_bytes(params, cfg) -> int:
     """Device bytes of the talker step kernel's own copies of the weights
-    (`ops/fused_talker.py kernel_copy`: the values packed in units, the
-    gate/up scales and multipliers interleaved), kept beside the weights
-    the chain and the prefill read."""
+    (`ops/fused_talker.py kernel_copy`: the values and int4's multipliers
+    packed in units, int4's rows paired, the qkv and gate/up columns
+    reordered), kept beside the weights the chain and the prefill read."""
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
     n = 0
     for st, w in ft._weights(params).items():
-        parts = [(w, True)] if not isinstance(w, dict) else \
-            [(t, k in ("q", "q4")) for k, t in w.items()]
-        for t, values in parts:
-            c = ft.kernel_copy(t, st, values)
+        parts = [(w, "values")] if not isinstance(w, dict) else \
+            [(t, "values" if k == "q" else k) for k, t in w.items()]
+        for t, part in parts:
+            c = ft.kernel_copy(t, st, part, cfg)
             n += 0 if c is t else c.nbytes
     return n
 
@@ -2442,7 +2440,7 @@ def step_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
                                    else (w,)))
                           for w in ft._weights(tp).values())
                 log(f"  {'talker_step':16s} {f'full {kind} weights':44s} the "
-                    f"kernel's copies {kernel_copy_bytes(tp) / 1e9:.3f} GB "
+                    f"kernel's copies {kernel_copy_bytes(tp, cfg) / 1e9:.3f} GB "
                     f"of device memory beside {w_b / 1e9:.3f} GB of weights")
             if kind == "dense" and B == 1:
                 rec.ms["talker_step"], rec.plain_ms["talker_step"] = ms, plain

@@ -1,7 +1,7 @@
 // Device helpers shared by the persistent kernels (predictor_frame.cu,
 // talker_step.cu): mbarriers and TMA bulk copies, the atomics of the
-// talker's split counters, the counting grid barrier, and the 8-wide
-// shared-memory weight loads.
+// talker's split and head counters, the counting grid barrier, and the
+// 8-wide shared-memory weight loads.
 
 #pragma once
 
@@ -59,6 +59,38 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// an L2 policy that evicts first what it covers (the talker's weight
+// stream, read once a step, so that it does not evict the small tensors
+// every stage reads)
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+// bulk_copy under an L2 cache policy
+__device__ __forceinline__ void bulk_copy_hint(void* dst, const void* src,
+                                               unsigned bytes,
+                                               unsigned long long* bar,
+                                               unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+// bring `bytes` (a multiple of 16) at src into the L2, no completion
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src,
+                                                 unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// bring a line into the L2 ahead of its use, kept there longer
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2::evict_last [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -75,6 +107,20 @@ __device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p) {
 }
 __device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
   asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+// a release add that returns nothing (the talker's head arrival counters)
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
 }
 

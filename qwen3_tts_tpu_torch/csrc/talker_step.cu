@@ -1,5 +1,5 @@
 // The talker's whole decode step as one persistent CUDA kernel: 28 layers
-// of qkv / attention / wo / gate-up / down, then the final norm and the
+// of qkv with attention / wo / gate-up / down, then the final norm and the
 // head, in ONE cooperative launch a step.
 //
 // Replaces: qwen3_tts_tpu/ops/fused_talker.py::talker_step_fused (the
@@ -20,75 +20,121 @@
 //   once: 2.83 GB dense bf16 at the full talker width, 0.845 ms at 3.35
 //   TB/s (int8 about half, int4 about a quarter); the live cache slots add
 //   ~0.1 MB a layer per row. At B <= 16 each weight element is used B
-//   times, far below the tensor cores' balance point. What the chain paid
-//   on top was a fixed cost per launch, ~142 times a step.
+//   times, far below the tensor cores' balance point. What a step pays on
+//   top is latency: 112 dependent stages, each a grid barrier, its first
+//   activation loads and its epilogue, and attention, which reads no
+//   weights (PERF.md, the step kernel's trace).
 //
 // Design (the machinery of predictor_frame.cu, csrc/persistent.cuh):
-//   * One cooperative launch, one block per SM. A block is 8 consumer
-//     warps and one producer warp. Dependent stages meet at a grid barrier
-//     of the consumer threads (named barrier 1, then the counting grid
-//     barrier of persistent.cuh); the producer never waits for one.
-//   * Stages of a layer, each a grid barrier apart: qkv (ln1 as its norm
-//     prologue, f32 out); attention; wo (added into the residual); gate /
-//     up (ln2; its packed columns interleave each 4 gate features with
-//     their 4 up features, so each unit's epilogue writes silu(g) * u);
-//     down (added into the residual). After the last layer: the head
-//     with the final norm as its prologue; the normed rows are the step's
-//     hidden.
+//   * One cooperative launch, one block per SM: 8 consumer warps and one
+//     producer warp. Dependent stages meet at a grid barrier of the
+//     consumer threads (named barrier 1, then the counting grid barrier of
+//     persistent.cuh); the producer never waits for one.
+//   * Four grid barriers a layer (step_barriers: 4 L, 112 at 28 layers;
+//     the kernel traps if it meets another count):
+//       1. qkv, ln1 its norm prologue, f32 out, THEN attention in the same
+//          stage. The qkv columns are grouped by kv head (ops/fused_talker.py
+//          group_qkv: head j's g q heads, its k, its v, contiguous), so each
+//          block's qkv units touch one or two heads. Once its qkv sums are
+//          stored a block counts its units of each head on that head's
+//          arrival counter (a release add). The attention units (kv head j,
+//          row b, split s), j-major, are dealt over the blocks in the same
+//          order, so head j's units land on about the blocks that computed
+//          head j's columns; a unit waits on head j's counter alone
+//          (acquire), never on the whole grid. The cache slots it reads
+//          do not depend on the step: the producer brings them into the L2
+//          when it starts the layer's qkv weights, and the unit loads its
+//          first ones before the wait;
+//       2. wo, added into the residual;
+//       3. gate / up, ln2 its prologue (its packed columns interleave each 4
+//          gate features with their 4 up features, so a unit's epilogue
+//          writes silu(g) * u);
+//       4. down, added into the residual.
+//     After the last layer: the head, the final norm its prologue; the
+//     normed rows are the step's hidden. The head counters count (L)
+//     layers' units; block 0 zeroes them after the last barrier, when no
+//     block waits on them, so each launch starts from zero.
+//   * Split attention. A unit QK-norms and RoPEs the g q heads it scores
+//     with (each split its own copy: a unit that publishes them for the
+//     others would put one more dependent round trip between qkv and the
+//     slots), takes split s of the row's live range [valid_from, min(kv_len,
+//     T)) (S from B, nk, the grid and the cache capacity only,
+//     ops/fused_talker.py step_splits, never from kv_len) over its warps,
+//     and writes its online-softmax state (m, l, acc) to scratch. It counts
+//     itself on its (b, j) counter (an acquire-release add); the last of
+//     the S units (or the only one) finishes k once a (row, kv head): k and
+//     v, T-rounded, went to shared memory at the unit's start, and its warp
+//     g QK-norms and RoPEs k; the group's current-token scores follow, the
+//     S states
+//     merge in split order (the max, then the rescaled sums), the current
+//     token folds in last, the T-rounded output goes to the att scratch,
+//     and k and v go to the row's slot: every unit of (b, j) has read the
+//     slice by then and no later stage reads it (the pre-update contract of
+//     qwen3_tts_tpu/ops/fused_talker.py:575-596). The counter resets itself.
+//     Which block merges depends on timing; what it computes does not.
+//   * One loop over the step's stages calls one stage function, so the
+//     stage code is emitted once (predictor_frame.cu's fix of instruction
+//     cache misses at every stage).
 //   * Work plan: a product's N columns are 8-column units dealt over the
 //     blocks in contiguous ranges [blk * U / nb, (blk + 1) * U / nb)
-//     (ops/fused_talker.py split_units). Each output column is computed by
+//     (ops/fused_predictor.py split_units). Each output column is computed by
 //     one block over the whole K in a fixed order: no K split, no atomics
-//     on data, repeats are bit-identical.
-//   * The weight ring. The weights are read from a packed copy (each
-//     8-column unit's rows contiguous, ops/fused_predictor.py pack_units),
-//     so a block's units of a stage are contiguous. A block takes its units
-//     in batches (4 units at one x row, 2 at two, 1 at four or more: 32 or
-//     64 sums a thread) and each batch's rows in chunks of at most `chunk`
-//     bytes. The producer's one thread walks the same sequence, stage after
-//     stage and layer after layer, copying chunk after chunk with TMA bulk
-//     copies into a ring of `nbuf` shared-memory buffers, each completing
-//     on its "full" mbarrier. It waits only for a free buffer: the consumer
-//     warps release a buffer on its "empty" mbarrier once they have read
-//     it. So the weight stream runs ahead under the attention stage, the
-//     barriers and the prologues, as deep as the ring.
+//     on data, repeats and graph replays are bit-identical.
+//   * The weight ring: kSRing buffers of kSChunk bytes, constants shared
+//     with the host (ops/fused_talker.py RING, CHUNK); its shared memory
+//     comes out of the L1 that caches the spills, so it is no deeper than
+//     it measured to pay (PERF.md). The weights are read from a packed copy
+//     (each 8-column unit's rows contiguous, ops/fused_predictor.py
+//     pack_units), so a block's units of a stage are contiguous. A block
+//     takes its units in batches (4 units at one x row, 2 at two, 1 at four
+//     or more: 32 or 64 sums a thread) and each batch's rows in chunks of
+//     at most kSChunk bytes. The producer's one thread walks the same
+//     sequence, stage after stage and layer after layer, copying chunk
+//     after chunk with TMA bulk copies, each buffer completing on its
+//     "full" mbarrier, under an L2 evict-first policy (the weights are read
+//     once a step; the small tensors every stage reads stay); it waits only
+//     for a free buffer, which the consumer warps release on its "empty"
+//     mbarrier. So the weight stream runs ahead under attention, the
+//     barriers and the prologues, as deep as the ring. A consumer thread
+//     loads its row of every unit of the batch before any arithmetic, with
+//     no branch on the batch's size (a branch per unit had serialised the
+//     loads); int8 bytes become floats by i8_cvt. Each stage brings the
+//     next stage's norm weight into the L2, and qkv its attention's norm
+//     weights and cos / sin.
+//   * int4: the kernel's copy pairs adjacent rows in a byte (ops/
+//     fused_talker.py pair_int4: row 2r low nibble, 2r + 1 high) and keeps
+//     each unit's multipliers [K / 128, 8] in its own rows; the producer
+//     copies a chunk's multipliers with its rows (whole pairs of groups)
+//     into the buffer's last 64th, so they come from shared memory. A warp
+//     takes a group of a chunk (64 packed rows), a lane two of its packed
+//     rows; the lane's dot of the group with the biased nibbles less 8 (exact
+//     in f32, gemv.cuh unpack4) is multiplied by the group's multiplier once,
+//     in f32, as B4 does.
 //   * x rows: a row pass stages up to kMT rows (1, 2, 4 or 8 in bf16, at
-//     most 4 in f32: B > kMT takes ceil(B / kMT) passes over the stage, its
-//     weights streamed once a pass) in shared memory in T after their
-//     prologue; a thread holds kMT * 8 sums for each unit of a batch,
-//     reduced through one warp reduce-scatter per 32 sums and the warps in
-//     order.
-//   * Split attention. Units (row b, kv head j, split s), s < S, are dealt
-//     over the blocks; S comes from B, nk, the grid and the cache capacity
-//     only (ops/fused_talker.py step_splits), never from kv_len. A unit
-//     rounds its k, v and q heads, QK-norms and RoPEs them, takes split s
-//     of the row's live range [valid_from, min(kv_len, T)), and writes its
-//     online-softmax state (m, l, acc) to scratch. The unit then counts
-//     itself on its (b, j) counter (an acquire-release add); the last of
-//     the S units merges the states in split order (two passes: the max,
-//     then the rescaled sums), folds the current token in last, writes the
-//     T-rounded output and resets the counter (with one split, the unit
-//     finishes from its warps' states directly). Every unit of (b, j) has
-//     read that cache slice by then and no later stage of the step reads
-//     it, so the same unit stores the current k and v at the row's slot:
-//     the pre-update contract of qwen3_tts_tpu/ops/fused_talker.py:575-596
-//     holds, and the step needs no copy of its own. Which block merges
-//     depends on timing; what it computes does not.
+//     most 4 in f32 or with int4 weights: B > kMT takes ceil(B / kMT)
+//     passes over the stage, its weights streamed once a pass) in shared
+//     memory in T after their prologue; a thread holds kMT * 8 sums for each
+//     unit of a batch, reduced through one warp reduce-scatter per 32 sums
+//     and the warps in order.
 //   * positions, slot, kv_len and valid_from are device int32 [B]; the grid
 //     and the plan depend on shapes only, so the launch replays in a CUDA
-//     graph. The split counters reset themselves; the grid barrier's
-//     count only grows, and each launch starts from where it stands.
-//   * A trace, compiled in only with -DKERNEL_TRACE (persistent.cuh
-//     kTrace) and on when args.trace is set: block 0's consumer thread 0
-//     writes %globaltimer at each grid barrier's arrival and release and
-//     sums its waits for full buffers; the producer sums its waits for
-//     free ones (tools/frame_measure.py talker).
+//     graph; the counters leave each launch at the state it found them.
+//   * A trace, compiled in only with -DKERNEL_TRACE (persistent.cuh kTrace)
+//     and on when args.trace is set: every block's consumer thread 0 writes
+//     %globaltimer at each grid barrier's arrival and release and sums, per
+//     stage kind, the time to its first activation data and its products'
+//     phases, attention's phases (the head wait, the q heads, the slots
+//     and warp states, the state and count, the merge) and its waits for
+//     full buffers; the producer sums its waits for free ones
+//     (tools/frame_measure.py talker). args.mode, read in those builds
+//     only, cuts the products out (kNoWork: no copies, no sums).
 // Scope: T = float or bf16; each of the five weights dense in T or int8
-//   with an f32 column scale (mixed too), or all five int4 (packed biased
-//   nibbles, an int8 multiplier per 128-row group and column, an f32
-//   column scale; the products are exact in f32, summed in another order
-//   than ops/quant.py panel_matmul4_plain); 1 <= B <= 16; hd a power of two
-//   in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, V multiples of 8.
+//   with an f32 column scale (mixed too), or all five int4 (biased nibbles,
+//   an int8 multiplier per 128-row group and column, an f32 column scale:
+//   per group (x . (nib - 8)) * m8 in f32, the order of ops/quant.py
+//   panel_matmul4_plain up to the order of the sums); 1 <= B <= 16; hd a
+//   power of two in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, V
+//   multiples of 8.
 
 #include "persistent.cuh"
 
@@ -100,26 +146,60 @@ constexpr int kSBlock = kSThreads + 32;  // + the producer warp
 constexpr int kSUnit = 8;                // columns of a unit
 constexpr int kSMaxB = 16;
 constexpr int kSMaxMT = 8;
+constexpr int kSMaxMT4 = 4;              // x rows a pass with int4 weights
 constexpr int kSMaxG = 4;
 constexpr int kSMaxHd = 128;
 constexpr int kSXPer = 8;                // norm inputs a thread holds
-constexpr int kSMaxRing = 8;
 constexpr int kSMaxSplits = 16;
 constexpr int kSAhead = 8;               // cache slots a warp loads at once
+constexpr int kSPreSlots = 256;          // a unit's slots the producer
+                                         // brings into the L2 ahead
+constexpr int kG4Rows = kGroup4 / 2;     // packed int4 rows of a group
 constexpr float kSNeg = -1e30f;
+// The weight ring (ops/fused_talker.py RING, CHUNK). -DSTEP_RING /
+// -DSTEP_CHUNK build a variant for tools/frame_measure.py ring.
+#ifndef STEP_RING
+#define STEP_RING 4
+#endif
+#ifndef STEP_CHUNK
+#define STEP_CHUNK 16384
+#endif
+constexpr int kSRing = STEP_RING;
+constexpr int kSChunk = STEP_CHUNK;
+// a buffer: kSChunk bytes of values, then int4's multipliers (8 bytes a
+// group of 64 packed rows and unit: a 64th of the values' bytes)
+constexpr int kSBuf = kSChunk + kSChunk / 64;
+static_assert(kSRing >= 2 && kSChunk >= 8192 && kSChunk % 1024 == 0,
+              "the ring: two buffers, whole int4 groups of 4 units a chunk");
 enum { kSQkv = 0, kSWo = 1, kSGu = 2, kSDown = 3, kSHead = 4 };
 enum { kDense = 0, kInt8 = 1, kInt4 = 2 };
-// trace words (tools/frame_measure.py): barrier i at 2 i, 2 i + 1
-constexpr int kTrT0 = 500, kTrEnd = 501, kTrWait = 502, kTrPWait = 504;
-// the attention unit 0's phases (the last layer's): kTrAttn + 0..5; block
-// 0's product stages of the last layer, kTrProd + 8 mat + 0..4: start,
-// inputs staged, first chunk in, last chunk read, end
-constexpr int kTrAttn = 510, kTrProd = 520;
+// args.mode bits (-DKERNEL_TRACE builds only)
+enum { kNoWork = 1 };
+// trace words (tools/frame_measure.py talker), a block's kTrStride words
+// from blk * kTrStride: barrier i's arrival and release at 2 i, 2 i + 1 (i
+// < kTrBars); the start, the end, the barriers counted; per stage kind
+// (qkv, wo, gu, down, head) the time from its start to its first
+// activation data and the calls (kTrFirst + 2 mat + 0..1); the consumers'
+// waits for full buffers (time, chunks); the producer's for free ones
+// (time, chunks); attention's phases summed over the block's units (the
+// head wait, the q heads, the slots and warp states, the state and count,
+// the merge) and the units (kTrAttn + 0..5); per stage kind the products
+// from their start to the first chunk in, to the last chunk read, to the
+// epilogue's end, and the calls (kTrProd + 4 mat + 0..3). The consumers sum
+// in shared memory (kTrSums words from kTrFirst) and add the sums into the
+// trace at the end.
+constexpr int kTrStride = 1024, kTrBars = 448;
+constexpr int kTrT0 = 900, kTrEnd = 901, kTrNBar = 902, kTrFirst = 904,
+              kTrCWait = 914, kTrPWait = 916, kTrAttn = 918, kTrProd = 924;
+constexpr int kTrSums = 40;
+
+// grid barriers a step: 4 a layer (ops/fused_talker.py step_barriers)
+__host__ __device__ constexpr int step_barriers(int L) { return 4 * L; }
 
 // ops/fused_talker.py _StepArgs, field for field.
 struct StepArgs {
   const void* w[5];       // packed values [L, N / 8, Kp, 8] (head: no L)
-  const int8_t* m8[5];    // int4: multipliers [L, K / 128, N]; else null
+  const int8_t* m8[5];    // int4: multipliers [L, N / 8, K / 128, 8]; else null
   const float* sc[5];     // column scales [L, N] / [N]; null dense
   const void* ln1;        // [L, H] T
   const void* ln2;
@@ -137,17 +217,17 @@ struct StepArgs {
   void* hidden;           // [B, H] T out
   float* logits;          // [B, V] out
   float* xres;            // [B, H] the residual
-  float* qkv;             // [B, (nq + 2 nk) hd]
+  float* qkv;             // [B, nk (g + 2) hd], grouped by kv head
   float* att;             // [B, nq hd] (T-rounded values)
   float* act;             // [B, F] silu(g) * u (T-rounded values)
   float* part;            // [B nk S][g (hd + 2)] split states
   unsigned* cnt;          // [B nk] split counters
+  unsigned* hcnt;         // [nk] head arrival counters
   unsigned long long* bar;  // the grid barrier's arrival count
-  unsigned long long* trace;
+  unsigned long long* trace;  // null, or nb x kTrStride words
   int kind[5];            // kDense, kInt8, kInt4
   int B, H, L, nq, nk, hd, F, V, Tc, S;
-  int chunk;              // bytes of a ring buffer
-  int nbuf;               // ring buffers
+  int mode;               // kNoWork (trace builds only)
   float eps;
 };
 
@@ -163,25 +243,44 @@ __host__ __device__ constexpr int s_acc(int mt) {
   return mt * kSUnit > 32 ? mt * kSUnit : 32;
 }
 
+__host__ __device__ constexpr int s_units_a_batch(int mt) {
+  return s_acc(mt) / (mt * kSUnit);
+}
+
 // Bytes of a block's shared memory besides the ring (ops/fused_talker.py
-// step_smem_fixed): the ring's barriers, the staged x rows, the sums'
-// scratch, the attention unit's head vectors and per-warp states.
+// step_smem_fixed): the ring's barriers, the trace's sums, the staged x
+// rows, the sums' scratch, the attention unit's head vectors and per-warp
+// states.
+// the ring's bytes (ops/fused_talker.py ring_bytes)
+__host__ __device__ constexpr int s_ring_bytes() { return kSRing * kSBuf; }
+
 __host__ __device__ inline int s_fixed(int mt, int kmax, int hd, int tsize) {
-  return 2 * kSMaxRing * 8 + s_align16(mt * kmax * tsize) +
-         4 * (2 * kSWarps * 32 + 64 + kSMaxMT + (2 + kSMaxG) * hd +
+  return 2 * kSRing * 8 + kTrSums * 8 + s_align16(mt * kmax * tsize) +
+         4 * (2 * kSWarps * 32 + 64 + kSMaxMT + (5 + kSMaxG) * hd +
               kSWarps * kSMaxG * (hd + 2) + kSMaxG + 4);
+}
+
+// rows of a chunk of a batch of nub units (ops/fused_talker.py chunk_rows):
+// as many as kSChunk bytes hold, even (whole 16-byte copies); with int4
+// whole pairs of groups (128 packed rows: the group's multipliers are 16
+// bytes a unit); at most Kp
+__host__ __device__ inline int s_chunk_rows(int nub, int wb, int Kp, bool i4) {
+  const int r = (kSChunk / (nub * wb)) & (i4 ? ~127 : ~1);
+  return r < Kp ? r : Kp;
 }
 
 template <typename T, int kMT>
 struct SSmem {
-  unsigned char* ring;          // [nbuf][chunk]
-  unsigned long long* full;     // [kSMaxRing]
-  unsigned long long* empty;    // [kSMaxRing]
+  unsigned char* ring;          // [kSRing][kSBuf]
+  unsigned long long* full;     // [kSRing]
+  unsigned long long* empty;    // [kSRing]
+  unsigned long long* tsum;     // [kTrSums] the trace's sums
   T* xs;                        // [kMT][Kmax]
   float* red;                   // [2][kSWarps][32]
   float* outv;                  // [64]
   float* rinv;                  // [kSMaxMT]
-  float* hb;                    // [2 + kSMaxG][hd]: k, v, q heads
+  float* hb;                    // [5 + kSMaxG][hd]: q heads, k, v, k's
+                                // norm weight, cos, sin
   float* wst;                   // [kSWarps][kSMaxG][hd + 2]
   float* snew;                  // [kSMaxG]
   int* flag;                    // [4]
@@ -191,23 +290,43 @@ template <typename T, int kMT>
 __device__ SSmem<T, kMT> s_carve(unsigned char* base, const StepArgs& a) {
   SSmem<T, kMT> s;
   s.ring = base;
-  unsigned char* p = base + a.nbuf * a.chunk;
+  unsigned char* p = base + s_ring_bytes();
   s.full = reinterpret_cast<unsigned long long*>(p);
-  s.empty = s.full + kSMaxRing;
-  p += 2 * kSMaxRing * 8;
+  s.empty = s.full + kSRing;
+  p += 2 * kSRing * 8;
+  s.tsum = reinterpret_cast<unsigned long long*>(p);
+  p += kTrSums * 8;
   s.xs = reinterpret_cast<T*>(p);
   p += s_align16(kMT * s_kmax(a.H, a.nq, a.hd, a.F) * sizeof(T));
   s.red = reinterpret_cast<float*>(p);
   s.outv = s.red + 2 * kSWarps * 32;
   s.rinv = s.outv + 64;
   s.hb = s.rinv + kSMaxMT;
-  s.wst = s.hb + (2 + kSMaxG) * a.hd;
+  s.wst = s.hb + (5 + kSMaxG) * a.hd;
   s.snew = s.wst + kSWarps * kSMaxG * (a.hd + 2);
   s.flag = reinterpret_cast<int*>(s.snew + kSMaxG);
   return s;
 }
 
 __device__ __forceinline__ void csync() { sync_first(kSThreads); }
+
+__device__ __forceinline__ bool no_work(const StepArgs& a) {
+  return kTrace && (a.mode & kNoWork) != 0;
+}
+
+// this block's trace words, or null
+__device__ __forceinline__ unsigned long long* block_trace(const StepArgs& a) {
+  return kTrace && a.trace != nullptr
+             ? a.trace + static_cast<long long>(blockIdx.x) * kTrStride
+             : nullptr;
+}
+
+// thread 0's trace sum of word w (kTrFirst <= w < kTrFirst + kTrSums)
+template <typename T, int kMT>
+__device__ __forceinline__ void tsum_add(const SSmem<T, kMT>& sm, int w,
+                                         unsigned long long v) {
+  sm.tsum[w - kTrFirst] += v;
+}
 
 // 4 consecutive values of a cache row as f32, one vector load
 __device__ __forceinline__ void ld4(const float* p, float* o) {
@@ -222,10 +341,41 @@ __device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* o) {
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
+// 8 int8 weights as f32, exact, at the full rate of the integer and float
+// pipes (cvt8's conversions run at a quarter of it): each byte, its sign
+// bit flipped (b + 128 in [0, 255]), becomes the low mantissa byte of
+// 2^23, then 2^23 + 128 comes off
+__device__ __forceinline__ void i8_cvt(uint2 q, float* w) {
+  const unsigned lo = q.x ^ 0x80808080u, hi = q.y ^ 0x80808080u;
+  constexpr float kBias = 8388736.f;         // 2^23 + 128
+  w[0] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540)) - kBias;
+  w[1] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7541)) - kBias;
+  w[2] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7542)) - kBias;
+  w[3] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7543)) - kBias;
+  w[4] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540)) - kBias;
+  w[5] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7541)) - kBias;
+  w[6] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7542)) - kBias;
+  w[7] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7543)) - kBias;
+}
+
+// x values k and k + 1 of a staged row (k even), one load
+__device__ __forceinline__ float2 x_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 x_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// the first unit of `units` dealt over nb blocks that block blk owns
+__device__ __forceinline__ int unit_lo(int units, int blk) {
+  return static_cast<int>(static_cast<long long>(blk) * units / gridDim.x);
+}
+
 // ---------------------------------------------------------------- stages
 // A weight stage: x width K, packed weight rows Kp (K / 2 for int4), N
 // columns, bytes of a unit row (8 columns), the element offsets of its
-// layer in the packed values, the scales and the int4 multipliers.
+// layer in the packed values, the scales and the int4 multipliers, the
+// block's units [u0, u0 + nu).
 struct SGeom {
   int mat, layer, kind, K, Kp, N, wb, u0, nu;
   long long off, soff, moff;
@@ -252,21 +402,9 @@ __device__ __forceinline__ SGeom s_geom(const StepArgs& a, int s) {
   d.off = d.soff * d.Kp;
   d.moff = d.soff * (d.K / kGroup4);
   const int U = d.N / kSUnit;
-  d.u0 = static_cast<int>(static_cast<long long>(blockIdx.x) * U / gridDim.x);
-  d.nu = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * U /
-                          gridDim.x) - d.u0;
+  d.u0 = unit_lo(U, blockIdx.x);
+  d.nu = unit_lo(U, blockIdx.x + 1) - d.u0;
   return d;
-}
-
-// rows of a chunk of a batch of nub units: as many as `chunk` bytes hold,
-// even (whole 16-byte copies), at most Kp
-__device__ __forceinline__ int s_chunk_rows(int chunk, int nub, int wb,
-                                            int Kp) {
-  return min(Kp, (chunk / (nub * wb)) & ~1);
-}
-
-__host__ __device__ constexpr int s_units_a_batch(int mt) {
-  return s_acc(mt) / (mt * kSUnit);
 }
 
 __host__ __device__ inline int s_row_passes(int B, int mt) {
@@ -304,16 +442,20 @@ struct ChunkWalk {
     g = static_cast<const char*>(a->w[d.mat]) + d.off * (d.wb / kSUnit);
     done = false;
   }
+  __device__ bool i4() const { return d.kind == kInt4; }
   __device__ int nub() const { return min(kUB, d.nu - ul); }
   __device__ int rows() const {
-    return s_chunk_rows(a->chunk, nub(), d.wb, d.Kp);
+    return s_chunk_rows(nub(), d.wb, d.Kp, i4());
   }
-  // bytes of each unit's copy of the chunk, and unit i's source
-  __device__ unsigned bytes() const {
-    return static_cast<unsigned>(min(rows(), d.Kp - r0) * d.wb);
-  }
+  // the chunk's rows, and unit i's sources: values, int4 multipliers
+  __device__ int rn() const { return min(rows(), d.Kp - r0); }
   __device__ const char* src(int i) const {
     return g + (static_cast<long long>(d.u0 + ul + i) * d.Kp + r0) * d.wb;
+  }
+  __device__ const int8_t* msrc(int i) const {
+    return a->m8[d.mat] + d.moff +
+           (static_cast<long long>(d.u0 + ul + i) * (d.K / kGroup4) +
+            r0 / kG4Rows) * kSUnit;
   }
   __device__ void advance() {
     r0 += rows();
@@ -327,35 +469,77 @@ struct ChunkWalk {
   }
 };
 
+// The block's attention units' cache slices of layer l (each unit's split
+// of its row's live range, at most kSPreSlots slots of k and of v) into
+// the L2, issued by the producer as it starts layer l's qkv weights, some
+// us before the units read them (a slice from the device memory took ~3
+// us a unit under the weight stream; PERF.md, the step kernel's trace).
+template <typename T>
+__device__ void prefetch_slices(const StepArgs& a, int l) {
+  const int S = a.S, B = a.B, hd = a.hd;
+  const int U = a.nk * B * S;
+  const int u1 = unit_lo(U, blockIdx.x + 1);
+  for (int u = unit_lo(U, blockIdx.x); u < u1; ++u) {
+    const int j = u / (B * S), b = u / S % B, sp = u % S;
+    // read-only inputs through the non-coherent cache: after the first
+    // layer these hit in it, so the producer does not stall a layer
+    const int lo = max(__ldg(a.valid_from + b), 0);
+    const int hi = min(__ldg(a.kv_len + b), a.Tc);
+    const int per = (max(hi - lo, 0) + S - 1) / S;
+    const int s0 = lo + sp * per;
+    const int s1 = min(min(s0 + per, hi), s0 + kSPreSlots);
+    if (s1 <= s0) continue;
+    const long long off =
+        ((((static_cast<long long>(l) * B + b) * a.nk + j) * a.Tc) + s0) * hd;
+    const unsigned bytes = static_cast<unsigned>((s1 - s0) * hd * sizeof(T));
+    bulk_prefetch_l2(static_cast<const T*>(a.kc) + off, bytes);
+    bulk_prefetch_l2(static_cast<const T*>(a.vc) + off, bytes);
+  }
+}
+
 // The producer (lane 0 of the block's last warp): every chunk of the step
-// in the consumers' order, each into ring buffer ci % nbuf once the
-// consumers have released its last use.
+// in the consumers' order, each into ring buffer ci % kSRing once the
+// consumers have released its last use: unit i's rows at i rn wb, int4's
+// multipliers at kSChunk + i rn / 8. The copies evict first from the L2
+// (the weights are read once a step). At a layer's first qkv chunk it
+// brings the block's attention slices of the cache into the L2.
 template <typename T, int kMT>
 __device__ void produce(const StepArgs& a, const SSmem<T, kMT>& sm) {
-  const bool tr = kTrace && a.trace != nullptr && blockIdx.x == 0;
+  if (no_work(a)) return;
+  unsigned long long* tb = block_trace(a);
   unsigned long long waited = 0;
   ChunkWalk<T, kMT> cw;
   cw.start(a);
-  int ci = 0;
+  const unsigned long long policy = evict_first_policy();
+  int ci = 0, stage = -1;
   for (; !cw.done; cw.advance(), ++ci) {
-    const int b = ci % a.nbuf;
-    if (ci >= a.nbuf) {
-      const unsigned long long t0 = tr ? global_ns() : 0;
-      mbar_wait(sm.empty + b, ((ci / a.nbuf) - 1) & 1);
-      if (tr) waited += global_ns() - t0;
+    const int b = ci % kSRing;
+    if (cw.s != stage) {                     // a stage's first chunk
+      stage = cw.s;
+      if (cw.d.mat == kSQkv) prefetch_slices<T>(a, cw.d.layer);
+    }
+    if (ci >= kSRing) {
+      const unsigned long long t0 = tb != nullptr ? global_ns() : 0;
+      mbar_wait(sm.empty + b, ((ci / kSRing) - 1) & 1);
+      if (tb != nullptr) waited += global_ns() - t0;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const unsigned bytes = cw.bytes();
-    const int nub = cw.nub();
-    mbar_expect(sm.full + b, bytes * nub);
-    unsigned char* dst = sm.ring + static_cast<long long>(b) * a.chunk;
-    for (int i = 0; i < nub; ++i)
-      bulk_copy(dst + static_cast<long long>(i) * bytes, cw.src(i), bytes,
-                sm.full + b);
+    const int rn = cw.rn(), nub = cw.nub();
+    const bool i4 = cw.i4();
+    const unsigned vb = static_cast<unsigned>(rn * cw.d.wb);
+    const unsigned mb = i4 ? static_cast<unsigned>(rn / 8) : 0u;
+    mbar_expect(sm.full + b, (vb + mb) * nub);
+    unsigned char* dst = sm.ring + static_cast<long long>(b) * kSBuf;
+    for (int i = 0; i < nub; ++i) {
+      bulk_copy_hint(dst + i * vb, cw.src(i), vb, sm.full + b, policy);
+      if (i4)
+        bulk_copy_hint(dst + kSChunk + i * mb, cw.msrc(i), mb, sm.full + b,
+                       policy);
+    }
   }
-  if (tr) {
-    a.trace[kTrPWait] += waited;
-    a.trace[kTrPWait + 1] += ci;
+  if (tb != nullptr) {
+    tb[kTrPWait] += waited;
+    tb[kTrPWait + 1] += ci;
   }
 }
 
@@ -366,9 +550,11 @@ __device__ void produce(const StepArgs& a, const SSmem<T, kMT>& sm) {
 // the norm weight at once, sums the squares in order, the rows' sums
 // reduce through the warp's butterfly and the warps in order, and each
 // value is normed and rounded once: T(x * rsqrt(mean(x^2) + eps) * w).
-template <typename T, int kMT>
+// `first`: thread 0's stamp once its loads are in.
+template <typename T, int kMT, typename Mark>
 __device__ void s_norm(const StepArgs& a, const SSmem<T, kMT>& sm,
-                       const T* ln, bool source, int c0, int mt) {
+                       const T* ln, bool source, int c0, int mt,
+                       Mark&& first) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int K = a.H;
   const T* x = static_cast<const T*>(a.x);
@@ -390,6 +576,7 @@ __device__ void s_norm(const StepArgs& a, const SSmem<T, kMT>& sm,
     float ss = 0.f;
 #pragma unroll
     for (int q = 0; q < kSXPer; ++q) ss = fmaf(xr[m][q], xr[m][q], ss);
+    if (m == 0) first();
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (lane == 0) sm.red[warp * 32 + m] = ss;
@@ -418,9 +605,9 @@ __device__ void s_norm(const StepArgs& a, const SSmem<T, kMT>& sm,
 // silu(g) * u (both already T-rounded by the stage that made them). A
 // thread loads kYP columns of every row at once (one round trip for K <=
 // 256 kYP: a product's K at one row), then stores them.
-template <typename T, int kMT>
+template <typename T, int kMT, typename Mark>
 __device__ void s_plain(const SSmem<T, kMT>& sm, const float* src, int K,
-                        int c0, int mt) {
+                        int c0, int mt, Mark&& first) {
   constexpr int kYP = 24 / kMT > 2 ? 24 / kMT : 2;
   for (int k0 = threadIdx.x; k0 < K; k0 += kYP * kSThreads) {
     float v[kMT][kYP];
@@ -439,6 +626,7 @@ __device__ void s_plain(const SSmem<T, kMT>& sm, const float* src, int K,
         const int k = k0 + q * kSThreads;
         if (k < K) store_x(sm.xs + m * K + k, v[m][q]);
       }
+    if (k0 == static_cast<int>(threadIdx.x)) first();
   }
 }
 
@@ -446,10 +634,8 @@ __device__ void s_plain(const SSmem<T, kMT>& sm, const float* src, int K,
 // a lane keeps one half of its values and adds its partner's copy of that
 // half: 31 shuffles), lane l ending with sum l of v[32 kH .. 32 kH + 31]
 template <int kAcc, int kH>
-__device__ __forceinline__ float s_scatter(const float (&v)[kAcc], int lane) {
-  float w[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) w[i] = v[kH * 32 + i];
+__device__ __forceinline__ float s_scatter(float (&v)[kAcc], int lane) {
+  float* w = v + kH * 32;          // in place: the sums are spent after
 #pragma unroll
   for (int o = 16, n = 32; o > 0; o /= 2) {
     const bool up = (lane & o) != 0;
@@ -465,105 +651,131 @@ __device__ __forceinline__ float s_scatter(const float (&v)[kAcc], int lane) {
   return w[0];
 }
 
-// the 8 weights of a unit row in the ring, as f32: dense, int8 (scale in
-// the epilogue) or int4 (nibble - 8 times the group's multiplier, exact)
-template <typename W>
-__device__ __forceinline__ void s_weights(const unsigned char* p, float* wv) {
-  cvt8(ld_sm(reinterpret_cast<const W*>(p)), wv);
-}
-
 // A product stage of row pass [c0, c0 + mt): the block's units in batches,
 // each batch's rows chunk by chunk from the ring (ci counts the chunks as
 // the producer does), then the batch's sums reduced over the block and the
-// stage's epilogue.
+// stage's epilogue. Dense and int8: a thread a row of the chunk (int8's
+// bytes converted by i8_cvt, its column scale in the epilogue). int4: a
+// warp a group of the chunk, a lane two of its packed rows (four weight
+// rows); the lane's dot with the nibbles less 8, then times the group's
+// multiplier, once.
 template <typename T, int kMT, int kKind>
 __device__ void s_product(const StepArgs& a, const SSmem<T, kMT>& sm,
                           const SGeom& d, int c0, int mt, int& ci,
-                          unsigned long long& waited,
-                          unsigned long long* ps) {
+                          unsigned long long* tb) {
   using W = typename std::conditional<kKind == kDense, T, int8_t>::type;
   constexpr int kAcc = s_acc(kMT);
   constexpr int kUB = s_units_a_batch(kMT);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool tr = trace_thread(a.trace);
+  const bool tr = tb != nullptr && threadIdx.x == 0;
+  const bool work = !no_work(a);
   const int K = d.K, Kp = d.Kp;
   const float* scale = a.sc[d.mat] == nullptr ? nullptr : a.sc[d.mat] + d.soff;
-  const int8_t* m8 = a.m8[d.mat] == nullptr ? nullptr : a.m8[d.mat] + d.moff;
-  const int ng2 = Kp / kGroup4;   // int4: multiplier rows of the low half
+  unsigned long long waited = 0, tp1 = 0, tp2 = 0;
+  const unsigned long long tp0 = tr ? global_ns() : 0;
+  int chunks = 0;
   for (int ul = 0; ul < d.nu; ul += kUB) {
     const int nub = min(kUB, d.nu - ul);
-    const int R = s_chunk_rows(a.chunk, nub, d.wb, Kp);
+    const int R = s_chunk_rows(nub, d.wb, Kp, kKind == kInt4);
     float v[kAcc];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) v[i] = 0.f;
-    for (int r0 = 0; r0 < Kp; r0 += R, ++ci) {
+    for (int r0 = 0; work && r0 < Kp; r0 += R, ++ci) {
       const int rn = min(R, Kp - r0);
-      const int b = ci % a.nbuf;
+      const int ustride = rn * d.wb;       // a unit's rows in the buffer
+      const int b = ci % kSRing;
       const unsigned long long t0 = tr ? global_ns() : 0;
-      mbar_wait(sm.full + b, (ci / a.nbuf) & 1);
-      if (tr) waited += global_ns() - t0;
-      if (ps != nullptr && ul == 0 && r0 == 0) ps[2] = global_ns();
-      const unsigned char* buf = sm.ring + static_cast<long long>(b) * a.chunk;
-      for (int r = threadIdx.x; r < rn; r += kSThreads) {
-        const int k = r0 + r;
-        if constexpr (kKind != kInt4) {
+      mbar_wait(sm.full + b, (ci / kSRing) & 1);
+      if (tr) {
+        const unsigned long long t1 = global_ns();
+        waited += t1 - t0;
+        if (chunks++ == 0) tp1 = t1;
+      }
+      const unsigned char* buf = sm.ring + static_cast<long long>(b) * kSBuf;
+      if constexpr (kKind != kInt4) {
+        for (int r = threadIdx.x; r < rn; r += kSThreads) {
+          const int k = r0 + r;
+          // every unit's row loaded before any arithmetic, without
+          // branches: past nub the last unit again (its sums unused)
+          Raw<W> raw[kUB];
+#pragma unroll
+          for (int ub = 0; ub < kUB; ++ub)
+            raw[ub] = ld_sm(reinterpret_cast<const W*>(
+                buf + min(ub, nub - 1) * ustride + r * d.wb));
           float xv[kMT];
 #pragma unroll
           for (int m = 0; m < kMT; ++m) xv[m] = to_f32(sm.xs[m * K + k]);
 #pragma unroll
-          for (int ub = 0; ub < kUB; ++ub)
-            if (ub < nub) {
-              float wv[kSUnit];
-              s_weights<W>(buf + (static_cast<long long>(ub) * rn + r) * d.wb,
-                           wv);
+          for (int ub = 0; ub < kUB; ++ub) {
+            float wv[kSUnit];
+            if constexpr (kKind == kInt8)
+              i8_cvt(raw[ub].a, wv);
+            else
+              cvt8(raw[ub], wv);
+#pragma unroll
+            for (int m = 0; m < kMT; ++m)
+#pragma unroll
+              for (int j = 0; j < kSUnit; ++j) {
+                float& acc = v[(ub * kMT + m) * kSUnit + j];
+                acc = fmaf(xv[m], wv[j], acc);
+              }
+          }
+        }
+      } else if constexpr (kMT <= kSMaxMT4) {
+        const int ng = rn / kG4Rows;
+        for (int gi = warp; gi < ng; gi += kSWarps) {
+          float dd[kAcc];
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i) dd[i] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pr = gi * kG4Rows + h * 32 + lane;
+            const int k = 2 * (r0 + pr);        // weight rows k, k + 1
+            uint2 q[kUB];                       // loads first, no branches
+#pragma unroll
+            for (int ub = 0; ub < kUB; ++ub)
+              q[ub] = *reinterpret_cast<const uint2*>(
+                  buf + min(ub, nub - 1) * ustride + pr * kSUnit);
+            float2 xv[kMT];
+#pragma unroll
+            for (int m = 0; m < kMT; ++m) xv[m] = x_pair(sm.xs + m * K + k);
+#pragma unroll
+            for (int ub = 0; ub < kUB; ++ub) {
+              float lo[kSUnit], hi[kSUnit];
+              unpack4(q[ub].x, lo, hi);
+              unpack4(q[ub].y, lo + 4, hi + 4);
 #pragma unroll
               for (int m = 0; m < kMT; ++m)
 #pragma unroll
                 for (int j = 0; j < kSUnit; ++j) {
-                  float& acc = v[(ub * kMT + m) * kSUnit + j];
-                  acc = fmaf(xv[m], wv[j], acc);
+                  float& acc = dd[(ub * kMT + m) * kSUnit + j];
+                  acc = fmaf(xv[m].x, lo[j], acc);
+                  acc = fmaf(xv[m].y, hi[j], acc);
                 }
             }
-        } else {
-          float xl[kMT], xh[kMT];
-#pragma unroll
-          for (int m = 0; m < kMT; ++m) {
-            xl[m] = to_f32(sm.xs[m * K + k]);
-            xh[m] = to_f32(sm.xs[m * K + Kp + k]);
           }
-          const int grp = k / kGroup4;
+          // the group's multipliers, after its dot, in f32
 #pragma unroll
-          for (int ub = 0; ub < kUB; ++ub)
-            if (ub < nub) {
-              const int col = (d.u0 + ul + ub) * kSUnit;
-              const uint2 q = *reinterpret_cast<const uint2*>(
-                  buf + (static_cast<long long>(ub) * rn + r) * kSUnit);
-              const uint2 ml = __ldg(reinterpret_cast<const uint2*>(
-                  m8 + static_cast<long long>(grp) * d.N + col));
-              const uint2 mh = __ldg(reinterpret_cast<const uint2*>(
-                  m8 + static_cast<long long>(ng2 + grp) * d.N + col));
-              float lo[kSUnit], hi[kSUnit], fl[kSUnit], fh[kSUnit];
-              unpack4(q.x, lo, hi);
-              unpack4(q.y, lo + 4, hi + 4);
-              m8_cvt(ml, fl);
-              m8_cvt(mh, fh);
+          for (int ub = 0; ub < kUB; ++ub) {
+            float mf[kSUnit];
+            m8_cvt(*reinterpret_cast<const uint2*>(
+                       buf + kSChunk + min(ub, nub - 1) * (rn / 8) +
+                       gi * kSUnit),
+                   mf);
+#pragma unroll
+            for (int m = 0; m < kMT; ++m)
 #pragma unroll
               for (int j = 0; j < kSUnit; ++j) {
-                const float wl = lo[j] * fl[j], wh = hi[j] * fh[j];
-#pragma unroll
-                for (int m = 0; m < kMT; ++m) {
-                  float& acc = v[(ub * kMT + m) * kSUnit + j];
-                  acc = fmaf(xl[m], wl, acc);
-                  acc = fmaf(xh[m], wh, acc);
-                }
+                const int i = (ub * kMT + m) * kSUnit + j;
+                v[i] = fmaf(dd[i], mf[j], v[i]);
               }
-            }
+          }
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty + b);    // the buffer is free
     }
-    if (ps != nullptr) ps[3] = global_ns();
+    if (tr) tp2 = global_ns();
     sm.red[warp * 32 + lane] = s_scatter<kAcc, 0>(v, lane);
     if constexpr (kAcc == 64)
       sm.red[(kSWarps + warp) * 32 + lane] = s_scatter<kAcc, 1>(v, lane);
@@ -603,55 +815,60 @@ __device__ void s_product(const StepArgs& a, const SSmem<T, kMT>& sm,
       }
     }
   }
+  if (tr) {
+    tsum_add(sm, kTrCWait, waited);
+    tsum_add(sm, kTrCWait + 1, chunks);
+    const int w = kTrProd + 4 * d.mat;
+    tsum_add(sm, w, (chunks > 0 ? tp1 : tp2) - tp0);
+    tsum_add(sm, w + 1, tp2 - tp0);
+    tsum_add(sm, w + 2, global_ns() - tp0);
+    tsum_add(sm, w + 3, 1);
+  }
 }
 
-// A weight stage: per row pass, the prologue into xs (the head's also
-// gives the step's hidden: each block stores its share of the columns),
-// then the product of the weight's kind.
-template <typename T, int kMT>
-__device__ void s_stage(const StepArgs& a, const SSmem<T, kMT>& sm, int s,
-                        int& ci, unsigned long long& waited) {
-  const SGeom d = s_geom<T>(a, s);
-  const int passes = s_row_passes(a.B, kMT);
-  const T* ln = static_cast<const T*>(
-      d.mat == kSQkv ? a.ln1 : d.mat == kSGu ? a.ln2 : a.final_norm);
-  if (d.mat != kSHead) ln += static_cast<long long>(d.layer) * a.H;
-  unsigned long long* ps =
-      trace_thread(a.trace) && (d.layer == a.L - 1 || d.mat == kSHead)
-          ? a.trace + kTrProd + 8 * d.mat : nullptr;
-  if (ps != nullptr) ps[0] = global_ns();
-  for (int rc = 0; rc < passes; ++rc) {
-    const int c0 = rc * kMT, mt = min(kMT, a.B - c0);
-    if (d.nu == 0 && d.mat != kSHead) continue;
-    if (d.mat == kSQkv || d.mat == kSGu || d.mat == kSHead)
-      s_norm<T, kMT>(a, sm, ln, d.mat == kSQkv && d.layer == 0, c0, mt);
-    else
-      s_plain<T, kMT>(sm, d.mat == kSDown ? a.act : a.att, d.K, c0, mt);
-    csync();
-    if (ps != nullptr) ps[1] = global_ns();
-    if (d.mat == kSHead) {
-      const int k0 = static_cast<int>(
-          static_cast<long long>(blockIdx.x) * a.H / gridDim.x);
-      const int k1 = static_cast<int>(
-          static_cast<long long>(blockIdx.x + 1) * a.H / gridDim.x);
-      T* hid = static_cast<T*>(a.hidden);
-      for (int i = threadIdx.x; i < mt * (k1 - k0); i += kSThreads) {
-        const int m = i / (k1 - k0), k = k0 + i % (k1 - k0);
-        hid[static_cast<long long>(c0 + m) * a.H + k] = sm.xs[m * a.H + k];
-      }
-    }
-    switch (d.kind) {
-      case kInt8:
-        s_product<T, kMT, kInt8>(a, sm, d, c0, mt, ci, waited, ps);
-        break;
-      case kInt4:
-        s_product<T, kMT, kInt4>(a, sm, d, c0, mt, ci, waited, ps);
-        break;
-      default:
-        s_product<T, kMT, kDense>(a, sm, d, c0, mt, ci, waited, ps);
+// ---------------------------------------------------------------- attention
+// One head vector of a warp (lane holds dims e = lane + 32 r, already
+// T-rounded): QK-norm and rotate-half RoPE, one rounding each (gemv.cuh
+// qk_finish's arithmetic); the partner dims e ^ hd / 2 through hv.
+template <typename T>
+__device__ __forceinline__ void s_norm_rope(float (&v)[kSMaxHd / 32],
+                                            const float (&w)[kSMaxHd / 32],
+                                            const float (&c)[kSMaxHd / 32],
+                                            const float (&sn)[kSMaxHd / 32],
+                                            float* hv, int hd, float eps) {
+  constexpr int kR = kSMaxHd / 32;
+  const int lane = threadIdx.x % 32, half = hd / 2;
+  float ss = 0.f;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) ss = fmaf(v[r], v[r], ss);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float rr = rsqrtf(ss / static_cast<float>(hd) + eps);
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < hd) {
+      v[r] = round_t(v[r] * rr * w[r], (T*)nullptr);
+      hv[e] = v[r];
     }
   }
-  if (ps != nullptr) ps[4] = global_ns();
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < hd) {
+      const float pr = hv[e ^ half];
+      const float rot = e < half ? -pr : pr;
+      v[r] = round_t(__fadd_rn(__fmul_rn(v[r], c[r]), __fmul_rn(rot, sn[r])),
+                     (T*)nullptr);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < hd) hv[e] = v[r];
+  }
 }
 
 // A merged state (m, l, acc) with the current token (score sn, value vn)
@@ -665,41 +882,65 @@ __device__ __forceinline__ float s_fold(float mm, float ll, float aa,
   return round_t((aa * cf + pn * vn) / lf, (T*)nullptr);
 }
 
-// The attention stage of layer l, for the block's (row, kv head, split)
-// units. Per unit: a warp per head vector (k, v, then the group's q heads)
-// rounds it to T, QK-norms and RoPEs q and k (gemv.cuh qk_finish's
-// arithmetic); the current token's score per q head; then the warps take
-// the split's slots round robin, kSAhead at once, each with its own online
+// qkv units of kv head group j a layer: (g + 2) hd / 8
+__device__ __forceinline__ int group_units(const StepArgs& a) {
+  return (a.nq / a.nk + 2) * a.hd / kSUnit;
+}
+
+// The block's qkv units of layer l are stored: count them on each group's
+// arrival counter (a release add; after the caller's block sync).
+__device__ __forceinline__ void s_arrive(const StepArgs& a, const SGeom& d) {
+  if (threadIdx.x != 0 || d.nu == 0) return;
+  const int ug = group_units(a);
+  for (int j = d.u0 / ug; j * ug < d.u0 + d.nu; ++j) {
+    const int lo = max(d.u0, j * ug), hi = min(d.u0 + d.nu, (j + 1) * ug);
+    red_release_add(a.hcnt + j, static_cast<unsigned>(hi - lo));
+  }
+}
+
+// Attention of layer l for the block's units (kv head j, row b, split s),
+// j-major. Per unit: the warps' first cache slots in flight; the wait for
+// head j's qkv columns (layer l's count on its counter); a warp per q head
+// of the group rounds it to T, QK-norms and RoPEs it, warps g and g + 1
+// load k and v raw (finished by the merging unit only); the warps take the
+// split's slots round robin, kSAhead at once, each with its own online
 // softmax in f32 (a lane holds hd / 32 contiguous dims); the warps' states
-// merge in warp order into the unit's state in scratch. The last unit of
-// (b, j) to count itself merges the S states and stores k and v at the
-// row's slot.
+// merge in warp order into the unit's state. With S > 1 the state goes to
+// scratch and the unit counts itself; the last unit of (b, j), or the only
+// one, finishes k and v, the current token's scores, merges, folds in the
+// current token and stores k and v at the row's slot.
 template <typename T, int kMT>
 __device__ void s_attention(const StepArgs& a, const SSmem<T, kMT>& sm,
-                            int l) {
+                            int l, unsigned long long* tb) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int hd = a.hd, half = hd / 2, g = a.nq / a.nk, S = a.S;
-  const int nqkv = (a.nq + 2 * a.nk) * hd;
-  const int U = a.B * a.nk * S;
+  const int hd = a.hd, g = a.nq / a.nk, S = a.S, B = a.B;
+  const int gw = (g + 2) * hd;                 // a group's qkv columns
+  const int U = a.nk * B * S;
   const int st = hd + 2;                       // a state: acc[hd], m, l
   const float rs = sqrtf(static_cast<float>(hd));
   constexpr int kR = kSMaxHd / 32;
   const int dpl = hd >= 32 ? hd / 32 : 1;      // a lane's contiguous dims
+  const bool tr = tb != nullptr && threadIdx.x == 0;
+  const unsigned want = static_cast<unsigned>(group_units(a) * (l + 1));
   T* kc = static_cast<T*>(a.kc);
   T* vc = static_cast<T*>(a.vc);
-  const int u1 = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * U /
-                                  gridDim.x);
-  for (int u = static_cast<int>(static_cast<long long>(blockIdx.x) * U /
-                                gridDim.x);
-       u < u1; ++u) {
-    const int bj = u / S, sp = u % S;
-    const int b = bj / a.nk, j = bj % a.nk;
+  int ready = -1;                              // the group waited for
+  const int u1 = unit_lo(U, blockIdx.x + 1);
+  for (int u = unit_lo(U, blockIdx.x); u < u1; ++u) {
+    const int j = u / (B * S), b = u / S % B, sp = u % S;
+    const int bj = b * a.nk + j;
     const long long base =
-        ((static_cast<long long>(l) * a.B + b) * a.nk + j) * a.Tc * hd;
-    const bool ts = kTrace && a.trace != nullptr && u == 0 && threadIdx.x == 0;
-    if (ts) a.trace[kTrAttn] = global_ns();
+        ((static_cast<long long>(l) * B + b) * a.nk + j) * a.Tc * hd;
+    unsigned long long tp = tr ? global_ns() : 0;
+    auto phase = [&](int w) {                // the trace's phase w ends
+      if (tr) {
+        const unsigned long long now = global_ns();
+        tsum_add(sm, kTrAttn + w, now - tp);
+        tp = now;
+      }
+    };
     // this unit's share of the row's live range, and the warp's first
-    // slots' keys and values in flight under the head vectors' work
+    // slots' keys and values in flight under the wait and the head vectors
     const int lo = max(a.valid_from[b], 0);
     const int hi = min(a.kv_len[b], a.Tc);
     const int live = max(hi - lo, 0);
@@ -730,71 +971,59 @@ __device__ void s_attention(const StepArgs& a, const SSmem<T, kMT>& sm,
         }
       }
     };
-    const int h = warp == 0 ? a.nq + j : warp == 1 ? a.nq + a.nk + j
-                                                   : j * g + warp - 2;
-    const T* wn = static_cast<const T*>(warp == 0 ? a.k_norm : a.q_norm) +
-                  static_cast<long long>(l) * hd;
-    float* hv = sm.hb + warp * hd;
-    float v[kR], w[kR], c[kR], sn[kR];
-    float ss = 0.f;
-#pragma unroll
-    for (int t = 0; t < kR; ++t) {
-      const int e = lane + 32 * t;
-      v[t] = w[t] = c[t] = sn[t] = 0.f;
-      if (warp < 2 + g && e < hd) {
-        v[t] = round_t(a.qkv[static_cast<long long>(b) * nqkv + h * hd + e],
-                       (T*)nullptr);
-        w[t] = to_f32(wn[e]);
-        c[t] = round_t(a.cos[b * hd + e], (T*)nullptr);
-        sn[t] = round_t(a.sin[b * hd + e], (T*)nullptr);
-        ss = fmaf(v[t], v[t], ss);
-      }
-    }
     if (s0 + warp < s1) load(s0 + warp);
-    if (warp < 2 + g) {
-      if (warp != 1) {                       // q or k: norm, RoPE
-#pragma unroll
-        for (int o = 16; o > 0; o /= 2)
-          ss += __shfl_xor_sync(0xffffffffu, ss, o);
-        const float r = rsqrtf(ss / static_cast<float>(hd) + a.eps);
-#pragma unroll
-        for (int t = 0; t < kR; ++t) {
-          const int e = lane + 32 * t;
-          if (e < hd) {
-            v[t] = round_t(v[t] * r * w[t], (T*)nullptr);
-            hv[e] = v[t];
-          }
+    if (j != ready) {                          // head j's qkv columns
+      if (threadIdx.x == 0) {
+        if (ld_acquire32(a.hcnt + j) < want) {
+          const unsigned long long w0 = global_ns();
+          unsigned spins = 0;
+          while (ld_acquire32(a.hcnt + j) < want)
+            if ((++spins & 1023u) == 0 && global_ns() - w0 > kSpinLimitNs)
+              __trap();
         }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < kR; ++t) {
-          const int e = lane + 32 * t;
-          if (e < hd) {
-            const float pr = hv[e ^ half];
-            const float rot = e < half ? -pr : pr;
-            v[t] = round_t(__fadd_rn(__fmul_rn(v[t], c[t]),
-                                     __fmul_rn(rot, sn[t])),
-                           (T*)nullptr);
-          }
-        }
-        __syncwarp();
       }
+      csync();
+      ready = j;
+    }
+    phase(0);
+    // warp i < g: q head i of the group, QK-normed and RoPEd; warps g and
+    // g + 1 put k and v (T-rounded) and k's norm weight, cos and sin in
+    // hb for the merge
+    {
+      const float* row =
+          a.qkv + static_cast<long long>(b) * a.nk * gw + j * gw;
+      const T* wn = static_cast<const T*>(warp == g ? a.k_norm : a.q_norm) +
+                    static_cast<long long>(l) * hd;
+      float hv[kR], w[kR], c[kR], sn[kR];
 #pragma unroll
       for (int t = 0; t < kR; ++t) {
         const int e = lane + 32 * t;
-        if (e < hd) hv[e] = v[t];
+        const bool ok = warp < g + 2 && e < hd;
+        hv[t] = ok ? round_t(row[warp * hd + e], (T*)nullptr) : 0.f;
+        w[t] = ok && warp <= g ? to_f32(wn[e]) : 0.f;
+        c[t] = ok && warp <= g ? round_t(a.cos[b * hd + e], (T*)nullptr)
+                               : 0.f;
+        sn[t] = ok && warp <= g ? round_t(a.sin[b * hd + e], (T*)nullptr)
+                                : 0.f;
+      }
+      if (warp < g) {
+        s_norm_rope<T>(hv, w, c, sn, sm.hb + warp * hd, hd, a.eps);
+      } else if (warp < g + 2) {
+#pragma unroll
+        for (int t = 0; t < kR; ++t) {
+          const int e = lane + 32 * t;
+          if (e < hd) {
+            sm.hb[warp * hd + e] = hv[t];
+            if (warp == g) {
+              sm.hb[(g + 2) * hd + e] = w[t];
+              sm.hb[(g + 3) * hd + e] = c[t];
+              sm.hb[(g + 4) * hd + e] = sn[t];
+            }
+          }
+        }
       }
     }
     csync();
-    if (warp < g) {                          // the current token's scores
-      float s = 0.f;
-      for (int e = lane; e < hd; e += 32)
-        s = fmaf(__fdiv_rn(sm.hb[(2 + warp) * hd + e], rs), sm.hb[e], s);
-#pragma unroll
-      for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) sm.snew[warp] = s;
-    }
-    if (ts) a.trace[kTrAttn + 1] = global_ns();
     float qs[kSMaxG][kR], m[kSMaxG], ls[kSMaxG], acc[kSMaxG][kR];
 #pragma unroll
     for (int i = 0; i < kSMaxG; ++i) {
@@ -805,9 +1034,10 @@ __device__ void s_attention(const StepArgs& a, const SSmem<T, kMT>& sm,
         const int e = lane * dpl + r;
         acc[i][r] = 0.f;
         qs[i][r] = i < g && r < dpl && e < hd
-                       ? __fdiv_rn(sm.hb[(2 + i) * hd + e], rs) : 0.f;
+                       ? __fdiv_rn(sm.hb[i * hd + e], rs) : 0.f;
       }
     }
+    phase(1);
     for (int t0 = s0 + warp; t0 < s1; t0 += kSWarps * kSAhead) {
       if (t0 != s0 + warp) load(t0);
 #pragma unroll
@@ -832,7 +1062,7 @@ __device__ void s_attention(const StepArgs& a, const SSmem<T, kMT>& sm,
         }
       }
     }
-    // the warps' states, merged in warp order into the unit's state
+    // the warps' states, for the merge in warp order
 #pragma unroll
     for (int i = 0; i < kSMaxG; ++i) {
       if (i >= g) break;
@@ -848,84 +1078,208 @@ __device__ void s_attention(const StepArgs& a, const SSmem<T, kMT>& sm,
       }
     }
     csync();
-    if (ts) a.trace[kTrAttn + 2] = global_ns();
-    // the unit's state: its warps' states in warp order (two passes: the
-    // max, then the rescaled sums); with one split, the row's result
-    float* part = a.part + static_cast<long long>(bj * S + sp) * g * st;
+    phase(2);
     float* att = a.att + static_cast<long long>(b) * a.nq * hd + j * g * hd;
-    for (int idx = threadIdx.x; idx < g * hd; idx += kSThreads) {
-      const int i = idx / hd, e = idx % hd;
-      float mm = kSNeg;
-      for (int w = 0; w < kSWarps; ++w)
-        mm = fmaxf(mm, sm.wst[(w * kSMaxG + i) * st + hd]);
-      float ll = 0.f, aa = 0.f;
-      for (int w = 0; w < kSWarps; ++w) {
-        const float* wp = sm.wst + (w * kSMaxG + i) * st;
-        const float cf = expf(wp[hd] - mm);
-        ll = fmaf(wp[hd + 1], cf, ll);
-        aa = fmaf(wp[e], cf, aa);
-      }
-      if (S == 1) {
-        att[idx] = s_fold(mm, ll, aa, sm.snew[i], sm.hb[hd + e], (T*)nullptr);
-      } else {
+    bool merge = true;
+    if (S > 1) {
+      // the unit's state: its warps' states in warp order (the max, then
+      // the rescaled sums), then the count
+      float* part = a.part + static_cast<long long>(bj * S + sp) * g * st;
+      for (int idx = threadIdx.x; idx < g * hd; idx += kSThreads) {
+        const int i = idx / hd, e = idx % hd;
+        float mm = kSNeg;
+        for (int w2 = 0; w2 < kSWarps; ++w2)
+          mm = fmaxf(mm, sm.wst[(w2 * kSMaxG + i) * st + hd]);
+        float ll = 0.f, aa = 0.f;
+        for (int w2 = 0; w2 < kSWarps; ++w2) {
+          const float* wp = sm.wst + (w2 * kSMaxG + i) * st;
+          const float cf = expf(wp[hd] - mm);
+          ll = fmaf(wp[hd + 1], cf, ll);
+          aa = fmaf(wp[e], cf, aa);
+        }
         part[i * st + e] = aa;
         if (e == 0) {
           part[i * st + hd] = mm;
           part[i * st + hd + 1] = ll;
         }
       }
+      csync();
+      if (threadIdx.x == 0) {
+        const bool last = atom_add_acq_rel(a.cnt + bj) ==
+                          static_cast<unsigned>(S - 1);
+        if (last) st_relaxed(a.cnt + bj, 0u);
+        sm.flag[0] = last;
+      }
+      csync();
+      merge = sm.flag[0] != 0;
     }
-    csync();
-    if (ts) a.trace[kTrAttn + 3] = global_ns();
-    if (S > 1 && threadIdx.x == 0) {
-      const bool last = atom_add_acq_rel(a.cnt + bj) == static_cast<unsigned>(
-                                                             S - 1);
-      if (last) st_relaxed(a.cnt + bj, 0u);
-      sm.flag[0] = last;
-    }
-    csync();
-    if (ts) a.trace[kTrAttn + 4] = global_ns();
-    if (S == 1 || sm.flag[0]) {
-      // the S states in split order, then the current token, last: all
-      // S states of a (q head, dim) in flight at once
-      const float* p0 = a.part + static_cast<long long>(bj * S) * g * st;
-      for (int idx = threadIdx.x; S > 1 && idx < g * hd;
-           idx += kSThreads) {
-        const int i = idx / hd, e = idx % hd;
-        float ms[kSMaxSplits], lv[kSMaxSplits], av[kSMaxSplits];
+    phase(3);
+    if (merge) {
+      // k, once a (row, kv head): QK-normed and RoPEd in place (v is
+      // final as loaded)
+      if (warp == g) {
+        float hv[kR], w[kR], c[kR], sn[kR];
 #pragma unroll
-        for (int q = 0; q < kSMaxSplits; ++q) {
-          const float* pp = p0 + (q * g + i) * st;
-          ms[q] = q < S ? __ldcg(pp + hd) : kSNeg;
-          lv[q] = q < S ? __ldcg(pp + hd + 1) : 0.f;
-          av[q] = q < S ? __ldcg(pp + e) : 0.f;
+        for (int t = 0; t < kR; ++t) {
+          const int e = lane + 32 * t;
+          const bool ok = e < hd;
+          hv[t] = ok ? sm.hb[g * hd + e] : 0.f;
+          w[t] = ok ? sm.hb[(g + 2) * hd + e] : 0.f;
+          c[t] = ok ? sm.hb[(g + 3) * hd + e] : 0.f;
+          sn[t] = ok ? sm.hb[(g + 4) * hd + e] : 0.f;
         }
-        float mm = kSNeg;
+        __syncwarp();
+        s_norm_rope<T>(hv, w, c, sn, sm.hb + g * hd, hd, a.eps);
+      }
+      csync();
+      if (warp < g) {                          // the current token's scores
+        float s = 0.f;
+        for (int e = lane; e < hd; e += 32)
+          s = fmaf(__fdiv_rn(sm.hb[warp * hd + e], rs), sm.hb[g * hd + e], s);
 #pragma unroll
-        for (int q = 0; q < kSMaxSplits; ++q)
-          if (q < S) mm = fmaxf(mm, ms[q]);
-        float ll = 0.f, aa = 0.f;
-#pragma unroll
-        for (int q = 0; q < kSMaxSplits; ++q)
-          if (q < S) {
-            const float cf = expf(ms[q] - mm);
-            ll = fmaf(lv[q], cf, ll);
-            aa = fmaf(av[q], cf, aa);
+        for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) sm.snew[warp] = s;
+      }
+      csync();
+      // the states in order (the warps' with one split, else the S
+      // splits' from scratch, all of a (q head, dim) in flight at once),
+      // then the current token, last
+      const float* p0 = a.part + static_cast<long long>(bj * S) * g * st;
+      for (int idx = threadIdx.x; idx < g * hd; idx += kSThreads) {
+        const int i = idx / hd, e = idx % hd;
+        float mm = kSNeg, ll = 0.f, aa = 0.f;
+        if (S == 1) {
+          for (int w2 = 0; w2 < kSWarps; ++w2)
+            mm = fmaxf(mm, sm.wst[(w2 * kSMaxG + i) * st + hd]);
+          for (int w2 = 0; w2 < kSWarps; ++w2) {
+            const float* wp = sm.wst + (w2 * kSMaxG + i) * st;
+            const float cf = expf(wp[hd] - mm);
+            ll = fmaf(wp[hd + 1], cf, ll);
+            aa = fmaf(wp[e], cf, aa);
           }
-        att[idx] = s_fold(mm, ll, aa, sm.snew[i], sm.hb[hd + e], (T*)nullptr);
+        } else {
+          float ms[kSMaxSplits], lv[kSMaxSplits], av[kSMaxSplits];
+#pragma unroll
+          for (int q = 0; q < kSMaxSplits; ++q) {
+            const float* pp = p0 + (q * g + i) * st;
+            ms[q] = q < S ? __ldcg(pp + hd) : kSNeg;
+            lv[q] = q < S ? __ldcg(pp + hd + 1) : 0.f;
+            av[q] = q < S ? __ldcg(pp + e) : 0.f;
+          }
+#pragma unroll
+          for (int q = 0; q < kSMaxSplits; ++q)
+            if (q < S) mm = fmaxf(mm, ms[q]);
+#pragma unroll
+          for (int q = 0; q < kSMaxSplits; ++q)
+            if (q < S) {
+              const float cf = expf(ms[q] - mm);
+              ll = fmaf(lv[q], cf, ll);
+              aa = fmaf(av[q], cf, aa);
+            }
+        }
+        att[idx] = s_fold(mm, ll, aa, sm.snew[i], sm.hb[(g + 1) * hd + e],
+                          (T*)nullptr);
       }
       // every unit of (b, j) has read the slice: the current k, v at the
       // row's slot
       const int slot = a.slot[b];
       if (slot >= 0 && slot < a.Tc)
         for (int e = threadIdx.x; e < hd; e += kSThreads) {
-          store_t(kc + base + static_cast<long long>(slot) * hd + e, sm.hb[e]);
+          store_t(kc + base + static_cast<long long>(slot) * hd + e,
+                  sm.hb[g * hd + e]);
           store_t(vc + base + static_cast<long long>(slot) * hd + e,
-                  sm.hb[hd + e]);
+                  sm.hb[(g + 1) * hd + e]);
         }
     }
     csync();                                 // hb, wst, flag are reused
-    if (ts) a.trace[kTrAttn + 5] = global_ns();
+    phase(4);
+    if (tr) tsum_add(sm, kTrAttn + 5, 1);
+  }
+}
+
+// Lines of n bytes from p into the L2 ahead of their first loads: thread
+// t0 + i brings line i
+__device__ __forceinline__ void prefetch_lines(const void* p, int n, int t0) {
+  const int i = static_cast<int>(threadIdx.x) - t0;
+  if (i >= 0 && i * 128 < n)
+    prefetch_l2(static_cast<const char*>(p) + i * 128);
+}
+
+// At the start of stage s: the next stage's norm weight (ln1, ln2 or the
+// final norm) and, with qkv, this layer's q / k norm weights and the rows'
+// cos / sin, which its attention reads.
+template <typename T>
+__device__ __forceinline__ void s_prefetch(const StepArgs& a, int s,
+                                           const SGeom& d) {
+  const int nb = a.H * static_cast<int>(sizeof(T));
+  const int m = s + 1 == 4 * a.L ? kSHead : (s + 1) % 4;
+  const T* next = m == kSQkv ? static_cast<const T*>(a.ln1) + (s + 1) / 4 * a.H
+                  : m == kSGu ? static_cast<const T*>(a.ln2) + (s + 1) / 4 * a.H
+                  : m == kSHead ? static_cast<const T*>(a.final_norm)
+                                : nullptr;
+  if (s < 4 * a.L && next != nullptr) prefetch_lines(next, nb, 0);
+  if (d.mat == kSQkv) {
+    const int hb = a.hd * static_cast<int>(sizeof(T));
+    const long long lo = static_cast<long long>(d.layer) * a.hd;
+    prefetch_lines(static_cast<const T*>(a.q_norm) + lo, hb, 128);
+    prefetch_lines(static_cast<const T*>(a.k_norm) + lo, hb, 160);
+    prefetch_lines(a.cos, a.B * a.hd * 4, 192);
+    prefetch_lines(a.sin, a.B * a.hd * 4, 224);
+  }
+}
+
+// A stage of the step: per row pass, the prologue into xs (the head's also
+// gives the step's hidden: each block stores its share of the columns),
+// then the product of the weight's kind; after qkv's last row pass, the
+// block's arrivals on the head counters and its attention units.
+template <typename T, int kMT>
+__device__ void s_stage(const StepArgs& a, const SSmem<T, kMT>& sm, int s,
+                        int& ci, unsigned long long* tb) {
+  const SGeom d = s_geom<T>(a, s);
+  const bool tr = tb != nullptr && threadIdx.x == 0;
+  const unsigned long long t0 = tr ? global_ns() : 0;
+  s_prefetch<T>(a, s, d);
+  const T* ln = static_cast<const T*>(
+      d.mat == kSQkv ? a.ln1 : d.mat == kSGu ? a.ln2 : a.final_norm);
+  if (d.mat != kSHead) ln += static_cast<long long>(d.layer) * a.H;
+  for (int c0 = 0; c0 < a.B && (d.nu > 0 || d.mat == kSHead); c0 += kMT) {
+    const int mt = min(kMT, a.B - c0);
+    auto first = [&] {
+      if (tr && c0 == 0) {
+        tsum_add(sm, kTrFirst + 2 * d.mat, global_ns() - t0);
+        tsum_add(sm, kTrFirst + 2 * d.mat + 1, 1);
+      }
+    };
+    if (d.mat == kSQkv || d.mat == kSGu || d.mat == kSHead)
+      s_norm<T, kMT>(a, sm, ln, d.mat == kSQkv && d.layer == 0, c0, mt,
+                     first);
+    else
+      s_plain<T, kMT>(sm, d.mat == kSDown ? a.act : a.att, d.K, c0, mt, first);
+    csync();
+    if (d.mat == kSHead) {
+      const int k0 = unit_lo(a.H, blockIdx.x);
+      const int k1 = unit_lo(a.H, blockIdx.x + 1);
+      T* hid = static_cast<T*>(a.hidden);
+      for (int i = threadIdx.x; i < mt * (k1 - k0); i += kSThreads) {
+        const int m = i / (k1 - k0), k = k0 + i % (k1 - k0);
+        hid[static_cast<long long>(c0 + m) * a.H + k] = sm.xs[m * a.H + k];
+      }
+    }
+    switch (d.kind) {
+      case kInt8:
+        s_product<T, kMT, kInt8>(a, sm, d, c0, mt, ci, tb);
+        break;
+      case kInt4:
+        s_product<T, kMT, kInt4>(a, sm, d, c0, mt, ci, tb);
+        break;
+      default:
+        s_product<T, kMT, kDense>(a, sm, d, c0, mt, ci, tb);
+    }
+  }
+  if (d.mat == kSQkv) {
+    csync();              // the block's qkv stores, then its arrivals
+    s_arrive(a, d);
+    s_attention<T, kMT>(a, sm, d.layer, tb);
   }
 }
 
@@ -934,24 +1288,23 @@ __global__ void __launch_bounds__(kSBlock, 1) talker_step(StepArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const SSmem<T, kMT> sm = s_carve<T, kMT>(smem_raw, a);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < a.nbuf; ++i) {
+    for (int i = 0; i < kSRing; ++i) {
       mbar_init(sm.full + i);
       mbar_init_count(sm.empty + i, kSWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; kTrace && i < kTrSums; ++i) sm.tsum[i] = 0;
   }
   __syncthreads();
   if (threadIdx.x >= kSThreads) {            // the producer warp
     if (threadIdx.x == kSThreads) produce<T, kMT>(a, sm);
     return;
   }
-  const bool tr = trace_thread(a.trace);
-  if (tr) a.trace[kTrT0] = global_ns();
+  unsigned long long* tb = block_trace(a);
+  if (tb != nullptr && threadIdx.x == 0) tb[kTrT0] = global_ns();
   {                                          // the residual, from x
-    const int k0 = static_cast<int>(
-        static_cast<long long>(blockIdx.x) * a.H / gridDim.x);
-    const int n = static_cast<int>(
-        static_cast<long long>(blockIdx.x + 1) * a.H / gridDim.x) - k0;
+    const int k0 = unit_lo(a.H, blockIdx.x);
+    const int n = unit_lo(a.H, blockIdx.x + 1) - k0;
     const T* x = static_cast<const T*>(a.x);
     for (int i = threadIdx.x; i < a.B * n; i += kSThreads) {
       const int b = i / n, k = k0 + i % n;
@@ -959,29 +1312,28 @@ __global__ void __launch_bounds__(kSBlock, 1) talker_step(StepArgs a) {
     }
   }
   int ci = 0, ti = 0;
-  unsigned long long waited = 0;
-  unsigned long long* btr = kTrace && blockIdx.x == 0 ? a.trace : nullptr;
   unsigned long long next = threadIdx.x == 0 ? grid_count_base(a.bar) : 0;
-  auto barrier = [&] {
-    grid_barrier_first(a.bar, next, kSThreads, btr, ti);
-  };
-  for (int l = 0; l < a.L; ++l) {
-    s_stage<T, kMT>(a, sm, 4 * l + kSQkv, ci, waited);
-    barrier();
-    s_attention<T, kMT>(a, sm, l);
-    barrier();
-    s_stage<T, kMT>(a, sm, 4 * l + kSWo, ci, waited);
-    barrier();
-    s_stage<T, kMT>(a, sm, 4 * l + kSGu, ci, waited);
-    barrier();
-    s_stage<T, kMT>(a, sm, 4 * l + kSDown, ci, waited);
-    barrier();
+  // one loop over the step's stages, so that the stage code is compiled
+  // once; a grid barrier after each but the head
+  const int n = 4 * a.L + 1;
+#pragma unroll 1
+  for (int s = 0; s < n; ++s) {
+    s_stage<T, kMT>(a, sm, s, ci, tb);
+    if (s + 1 < n)
+      grid_barrier_first(a.bar, next, kSThreads, ti < kTrBars ? tb : nullptr,
+                         ti);
   }
-  s_stage<T, kMT>(a, sm, 4 * a.L, ci, waited);
-  if (tr) {
-    a.trace[kTrEnd] = global_ns();
-    a.trace[kTrWait] += waited;
-    a.trace[kTrWait + 1] += ci;
+  if (ti != step_barriers(a.L)) __trap();    // the host counts the same
+  // past the last barrier no block waits on a head counter: ready for the
+  // next launch
+  if (blockIdx.x == 0 && threadIdx.x < a.nk)
+    st_relaxed(a.hcnt + threadIdx.x, 0u);
+  if (tb != nullptr && threadIdx.x == 0) {
+    tb[kTrEnd] = global_ns();
+    tb[kTrNBar] = ti;
+    for (int i = 0; i < kTrSums; ++i)      // the producer adds its own
+      if (kTrFirst + i != kTrPWait && kTrFirst + i != kTrPWait + 1)
+        tb[kTrFirst + i] += sm.tsum[i];
   }
 }
 
@@ -1005,10 +1357,12 @@ StepKernel step_kernel_of(int dtype, int mt) {
 }
 
 // x rows a pass (ops/fused_talker.py row_pass): 1, 2, 4, else 8 in bf16
-// and 4 in f32, so the staged rows take at most 16 bytes a K element
-int step_rows(int B, int tsize) {
-  const int mt = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
-  return mt * tsize > 16 ? 16 / tsize : mt;
+// and 4 in f32, so the staged rows take at most 16 bytes a K element; at
+// most 4 with int4 weights
+int step_rows(int B, int tsize, bool i4) {
+  int mt = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
+  if (mt * tsize > 16) mt = 16 / tsize;
+  return i4 && mt > kSMaxMT4 ? kSMaxMT4 : mt;
 }
 
 bool bad_step(const StepArgs& a, int mt, int tsize) {
@@ -1024,12 +1378,11 @@ bool bad_step(const StepArgs& a, int mt, int tsize) {
   const int g2 = 2 * kGroup4;
   if (n4 != 0 && (n4 != 5 || a.H % g2 || a.F % g2 || (a.nq * a.hd) % g2))
     return true;
-  return a.B < 1 || a.B > kSMaxB || mt != step_rows(a.B, tsize) || a.L < 1 ||
-         !pow2 || a.nk < 1 || a.nq % a.nk || a.nq / a.nk > kSMaxG ||
-         a.H % kSUnit || a.F % kSUnit || a.V % kSUnit ||
-         a.H > kSXPer * kSThreads || a.Tc < 1 || a.S < 1 ||
-         a.S > kSMaxSplits || a.chunk < 1024 || a.chunk % 16 ||
-         a.nbuf < 2 || a.nbuf > kSMaxRing;
+  return a.B < 1 || a.B > kSMaxB || mt != step_rows(a.B, tsize, n4 != 0) ||
+         a.L < 1 || 4 * a.L > kTrBars || !pow2 || a.nk < 1 || a.nq % a.nk ||
+         a.nq / a.nk > kSMaxG || a.H % kSUnit || a.F % kSUnit ||
+         a.V % kSUnit || a.H > kSXPer * kSThreads || a.Tc < 1 || a.S < 1 ||
+         a.S > kSMaxSplits || a.hcnt == nullptr || a.cnt == nullptr;
 }
 
 }  // namespace
@@ -1039,9 +1392,12 @@ extern "C" {
 // out[0] = resident blocks per SM of the kernel (dtype: 0 float32, 1
 // bfloat16; mt: x rows a pass, 1, 2, 4 or, in bf16, 8) at `smem` bytes of
 // dynamic shared memory, out[1] the device's opt-in shared memory per
-// block, out[2] its SM count; returns a cudaError_t.
+// block, out[2] its SM count, out[3] and out[4] the ring's buffers and
+// bytes a buffer as compiled; returns a cudaError_t.
 int talker_step_query(int dtype, int mt, int smem, int* out) {
   int dev = 0;
+  out[3] = kSRing;
+  out[4] = kSChunk;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -1062,7 +1418,7 @@ int talker_step_query(int dtype, int mt, int smem, int* out) {
 }
 
 // One step: `args` a StepArgs (ops/fused_talker.py _StepArgs), nb blocks
-// (SMs x resident blocks), smem = the fixed part + nbuf * chunk.
+// (SMs x resident blocks), smem = the fixed part + the ring's bytes.
 int talker_step_launch(const void* args, int dtype, int mt, int nb, int smem,
                        void* stream) {
   if (args == nullptr || (dtype != 0 && dtype != 1) || nb < 1)
@@ -1071,7 +1427,7 @@ int talker_step_launch(const void* args, int dtype, int mt, int nb, int smem,
   const int tsize = dtype == 0 ? 4 : 2;
   if (bad_step(a, mt, tsize) ||
       smem != s_fixed(mt, s_kmax(a.H, a.nq, a.hd, a.F), a.hd, tsize) +
-                  a.nbuf * a.chunk)
+                  s_ring_bytes())
     return static_cast<int>(cudaErrorInvalidValue);
   const StepKernel kernel = step_kernel_of(dtype, mt);
   cudaError_t e = cudaFuncSetAttribute(

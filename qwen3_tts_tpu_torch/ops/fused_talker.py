@@ -34,8 +34,9 @@ Weights are dense, int8 or int4, split per layer as the TPU kernel's
 `_split_w` splits them (`qwen3_tts_tpu/ops/fused_talker.py:72-82`): values
 to gemv B / B8 / B4 (or the kernel's packed copy), the f32 per-channel
 scales into their epilogues. The kernel's design is at the top of
-`csrc/talker_step.cu`; its plan (work units, attention splits, the weight
-ring) is mirrored here for the CPU tests.
+`csrc/talker_step.cu`; its plan (work units, the head counters and the
+attention deal, the weight ring, the kernel's weight copies) is mirrored
+here for the CPU tests.
 """
 
 from __future__ import annotations
@@ -129,31 +130,39 @@ def talker_step_fused_plain(params, cfg, x, positions, slot, kv_len,
 
 # ------------------------------------------------------------- step kernel
 KERNEL, CHAIN = "kernel", "chain"
-# The route's batch limits, from times at B = 1, 2, 4, 8, 16 on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md, "the route's batch limit"): device ms
-# a step, kernel vs chain
-# (chip_smoke.py step_kernel_times), and ms a frame of generate_codes on
-# each route (tools/frame_measure.py route). From B = 4 a frame is
-# device-bound on both routes. Dense and int8 weights: the kernel's step is
-# the chain's or faster from B = 4 (int8 at B = 4: 0.11 ms slower), so the
-# limit is the kernel's cap. int4 weights: the chain's step is faster at
-# every B (1.46 vs 2.28 ms at B = 1, 5.18 vs 7.24 at 16) and its frame
-# 1.1-1.4 ms faster at 16, so the kernel keeps B = 1 and 2, which the main
-# path runs, where it takes ~140 host launches a step out of the frame.
+# The route's batch limits, from `generate_codes` ms a frame on each route
+# at B = 1, 2, 4, 8, 16, five runs a side in turns, with the device ms a
+# frame beside them (tools/frame_measure.py route; NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md, "the route's batch limit"): the kernel where every
+# kernel run beat every chain run, and where the runs overlapped, the
+# route that took less device time (as for ROUTE_MAX_B in
+# ops/fused_predictor.py). Dense and int8: the
+# kernel at every B (its device ms the lower at each), so the limit is the
+# kernel's cap. int4: the kernel through B = 8; at 16 the chain (16.27
+# against 17.90 device ms a frame; B = 9-15 were not run).
 MAX_B = 16          # the kernel's batch cap (csrc/talker_step.cu kSMaxB)
-INT4_MAX_B = 2
+INT4_MAX_B = 8
 UNIT = 8            # columns of a work unit (csrc/talker_step.cu kSUnit)
 MAX_G = 4           # q heads per kv head
 MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kSXPer)
 MAX_SPLITS = 16     # attention splits per (row, kv head)
 MIN_SPLIT_SLOTS = 32    # cache slots a split at least
-MAX_RING = 8        # ring buffers
-CHUNK = 32 * 1024   # bytes of a ring buffer
+MAX_MT4 = 4         # x rows a pass with int4 weights (kSMaxMT4)
+GROUP4_ROWS = quant.GROUP4 // 2     # packed int4 rows of a group (kG4Rows)
+# The weight ring, one size for every B and dtype (csrc/talker_step.cu
+# kSRing, kSChunk; `_plan` checks the library's own): RING buffers of
+# CHUNK bytes of values (and int4's multipliers, `ring_bytes`), measured on
+# the H100 (PERF.md, the talker's ring sweep)
+RING = 4
+CHUNK = 16 * 1024
 _WARPS = 8          # consumer warps of a block
 _STAGES = ("qkv", "wo", "gu", "down", "head")
 _WEIGHTS = {"qkv": "wqkv", "wo": "wo", "gu": "w_gu", "down": "w_down"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {"dense": 0, "int8": 1, "int4": 2}
+# csrc/talker_step.cu's trace words: a block's TRACE_STRIDE words from
+# blk * TRACE_STRIDE (kTrStride; tools/frame_measure.py talker reads them)
+TRACE_STRIDE = 1024
 
 
 def _weights(params):
@@ -179,13 +188,15 @@ def talker_route(params: Dict[str, Any], B: int) -> str:
         else CHAIN
 
 
-def row_pass(B: int, t_bytes: int) -> int:
+def row_pass(B: int, t_bytes: int, int4: bool = False) -> int:
     """x rows a row pass stages (kMT): 1, 2, 4, else 8 in bf16 and 4 in
-    f32, so the staged rows take at most 16 bytes a K element and leave
-    the ring room at every B (B > kMT: ceil(B / kMT) passes over each
-    stage, the weights streamed once a pass)."""
+    f32, so the staged rows take at most 16 bytes a K element; at most
+    MAX_MT4 with int4 weights (B > kMT: ceil(B / kMT) passes over each
+    stage, the weights streamed once a pass; csrc/talker_step.cu
+    step_rows)."""
     mt = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
-    return min(mt, 16 // t_bytes)
+    mt = min(mt, 16 // t_bytes)
+    return min(mt, MAX_MT4) if int4 else mt
 
 
 def units_a_batch(mt: int) -> int:
@@ -200,6 +211,13 @@ def stage_shapes(cfg) -> Dict[str, Tuple[int, int]]:
     nqkv = (cfg.n_q_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
     return {"qkv": (H, nqkv), "wo": (cfg.n_q_heads * cfg.head_dim, H),
             "gu": (H, 2 * F), "down": (F, H), "head": (H, cfg.vocab)}
+
+
+def step_barriers(cfg) -> int:
+    """Grid barriers a step: four a layer, after qkv with its attention,
+    wo, gate/up and down (csrc/talker_step.cu step_barriers; the kernel
+    traps if it meets another count)."""
+    return 4 * cfg.n_layers
 
 
 def step_splits(B: int, nk: int, T: int, nb: int) -> int:
@@ -225,12 +243,38 @@ def split_range(lo: int, hi: int, S: int, s: int) -> Tuple[int, int]:
     return s0, max(s0, min(s0 + per, hi))
 
 
+def group_units(cfg) -> int:
+    """qkv units of a kv head's group: its g q heads, its k and its v
+    (csrc/talker_step.cu group_units; the kernel's qkv columns are grouped
+    so, `group_qkv`)."""
+    g = cfg.n_q_heads // cfg.n_kv_heads
+    return (g + 2) * cfg.head_dim // UNIT
+
+
+def attention_unit(u: int, B: int, S: int) -> Tuple[int, int, int]:
+    """Attention unit u as the kernel takes it: (kv head j, row b, split s),
+    j-major, so head j's units fall on about the blocks that hold its qkv
+    columns."""
+    return u // (B * S), u // S % B, u % S
+
+
+def head_arrivals(cfg, nb: int, blk: int) -> Dict[int, int]:
+    """Block blk's arrivals on the head counters a layer: {kv head j: its
+    qkv units of j's group} (csrc/talker_step.cu s_arrive). A unit of head
+    j's attention waits until j's counter holds group_units a layer."""
+    ug = group_units(cfg)
+    lo, hi = split_units(stage_shapes(cfg)["qkv"][1] // UNIT, nb)[blk]
+    out = {}
+    for u in range(lo, hi):
+        out[u // ug] = out.get(u // ug, 0) + 1
+    return out
+
+
 def step_plan(cfg, B: int, nb: int, T: int) -> Dict[str, list]:
     """The kernel's work plan over nb blocks: per weight stage, each block's
-    range of 8-column units; "attention", each block's range of (row, kv
-    head, split) units (b * nk + j) * S + s; "residual", each block's
-    columns of the residual it writes from x (and of the hidden from the
-    final norm)."""
+    range of 8-column units; "attention", each block's range of attention
+    units (`attention_unit`); "residual", each block's columns of the
+    residual it writes from x (and of the hidden from the final norm)."""
     plan = {st: split_units(N // UNIT, nb)
             for st, (_, N) in stage_shapes(cfg).items()}
     S = step_splits(B, cfg.n_kv_heads, T, nb)
@@ -239,29 +283,37 @@ def step_plan(cfg, B: int, nb: int, T: int) -> Dict[str, list]:
     return plan
 
 
-def step_smem_fixed(cfg, B: int, t_bytes: int) -> int:
+def step_smem_fixed(cfg, B: int, t_bytes: int, int4: bool = False) -> int:
     """Bytes of a block's shared memory besides the ring
-    (csrc/talker_step.cu s_fixed): the ring's mbarriers, the staged x rows,
-    the sums' scratch, the attention unit's head vectors and warp states."""
-    mt = row_pass(B, t_bytes)
+    (csrc/talker_step.cu s_fixed): the ring's mbarriers, the trace's sums,
+    the staged x rows, the sums' scratch, the attention unit's head vectors
+    (q heads, k, v, k's norm weight, cos, sin) and warp states."""
+    mt = row_pass(B, t_bytes, int4)
     hd = cfg.head_dim
     kmax = max(cfg.hidden, cfg.n_q_heads * hd, cfg.ffn_dim)
     xs = -(-(mt * kmax * t_bytes) // 16) * 16
-    return 2 * MAX_RING * 8 + xs + 4 * (
-        2 * _WARPS * 32 + 64 + 8 + (2 + MAX_G) * hd
+    return 2 * RING * 8 + 40 * 8 + xs + 4 * (
+        2 * _WARPS * 32 + 64 + 8 + (5 + MAX_G) * hd
         + _WARPS * MAX_G * (hd + 2) + MAX_G + 4)
 
 
-def ring_plan(fixed: int, smem_max: int) -> Tuple[int, int]:
-    """(bytes a buffer, buffers) of the weight ring: CHUNK-byte buffers,
-    as many as the block's shared memory leaves, at most MAX_RING; at least
-    two or the plan raises."""
-    n = min(MAX_RING, (smem_max - fixed) // CHUNK)
-    if n < 2:
-        raise ValueError(f"talker_step: {fixed} bytes of fixed shared memory "
-                         f"leave no room for two {CHUNK}-byte ring buffers "
-                         f"in {smem_max}")
-    return CHUNK, n
+def ring_bytes() -> int:
+    """The ring's shared memory: RING buffers of CHUNK bytes of values and
+    a 64th of that for int4's multipliers (csrc/talker_step.cu
+    s_ring_bytes)."""
+    return RING * (CHUNK + CHUNK // 64)
+
+
+def step_smem(cfg, B: int, t_bytes: int, smem_max: int,
+              int4: bool = False) -> int:
+    """A block's shared memory: the fixed part and the ring; raises where
+    that exceeds the block's opt-in shared memory."""
+    smem = step_smem_fixed(cfg, B, t_bytes, int4) + ring_bytes()
+    if smem > smem_max:
+        raise ValueError(f"talker_step: {smem} bytes of shared memory (the "
+                         f"ring's {RING} x {CHUNK}) exceed the block's "
+                         f"{smem_max}")
+    return smem
 
 
 def row_bytes(kind: str, t_bytes: int) -> int:
@@ -270,18 +322,22 @@ def row_bytes(kind: str, t_bytes: int) -> int:
     return UNIT * (t_bytes if kind == "dense" else 1)
 
 
-def chunk_rows(chunk: int, nub: int, wb: int, Kp: int) -> int:
-    """Rows of a batch of nub units a ring buffer holds (even: whole
-    16-byte copies), at most Kp (csrc/talker_step.cu s_chunk_rows)."""
-    return min(Kp, (chunk // (nub * wb)) & ~1)
+def chunk_rows(nub: int, wb: int, Kp: int, int4: bool = False,
+               chunk: int = CHUNK) -> int:
+    """Rows of a batch of nub units a ring buffer holds, at most Kp
+    (csrc/talker_step.cu s_chunk_rows): even (whole 16-byte copies); with
+    int4 whole pairs of groups (128 packed rows), whose multipliers (8
+    bytes a group and unit) go to the buffer's multiplier part."""
+    return min(Kp, (chunk // (nub * wb)) & (~127 if int4 else ~1))
 
 
 def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
-                   chunk: int) -> list:
+                   chunk: int = CHUNK) -> list:
     """Block blk's ring chunks in the order producer and consumers walk
     them: (stage, layer, row pass, first unit, units, first row, rows)."""
     out = []
-    mt = row_pass(B, t_bytes)
+    int4 = "int4" in kinds
+    mt = row_pass(B, t_bytes, int4)
     ub_n = units_a_batch(mt)
     shapes = stage_shapes(cfg)
     seq = [(st, l) for l in range(cfg.n_layers)
@@ -295,7 +351,7 @@ def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
         for rc in range(-(-B // mt)):
             for ul in range(lo, hi, ub_n):
                 nub = min(ub_n, hi - ul)
-                R = chunk_rows(chunk, nub, wb, Kp)
+                R = chunk_rows(nub, wb, Kp, kind == "int4", chunk)
                 for r0 in range(0, Kp, R):
                     out.append((st, l, rc, ul, nub, r0, min(R, Kp - r0)))
     return out
@@ -314,17 +370,73 @@ def interleave_gu(t: torch.Tensor) -> torch.Tensor:
     return torch.cat([g, u], dim=-1).reshape(t.shape).contiguous()
 
 
-def kernel_copy(t: torch.Tensor, stage: str, values: bool = False):
-    """The kernel's copy of a weight part, made once per tensor: gate/up
-    parts interleaved (`interleave_gu`), values packed in units
-    (`pack_units`); other parts as they are."""
-    if stage != "gu" and not values:
+def group_qkv(t: torch.Tensor, nq: int, nk: int, hd: int) -> torch.Tensor:
+    """qkv columns [..., q (nq hd) | k (nk hd) | v (nk hd)] -> [..., nk
+    groups of (g + 2) hd]: kv head j's q heads j g .. j g + g - 1, its k,
+    its v, so the kernel's qkv units of one head are contiguous. Applied
+    alike to the values, the scales and the int4 multipliers."""
+    g = nq // nk
+    cols = []
+    for j in range(nk):
+        cols += list(range(j * g * hd, (j + 1) * g * hd))
+        cols += list(range((nq + j) * hd, (nq + j + 1) * hd))
+        cols += list(range((nq + nk + j) * hd, (nq + nk + j + 1) * hd))
+    return t[..., torch.tensor(cols, device=t.device)].contiguous()
+
+
+def pair_int4(q4: torch.Tensor) -> torch.Tensor:
+    """int4 values [..., K / 2, N] as ops/quant.py packs them (row r's
+    nibble low, row r + K / 2's high) -> the kernel's pairs: packed row r
+    holds weight row 2 r in its low nibble and 2 r + 1 in its high one, so
+    a 128-row group is 64 consecutive packed rows (the biased nibbles
+    unchanged)."""
+    qu = q4.to(torch.int32) & 0xFF
+    nib = torch.cat([qu & 0xF, qu >> 4], dim=-2)            # [..., K, N]
+    return (nib[..., 0::2, :] | (nib[..., 1::2, :] << 4)).to(
+        torch.uint8).view(torch.int8)
+
+
+def kernel_copy(t: torch.Tensor, stage: str, part: str = "", cfg=None):
+    """The kernel's copy of a weight part, made once per tensor: qkv's
+    columns grouped by kv head (`group_qkv`, needs `cfg`), gate/up's
+    interleaved (`interleave_gu`); the values ("values" or int4's "q4",
+    pairs of rows, `pair_int4`) and int4's multipliers ("m8") packed in
+    units (`pack_units`); other parts as they are."""
+    steps = []
+    if stage == "qkv":
+        steps.append(lambda x: group_qkv(x, cfg.n_q_heads, cfg.n_kv_heads,
+                                         cfg.head_dim))
+    elif stage == "gu":
+        steps.append(interleave_gu)
+    if part == "q4":
+        steps.append(pair_int4)
+    if part in ("values", "q4", "m8"):
+        steps.append(pack_units)
+    if not steps:
         return t
-    fn = interleave_gu if stage == "gu" else (lambda x: x)
-    if values:
-        return derived(t, f"talker {stage} values",
-                       lambda x: pack_units(fn(x)))
-    return derived(t, "talker gu", fn)
+
+    def fn(x):
+        for f in steps:
+            x = f(x)
+        return x
+    return derived(t, f"talker {stage} {part}", fn)
+
+
+def int4_group_order_plain(x: torch.Tensor, q4: torch.Tensor,
+                           m8: torch.Tensor) -> torch.Tensor:
+    """The step kernel's int4 product in plain PyTorch, f32, no column
+    scale: x [M, K] @ deq(q4 [K / 2, N], m8 [K / 128, N]) as y = sum over
+    128-row groups g of (x_g . (nib_g - 8)) * m8[g], the multiplier once a
+    group after the group's dot (the kernel splits a group's dot over the
+    lanes of a warp and sums the lanes' products later: the same sum in
+    another order)."""
+    M, K = x.shape
+    N = q4.shape[-1]
+    ng = K // quant.GROUP4
+    nib = quant.unpack4(q4).float()                          # [K, N] - 8
+    xg = x.float().reshape(M, ng, quant.GROUP4).transpose(0, 1)
+    part = torch.bmm(xg, nib.reshape(ng, quant.GROUP4, N))   # [g, M, N]
+    return (part * m8.float()[:, None, :]).sum(dim=0)
 
 
 def split_attention_plain(q, k_all, v_all, k_new, v_new, layer: int,
@@ -377,17 +489,21 @@ class _StepArgs(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "ln1", "ln2", "q_norm", "k_norm", "final_norm", "x", "cos", "sin",
             "slot", "kv_len", "valid_from", "kc", "vc", "hidden", "logits",
-            "xres", "qkv", "att", "act", "part", "cnt", "bar", "trace")] \
+            "xres", "qkv", "att", "act", "part", "cnt", "hcnt", "bar",
+            "trace")] \
         + [("kind", ctypes.c_int * 5)] \
         + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
-                                       "V", "Tc", "S", "chunk", "nbuf")] \
+                                       "V", "Tc", "S", "mode")] \
         + [("eps", ctypes.c_float)]
 
 
-# a [trace words] int64 CUDA tensor, or None: block 0's stage timeline
-# (tools/frame_measure.py talker; written only by a library built with
-# kernels/build.py trace_build)
+# a [nb * TRACE_STRIDE] int64 CUDA tensor, or None: every block's stage
+# timeline (tools/frame_measure.py talker; written only by a library built
+# with kernels/build.py trace_build); MODE: NO_WORK cuts the products out
+# (csrc/talker_step.cu kNoWork; the same builds only)
 TRACE = None
+NO_WORK = 1
+MODE = 0
 
 
 def _geometry(cfg):
@@ -404,10 +520,10 @@ _plans: dict = {}
 def _workspace(cfg, B: int, S: int, nb: int, dev):
     """Scratch of the kernel, kept per (geometry, B, splits, blocks,
     device, stream): the f32 residual, the qkv product, the attention output
-    and silu(g) * u, the split states, the split counters (zeroed once; the
-    kernel leaves them ready for the next launch) and the grid barrier's
-    arrival count (zeroed once: it only grows, by the grid at every
-    barrier, so it serves one grid size)."""
+    and silu(g) * u, the split states; the split counters and the head
+    arrival counters (zeroed once; the kernel leaves them zero for the next
+    launch) and the grid barrier's arrival count (zeroed once: it only
+    grows, by the grid at every barrier, so it serves one grid size)."""
     key = (_geometry(cfg), B, S, nb, dev,
            torch.cuda.current_stream(dev).cuda_stream)
     if key not in _workspaces:
@@ -421,37 +537,40 @@ def _workspace(cfg, B: int, S: int, nb: int, dev):
             act=torch.empty(B, cfg.ffn_dim, **f32),
             part=torch.empty(B * nk * S, (nq // nk) * (hd + 2), **f32),
             cnt=torch.zeros(B * nk, dtype=torch.int32, device=dev),
+            hcnt=torch.zeros(nk, dtype=torch.int32, device=dev),
             bar=torch.zeros(1, dtype=torch.int64, device=dev))
     return _workspaces[key]
 
 
 def _query(dtype: int, mt: int, smem: int):
     """(resident blocks per SM at smem bytes, opt-in shared memory per
-    block, SM count) of the step kernel on the current device."""
+    block, SM count, the ring's buffers and bytes a buffer as the library
+    was built) of the step kernel on the current device."""
     from ..kernels import build
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     build.check(build.lib().talker_step_query(dtype, mt, smem, out),
                 "talker_step_query")
-    return out[0], out[1], out[2]
+    return tuple(out)
 
 
-def _plan(cfg, B: int, t_bytes: int, dev):
-    """(x rows a pass, blocks, bytes a ring buffer, buffers, shared memory a
-    block): the ring from what the fixed part leaves, the grid SMs x the
-    resident blocks per SM at that shared memory."""
-    key = (_geometry(cfg), B, t_bytes, dev)
+def _plan(cfg, B: int, t_bytes: int, int4: bool, dev):
+    """(x rows a pass, blocks, shared memory a block): the fixed part and
+    the ring, the grid SMs x the resident blocks per SM at that shared
+    memory. Raises if the library's ring is not RING x CHUNK."""
+    key = (_geometry(cfg), B, t_bytes, int4, dev)
     if key not in _plans:
-        mt = row_pass(B, t_bytes)
+        mt = row_pass(B, t_bytes, int4)
         dtype = 0 if t_bytes == 4 else 1
-        _, smem_max, sms = _query(dtype, mt, 0)
-        fixed = step_smem_fixed(cfg, B, t_bytes)
-        chunk, nbuf = ring_plan(fixed, smem_max)
-        smem = fixed + nbuf * chunk
+        _, smem_max, sms, nbuf, chunk = _query(dtype, mt, 0)
+        if (nbuf, chunk) != (RING, CHUNK):
+            raise RuntimeError(f"talker_step: the library's ring is {nbuf} x "
+                               f"{chunk} bytes, the host's {RING} x {CHUNK}")
+        smem = step_smem(cfg, B, t_bytes, smem_max, int4)
         per_sm = _query(dtype, mt, smem)[0]
         if per_sm < 1:
             raise RuntimeError(f"talker_step: no block fits an SM at {smem} "
                                "bytes of shared memory")
-        _plans[key] = (mt, sms * per_sm, chunk, nbuf, smem)
+        _plans[key] = (mt, sms * per_sm, smem)
     return _plans[key]
 
 
@@ -548,7 +667,7 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
     B, hd = x.shape[0], cfg.head_dim
     from ..kernels import build
     with torch.cuda.device(dev):
-        mt, nb, chunk, nbuf, smem = _plan(cfg, B, t_bytes, dev)
+        mt, nb, smem = _plan(cfg, B, t_bytes, "int4" in kinds, dev)
         S = step_splits(B, cfg.n_kv_heads, k_cache.shape[3], nb)
         ws = _workspace(cfg, B, S, nb, dev)
         pos = _rows_i32(positions, B, dev)
@@ -563,12 +682,14 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
         a = _StepArgs()
         for i, (st, w) in enumerate(_weights(params).items()):
             kind = kinds[i]
-            vals = w["q4"] if kind == "int4" else w["q"] if kind == "int8" \
-                else w
-            a.w[i] = kernel_copy(vals, st, True).data_ptr()
-            a.m8[i] = kernel_copy(w["m8"], st).data_ptr() \
+            if kind == "int4":
+                vals, part = w["q4"], "q4"
+            else:
+                vals, part = (w["q"] if kind == "int8" else w), "values"
+            a.w[i] = kernel_copy(vals, st, part, cfg).data_ptr()
+            a.m8[i] = kernel_copy(w["m8"], st, "m8", cfg).data_ptr() \
                 if kind == "int4" else None
-            a.sc[i] = kernel_copy(w["scale"], st).data_ptr() \
+            a.sc[i] = kernel_copy(w["scale"], st, "scale", cfg).data_ptr() \
                 if kind != "dense" else None
             a.kind[i] = _KINDS[kind]
         for name, t in (("ln1", lw["ln1"]), ("ln2", lw["ln2"]),
@@ -579,13 +700,14 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
                         ("kc", k_cache), ("vc", v_cache), ("hidden", hidden),
                         ("logits", logits)):
             setattr(a, name, t.data_ptr())
-        for name in ("xres", "qkv", "att", "act", "part", "cnt", "bar"):
+        for name in ("xres", "qkv", "att", "act", "part", "cnt", "hcnt",
+                     "bar"):
             setattr(a, name, ws[name].data_ptr())
         a.trace = None if TRACE is None else TRACE.data_ptr()
-        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.V, a.Tc, a.S, a.chunk,
-         a.nbuf) = (B, cfg.hidden, cfg.n_layers, cfg.n_q_heads,
-                    cfg.n_kv_heads, hd, cfg.ffn_dim, cfg.vocab,
-                    k_cache.shape[3], S, chunk, nbuf)
+        a.mode = MODE
+        (a.B, a.H, a.L, a.nq, a.nk, a.hd, a.F, a.V, a.Tc, a.S) = (
+            B, cfg.hidden, cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads, hd,
+            cfg.ffn_dim, cfg.vocab, k_cache.shape[3], S)
         a.eps = cfg.rms_eps
         err = build.lib().talker_step_launch(
             ctypes.addressof(a), _DTYPES[dt], mt, nb, smem,

@@ -4,11 +4,14 @@ repo's root (each mode imports its `chip_smoke.py`):
 
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace [B ...]
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure talker
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure ring [NBUF,CHUNK ...]
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure int8mm
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure sass [SOURCE ...]
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py talker-ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py route [predictor] [B ...]
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py frame-ab TAG
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py step-ab TAG
 
 Both persistent kernels carry a trace that is compiled in only for
 `trace` and `talker` (`kernels/build.py trace_build`, -DKERNEL_TRACE: a
@@ -31,13 +34,36 @@ trace   the predictor frame kernel's timeline: full width, dense bf16 and
         phases (first chunk in, last chunk read, end), the attention
         prologue, and a frame's ring waits: the consumers' for full
         buffers, the producer's for free ones.
-talker  the talker step kernel's stage timeline: full width,
-        dense bf16, int8 and int4, B = 1 and 2, a 256-slot cache with ~100
-        live slots; ms a step (CUDA events over 10 steps) and per stage
-        kind (qkv, attention, wo, gate/up, down, the head) block 0's work
-        and its barrier wait, us a stage; the consumers' waits for full
-        ring buffers and the producer's for free ones, us a step; the
-        last layer's attention unit 0 and block 0's products by phase.
+talker  the talker step kernel's timeline, read from every block: full
+        width, dense bf16, int8 and int4 at B = 1 and dense at B = 16, each
+        with a 256-slot cache of ~100 live slots (offline) and a 4096-slot
+        cache of ~1000 (streaming), each in two modes (`fused_talker.MODE`:
+        as built, and `nowork`, the products cut out). Per run: ms a step
+        (CUDA events over 10 steps), the grid barriers the kernel met
+        against the host's count, us a layer; per stage kind (qkv with its
+        attention, wo, gate/up, down) the median block's work, the spread
+        of arrivals, last arrival to first release, the spread of releases
+        and the stage's time, and the head's; per block on average the time
+        to a stage's first activation data, the products' phases and the
+        ring waits (consumers' for full buffers, the producer's for free
+        ones); attention's phases a unit (the wait for its head's qkv
+        columns, the q heads, the slots and warp states, the state and
+        count, the merge with the k / v store) over the blocks with units.
+ring [NBUF,CHUNK ...]
+        the weight ring's size: `csrc/talker_step.cu` alone built with each
+        (buffers, bytes a buffer) given (-DSTEP_RING, -DSTEP_CHUNK; 2 to 6
+        x 16 KiB, 2 x 32 and 4 x 12 KiB by default; all built at once;
+        ptxas's registers and spills a thread printed for each), then
+        the step at full width by CUDA-graph replay, dense, int8 and int4
+        at B = 1 and 16 (256 slots, ~100 live), two rounds over the
+        variants.
+sass [SOURCE ...]
+        each `csrc` source given (talker_step and predictor_frame by
+        default) compiled as `kernels/build.py` compiles it, to a cubin:
+        ptxas's registers and spill bytes a thread, then per kernel its SASS
+        instructions and its local loads and stores (`cuobjdump -sass`).
+        From a parent's tree (`python3 <this file> sass`) it reads the
+        parent's sources.
 int8mm  whether `torch._weight_int8pack_mm` runs on CUDA, and its device
         time (CUDA-graph replay) at B8's predictor layer (M = 1) and A's
         talker layer (M = 64), weights rotating past the 50 MB L2: the
@@ -56,21 +82,29 @@ route [predictor] [B ...]
         (`ops/fused_talker.py MAX_B`, `INT4_MAX_B`), or with `predictor`
         the frame route's (`ops/fused_predictor.py ROUTE_MAX_B`), end to
         end: `generate_codes` (ignore_eos) at full width, at each B given
-        (1, 2, 4, 8, 16 by default), the talker with dense bf16 and
-        int4+int8 weights (the predictor: dense bf16 and int8/int8) on its
-        kernel (the limits set to the kernel's cap) and on its chain (set
-        to 0), in turns
-        kernel, chain, chain, kernel: ms a frame (CUDA events over 16
-        frames, the prefill subtracted; the host loop's pace where it
-        bounds the frame) and device ms a frame (profiler, prefill + 4
-        frames less the prefill).
+        (1, 2, 4, 8, 16 by default), the talker with dense bf16, int8/int8
+        and int4+int8 weights (the predictor: dense bf16 and int8/int8) on
+        its kernel (the limits set to the kernel's cap) and on its chain
+        (set to 0), five runs a side in turns kernel, chain, chain,
+        kernel, ...: ms a frame (CUDA events over 16 frames, the prefill
+        subtracted; the host loop's pace where it bounds the frame), the
+        medians, whether every kernel run beat every chain run, and device
+        ms a frame (profiler, prefill + 4 frames less the prefill).
+step-ab   one tree's side of a parent-vs-change A/B of the talker step
+        kernel alone, run from the tree's root like `ab`: device ms a step
+        by CUDA-graph replay at full width (256 slots, ~100 live), dense,
+        int8 and int4 at B = 1, 2, 4, 8, 16, then at B = 1 and 16 with a
+        4096-slot cache of ~1000 live slots.
 frame-ab  one tree's side of a parent-vs-change A/B of both persistent
         kernels, run from the tree's root like `ab`: device ms of the
         talker step kernel (dense and int8 at B = 1 and 16, int4 at B =
         1) and of the frame kernel (dense and int8 at B = 1, 4, 8, 16) by
-        CUDA-graph replay; then `generate_codes` ms a frame as `route`
-        times it, dense bf16 and int8/int8 at B = 1, 4, 8, 16, twice on
-        the frame kernel's route and, at B = 8 and 16, once on the chain.
+        CUDA-graph replay, kernel A at a talker layer (M = 64,
+        `chip_smoke.qmatmul_times`) and the 64-token prefill's device ms
+        (profiler, dense bf16 and int8/int8); then `generate_codes` ms a
+        frame as `route` times it, dense bf16 and int8/int8 at B = 1, 4, 8,
+        16, twice on the frame kernel's route and, at B = 8 and 16, once on
+        the chain.
         Run the trees in turns, parent, change, change, parent, ..., five
         processes a side.
 """
@@ -80,7 +114,6 @@ from __future__ import annotations
 import os
 import sys
 
-TRACE_WORDS = 2000          # the talker's timeline buffer, int64 words
 # csrc/predictor_frame.cu: a block's trace words from blk * kTrStride
 # (fused_predictor.TRACE_STRIDE): kTrT0, kTrEnd, kTrNBar, kTrFirst,
 # kTrCWait, kTrPWait, kTrAttn, kTrProd
@@ -271,15 +304,85 @@ def step_case(cfg, kind, B, T, live, seed):
                                                           seed + 1)
 
 
-TALKER_STAGES = ("qkv", "attn", "wo", "gu", "down")
-T_T0, T_END, T_WAIT, T_PWAIT = 500, 501, 502, 504   # csrc/talker_step.cu kTr*
-T_ATTN, T_PROD = 510, 520
-PROD_PHASES = ("inputs", "first chunk", "chunks", "sums + epilogue")
-ATTN_PHASES = ("head vectors", "slots + warp states", "unit merge",
-               "count", "split merge + k/v store")
+# csrc/talker_step.cu: a block's trace words from blk * kTrStride
+# (fused_talker.TRACE_STRIDE): kTrT0, kTrEnd, kTrNBar, kTrFirst, kTrCWait,
+# kTrPWait, kTrAttn, kTrProd; barriers stamped (kTrBars)
+T_STRIDE, T_BARS = 1024, 448
+T_T0, T_END, T_NBAR, T_FIRST = 900, 901, 902, 904
+T_CWAIT, T_PWAIT, T_ATTN, T_PROD = 914, 916, 918, 924
+TALKER_STAGES = ("qkv", "wo", "gu", "down", "head")
+ATTN_PHASES = ("head wait", "q heads", "slots + warp states",
+               "state + count", "merge + k/v store")
+TALKER_CASES = (("dense", 1, 256, 100), ("dense", 1, 4096, 1000),
+                ("int8", 1, 256, 100), ("int8", 1, 4096, 1000),
+                ("int4", 1, 256, 100), ("int4", 1, 4096, 1000),
+                ("dense", 16, 256, 100), ("dense", 16, 4096, 1000))
 
 
-def talker_trace() -> None:
+def read_step_trace(tr, nb: int, cfg, steps: int) -> dict:
+    """Every block's words of a traced run of the step kernel (`tr`: the
+    flat int64 trace as a list; the barrier stamps are the last step's, the
+    sums over `steps`): per stage kind (qkv with its attention, wo, gate/up,
+    down) the median block's work (its arrival less its previous release),
+    the blocks' arrival spread, last arrival to first release, the release
+    spread and the stage's time (median release less the previous median
+    release), the head's (the last release to each block's end); us a
+    layer; per block on average the time to a stage's first activation
+    data, the products' phases (first chunk in, last chunk read, end), the
+    ring waits (consumers', producer's), us a step; attention's phases per
+    unit and the units a block, over the blocks that have units."""
+    import statistics as st
+    S = T_STRIDE
+    blk = [tr[b * S:(b + 1) * S] for b in range(nb)]
+    nbar = blk[0][T_NBAR]
+    out = {"barriers": nbar, "host_barriers": 4 * cfg.n_layers}
+    n = min(nbar, T_BARS, 4 * cfg.n_layers)
+    prev = [b[T_T0] for b in blk]
+    prev_med = st.median(prev)
+    per = {k: {"work": [], "spread": [], "latency": [], "rspread": [],
+               "stage": []} for k in TALKER_STAGES[:4]}
+    for i in range(n):
+        arr = [b[2 * i] for b in blk]
+        rel = [b[2 * i + 1] for b in blk]
+        d = per[TALKER_STAGES[i % 4]]
+        d["work"].append(st.median(a - p for a, p in zip(arr, prev)))
+        d["spread"].append(max(arr) - min(arr))
+        d["latency"].append(min(rel) - max(arr))
+        d["rspread"].append(max(rel) - min(rel))
+        med = st.median(rel)
+        d["stage"].append(med - prev_med)
+        prev, prev_med = rel, med
+    for k, d in per.items():
+        out[k] = {m: (sum(v) / len(v) / 1e3 if v else 0.0)
+                  for m, v in d.items()}
+    out["head_us"] = (st.median(b[T_END] for b in blk) - prev_med) / 1e3
+    out["us_layer"] = sum(sum(per[k]["stage"]) for k in per) \
+        / cfg.n_layers / 1e3
+    out["timeline_ms"] = (max(b[T_END] for b in blk)
+                          - min(b[T_T0] for b in blk)) / 1e6
+
+    def mean(f, blocks=blk):
+        return sum(f(b) for b in blocks) / max(len(blocks), 1)
+
+    out["first"] = {k: mean(lambda b, m=m: b[T_FIRST + 2 * m]
+                            / max(b[T_FIRST + 2 * m + 1], 1)) / 1e3
+                    for m, k in enumerate(TALKER_STAGES)}
+    out["prod"] = {k: tuple(mean(lambda b, m=m, i=i: b[T_PROD + 4 * m + i]
+                                 / max(b[T_PROD + 4 * m + 3], 1)) / 1e3
+                            for i in range(3))
+                   for m, k in enumerate(TALKER_STAGES)}
+    busy = [b for b in blk if b[T_ATTN + 5] > 0]
+    out["attn"] = tuple(mean(lambda b, i=i: b[T_ATTN + i] / b[T_ATTN + 5],
+                             busy) / 1e3 for i in range(5))
+    out["attn_units"] = mean(lambda b: b[T_ATTN + 5], busy) / steps
+    out["attn_blocks"] = len(busy)
+    out["cwait"] = mean(lambda b: b[T_CWAIT]) / steps / 1e3
+    out["chunks"] = mean(lambda b: b[T_CWAIT + 1]) / steps
+    out["pwait"] = mean(lambda b: b[T_PWAIT]) / steps / 1e3
+    return out
+
+
+def talker_trace(cases=TALKER_CASES, modes=("", "nowork")) -> None:
     """The step kernel's timeline (module docstring, `talker`)."""
     import torch
     import chip_smoke as c
@@ -291,11 +394,15 @@ def talker_trace() -> None:
     build.trace_build()
     c.phase_build()
     cfg = EngineConfig().talker
-    ft.TRACE = torch.zeros(TRACE_WORDS, dtype=torch.int64, device="cuda")
     steps = 10
-    for kind in ("dense", "int8", "int4"):
-        for B in (1, 2):
-            tp, *rest = step_case(cfg, kind, B, 256, 100, 400 + B)
+    for kind, B, T, live in cases:
+        tp, *rest = step_case(cfg, kind, B, T, live, 400 + B)
+        with torch.cuda.device(0):
+            nb = ft._plan(cfg, B, 2, kind == "int4", torch.device("cuda"))[1]
+        ft.TRACE = torch.zeros(nb * ft.TRACE_STRIDE, dtype=torch.int64,
+                               device="cuda")
+        for mode in modes:
+            ft.MODE = MODES[mode]
             for _ in range(3):
                 ft.talker_step_kernel(tp, cfg, *rest)
             ft.TRACE.zero_()
@@ -306,39 +413,108 @@ def talker_trace() -> None:
                 ft.talker_step_kernel(tp, cfg, *rest)
             e.record()
             torch.cuda.synchronize()
-            tr = ft.TRACE.cpu().tolist()
-            work, wait = {}, {}
-            prev = tr[T_T0]
-            for i in range(5 * cfg.n_layers):    # the last step's timeline
-                k = TALKER_STAGES[i % 5]
-                work.setdefault(k, []).append(tr[2 * i] - prev)
-                wait.setdefault(k, []).append(tr[2 * i + 1] - tr[2 * i])
-                prev = tr[2 * i + 1]
-            line = (f"talker {kind} B={B}: {s.elapsed_time(e) / steps:.4f} ms "
-                    f"a step (CUDA events); timeline "
-                    f"{(tr[T_END] - tr[T_T0]) / 1e6:.4f} ms; us a stage, block "
-                    "0's work / barrier wait:")
-            for k in TALKER_STAGES:
-                line += (f" {k} {sum(work[k]) / len(work[k]) / 1e3:.2f}/"
-                         f"{sum(wait[k]) / len(wait[k]) / 1e3:.2f}")
-            line += (f" head {(tr[T_END] - prev) / 1e3:.2f}; ring waits, us "
-                     f"a step: consumers {tr[T_WAIT] / steps / 1e3:.2f} over "
-                     f"{tr[T_WAIT + 1] // steps} chunks, producer "
-                     f"{tr[T_PWAIT] / steps / 1e3:.2f} on {card}")
-            print(line, flush=True)
-            ph = tr[T_ATTN:T_ATTN + 6]
-            print("   attention unit 0, last layer, us: " + ", ".join(
-                f"{n} {(ph[i + 1] - ph[i]) / 1e3:.2f}"
-                for i, n in enumerate(ATTN_PHASES)), flush=True)
-            parts = []
-            for m, k in enumerate(("qkv", "wo", "gu", "down", "head")):
-                ps = tr[T_PROD + 8 * m:T_PROD + 8 * m + 5]
-                parts.append(k + " " + "/".join(
-                    f"{(ps[i + 1] - ps[i]) / 1e3:.2f}" for i in range(4)))
-            print("   block 0's products, last layer, us (" + ", ".join(
-                PROD_PHASES) + "): " + "; ".join(parts), flush=True)
-            del tp, rest
-    ft.TRACE = None
+            r = read_step_trace(ft.TRACE.cpu().tolist(), nb, cfg, steps)
+            tag = (f"talker {kind} B={B} T={T} live~{live}"
+                   f"{' ' + mode if mode else ''}")
+            print(f"{tag}: {s.elapsed_time(e) / steps:.4f} ms a step (CUDA "
+                  f"events, traced build) on {card}; {nb} blocks; timeline "
+                  f"{r['timeline_ms']:.4f} ms; grid barriers {r['barriers']} "
+                  f"(host {r['host_barriers']}); {r['us_layer']:.2f} us a "
+                  "layer", flush=True)
+            print("   us a stage (median block's work / arrival spread / "
+                  "last arrival to first release / release spread / "
+                  "stage): " + "; ".join(
+                      f"{k} " + "/".join(f"{r[k][m]:.2f}" for m in (
+                          "work", "spread", "latency", "rspread", "stage"))
+                      for k in TALKER_STAGES[:4])
+                  + f"; head {r['head_us']:.2f}", flush=True)
+            print("   a block's mean us: to first data " + ", ".join(
+                f"{k} {v:.2f}" for k, v in r["first"].items())
+                + "; products (first chunk in / last chunk read / end) "
+                + ", ".join(f"{k} " + "/".join(f"{x:.2f}" for x in v)
+                            for k, v in r["prod"].items())
+                + f"; ring waits a step: consumers {r['cwait']:.1f} over "
+                f"{r['chunks']:.0f} chunks, producer {r['pwait']:.1f}",
+                flush=True)
+            print(f"   attention, us a unit ({r['attn_blocks']} blocks, "
+                  f"{r['attn_units']:.2f} units a block a step): " + ", ".join(
+                      f"{n} {v:.2f}" for n, v in zip(ATTN_PHASES, r["attn"])),
+                  flush=True)
+            if r["barriers"] != r["host_barriers"]:
+                raise RuntimeError(
+                    f"talker_step: the kernel met {r['barriers']} grid "
+                    f"barriers, the host counts {r['host_barriers']}")
+        del tp, rest
+    ft.TRACE, ft.MODE = None, 0
+
+
+def ring_sweep(specs) -> None:
+    """The weight ring's sizes (module docstring, `ring`): talker_step.cu
+    alone built once per (buffers, bytes a buffer) with -DSTEP_RING /
+    -DSTEP_CHUNK, all at once, each loaded in turn in place of the port's
+    library."""
+    import ctypes
+    import subprocess
+    import torch
+    import chip_smoke as c
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.kernels import build
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+
+    card = c.phase_device()
+    out = os.path.join(build.BUILD_DIR, "ring")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(build.CSRC_DIR, "talker_step.cu")
+    nvcc = build.find_nvcc()
+    libs, procs = {}, []
+    for spec in specs:
+        path = os.path.join(out, "talker_{}_{}.so".format(*spec))
+        libs[spec] = path
+        procs.append(subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas=-v", f"-DSTEP_RING={spec[0]}",
+             f"-DSTEP_CHUNK={spec[1]}", "-shared", "-o", path, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for spec, proc in zip(specs, procs):
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"ring {spec}: nvcc failed\n{text}")
+        regs = [ln.strip() for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  ring {spec}: ptxas " + " | ".join(regs), flush=True)
+    cfg = EngineConfig().talker
+    cases = [(kind, B) for kind in ("dense", "int8", "int4")
+             for B in (1, 16)]
+    args = {case: (step_weights(cfg, case[0], 600 + case[1]), cfg)
+            + step_inputs(cfg, case[1], 256, 100, 601 + case[1])
+            for case in cases}
+    ring, chunk0 = ft.RING, ft.CHUNK
+    try:
+        for rnd in range(2):
+            for spec, path in libs.items():
+                handle = ctypes.CDLL(path)
+                for name in ("talker_step_query", "talker_step_launch"):
+                    fn = getattr(handle, name)
+                    fn.argtypes = build.SIGNATURES[name]
+                    fn.restype = ctypes.c_int
+                build._lib = handle
+                ft.RING, ft.CHUNK = spec
+                ft._plans.clear()
+                for case in cases:
+                    a = args[case]
+                    try:
+                        ms = c.graph_ms(lambda: ft.talker_step_kernel(*a),
+                                        reps=10)
+                    except ValueError as exc:          # does not fit
+                        print(f"  ring {spec} talker_step {case[0]} "
+                              f"B={case[1]}: {exc}", flush=True)
+                        continue
+                    print(f"  ring {spec} round {rnd} talker_step {case[0]} "
+                          f"B={case[1]}: {ms:.4f} ms a step (graph replay) "
+                          f"on {card}", flush=True)
+    finally:
+        ft.RING, ft.CHUNK = ring, chunk0
+        ft._plans.clear()
+        build._lib = None
 
 
 def talker_ab(tag: str) -> None:
@@ -412,6 +588,7 @@ def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
     frames = 16
     if which == "talker":
         sets = (("dense bf16", eng.models),
+                ("int8/int8", c.quantized_models(eng.models, "int8", "int8")),
                 ("int4+int8", c.quantized_models(eng.models, "int4", "int8")))
         kernel = ft.talker_step_kernel
         limits = (ft.MAX_B, ft.INT4_MAX_B)
@@ -442,7 +619,8 @@ def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
             run, timed = codes_runs(models, cfg, prompt, pad, frames)
             wall, device = {}, {}
             try:
-                for route in ("kernel", "chain", "chain", "kernel"):
+                for route in ("kernel", "chain", "chain", "kernel") * 2 + (
+                        "kernel", "chain"):
                     set_route(route)
                     run(2)                               # warm up
                     n0 = kernel.launches
@@ -459,11 +637,36 @@ def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
                             else (d4 - d0) / 4
             finally:
                 restore()
+            kw, cw = sorted(wall["kernel"]), sorted(wall["chain"])
             print(f"  route {which} {label} B={B}: ms a frame (CUDA events) "
-                  f"kernel {[round(v, 3) for v in wall['kernel']]}, chain "
-                  f"{[round(v, 3) for v in wall['chain']]}; device ms a "
-                  f"frame (profiler) kernel {c._fmt(device['kernel'])}, "
-                  f"chain {c._fmt(device['chain'])} on {card}", flush=True)
+                  f"kernel {[round(v, 3) for v in wall['kernel']]} (median "
+                  f"{kw[len(kw) // 2]:.3f}), chain "
+                  f"{[round(v, 3) for v in wall['chain']]} (median "
+                  f"{cw[len(cw) // 2]:.3f}); every kernel run faster: "
+                  f"{kw[-1] < cw[0]}; device ms a frame (profiler) kernel "
+                  f"{c._fmt(device['kernel'])}, chain "
+                  f"{c._fmt(device['chain'])} on {card}", flush=True)
+
+
+def step_times(tag: str, card: str, cases, window=(256, 100)) -> None:
+    """The talker step kernel's device ms a step by CUDA-graph replay at
+    full width, a `window` (slots, ~live) cache, for each (kind, batches)
+    of `cases` (module docstring, `step-ab`)."""
+    import chip_smoke as c
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+
+    cfg = EngineConfig().talker
+    T, live = window
+    for kind, batches in cases:
+        for B in batches:
+            args = (step_weights(cfg, kind, 300 + B), cfg) \
+                + step_inputs(cfg, B, T, live, 301 + B)
+            ms = c.graph_ms(lambda: ft.talker_step_kernel(*args), reps=10)
+            cache = "" if window == (256, 100) else f" T={T} live~{live}"
+            print(f"  {tag} talker_step {kind} B={B}{cache}: {ms:.4f} ms a "
+                  f"step (graph replay) on {card}", flush=True)
+            del args
 
 
 def frame_ab(tag: str) -> None:
@@ -475,18 +678,10 @@ def frame_ab(tag: str) -> None:
     c.phase_build()
     from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
-    from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
     cfg = EngineConfig()
-    for kind, batches in (("dense", (1, 16)), ("int8", (1, 16)),
-                          ("int4", (1,))):
-        for B in batches:
-            args = (step_weights(cfg.talker, kind, 300 + B), cfg.talker) \
-                + step_inputs(cfg.talker, B, 256, 100, 301 + B)
-            ms = c.graph_ms(lambda: ft.talker_step_kernel(*args), reps=10)
-            print(f"  {tag} talker_step {kind} B={B}: {ms:.4f} ms a step "
-                  f"(graph replay) on {card}", flush=True)
-            del args
+    step_times(tag, card, (("dense", (1, 16)), ("int8", (1, 16)),
+                           ("int4", (1,))))
     for kind in ("dense", "int8"):
         for B in (1, 4, 8, 16):
             pp, *rest = c.frame_case(cfg.predictor, kind, B, 90 + B)
@@ -496,12 +691,24 @@ def frame_ab(tag: str) -> None:
             print(f"  {tag} predictor_frame {kind} B={B}: {ms:.4f} ms a "
                   f"frame (graph replay) on {card}", flush=True)
             del pp, rest, args
+    g = torch.Generator(device="cuda").manual_seed(7)
+    c.qmatmul_times(c.Record(), card, g, rows=(64,))
     spk = os.path.join(c.REPO, "speakers")
     eng = TtsEngine(config=cfg, random_weights=True, seed=0,
                     speakers_dir=spk, device="cuda")
     dev = eng.device
-    g = torch.Generator(device=dev).manual_seed(7)
     frames = 16
+    for label, models in (("dense bf16", eng.models),
+                          ("int8/int8", c.quantized_models(eng.models, "int8",
+                                                           "int8"))):
+        prompt = 0.1 * torch.randn(1, 64, cfg.talker.hidden, generator=g,
+                                   device=dev)
+        pad = torch.zeros(1, dtype=torch.int32, device=dev)
+        run, _ = codes_runs(models, cfg, prompt, pad, frames)
+        run(0)
+        ms = c.profiled_device_ms(lambda: run(0), 3)
+        print(f"  {tag} prefill {label} B=1, 64 tokens: device "
+              f"{c._fmt4(ms)} ms (profiler) on {card}", flush=True)
     route = fp.frame_route
     kernel = fp.predictor_frame_kernel
     try:
@@ -534,6 +741,46 @@ def frame_ab(tag: str) -> None:
                       flush=True)
     finally:
         fp.frame_route = route
+
+
+def sass_counts(names=("talker_step", "predictor_frame")) -> None:
+    """Each source's kernels as compiled for the card (module docstring,
+    `sass`): ptxas's registers and spills, then per kernel its SASS
+    instructions and local loads / stores (`cuobjdump -sass`)."""
+    import re
+    import subprocess
+    from qwen3_tts_tpu_torch.kernels import build
+
+    nvcc = build.find_nvcc()
+    tools = os.path.dirname(nvcc)
+    out = os.path.join(build.BUILD_DIR, "sass")
+    os.makedirs(out, exist_ok=True)
+    for name in names:
+        cubin = os.path.join(out, name + ".cubin")
+        text = subprocess.run(
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas=-v", "-cubin", "-o", cubin,
+             os.path.join(build.CSRC_DIR, name + ".cu")],
+            capture_output=True, text=True, check=True).stderr
+        for ln in text.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {name} ptxas: {ln.strip()}", flush=True)
+        sass = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass",
+                               cubin], capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                counts[fn] = [0, 0, 0]
+            elif fn is not None and re.match(r"\s+/\*[0-9a-f]+\*/\s", ln):
+                c = counts[fn]
+                c[0] += 1
+                c[1] += " LDL" in ln
+                c[2] += " STL" in ln
+        for fn, (n, ldl, stl) in sorted(counts.items()):
+            print(f"  {name} {fn}: {n} SASS instructions, {ldl} LDL, "
+                  f"{stl} STL", flush=True)
 
 
 def int8mm() -> None:
@@ -612,6 +859,9 @@ def main(argv) -> int:
     if argv[:1] == ["trace"]:
         run_trace(tuple(int(b) for b in argv[1:]) or (1, 16))
         return 0
+    if argv[:1] == ["sass"]:
+        sass_counts(tuple(argv[1:]) or ("talker_step", "predictor_frame"))
+        return 0
     if argv[:1] == ["int8mm"]:
         int8mm()
         return 0
@@ -621,8 +871,23 @@ def main(argv) -> int:
     if argv[:1] == ["talker"]:
         talker_trace()
         return 0
+    if argv[:1] == ["ring"]:
+        ring_sweep([tuple(int(v) for v in spec.split(","))
+                    for spec in argv[1:]] or [
+            (2, 16384), (3, 16384), (4, 16384), (5, 16384), (6, 16384),
+            (4, 12288), (2, 32768)])
+        return 0
     if len(argv) == 2 and argv[0] == "talker-ab":
         talker_ab(argv[1])
+        return 0
+    if len(argv) == 2 and argv[0] == "step-ab":
+        import chip_smoke as c
+        card = c.phase_device()
+        c.phase_build()
+        kinds = ("dense", "int8", "int4")
+        step_times(argv[1], card, [(k, (1, 2, 4, 8, 16)) for k in kinds])
+        step_times(argv[1], card, [(k, (1, 16)) for k in kinds],
+                   (4096, 1000))
         return 0
     if len(argv) == 2 and argv[0] == "frame-ab":
         frame_ab(argv[1])

@@ -610,18 +610,21 @@ def _step_case(dev, kind, B, dtype, seed, T=256):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
-@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("B", [1, 2, 5, 16])
 def test_talker_step_kernel_matches_plain(dev, dtype, kind, B):
     """The step kernel against talker_step_fused_plain: hidden, logits and
     the cache slot written (f32 rtol/atol 1e-4; bf16 max |d| <= 8e-3 of the
     largest magnitude, chip_smoke.py's bound); every other slot unchanged;
-    one launch a step through talker_step_fused."""
+    one launch a step through talker_step_fused where the route takes the
+    kernel, else through the kernel's wrapper."""
     tc, tp, x, pos, slot, kv_len, vf, cache = _step_case(dev, kind, B, dtype,
                                                          50 + B)
     before = fused_talker.talker_step_kernel.launches
     kk, kv = cache["k"].clone(), cache["v"].clone()
-    a = fused_talker.talker_step_fused(tp, tc, x, pos, slot, kv_len, vf, kk,
-                                       kv)
+    step = fused_talker.talker_step_fused \
+        if fused_talker.talker_route(tp, B) == fused_talker.KERNEL \
+        else fused_talker.talker_step_kernel
+    a = step(tp, tc, x, pos, slot, kv_len, vf, kk, kv)
     assert fused_talker.talker_step_kernel.launches == before + 1
     b = fused_talker.talker_step_fused_plain(tp, tc, x, pos, slot, kv_len,
                                              vf, cache["k"].clone(),

@@ -457,27 +457,29 @@ def test_args_and_trace_words_match_the_kernel(kernel):
                 "kTrProd": fm.F_PROD}
         words = {"kTrT0": 1, "kTrEnd": 1, "kTrNBar": 1, "kTrFirst": 2 * 5,
                  "kTrCWait": 2, "kTrPWait": 2, "kTrAttn": 2, "kTrProd": 4 * 5}
-        barriers = fp.frame_barriers(full.predictor)
-        size = fp.TRACE_STRIDE
-        assert const.pop("kTrStride") == size
-        assert const.pop("kTrBars") == fm.F_BARS >= barriers
-        sums = const.pop("kTrSums")
-        assert sums == fp.TRACE_SUMS and fm.F_PROD + 4 * 5 <= fm.F_FIRST + sums
-        barriers = fm.F_BARS
-        enum = src[src.index("enum { kNoWork"):]
-        modes = dict(re.findall(r"\b(k[A-Z]\w+) = (\d+)",
-                                enum[:enum.index("}")]))
-        assert modes == {"kNoWork": str(fp.NO_WORK)}
-        assert fm.MODES == {"": 0, "nowork": fp.NO_WORK}
+        size, bars, no_work = fp.TRACE_STRIDE, fm.F_BARS, fp.NO_WORK
+        needed, sums_want = fp.frame_barriers(full.predictor), fp.TRACE_SUMS
     else:
         struct, args = "StepArgs", ft._StepArgs
-        read = {"kTrT0": fm.T_T0, "kTrEnd": fm.T_END, "kTrWait": fm.T_WAIT,
+        read = {"kTrT0": fm.T_T0, "kTrEnd": fm.T_END, "kTrNBar": fm.T_NBAR,
+                "kTrFirst": fm.T_FIRST, "kTrCWait": fm.T_CWAIT,
                 "kTrPWait": fm.T_PWAIT, "kTrAttn": fm.T_ATTN,
                 "kTrProd": fm.T_PROD}
-        words = {"kTrT0": 1, "kTrEnd": 1, "kTrWait": 2, "kTrPWait": 2,
-                 "kTrAttn": 6, "kTrProd": 8 * 5}
-        barriers = 5 * full.talker.n_layers
-        size = fm.TRACE_WORDS
+        words = {"kTrT0": 1, "kTrEnd": 1, "kTrNBar": 1, "kTrFirst": 2 * 5,
+                 "kTrCWait": 2, "kTrPWait": 2, "kTrAttn": 6, "kTrProd": 4 * 5}
+        size, bars, no_work = ft.TRACE_STRIDE, fm.T_BARS, ft.NO_WORK
+        needed, sums_want = ft.step_barriers(full.talker), 40
+    assert const.pop("kTrStride") == size
+    assert const.pop("kTrBars") == bars >= needed
+    sums = const.pop("kTrSums")
+    assert sums == sums_want and read["kTrProd"] + 4 * 5 <= \
+        read["kTrFirst"] + sums
+    barriers = bars
+    enum = src[src.index("enum { kNoWork"):]
+    modes = dict(re.findall(r"\b(k[A-Z]\w+) = (\d+)",
+                            enum[:enum.index("}")]))
+    assert modes == {"kNoWork": str(no_work)}
+    assert fm.MODES == {"": 0, "nowork": no_work}
     # every trace guard tests kTrace first (-DKERNEL_TRACE builds only)
     assert "a.trace != nullptr" not in src.replace(
         "kTrace && a.trace != nullptr", "")

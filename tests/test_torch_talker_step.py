@@ -14,6 +14,8 @@ kernel's); greedy argmax equal.
 """
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +37,18 @@ from qwen3_tts_tpu_torch.ops import quant
 FULL = tconfig.EngineConfig().talker
 TINY = tconfig.tiny_engine_config().talker
 CONFIGS = {"full": FULL, "tiny": TINY}
+# the small int4-capable talker of chip_smoke.py (widths in 256-row groups)
+SMALL = dataclasses.replace(TINY, hidden=256, n_q_heads=2, n_kv_heads=2,
+                            head_dim=128, ffn_dim=256,
+                            mrope_sections=(32, 16, 16, 0))
+CONFIGS4 = {"full": FULL, "tiny": TINY, "small": SMALL}
 H100_SMEM = 232448          # opt-in shared memory per block (H100)
 KINDS = ("dense", "int8", "int4")
+
+
+def ft_source(name):
+    return os.path.join(os.path.dirname(ft.__file__), os.pardir, "csrc",
+                        name)
 
 
 def _meta_params(cfg, kind):
@@ -132,44 +144,67 @@ def test_work_plan_covers_each_column_once(config, nb, B):
     assert ft.row_pass(B, 4) == {1: 1, 2: 2}.get(B, 4)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+RING_CASES = {"dense": ("dense",) * 5, "int8": ("int8",) * 5,
+              "int4": ("int4",) * 5,
+              "mixed": ("int8", "dense", "int8", "dense", "int8")}
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS4))
+@pytest.mark.parametrize("kind", sorted(RING_CASES))
 @pytest.mark.parametrize("B", [1, 2, 5, 16])
-def test_ring_chunks_cover_each_weight_row_once(kind, B):
+def test_ring_chunks_cover_each_weight_row_once(config, kind, B):
     """The producer's and the consumers' chunk sequence of a block, bf16
-    and f32: per stage and row pass, every packed row of every unit the
-    block owns in exactly one chunk, each chunk at most a buffer, whole
-    16-byte copies."""
-    cfg = dataclasses.replace(FULL, n_layers=2)
-    kinds = (kind,) * 5
-    nb = 132
-    chunk = ft.CHUNK
+    and f32, dense, int8, int4 and mixed weights: per stage and row pass,
+    every packed row of every unit the block owns in exactly one chunk, in
+    the consumers' order (stage, row pass, batch, rows), each chunk's
+    copies within a ring buffer, whole 16-byte copies, int4 chunks in whole
+    pairs of groups with their multipliers."""
+    cfg = dataclasses.replace(CONFIGS4[config], n_layers=2)
+    kinds = RING_CASES[kind]
+    if "int4" in kinds and config == "tiny":
+        return                          # int4 needs widths of 256 rows
     for t_bytes in (2, 4):
-        _check_chunks(cfg, B, nb, kind, kinds, t_bytes, chunk)
+        _check_chunks(cfg, B, 132, kinds, t_bytes)
 
 
-def _check_chunks(cfg, B, nb, kind, kinds, t_bytes, chunk):
+def _check_chunks(cfg, B, nb, kinds, t_bytes):
     seen = {}
+    order = [(l, st) for l in range(cfg.n_layers) for st in ft._STAGES[:4]] \
+        + [(0, "head")]
     for blk in (0, 57, nb - 1):
+        last = None
         for st, l, rc, ul, nub, r0, rn in ft.chunk_sequence(
-                cfg, B, nb, blk, kinds, t_bytes, chunk):
+                cfg, B, nb, blk, kinds, t_bytes):
+            kind = kinds[ft._STAGES.index(st)]
+            int4 = kind == "int4"
             wb = ft.row_bytes(kind, t_bytes)
-            assert nub * rn * wb <= chunk and (rn * wb) % 16 == 0
+            assert nub * rn * wb <= ft.CHUNK and (rn * wb) % 16 == 0
+            if int4:
+                # whole pairs of groups: each unit's multipliers are whole
+                # 16-byte copies, all of them within the buffer's 64th
+                assert rn % (2 * ft.GROUP4_ROWS) == 0
+                assert r0 % (2 * ft.GROUP4_ROWS) == 0
+                assert nub * (rn // ft.GROUP4_ROWS) * 8 <= ft.CHUNK // 64
+            pos = (order.index((l, st)), rc, ul, r0)
+            assert last is None or pos > last
+            last = pos
             for u in range(ul, ul + nub):
                 key = (blk, st, l, rc, u)
                 seen.setdefault(key, []).append((r0, rn))
     for (blk, st, l, rc, u), parts in seen.items():
         K = ft.stage_shapes(cfg)[st][0]
-        Kp = K // 2 if kind == "int4" else K
+        Kp = K // 2 if kinds[ft._STAGES.index(st)] == "int4" else K
         rows = sorted(parts)
         assert rows[0][0] == 0
         assert all(a + n == b for (a, n), (b, _) in zip(rows, rows[1:]))
         assert rows[-1][0] + rows[-1][1] == Kp
     # each block's units of each stage, each row pass
+    mt = ft.row_pass(B, t_bytes, "int4" in kinds)
     for blk in (0, 57, nb - 1):
         for st, (_, N) in ft.stage_shapes(cfg).items():
             lo, hi = fp.split_units(N // ft.UNIT, nb)[blk]
             for l in range(cfg.n_layers if st != "head" else 1):
-                for rc in range(-(-B // ft.row_pass(B, t_bytes))):
+                for rc in range(-(-B // mt)):
                     got = {u for (b2, s2, l2, r2, u) in seen
                            if (b2, s2, l2, r2) == (blk, st, l, rc)}
                     assert got == set(range(lo, hi))
@@ -178,29 +213,125 @@ def _check_chunks(cfg, B, nb, kind, kinds, t_bytes, chunk):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
 def test_shared_memory_plan_fits_a_block(kind, B):
-    """At the full width in bf16 and in f32, the fixed part (staged x rows,
-    scratch) and at least two ring buffers fit the H100's opt-in shared
-    memory per block, for every weight kind and row pass."""
+    """The ring is one size for every B and dtype: at the full width in
+    bf16 and in f32 the fixed part (staged x rows, scratch) and RING
+    buffers of CHUNK bytes fit the H100's opt-in shared memory per block,
+    for every weight kind and row pass, and a chunk holds at least two rows
+    (int4: two groups) of every batch of every stage."""
+    int4 = kind == "int4"
     for t_bytes in (2, 4):
-        fixed = ft.step_smem_fixed(FULL, B, t_bytes)
-        chunk, nbuf = ft.ring_plan(fixed, H100_SMEM)
-        assert 2 <= nbuf <= ft.MAX_RING and chunk % 16 == 0
-        assert fixed + nbuf * chunk <= H100_SMEM
-        # a ring chunk holds at least two rows of every batch
+        smem = ft.step_smem(FULL, B, t_bytes, H100_SMEM, int4)
+        fixed = ft.step_smem_fixed(FULL, B, t_bytes, int4)
+        assert smem == fixed + ft.ring_bytes() <= H100_SMEM
+        assert ft.ring_bytes() == ft.RING * (ft.CHUNK + ft.CHUNK // 64)
+        assert ft.RING >= 2 and ft.CHUNK % 16 == 0
         wb = ft.row_bytes(kind, t_bytes)
-        nub = ft.units_a_batch(ft.row_pass(B, t_bytes))
+        nub = ft.units_a_batch(ft.row_pass(B, t_bytes, int4))
         for K, _ in ft.stage_shapes(FULL).values():
-            Kp = K // 2 if kind == "int4" else K
-            assert ft.chunk_rows(chunk, nub, wb, Kp) >= 2
-        if B == 1:
-            # one x row: 12 KiB staged in bf16, the ring takes six 32 KiB
-            # buffers; 24 KiB in f32, five
-            assert nbuf == {2: 6, 4: 5}[t_bytes]
+            Kp = K // 2 if int4 else K
+            rows = ft.chunk_rows(nub, wb, Kp, int4)
+            assert rows >= (2 * ft.GROUP4_ROWS if int4 else 2)
+        if int4:
+            assert ft.row_pass(B, t_bytes, True) <= ft.MAX_MT4
 
 
 def test_shared_memory_plan_raises_without_room():
+    """A block whose opt-in shared memory cannot hold the fixed part and
+    the ring is refused, not given a shallower ring."""
+    need = ft.step_smem_fixed(FULL, 16, 2) + ft.ring_bytes()
+    assert ft.step_smem(FULL, 16, 2, need) == need
     with pytest.raises(ValueError, match="ring"):
-        ft.ring_plan(H100_SMEM - ft.CHUNK, H100_SMEM)
+        ft.step_smem(FULL, 16, 2, need - 1)
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS4))
+@pytest.mark.parametrize("nb", [132, 114, 1])
+@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("T", [256, 4096])
+def test_head_counters_and_attention_units_cover_once(config, nb, B, T):
+    """The deal that replaces the grid barrier between qkv and attention:
+    each block's arrivals on the head counters count each of its qkv units
+    once, on its kv head's group, so each group's counter gains exactly
+    group_units a layer; the attention units (kv head, row, split) are each
+    dealt once, j-major; at the full width each head's attention units sit
+    on blocks within one block of those that hold its qkv columns."""
+    cfg = CONFIGS4[config]
+    nk = cfg.n_kv_heads
+    ug = ft.group_units(cfg)
+    assert ug * nk == ft.stage_shapes(cfg)["qkv"][1] // ft.UNIT
+    totals = [0] * nk
+    qkv_blocks = {j: set() for j in range(nk)}
+    for blk in range(nb):
+        for j, n in ft.head_arrivals(cfg, nb, blk).items():
+            assert 0 < n <= ug
+            totals[j] += n
+            qkv_blocks[j].add(blk)
+    assert totals == [ug] * nk
+    S = ft.step_splits(B, nk, T, nb)
+    plan = ft.step_plan(cfg, B, nb, T)["attention"]
+    seen = []
+    attn_blocks = {j: set() for j in range(nk)}
+    for blk, (lo, hi) in enumerate(plan):
+        for u in range(lo, hi):
+            j, b, s = ft.attention_unit(u, B, S)
+            seen.append((j, b, s))
+            attn_blocks[j].add(blk)
+    assert seen == [(j, b, s) for j in range(nk) for b in range(B)
+                    for s in range(S)]
+    if config == "full" and nb >= 114:
+        for j in range(nk):
+            lo, hi = min(qkv_blocks[j]), max(qkv_blocks[j])
+            assert all(lo - 1 <= blk <= hi + 1 for blk in attn_blocks[j])
+
+
+def test_barrier_count_matches_kernel():
+    """The host's count of grid barriers a step is the kernel's (parsed
+    from csrc/talker_step.cu): four a layer, 112 at the full depth, where
+    the parent design had five."""
+    src = open(ft_source("talker_step.cu")).read()
+    body = re.search(r"constexpr int step_barriers\(int L\) \{ return "
+                     r"(\d+) \* L; \}", src)
+    assert body is not None
+    for cfg in (FULL, TINY):
+        assert ft.step_barriers(cfg) == int(body.group(1)) * cfg.n_layers
+    assert ft.step_barriers(FULL) == 112
+
+
+def test_args_and_trace_words_match_kernel():
+    """_StepArgs is csrc/talker_step.cu's StepArgs field for field; the
+    ring's constants, the trace's words and the int4 row cap agree between
+    the kernel, the host and tools/frame_measure.py."""
+    from qwen3_tts_tpu_torch.tools import frame_measure as fm
+    src = open(ft_source("talker_step.cu")).read()
+    struct = src[src.index("struct StepArgs {"):]
+    struct = struct[:struct.index("};")]
+    names = []
+    for line in struct.splitlines()[1:]:
+        decl = line.split("//")[0].strip()
+        if not decl:
+            continue
+        decl = decl.rstrip(";")
+        for part in decl.split(","):
+            name = part.strip().split()[-1].lstrip("*")
+            names.append(name.split("[")[0])
+    assert names == [f for f, _ in ft._StepArgs._fields_]
+
+    def const(name):
+        m = re.search(rf"\b{name} = (\d+)", src)
+        return int(m.group(1))
+    assert int(re.search(r"#define STEP_RING (\d+)", src).group(1)) \
+        == ft.RING
+    assert int(re.search(r"#define STEP_CHUNK (\d+)", src).group(1)) \
+        == ft.CHUNK
+    assert const("kTrStride") == ft.TRACE_STRIDE == fm.T_STRIDE
+    assert (const("kTrT0"), const("kTrEnd"), const("kTrNBar"),
+            const("kTrFirst"), const("kTrCWait"), const("kTrPWait"),
+            const("kTrAttn"), const("kTrProd")) == (
+        fm.T_T0, fm.T_END, fm.T_NBAR, fm.T_FIRST, fm.T_CWAIT, fm.T_PWAIT,
+        fm.T_ATTN, fm.T_PROD)
+    assert const("kTrBars") == fm.T_BARS >= ft.step_barriers(FULL)
+    assert 2 * fm.T_BARS <= fm.T_T0
+    assert const("kSMaxMT4") == ft.MAX_MT4
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -250,10 +381,95 @@ def test_gate_up_interleave_round_trips(kind):
         perm = torch.arange(2 * F).reshape(2, F // 4, 4).transpose(0, 1)
         assert torch.equal(il, t[..., perm.reshape(-1)]), name
     vals = parts.get("values", parts.get("q", parts.get("q4")))
-    packed = ft.kernel_copy(vals, "gu", values=True)
-    assert torch.equal(fp.unpack_units(packed), ft.interleave_gu(vals))
-    assert ft.kernel_copy(vals, "gu", values=True) is packed      # kept
+    part = "q4" if kind == "int4" else "values"
+    packed = ft.kernel_copy(vals, "gu", part)
+    want = ft.interleave_gu(vals)
+    if kind == "int4":
+        want = ft.pair_int4(want)
+    assert torch.equal(fp.unpack_units(packed), want)
+    assert ft.kernel_copy(vals, "gu", part) is packed             # kept
     assert ft.kernel_copy(vals, "wo") is vals
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_qkv_grouping_round_trips(kind):
+    """The kernel's qkv copies: columns grouped by kv head (q heads j g ..
+    j g + g - 1, k_j, v_j contiguous), a permutation of the columns applied
+    alike to the values, the scales and the int4 multipliers; the packed
+    values unpack to the grouped weight."""
+    cfg = dataclasses.replace(SMALL, n_q_heads=4, n_kv_heads=2, head_dim=64,
+                              mrope_sections=(16, 8, 8, 0))
+    nq, nk, hd = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    g = nq // nk
+    N = (nq + 2 * nk) * hd
+    gen = torch.Generator().manual_seed(9)
+    w = 0.02 * torch.randn(2, cfg.hidden, N, generator=gen)
+    t = torch.arange(N).expand(3, N)
+    got = ft.group_qkv(t, nq, nk, hd)[0].tolist()
+    for j in range(nk):
+        grp = got[j * (g + 2) * hd:(j + 1) * (g + 2) * hd]
+        assert grp[:g * hd] == list(range(j * g * hd, (j + 1) * g * hd))
+        assert grp[g * hd:(g + 1) * hd] == list(range((nq + j) * hd,
+                                                      (nq + j + 1) * hd))
+        assert grp[(g + 1) * hd:] == list(range((nq + nk + j) * hd,
+                                                (nq + nk + j + 1) * hd))
+    assert sorted(got) == list(range(N))
+    parts = {"values": w.to(torch.bfloat16)} if kind == "dense" else dict(
+        quant.quantize_decoder_params(
+            {"layers": {n: w for n in quant.DECODER_MATMULS},
+             "final_norm": torch.ones(cfg.hidden), "head": w[0]},
+            kind=kind)["layers"]["wqkv"])
+    for name, v in parts.items():
+        part = {"q": "values"}.get(name, name)
+        c = ft.kernel_copy(v, "qkv", part, cfg)
+        want = ft.group_qkv(v, nq, nk, hd)
+        if name == "q4":
+            want = ft.pair_int4(want)
+        if part in ("values", "q4", "m8"):
+            c = fp.unpack_units(c)
+        assert torch.equal(c, want), name
+
+
+def test_int4_pairs_round_trip():
+    """pair_int4: packed row r holds weight row 2 r in its low nibble and
+    2 r + 1 in its high one, the biased nibbles unchanged (ops/quant.py's
+    order holds rows r and r + K / 2)."""
+    gen = torch.Generator().manual_seed(4)
+    w = torch.randn(512, 24, generator=gen)
+    q = quant.quantize_int4(w)
+    nib = quant.unpack4(q["q4"]).to(torch.int32) + 8           # [K, N]
+    pr = ft.pair_int4(q["q4"]).to(torch.int32) & 0xFF
+    assert pr.shape == q["q4"].shape
+    assert torch.equal(pr & 0xF, nib[0::2])
+    assert torch.equal(pr >> 4, nib[1::2])
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_int4_group_order_matches_panel_matmul4(M, x_dtype):
+    """The kernel's int4 sum (each 128-row group's dot with the nibbles
+    less 8, times the group's multiplier once, in f32), rendered in plain
+    PyTorch, agrees with panel_matmul4_plain (the fused kernels' order:
+    biased nibbles, the bias folded out through the row sum) and with JAX's
+    qmatmul4 (dequantised weights, one f32 product) in f32 to the order of
+    the sums: rtol 2e-6, atol 2e-6 of the output's largest value."""
+    rng = np.random.default_rng(M)
+    K, N = 1024, 48
+    w = torch.from_numpy(0.05 * rng.standard_normal((K, N)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+        np.float32)).to(x_dtype)
+    q = quant.quantize_int4(w)
+    got = ft.int4_group_order_plain(x, q["q4"], q["m8"])
+    want = quant.panel_matmul4_plain(x, q["q4"], q["m8"])
+    big = float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-6,
+                               atol=2e-6 * big)
+    jw = {k: jnp.asarray(v.numpy()) for k, v in q.items()}
+    jy = jquant.qmatmul4(jnp.asarray(x.float().numpy()), jw)
+    np.testing.assert_allclose((got * q["scale"]).numpy(), np.asarray(jy),
+                               rtol=2e-6,
+                               atol=2e-6 * big * float(q["scale"].max()))
 
 
 @pytest.mark.parametrize("B", [1, 2, 16])
