@@ -125,7 +125,20 @@ result line:
                at M = 64, 128, 192 and 1088 against its bound, its plain
                version, torch._weight_int8pack_mm and cuBLAS on bf16
                weights (a reference), and each product with the plan's
-               tiles against the other tiles, K splits and row tiles
+               tiles against the other tiles, K splits and row tiles;
+               B4 against torch._weight_int4pack_mm on the same weights
+  9. checkpoint  the engine's save_checkpoint at full EngineConfig() width
+               (dense bf16) into a temporary directory, then
+               TtsEngine(model_dir=..., device="cuda") on it: greedy
+               generate_codes(ignore_eos=True), B=1, 32 frames, identical
+               to the in-memory engine's, once from the .npz checkpoints
+               and once from the reference's llama GGUF layout
+               (export_llama_gguf, no decoder .npz); then the CLI
+               (`cli.main`) on the directory, offline, with --stream and
+               with --long (a text of five sentences, one batch of five
+               rows): WAVs of whole frames, finite. Prints the bytes
+               written and the seconds to save, export and load each
+               layout; the directory is removed in any case
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -354,7 +367,7 @@ def phase_device():
         fail("triton is not installed")
     from qwen3_tts_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
-    log("[1/8] device")
+    log("[1/9] device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"triton {tv}  nvcc {nvcc}  python {sys.version.split()[0]}")
@@ -369,7 +382,7 @@ def phase_device():
 
 def phase_build():
     from qwen3_tts_tpu_torch.kernels import build
-    log("[2/8] build")
+    log("[2/9] build")
     t0 = time.time()
     path = build.build(verbose=True)
     build.lib()
@@ -383,7 +396,7 @@ def phase_kernels(rec: Record):
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
 
-    log("[3/8] kernels against their plain versions")
+    log("[3/9] kernels against their plain versions")
     log("  f32 tolerances: rtol 1e-4, atol 1e-4 (the kernels sum in another "
         "order than cuBLAS / PyTorch); bf16: relative error")
     dev = torch.device("cuda")
@@ -1127,7 +1140,7 @@ def phase_probes(rec: Record, card: str):
     import torch
     from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
 
-    log("[4/8] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
+    log("[4/9] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
         "--device cuda, then each kernel against its plain version")
     torch.cuda.synchronize()
     mp.reset_launch_counts()
@@ -1225,7 +1238,7 @@ def phase_agree(eng):
     the int4 talker with the int8 predictor, and the int8 talker."""
     from qwen3_tts_tpu_torch.core import protocol as P
 
-    log("[5/8] teacher-forced agreement, full width, bf16, peaked heads")
+    log("[5/9] teacher-forced agreement, full width, bf16, peaked heads")
     pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
     pp = peak_head(eng.models["predictor"],
                    [(q * P.CODE_VOCAB, P.CODE_VOCAB)
@@ -1424,7 +1437,7 @@ def phase_main(eng, rec: Record, q48, q88):
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
-    log("[6/8] main path: TtsEngine.generate_with_voice, full width")
+    log("[6/9] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
     fused = fused_per_frame(eng.config)
 
@@ -1677,7 +1690,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
 
     frames = 32
-    log(f"[7/8] stream: TtsEngine.generate_stream, full width, B=1, "
+    log(f"[7/9] stream: TtsEngine.generate_stream, full width, B=1, "
         f"{frames} frames")
     voice = eng.get_speaker("vivian")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
@@ -1964,7 +1977,7 @@ def frame_times(eng, models, label: str, card: str, g):
 def phase_times(eng, rec: Record, card: str, q48, q88):
     import torch
 
-    log(f"[8/8] times on {card} (CUDA events)")
+    log(f"[8/9] times on {card} (CUDA events)")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(5)
     # ms/frame and busy share per weight set; int8/int8 last (the first to
@@ -1975,6 +1988,39 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
     kernel_times(rec, card, g)
     split_times(card, g)
     qmatmul_plan_times(card, g)
+
+
+def int4pack_mats(mats):
+    """The int4 weights of `mats` as torch._weight_int4pack_mm's operands,
+    or None where this torch cannot express them. The port's scheme (signed
+    nibbles q in [-7, 7], a multiplier m8 per 128-row group and a scale per
+    column) is the library's with the nibbles biased by 8, zero points 0
+    and each group's step m8 * scale rounded to bf16; the library's product
+    is logged against the plain one."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+    out = []
+    try:
+        for x, w, _ in mats:
+            q = quant.unpack4(w["q4"]).to(torch.int32).t() + 8    # [N, K]
+            packed = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+            wp = torch._convert_weight_to_int4pack(packed.contiguous(), 8)
+            step = (w["m8"].float() * w["scale"][None]).to(torch.bfloat16)
+            sz = torch.stack([step, torch.zeros_like(step)], -1).contiguous()
+            out.append((x, (wp, sz), {}))
+        x, w, _ = mats[0]
+        got = torch._weight_int4pack_mm(x, out[0][1][0], quant.GROUP4,
+                                        out[0][1][1])
+        want = G.gemv_int4_plain(x, w["q4"], w["m8"], w["scale"])
+        log(f"  torch._weight_int4pack_mm at the talker's int4 qkv, M=1: "
+            f"relative error {rel_err(got, want):.2e} against the plain B4 "
+            f"(group steps rounded to bf16)")
+    except (RuntimeError, TypeError, AttributeError) as e:
+        log(f"  torch._weight_int4pack_mm cannot take the port's int4 "
+            f"weights here: {type(e).__name__}: {e}")
+        return None
+    return out
 
 
 def kernel_times(rec: Record, card: str, g):
@@ -2042,8 +2088,9 @@ def kernel_times(rec: Record, card: str, g):
                       2.0 * M * head.numel(), "bf16", False))
 
     # B8, B4: one layer per call (B8 the predictor's int8 layer at M=1,
-    # 13.6 MB a copy; B4 the talker's int4 layer at M=1, 25 MB); no
-    # PyTorch call computes them (kernel A: qmatmul_times)
+    # 13.6 MB a copy; B4 the talker's int4 layer at M=1, 25 MB); B4's
+    # PyTorch call is torch._weight_int4pack_mm (int4pack_mats); B8's,
+    # torch._weight_int8pack_mm, is timed with kernel A (qmatmul_times)
     def qlayers(shapes, n_copies, kind, M):
         fn = quant.quantize if kind == "int8" else quant.quantize_int4
         return [(randn(M, k), fn(randn(k, n, scale=0.02)), {})
@@ -2058,6 +2105,7 @@ def kernel_times(rec: Record, card: str, g):
 
     b8_mats = qlayers(pred, 8, "int8", 1)
     b4_mats = qlayers(talker, 4, "int4", 1)
+    b4_lib = int4pack_mats(b4_mats)
     cases += [
         ("gemv_int8", "one predictor layer int8: qkv+wo+gate/up+down, M=1 "
          "bf16", 8,
@@ -2069,7 +2117,9 @@ def kernel_times(rec: Record, card: str, g):
          4, over(b4_mats, lambda x, w: G.gemv_int4(x, w["q4"], w["m8"],
                                                    w["scale"])),
          over(b4_mats, lambda x, w: G.gemv_int4_plain(
-             x, w["q4"], w["m8"], w["scale"])), None, qbytes(b4_mats, 2),
+             x, w["q4"], w["m8"], w["scale"])),
+         b4_lib and over(b4_lib, lambda x, w: torch._weight_int4pack_mm(
+             x, w[0], quant.GROUP4, w[1])), qbytes(b4_mats, 2),
          qops(b4_mats), "bf16", True)]
 
     # decode attention over 8 layers of a cache; its library yardstick is
@@ -2704,6 +2754,120 @@ def split_times(card: str, g):
               flash_decode.attention_splits(1, nk, T, sms))
 
 
+LONG_TEXT = ("The port loads what it saved. Each sentence is a chunk of its "
+             "own! The chunks run as one batch; the waveforms are joined in "
+             "order. That is how long text is spoken.")
+
+
+def greedy_codes(e, frames=32):
+    """Greedy codes of generate_codes(ignore_eos=True), B = 1, `frames`
+    frames, for TEXT and the vivian voice."""
+    import torch
+    from qwen3_tts_tpu_torch.tts import generate
+    cfg = e.config
+    d = e._prompt_for_voice(TEXT, e.get_speaker("vivian"), None)
+    b, o = e._pad_prompts([d.embeds])
+    with torch.inference_mode():
+        codes, n = generate.generate_codes(
+            e.models, cfg.talker, cfg.predictor, b, o, None, 0.0, 0, 1.0,
+            frames, ignore_eos=True)
+    return codes, n
+
+
+def phase_checkpoint(eng, rec: Record, card: str):
+    """save_checkpoint at full width (dense bf16), the .npz directory and
+    the reference's llama GGUF layout loaded on the card, greedy codes
+    identical to the in-memory engine's; then the CLI on the directory,
+    with --stream and with --long. The directory is removed in any case."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine, cli
+    from qwen3_tts_tpu_torch.assets.llama_gguf import export_llama_gguf
+    from qwen3_tts_tpu_torch.utils.audio import AudioSample
+
+    log(f"[9/9] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
+        f"the CLI, full width, on {card}")
+    cfg = eng.config
+    spk = os.path.join(REPO, "speakers")
+    fused = fused_per_frame(cfg)
+    tmp = tempfile.mkdtemp(prefix="qwen3_tts_ckpt_")
+    try:
+        log(f"  {tmp}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
+        want, n_want = run_main_path(
+            rec, "in-memory engine greedy generate_codes B=1 32 frames",
+            lambda: greedy_codes(eng), STEPS, fused)
+
+        def sizes():
+            return {f: os.path.getsize(os.path.join(tmp, f))
+                    for f in sorted(os.listdir(tmp))}
+
+        def load_and_compare(layout):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            e = TtsEngine(model_dir=tmp, config=cfg, speakers_dir=spk,
+                          device=eng.device)
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+            got, n_got = run_main_path(
+                rec, f"{layout}-loaded engine greedy generate_codes B=1 "
+                f"32 frames", lambda: greedy_codes(e), STEPS, fused)
+            same = torch.equal(got, want) and torch.equal(n_got, n_want)
+            log(f"  {layout}: load {load_s:.2f} s on {card}; codes "
+                f"{tuple(got.shape)} identical to the in-memory engine's: "
+                f"{same}")
+            if not same:
+                fail(f"{layout}-loaded engine's greedy codes differ from the "
+                     "in-memory engine's")
+            del e
+
+        t0 = time.time()
+        eng.save_checkpoint(tmp)
+        save_s = time.time() - t0
+        written = sizes()
+        log(f"  save_checkpoint: {sum(written.values())} bytes in "
+            f"{save_s:.2f} s on {card}: {json.dumps(written)}")
+        load_and_compare("npz")
+
+        # the reference's layout: llama.cpp GGUF decoders, no decoder .npz
+        t0 = time.time()
+        for kind in ("talker", "predictor"):
+            export_llama_gguf(os.path.join(tmp, f"qwen3_tts_{kind}.gguf"),
+                              getattr(cfg, kind), eng.models[kind])
+            os.remove(os.path.join(tmp, f"{kind}.npz"))
+        export_s = time.time() - t0
+        gg = {k: v for k, v in sizes().items() if k.endswith("_tts_talker.gguf")
+              or k.endswith("_tts_predictor.gguf")}
+        log(f"  export_llama_gguf: {sum(gg.values())} bytes in "
+            f"{export_s:.2f} s on {card}: {json.dumps(gg)}")
+        load_and_compare("gguf")
+
+        # the CLI, as a user runs it on the directory (offline)
+        os.environ["QWEN3_TTS_OFFLINE"] = "1"
+        for mode, text, flag in (("stream", TEXT, "--stream"),
+                                 ("long", LONG_TEXT, "--long")):
+            wav = os.path.join(tmp, f"cli_{mode}.wav")
+            argv = ["--model-dir", tmp, "--no-download",
+                    "--device", str(eng.device),
+                    "--text", text, flag, "--max-steps", "32", "--seed", "0",
+                    "--speakers-dir", spk, "--output", wav]
+            rc = run_main_path(rec, f"cli {flag}", lambda: cli.main(argv),
+                               STEPS)
+            if rc != 0 or not os.path.exists(wav):
+                fail(f"cli {flag} returned {rc} without writing {wav}")
+            audio = AudioSample.load_wav(wav)
+            log(f"  cli {flag}: {audio.duration():.3f} s of audio")
+            if not audio.duration() > 0 or not np.isfinite(
+                    audio.samples).all():
+                fail(f"cli {flag}: the WAV is empty or not finite")
+            check_wav(f"cli {flag}", audio.samples, 32 * 8)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        fail(f"{tmp} was not removed")
+
+
 def _fmt4(ms):
     return "none" if ms is None else f"{ms:.4f}"
 
@@ -2735,6 +2899,7 @@ def main() -> int:
     phase_main(eng, rec, q48, q88)
     phase_stream(eng, rec, card, q48)
     phase_times(eng, rec, card, q48, q88)
+    phase_checkpoint(eng, rec, card)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB on {card}")
     print(card, flush=True)

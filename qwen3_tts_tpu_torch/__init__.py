@@ -5,6 +5,9 @@ through kernels written by hand for Hopper (`csrc/*.cu`,
 `ops/elementwise_triton.py`), with a plain PyTorch version beside each
 kernel for CPU tensors. Imports torch, never JAX; the JAX package
 `qwen3_tts_tpu` is the reference it is tested against.
+
+The public facade of the JAX package: TtsEngine, SamplerConfig,
+PromptBuilder, AudioSample, Tokenizer, VoiceFile, cleanup().
 """
 
 from .core.config import (  # noqa: F401
@@ -15,16 +18,27 @@ from .core.config import (  # noqa: F401
     VocoderConfig,
     tiny_engine_config,
 )
-from .tts.engine import TtsEngine  # noqa: F401
+from .tts import prompt as _prompt
+from .tts.engine import TtsEngine, cleanup  # noqa: F401
 from .utils.audio import AudioSample  # noqa: F401
 from .utils.tokenizer import ByteTokenizer, Tokenizer  # noqa: F401
 from .utils.voice_file import VoiceFile  # noqa: F401
 
 __version__ = "0.1.0"
 
+
+class PromptBuilder:
+    """Static facade over `tts.prompt` (the clone prompt comes with
+    cloning)."""
+
+    build_core = staticmethod(_prompt.build_core)
+    build_custom_prompt = staticmethod(_prompt.build_custom_prompt)
+
+
 __all__ = [
     "TtsEngine",
     "SamplerConfig",
+    "PromptBuilder",
     "AudioSample",
     "Tokenizer",
     "ByteTokenizer",
@@ -34,4 +48,5 @@ __all__ = [
     "PredictorConfig",
     "VocoderConfig",
     "tiny_engine_config",
+    "cleanup",
 ]

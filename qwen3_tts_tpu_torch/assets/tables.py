@@ -14,12 +14,14 @@ Semantics kept from the reference:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..core import protocol
+from . import gguf
 
 
 @dataclass
@@ -103,6 +105,54 @@ def build_assets(text, codecs, proj_w, proj_b, *, device="cpu",
 
     return Assets(text_table=t(text), codec_tables=t(stacked),
                   proj_weight=t(proj_w), proj_bias=t(proj_b))
+
+
+def load_assets(model_dir: str, *, device="cpu",
+                dtype=torch.float32) -> Assets:
+    """Load from `<dir>/qwen3_assets.gguf`, falling back to NPY files, the
+    resolution order of the JAX package (and of the reference)."""
+    gguf_path = os.path.join(model_dir, "qwen3_assets.gguf")
+    if os.path.exists(gguf_path):
+        f = gguf.GGUFFile(gguf_path)
+        proj_w = f.read_tensor("proj.weight")
+        proj_b = f.read_tensor("proj.bias")
+        text = (f.read_tensor("text_embd") if "text_embd" in f.tensors
+                else np.zeros((0, protocol.EMBED_DIM), np.float32))
+        codecs = [f.read_tensor(f"codec_embd.{i}")
+                  for i in range(protocol.NUM_CODEBOOKS)
+                  if f"codec_embd.{i}" in f.tensors]
+    elif not os.path.exists(os.path.join(model_dir, "proj_weight.npy")):
+        raise FileNotFoundError(
+            f"no embedding tables in {model_dir!r}: expected "
+            "qwen3_assets.gguf or proj_weight.npy (run "
+            "TtsEngine.download_models or tools/convert_weights.py)")
+    else:
+        proj_w = np.load(os.path.join(model_dir, "proj_weight.npy"))
+        proj_b = np.load(os.path.join(model_dir, "proj_bias.npy"))
+        text_path = os.path.join(model_dir, "text_embedding_projected.npy")
+        text = (np.load(text_path) if os.path.exists(text_path)
+                else np.zeros((0, protocol.EMBED_DIM), np.float32))
+        codecs = []
+        for i in range(protocol.NUM_CODEBOOKS):
+            p = os.path.join(model_dir, f"codec_embedding_{i}.npy")
+            if os.path.exists(p):
+                codecs.append(np.load(p))
+    return build_assets(text, codecs, proj_w, proj_b, device=device,
+                        dtype=dtype)
+
+
+def save_assets(path: str, assets: Assets) -> None:
+    """Write `assets` as the F32 GGUF container `load_assets` reads
+    (the tensors the JAX engine's `save_checkpoint` writes)."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    tensors = {"proj.weight": host(assets.proj_weight),
+               "proj.bias": host(assets.proj_bias),
+               "text_embd": host(assets.text_table)}
+    for i in range(assets.codec_tables.shape[0]):
+        tensors[f"codec_embd.{i}"] = host(assets.codec_tables[i])
+    gguf.write_gguf(path, tensors)
 
 
 def random_assets(

@@ -118,6 +118,22 @@ def init_vocoder(generator: torch.Generator, cfg: VocoderConfig, *,
     }
 
 
+def with_dtype(params: Dict[str, Any], cfg: VocoderConfig) -> Dict[str, Any]:
+    """The transformer trunk's float leaves cast to cfg.dtype (a bf16 trunk
+    for serving); the convs, the upsampler and the carried state stay f32.
+    Checkpoints store f32, so the engine applies this after every load."""
+    dt = getattr(torch, cfg.dtype)
+    if dt == torch.float32:
+        return params
+
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.to(dt) if node.dtype == torch.float32 else node
+
+    return dict(params, transformer=cast(params["transformer"]))
+
+
 def _conv1d(x, p):
     """VALID conv, channels-first: x [B, Cin, T], w [Cout, Cin, K]."""
     return F.conv1d(x, p["w"], p["b"])

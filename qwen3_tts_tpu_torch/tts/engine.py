@@ -1,13 +1,22 @@
 """TtsEngine: the public orchestration layer. Port of
 `qwen3_tts_tpu/tts/engine.py` for preset-speaker synthesis.
 
-`TtsEngine(config=..., random_weights=True, seed=0)` draws seeded random
-weights from a `torch.Generator` on the engine's device (the CUDA card
-unless `device=` names another), with the JAX engine's shapes;
-`weights=(models, vocoder_params)` takes weights built elsewhere
-(`convert.engine_from_jax_arrays` bridges the JAX package's), dense or
-quantized: talker and predictor trees from
-`ops.quant.quantize_decoder_params` run the int8 / int4 kernels.
+Weight sources, in this order:
+  * `weights=(models, vocoder_params)`: weights built elsewhere
+    (`convert.engine_from_jax_arrays` bridges the JAX package's), dense or
+    quantized: talker and predictor trees from
+    `ops.quant.quantize_decoder_params` run the int8 / int4 kernels;
+  * `random_weights=True`: seeded random weights drawn from a
+    `torch.Generator` on the engine's device, with the JAX engine's shapes;
+  * `model_dir`: a checkpoint directory, the per-quant subdirectory
+    (`download.quant_dir(quant)`, e.g. `gguf_q8_0/`) first and the flat
+    directory second: `qwen3_assets.gguf` (or the NPY tables),
+    `{talker,predictor}.npz` or the reference's llama.cpp
+    `qwen3_tts_{talker,predictor}.gguf` (k-quants dequantised to the model
+    dtype at load, as in JAX: loaded weights are dense), `vocoder.npz` and
+    `vocoder_config.json`. `save_checkpoint` writes such a directory
+    (`assets/checkpoint.py` says how its f32-on-disk rule differs from the
+    JAX package's). Leaves load one at a time straight to the device.
 
 Generation paths:
   * offline: `generate_with_voice` / `generate_batch` run prompt assembly,
@@ -26,24 +35,32 @@ Deliberate divergences from the JAX engine:
     builds them and runs each path once, so the first request pays for
     neither nvcc nor Triton's JIT;
   * the offline loop reads `done` back at most once per 4 frames, the
-    stream loop once per 4-frame chunk (see `tts/generate.py`).
+    stream loop once per 4-frame chunk (see `tts/generate.py`);
+  * `generate_long` keeps a decoded token prefix as a chunk only where it
+    is a prefix of the text (`startswith`; JAX tests `in`, which drops or
+    repeats characters when the prefix occurs later in the text).
 
-Loading checkpoints from `model_dir`, cloning and long text come later
-(ROADMAP queue 1).
+The audio encoders are absent (`encoder` and `speaker_encoder` are None):
+cloning comes later (ROADMAP queue 1) and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import re
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..assets import tables
+from .. import convert
+from ..assets import checkpoint, tables
 from ..core import protocol as P
-from ..core.config import EngineConfig, SamplerConfig
+from ..core.config import (EngineConfig, SamplerConfig, load_vocoder_config,
+                           save_vocoder_config)
+from ..download import Downloader, quant_dir
 from ..models import decoder, vocoder
 from ..utils.audio import AudioSample
 from ..utils.tokenizer import load_tokenizer
@@ -51,15 +68,16 @@ from ..utils.voice_file import VoiceFile
 from . import generate, prompt
 
 
-def default_device() -> torch.device:
-    """The engine's device when none is given: the CUDA card. There is no
-    quiet fallback to the CPU."""
-    if not torch.cuda.is_available():
+def default_device(device=None) -> torch.device:
+    """The engine's device: the CUDA card when none is given. A CUDA device
+    where there is none raises: there is no quiet fallback to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "TtsEngine: no CUDA device (torch.cuda.is_available() is False);"
             " pass device=\"cpu\" to run the kernels' plain versions on the "
             "CPU")
-    return torch.device("cuda")
+    return dev
 
 
 class TtsEngine:
@@ -75,32 +93,28 @@ class TtsEngine:
         device=None,
         weights: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None,
     ):
-        if quant != "none":
-            # in the JAX engine `quant` only picks a checkpoint's per-quant
-            # subdirectory (download.quant_dir)
-            raise NotImplementedError(
-                f"quant={quant!r} selects a checkpoint's per-quant "
-                "subdirectory, and loading checkpoints is not ported yet "
-                "(ROADMAP queue 1): pass quantized trees from "
-                "ops.quant.quantize_decoder_params through weights=")
         self.config = config or EngineConfig()
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = default_device(device)
         self.model_dir = model_dir
+        # `quant` picks a checkpoint's per-quant subdirectory, as in JAX
         self.quant = quant
         self.max_steps = self.config.max_steps
         self.sampler_config = SamplerConfig()
         self.speakers: Dict[str, VoiceFile] = {}
         self._stream_fns: Dict[int, Tuple[Callable, Callable]] = {}
+        self.encoder = self.speaker_encoder = None   # cloning: not ported
 
         if weights is not None:
             self.models, self.vocoder_params = weights
         elif random_weights:
             self.models, self.vocoder_params = self._random_weights(seed)
+        elif model_dir is not None:
+            self.models, self.vocoder_params = self._load(model_dir)
         else:
-            raise NotImplementedError(
-                "loading checkpoints is not ported yet (ROADMAP queue 1): "
-                "use random_weights=True or weights=")
+            raise ValueError("need model_dir or random_weights=True")
+        # a bf16 vocoder trunk is cast once here; checkpoints store f32
+        self.vocoder_params = vocoder.with_dtype(self.vocoder_params,
+                                                 self.config.vocoder)
         self.tokenizer = load_tokenizer(model_dir or "")
 
         sdir = speakers_dir
@@ -130,6 +144,89 @@ class TtsEngine:
             "assets": assets,
         }
         return models, vocoder.init_vocoder(gens[3], cfg.vocoder, device=dev)
+
+    def _load(self, model_dir: str):
+        """The checkpoint directory's weights (see the module docstring)."""
+        qdir = os.path.join(model_dir, quant_dir(self.quant))
+
+        def resolve(name):
+            cand = os.path.join(qdir, name)
+            return cand if os.path.exists(cand) \
+                else os.path.join(model_dir, name)
+
+        dev = self.device
+        assets = tables.load_assets(
+            qdir if os.path.exists(os.path.join(qdir, "qwen3_assets.gguf"))
+            else model_dir, device=dev)
+        # a converted release persists its vocoder architecture beside
+        # vocoder.npz: decode against that, keeping the caller's dtype
+        vcfg_path = resolve("vocoder_config.json")
+        if os.path.exists(vcfg_path):
+            vcfg = dataclasses.replace(load_vocoder_config(vcfg_path),
+                                       dtype=self.config.vocoder.dtype)
+            if vcfg != self.config.vocoder:
+                self.config = dataclasses.replace(self.config, vocoder=vcfg)
+        cfg = self.config
+        models = {
+            "talker": self._load_decoder(resolve, "talker", cfg.talker),
+            "predictor": self._load_decoder(resolve, "predictor",
+                                            cfg.predictor),
+            "assets": assets,
+        }
+        like = vocoder.init_vocoder(None, cfg.vocoder, device="meta")
+        return models, checkpoint.load_tree(resolve("vocoder.npz"), like,
+                                            device=dev)
+
+    def _load_decoder(self, resolve, kind: str, cfg):
+        """The .npz checkpoint first; the reference's own
+        `qwen3_tts_{kind}.gguf` (llama.cpp layout) second, which is what
+        the downloader fetches (no conversion step)."""
+        npz = resolve(f"{kind}.npz")
+        if os.path.exists(npz):
+            like = decoder.init_decoder(None, cfg, device="meta")
+            return checkpoint.load_tree(npz, like, device=self.device)
+        gpath = resolve(f"qwen3_tts_{kind}.gguf")
+        if os.path.exists(gpath):
+            from ..assets.llama_gguf import convert_llama_gguf
+            gcfg, params = convert_llama_gguf(gpath, kind)
+            for field in ("hidden", "n_layers", "n_q_heads", "n_kv_heads",
+                          "head_dim", "ffn_dim"):
+                got, want = getattr(gcfg, field), getattr(cfg, field)
+                if got != want:
+                    raise ValueError(
+                        f"{gpath}: GGUF {field}={got} but the engine config "
+                        f"says {want}")
+            return convert.decoder_from_numpy(params, self.device,
+                                              getattr(torch, cfg.dtype))
+        raise FileNotFoundError(
+            f"no {kind} weights: tried {npz} and {gpath} "
+            f"(run TtsEngine.download_models or tools/convert_weights.py)")
+
+    def save_checkpoint(self, out_dir: str) -> None:
+        """Write every weight as a directory `TtsEngine(model_dir=...)`
+        loads, in both packages: `{talker,predictor,vocoder}.npz` (bf16
+        leaves as f32), `vocoder_config.json` (f32, the checkpoint's dtype)
+        and the assets as `qwen3_assets.gguf`."""
+        os.makedirs(out_dir, exist_ok=True)
+        for kind in ("talker", "predictor"):
+            checkpoint.save_tree(os.path.join(out_dir, f"{kind}.npz"),
+                                 self.models[kind])
+        checkpoint.save_tree(os.path.join(out_dir, "vocoder.npz"),
+                             self.vocoder_params)
+        save_vocoder_config(
+            os.path.join(out_dir, "vocoder_config.json"),
+            dataclasses.replace(self.config.vocoder, dtype="float32"))
+        tables.save_assets(os.path.join(out_dir, "qwen3_assets.gguf"),
+                           self.models["assets"])
+
+    @staticmethod
+    def download_models(model_dir: str = "models", quant: str = "none",
+                        offline: Optional[bool] = None) -> Dict[str, str]:
+        """Fetch (or verify) the model manifest for `quant` into
+        `model_dir`. Returns {relative path: exists|downloaded|missing|
+        corrupt}; offline, it reports instead of fetching."""
+        return Downloader(offline=offline).check_and_download(model_dir,
+                                                              quant)
 
     # ------------------------------------------------------------- settings
     def set_max_steps(self, steps: int) -> None:
@@ -320,6 +417,59 @@ class TtsEngine:
                  for t, v in zip(texts, voices)]
         return self._run_inference(datas)
 
+    def _long_chunks(self, text: str, max_chunk_tokens: int) -> List[str]:
+        """Sentence-bounded chunks of at most `max_chunk_tokens` tokens, a
+        run-on sentence cut at a token prefix that decodes to a prefix of
+        the text (else at half its characters)."""
+        tok = self.tokenizer
+        sentences = [s for s in re.split(r"(?<=[。！？.!?;\n])\s*", text)
+                     if s.strip()]
+        chunks: List[str] = []
+        cur = ""
+        for s in sentences:
+            cand = (cur + " " + s).strip() if cur else s
+            if cur and len(tok.encode(cand)) > max_chunk_tokens:
+                chunks.append(cur)
+                cur = s
+            else:
+                cur = cand
+            while len(tok.encode(cur)) > max_chunk_tokens:
+                head = tok.decode(tok.encode(cur)[:max_chunk_tokens])
+                # decode() of a prefix may not land on a character boundary
+                # or may not be the text's prefix: cut at half the
+                # characters then
+                if not head or not cur.startswith(head):
+                    head = cur[: max(1, len(cur) // 2)]
+                chunks.append(head)
+                cur = cur[len(head):].strip()
+        if cur:
+            chunks.append(cur)
+        return chunks
+
+    def generate_long(self, text: str, voice: VoiceFile,
+                      instruct: Optional[str] = None,
+                      max_chunk_tokens: int = 48,
+                      pause_s: float = 0.0) -> AudioSample:
+        """Text of any length: split at sentence boundaries into chunks of
+        at most `max_chunk_tokens` tokens, all chunks synthesized with the
+        same voice as one batch (`generate_batch`, ragged prompts
+        left-padded), the waveforms concatenated in order with `pause_s`
+        of silence between chunks."""
+        if len(self.tokenizer.encode(text)) <= max_chunk_tokens:
+            return self.generate_with_voice(text, voice, instruct)
+        chunks = self._long_chunks(text, max_chunk_tokens)
+        pieces = self.generate_batch(chunks, [voice] * len(chunks),
+                                     instruct)
+        pause = np.zeros(int(pause_s * P.SAMPLE_RATE), np.float32)
+        wavs: List[np.ndarray] = []
+        for i, p in enumerate(pieces):
+            if i and pause.size:
+                wavs.append(pause)
+            wavs.append(np.asarray(p.samples, np.float32))
+        return AudioSample(samples=np.concatenate(wavs) if wavs
+                           else np.zeros(0, np.float32),
+                           sample_rate=P.SAMPLE_RATE, channels=1)
+
     def generate_stream(self, text: str, voice: VoiceFile,
                         instruct: Optional[str] = None,
                         on_chunk: Optional[Callable[[np.ndarray], None]]
@@ -373,3 +523,9 @@ class TtsEngine:
         samples = pipe.close()
         return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
                            channels=1)
+
+
+def cleanup() -> None:
+    """API parity with the reference's `cleanup` (which frees llama.cpp's
+    backend): a no-op, since PyTorch frees tensors when they are
+    dropped."""

@@ -1,5 +1,6 @@
 """Prompt assembly for the preset-speaker path. Port of
-`qwen3_tts_tpu/tts/prompt.py::build_core`, `PROMPT_BUCKET` and `pad_batch`.
+`qwen3_tts_tpu/tts/prompt.py::build_core`, `build_custom_prompt`,
+`PROMPT_BUCKET` and `pad_batch`.
 
 The prompt is a sequence of dim-wide vectors, each the sum of a text-table
 row and a codec-table row (or a raw speaker embedding):
@@ -85,6 +86,18 @@ def build_core(
         spk_emb=(np.asarray(spk_emb, np.float32) if spk_emb is not None
                  else np.zeros((dim,), np.float32)),
     )
+
+
+def build_custom_prompt(
+    assets: Assets,
+    text_ids: Sequence[int],
+    spk_id: int,
+    lang_id: Optional[int] = P.DEFAULT_LANG_ID,
+    instruct_ids: Optional[Sequence[int]] = None,
+) -> PromptData:
+    """A preset speaker by its codec id instead of an embedding."""
+    return build_core(assets, text_ids, lang_id=lang_id, spk_id=spk_id,
+                      instruct_ids=instruct_ids)
 
 
 PROMPT_BUCKET = 64

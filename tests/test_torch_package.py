@@ -25,7 +25,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, qwen3_tts_tpu_torch, qwen3_tts_tpu_torch.convert, "
             "qwen3_tts_tpu_torch.ops.chain, qwen3_tts_tpu_torch.tts.engine, "
             "qwen3_tts_tpu_torch.parallel.pipeline, "
-            "qwen3_tts_tpu_torch.tools.mosaic_probe; "
+            "qwen3_tts_tpu_torch.tools.mosaic_probe, "
+            "qwen3_tts_tpu_torch.assets.checkpoint, "
+            "qwen3_tts_tpu_torch.assets.gguf, "
+            "qwen3_tts_tpu_torch.assets.llama_gguf, "
+            "qwen3_tts_tpu_torch.download, qwen3_tts_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qwen3_tts_tpu.'))] "
             "+ [m for m in ('triton', 'qwen3_tts_tpu') if m in sys.modules]; "
@@ -277,3 +281,30 @@ def test_voice_file_and_audio_copies_roundtrip(tmp_path):
     b = AudioSample.load_wav(str(tmp_path / "a.wav"))
     # saved as round(x * 32767), read back as s16 / 32768
     np.testing.assert_allclose(b.samples, a.samples, atol=2 / 32767)
+
+
+def test_facade_matches_jax():
+    """The package exports the JAX package's facade (PromptBuilder without
+    the clone prompt, which comes with cloning), and
+    PromptBuilder.build_custom_prompt equals JAX's on the same tables."""
+    import jax
+    import qwen3_tts_tpu as J
+    import qwen3_tts_tpu_torch as T
+    from qwen3_tts_tpu.assets import tables as jtables
+    assert set(J.__all__) == set(T.__all__)
+    T.cleanup()
+    a = jtables.random_assets(jax.random.key(2), text_vocab=256,
+                              codec_rows=2176, dim=64, proj_dim=32)
+    ta = convert.assets_from_numpy(
+        np.asarray(a.text_table), np.asarray(a.codec_tables),
+        np.asarray(a.proj_weight), np.asarray(a.proj_bias))
+    for builder in ("build_core", "build_custom_prompt"):
+        kw = dict(text_ids=[5, 6, 7], lang_id=2050, instruct_ids=[9, 10])
+        if builder == "build_custom_prompt":
+            kw["spk_id"] = 3065
+        want = getattr(J.PromptBuilder, builder)(a, **kw)
+        got = getattr(T.PromptBuilder, builder)(ta, **kw)
+        np.testing.assert_allclose(got.embeds.numpy(),
+                                   np.asarray(want.embeds), rtol=0,
+                                   atol=1e-7)
+        np.testing.assert_array_equal(got.text_ids, want.text_ids)

@@ -143,13 +143,22 @@ def test_bridge_keeps_quantized_scale_f32(kind):
     assert tq["layers"]["ln1"].dtype == torch.bfloat16
 
 
-def test_engine_quant_names_checkpoint_loading():
-    """`quant=` picks a checkpoint's per-quant subdirectory in the JAX
-    engine: the port refuses it as checkpoint loading, not as missing
-    quantized kernels."""
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TtsEngine(quant="q8_0", config=tiny_engine_config(),
-                  random_weights=True, device="cpu")
+def test_engine_quant_names_checkpoint_loading(tmp_path):
+    """`quant=` picks a checkpoint's per-quant subdirectory, as in the JAX
+    engine, and selects no quantized kernels: a random engine keeps it as
+    a name, a loaded one reads `gguf_<quant>/` before the flat
+    directory."""
+    eng = TtsEngine(quant="q8_0", config=tiny_engine_config(),
+                    random_weights=True, device="cpu")
+    assert eng.quant == "q8_0"
+    eng.save_checkpoint(str(tmp_path / "gguf_q8_0"))
+    loaded = TtsEngine(model_dir=str(tmp_path), quant="q8_0",
+                       config=tiny_engine_config(), device="cpu")
+    assert torch.equal(loaded.models["talker"]["head"],
+                       eng.models["talker"]["head"])
+    with pytest.raises(FileNotFoundError, match="no embedding tables"):
+        TtsEngine(model_dir=str(tmp_path), config=tiny_engine_config(),
+                  device="cpu")
 
 
 # ------------------------------------------------------------ products
