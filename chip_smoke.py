@@ -7,7 +7,9 @@ Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
   1. device    the card (nvidia-smi name and power limit), torch / CUDA /
-               triton versions, nvcc; TF32 off for matmuls and convolutions
+               triton versions, nvcc; the TF32 switches left at torch's
+               defaults, as a user has them (the f32 vocoder and encoders
+               turn TF32 off around their own work, core/precision.py)
   2. build     nvcc compiles qwen3_tts_tpu_torch/csrc/*.cu for sm_90a
   3. kernels   every kernel against its plain PyTorch version at the
                shapes of the slice (f32 allclose, bf16 relative error),
@@ -139,6 +141,35 @@ result line:
                rows): WAVs of whole frames, finite. Prints the bytes
                written and the seconds to save, export and load each
                layout; the directory is removed in any case
+ 10. clone     voice cloning at full width: random encoders (audio
+               1024 x 8, speaker 512 x 6, f32) with the RVQ codebooks tied
+               to the vocoder's tables; create_voice_file on a 4 s and a
+               10 s 24 kHz WAV, cold and warm, split into mel, audio
+               encoder and speaker encoder (codes floor(N/2000) x 16 in
+               [0, 2048), a finite 2048-d embedding, the voice JSON saved
+               and reloaded); process_reference writes the TTSC .cache and
+               a second call with the encoders set to None returns the same
+               codes; generate_with_voice with the 10 s clone voice, dense
+               bf16 and int4+int8 (the talker step kernel and the
+               predictor frame kernel once a frame), int8/int8 (kernel A
+               on the clone prompt's bucket); the clone prompt's length
+               and bucket, its prefill's device and host ms, ms a frame
+               against a preset prompt's; generate_batch with a preset and
+               a clone voice; generate_stream with the clone voice (chunks,
+               first-chunk ms, streaming RTF); generate(text, wav,
+               ref_text); the tiny f32 config: encoder codes and greedy
+               clone codes on the card equal to the CPU's; the general
+               vocoder at full width (hidden 1024, strides 5,5,5,4,4,
+               kernels 10,10,10,8,8, residual dilations 1,3,9, snake,
+               halving channels): 4-frame chunked decode against one-shot
+               and one-shot against the CPU (atol 1e-4 x the peak), the
+               same with torch's default TF32 switches against both off
+               (atol 1e-6 x peak), device ms a 4-frame chunk against the
+               kernel == stride vocoder's, ctx_r and the first chunk's
+               delay, and generate_stream through it; then the CLI with
+               --ref-audio --ref-text --save-voice on a full-width
+               directory save_checkpoint wrote (with the encoders): exit
+               0, a WAV, a voice JSON that loads. Removed in any case
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -367,22 +398,23 @@ def phase_device():
         fail("triton is not installed")
     from qwen3_tts_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
-    log("[1/9] device")
+    log("[1/10] device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"triton {tv}  nvcc {nvcc}  python {sys.version.split()[0]}")
     log(f"  device_count {torch.cuda.device_count()}  "
         f"{torch.cuda.get_device_name(0)}")
-    # f32 references in full f32: the vocoder's conv1d would otherwise run
-    # in TF32 through cuDNN
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # left at torch's defaults, as the CLI runs: the f32 modules scope TF32
+    # off themselves (core/precision.f32_exact)
+    log(f"  TF32: float32_matmul_precision "
+        f"{torch.get_float32_matmul_precision()!r}, cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}")
     return card
 
 
 def phase_build():
     from qwen3_tts_tpu_torch.kernels import build
-    log("[2/9] build")
+    log("[2/10] build")
     t0 = time.time()
     path = build.build(verbose=True)
     build.lib()
@@ -396,7 +428,7 @@ def phase_kernels(rec: Record):
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
 
-    log("[3/9] kernels against their plain versions")
+    log("[3/10] kernels against their plain versions")
     log("  f32 tolerances: rtol 1e-4, atol 1e-4 (the kernels sum in another "
         "order than cuBLAS / PyTorch); bf16: relative error")
     dev = torch.device("cuda")
@@ -1140,7 +1172,7 @@ def phase_probes(rec: Record, card: str):
     import torch
     from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
 
-    log("[4/9] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
+    log("[4/10] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
         "--device cuda, then each kernel against its plain version")
     torch.cuda.synchronize()
     mp.reset_launch_counts()
@@ -1238,7 +1270,7 @@ def phase_agree(eng):
     the int4 talker with the int8 predictor, and the int8 talker."""
     from qwen3_tts_tpu_torch.core import protocol as P
 
-    log("[5/9] teacher-forced agreement, full width, bf16, peaked heads")
+    log("[5/10] teacher-forced agreement, full width, bf16, peaked heads")
     pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
     pp = peak_head(eng.models["predictor"],
                    [(q * P.CODE_VOCAB, P.CODE_VOCAB)
@@ -1437,7 +1469,7 @@ def phase_main(eng, rec: Record, q48, q88):
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
-    log("[6/9] main path: TtsEngine.generate_with_voice, full width")
+    log("[6/10] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
     fused = fused_per_frame(eng.config)
 
@@ -1628,10 +1660,11 @@ def stream_once(e, text, voice):
             "wall": wall}
 
 
-def check_stream(label, run, e, max_frames):
-    """Whole-frame chunks of at most (4 + lookahead) frames that concatenate
-    to the samples, and the samples equal to a one-shot decode of the
-    stream's own codes."""
+def check_stream(label, run, e, max_frames, atol=STREAM_WAV_ATOL):
+    """Whole-frame chunks of at most (4 + lookahead + ctx_r) frames (ctx_r
+    the general upsampler's delay, 0 on the kernel == stride path) that
+    concatenate to the samples, and the samples equal to a one-shot decode
+    of the stream's own codes within `atol`."""
     import numpy as np
     import torch
     from qwen3_tts_tpu_torch.models import vocoder
@@ -1641,10 +1674,9 @@ def check_stream(label, run, e, max_frames):
     wav = run["samples"]
     check_wav(label, wav, max_frames)
     sizes = [len(c) for c in run["chunks"]]
-    if not sizes or any(n % fs or not 0 < n <= (4 + vcfg.lookahead) * fs
-                        for n in sizes):
-        fail(f"{label}: chunk sizes {sizes} are not 1..{4 + vcfg.lookahead} "
-             "whole frames")
+    most = 4 + vcfg.lookahead + vocoder.up_context(vcfg)[1]
+    if not sizes or any(n % fs or not 0 < n <= most * fs for n in sizes):
+        fail(f"{label}: chunk sizes {sizes} are not 1..{most} whole frames")
     if not np.array_equal(np.concatenate(run["chunks"]), wav):
         fail(f"{label}: the chunks do not concatenate to the samples")
     codes = torch.from_numpy(run["codes"]).to(e.device)
@@ -1658,8 +1690,8 @@ def check_stream(label, run, e, max_frames):
         else float("inf")
     log(f"  {label}: chunks of {[s // fs for s in sizes]} frames; against a "
         f"one-shot decode of its {n} frames max|d|={err:.3e} "
-        f"(atol {STREAM_WAV_ATOL:g})")
-    if err > STREAM_WAV_ATOL:
+        f"(atol {atol:g})")
+    if err > atol:
         fail(f"{label}: the streamed waveform differs from a one-shot decode "
              "of its codes")
 
@@ -1690,7 +1722,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
 
     frames = 32
-    log(f"[7/9] stream: TtsEngine.generate_stream, full width, B=1, "
+    log(f"[7/10] stream: TtsEngine.generate_stream, full width, B=1, "
         f"{frames} frames")
     voice = eng.get_speaker("vivian")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
@@ -1977,7 +2009,7 @@ def frame_times(eng, models, label: str, card: str, g):
 def phase_times(eng, rec: Record, card: str, q48, q88):
     import torch
 
-    log(f"[8/9] times on {card} (CUDA events)")
+    log(f"[8/10] times on {card} (CUDA events)")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(5)
     # ms/frame and busy share per weight set; int8/int8 last (the first to
@@ -2787,7 +2819,7 @@ def phase_checkpoint(eng, rec: Record, card: str):
     from qwen3_tts_tpu_torch.assets.llama_gguf import export_llama_gguf
     from qwen3_tts_tpu_torch.utils.audio import AudioSample
 
-    log(f"[9/9] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
+    log(f"[9/10] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
         f"the CLI, full width, on {card}")
     cfg = eng.config
     spk = os.path.join(REPO, "speakers")
@@ -2868,6 +2900,521 @@ def phase_checkpoint(eng, rec: Record, card: str):
         fail(f"{tmp} was not removed")
 
 
+# ------------------------------------------------------------- cloning
+CLONE_TEXT = "The cloned voice speaks this sentence."
+# the general vocoder at full width, card against card and against the CPU:
+# f32, TF32 off, cuDNN's algorithms sum in their own order
+GENERAL_REL = 1e-4
+# TF32 switches at torch's defaults against both off: the vocoder scopes
+# TF32 off itself, so only launch-to-launch order could differ
+TF32_REL = 1e-6
+
+
+def general_vocoder_config():
+    """The BigVGAN/DAC family at full width: hidden 1024, strides
+    5,5,5,4,4, kernels 10,10,10,8,8, residual units of dilation 1, 3, 9
+    after every stage, snake, channels halving 1024 -> 32."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.core.config import VocoderConfig
+    return dataclasses.replace(VocoderConfig(),
+                               upsample_kernels=(10, 10, 10, 8, 8),
+                               resblock_dilations=(1, 3, 9),
+                               activation="snake")
+
+
+def write_ref_wav(path, seconds, seed):
+    """A 24 kHz WAV of seeded noise (16-bit PCM, as save_wav writes)."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.utils.audio import AudioSample
+    rng = np.random.default_rng(seed)
+    AudioSample(samples=(0.1 * rng.standard_normal(seconds * 24000)).astype(
+        np.float32), sample_rate=24000).save_wav(path)
+    return path
+
+
+def voice_file_times(e, path):
+    """create_voice_file(path) with the host ms of the mel frontend, the
+    audio encoder and the speaker encoder (less its mel), each call
+    synchronised; returns (voice, {part: ms})."""
+    import torch
+    from qwen3_tts_tpu_torch.models import encoders
+
+    parts = {"mel": 0.0, "audio_encoder": 0.0, "speaker_encoder": 0.0}
+    mel_fn = encoders.mel_mod.compute_mel
+    ae_fn, se_fn = e.encoder.encode, e.speaker_encoder.encode
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    encoders.mel_mod.compute_mel = timed("mel", mel_fn)
+    e.encoder.encode = timed("audio_encoder", ae_fn)
+    e.speaker_encoder.encode = timed("speaker_encoder", se_fn)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voice = e.create_voice_file(path, "A reference transcript.")
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        encoders.mel_mod.compute_mel = mel_fn
+        del e.encoder.encode, e.speaker_encoder.encode
+    parts["speaker_encoder"] -= parts["mel"]
+    parts["total"] = total
+    return voice, parts
+
+
+def check_voice(label, voice, n_samples, vocab):
+    import numpy as np
+    codes = np.asarray(voice.audio_codes)
+    emb = np.asarray(voice.speaker_embedding, np.float32)
+    want = n_samples // 2000 * 16
+    ok = (codes.size == want and codes.size > 0 and codes.min() >= 0
+          and codes.max() < vocab and emb.shape == (2048,)
+          and bool(np.isfinite(emb).all()))
+    log(f"  {label}: {codes.size} codes (expect {want}) in "
+        f"[{codes.min()}, {codes.max()}], embedding {emb.shape} finite "
+        f"{bool(np.isfinite(emb).all())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label}: the voice file's codes or embedding are wrong")
+
+
+def prompt_times(e, voice, card, frames=32):
+    """For the voice's prompt: its length and bucket, the prefill's host
+    ms (CUDA events around generate_codes with no frames) and device ms
+    (profiler), and ms a frame of generate_codes(ignore_eos) over `frames`
+    frames with the prefill subtracted, B=1, temperature 0.7."""
+    import torch
+    from qwen3_tts_tpu_torch.tts import generate
+
+    cfg = e.config
+    dev = e.device
+    d = e._prompt_for_voice(CLONE_TEXT, voice, None)
+    batch, offsets = e._pad_prompts([d.embeds])
+
+    def run(steps):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.inference_mode():
+            generate.generate_codes(
+                e.models, cfg.talker, cfg.predictor, batch, offsets, gen,
+                0.7, 40, 0.9, frames, ignore_eos=True, step_cap=steps)
+
+    def timed(steps):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        t = torch.cuda.Event(enable_timing=True)
+        s.record()
+        run(steps)
+        t.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(t)
+
+    run(2)
+    pre = [timed(0) for _ in range(3)]
+    total = [timed(frames) for _ in range(2)]
+    per_frame = (min(total) - min(pre)) / frames
+    dev_ms = profiled_device_ms(lambda: run(0), 1)
+    return {"length": int(d.embeds.shape[0]), "bucket": int(batch.shape[1]),
+            "prefill_host_ms": min(pre), "prefill_device_ms": dev_ms,
+            "ms_per_frame": per_frame}
+
+
+def tiny_clone_card_vs_cpu(tmp):
+    """Reference on a small input: the tiny f32 config with random
+    encoders tied to its vocoder, on the card and (the same weights) on
+    the CPU: the voice file's codes equal, its embedding within 1e-5, and
+    the greedy codes of a clone request equal."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.models import encoders
+    from qwen3_tts_tpu_torch.tts import generate
+
+    cfg = tiny_engine_config(max_steps=10)
+    spk = os.path.join(REPO, "speakers")
+    on_card = TtsEngine(config=cfg, random_weights=True, seed=0,
+                        speakers_dir=spk, device="cuda")
+    on_card.encoder, on_card.speaker_encoder = encoders.random_encoders(
+        torch.Generator(device="cuda").manual_seed(2), cfg,
+        on_card.vocoder_params)
+    on_cpu = TtsEngine(config=cfg, weights=(_to(on_card.models, "cpu"),
+                                            _to(on_card.vocoder_params,
+                                                "cpu")),
+                       speakers_dir=spk, device="cpu")
+    on_cpu.encoder = encoders.AudioEncoder(
+        _to(on_card.encoder.params, "cpu"), cfg.audio_encoder)
+    on_cpu.speaker_encoder = encoders.SpeakerEncoder(
+        _to(on_card.speaker_encoder.params, "cpu"), cfg.speaker_encoder,
+        cfg.mel)
+    path = write_ref_wav(os.path.join(tmp, "tiny_ref.wav"), 3, seed=5)
+    voices = [e.create_voice_file(path, "tiny reference")
+              for e in (on_card, on_cpu)]
+    same_codes = voices[0].audio_codes == voices[1].audio_codes
+    emb_err = float(np.abs(np.subtract(voices[0].speaker_embedding,
+                                       voices[1].speaker_embedding)).max())
+    codes = []
+    for e in (on_card, on_cpu):
+        e.set_sampler_config(SamplerConfig(temperature=0.0, top_k=0,
+                                           top_p=1.0, seed=0))
+        d = e._prompt_for_voice(CLONE_TEXT, voices[0], None)
+        b, o = e._pad_prompts([d.embeds])
+        with torch.inference_mode():
+            c, n = generate.generate_codes(
+                e.models, cfg.talker, cfg.predictor, b, o, None, 0.0, 0,
+                1.0, cfg.max_steps)
+        codes.append((c.cpu(), n.cpu()))
+    same = bool(torch.equal(codes[0][0], codes[1][0])
+                and torch.equal(codes[0][1], codes[1][1]))
+    log(f"  tiny f32 clone: encoder codes ({len(voices[0].audio_codes)}) "
+        f"card vs CPU {'equal' if same_codes else 'DIFFER'}, embedding "
+        f"max|d|={emb_err:.3e} (atol 1e-5); greedy clone codes card vs CPU "
+        f"{'equal' if same else 'DIFFER'} (n_frames "
+        f"{codes[1][1].tolist()})")
+    if not same_codes or emb_err > 1e-5 or not same:
+        fail("tiny f32 clone: the card differs from the CPU reference")
+
+
+def general_vocoder_checks(eng, rec: Record, card: str, tmp):
+    """The general vocoder family at full width (see
+    general_vocoder_config): chunked against one-shot and against the CPU,
+    torch's default TF32 switches against both off, device ms a chunk
+    against the kernel == stride vocoder, and generate_stream through it."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.assets import checkpoint
+    from qwen3_tts_tpu_torch.models import vocoder
+
+    gcfg = general_vocoder_config()
+    dev = eng.device
+    ctx_l, ctx_r = vocoder.up_context(gcfg)
+    la = gcfg.lookahead
+    t0 = time.time()
+    gparams = vocoder.init_vocoder(
+        torch.Generator(device=dev).manual_seed(21), gcfg, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for _, t in checkpoint.flatten(gparams))
+    log(f"  general vocoder: {n_par} f32 parameters in "
+        f"{time.time() - t0:.2f} s; channels {vocoder.up_channels(gcfg)}, "
+        f"(ctx_l, ctx_r) = ({ctx_l}, {ctx_r}) frames, lookahead {la}")
+    frames = 25       # > LA + ctx_r: the middle calls emit frames too
+    g = torch.Generator(device=dev).manual_seed(22)
+    codes = torch.randint(0, gcfg.code_vocab, (1, frames, 16), generator=g,
+                          device=dev, dtype=torch.int32)
+
+    def oneshot(params=gparams, device=dev, c=codes):
+        with torch.inference_mode():
+            w, v, _ = vocoder.decode(
+                params, gcfg, c.to(device),
+                vocoder.init_state(gcfg, 1, frames=frames, device=device),
+                True)
+        return w[0, : int(v[0])].float().cpu().numpy()
+
+    def chunked():
+        st = vocoder.init_state(gcfg, 1, device=dev)
+        out, firsts = [], []
+        with torch.inference_mode():
+            for s in range(0, frames, 4):
+                w, v, st = vocoder.decode(gparams, gcfg, codes[:, s:s + 4],
+                                          st, s + 4 >= frames)
+                out.append(w[0, : int(v[0])].cpu().numpy())
+                firsts.append(int(v[0]) // gcfg.frame_samples)
+        return np.concatenate(out), firsts
+
+    one = oneshot()
+    peak = float(np.abs(one).max())
+    got, emitted = chunked()
+    err = float(np.abs(got - one).max()) if got.shape == one.shape \
+        else float("inf")
+    cpu = oneshot(_to(gparams, "cpu"), "cpu")
+    cerr = float(np.abs(cpu - one).max()) if cpu.shape == one.shape \
+        else float("inf")
+    log(f"  general vocoder {frames} frames: peak {peak:.4f}; 4-frame "
+        f"chunks (frames emitted a call {emitted}) vs one-shot max|d|="
+        f"{err:.3e}, one-shot card vs CPU max|d|={cerr:.3e} (atol "
+        f"{GENERAL_REL:g} x peak) on {card}")
+    if not peak > 0 or max(err, cerr) > GENERAL_REL * peak:
+        fail("general vocoder: chunked or CPU decode differs from one-shot")
+
+    # TF32: the global switches at torch's defaults (cuDNN convolutions at
+    # TF32) against both off; the vocoder's own scope keeps its f32
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = True
+        dflt = oneshot()
+        # what TF32 would have done: the same decode without the scope
+        vocoder.f32_exact = lambda device: contextlib.nullcontext()
+        try:
+            unscoped = oneshot()
+        finally:
+            from qwen3_tts_tpu_torch.core.precision import f32_exact
+            vocoder.f32_exact = f32_exact
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+        off = oneshot()
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    terr = float(np.abs(dflt - off).max())
+    uerr = float(np.abs(unscoped - off).max())
+    log(f"  general vocoder, TF32 switches at torch's defaults vs both off: "
+        f"max|d|={terr:.3e} (atol {TF32_REL:g} x peak); without the "
+        f"f32 scope, cuDNN at TF32 would move it by max|d|={uerr:.3e} on "
+        f"{card}")
+    if terr > TF32_REL * peak:
+        fail("general vocoder: TF32 at torch's defaults changed the f32 "
+             "vocoder's output")
+
+    # a 4-frame chunk, B=1, 16 frames decoded before (the same slots each
+    # call: the same work), both families
+    c4 = codes[:, :4]
+    for label, params, cfg in (("kernel == stride", eng.vocoder_params,
+                                eng.config.vocoder),
+                               ("general snake", gparams, gcfg)):
+        with torch.inference_mode():
+            st = vocoder.init_state(cfg, 1, device=dev)
+            for _ in range(4):
+                _, _, st = vocoder.decode(params, cfg, c4, st, False)
+
+            def chunk():
+                vocoder.decode(params, cfg, c4, st, False)
+            wall = cuda_ms(chunk)
+            dev_ms = profiled_device_ms(chunk, 5)
+        log(f"  vocoder {label}: one 4-frame chunk, device {_fmt(dev_ms)} ms "
+            f"(profiler), {wall:.3f} ms per call (CUDA events) on {card}")
+    log(f"  general vocoder: emission lags lookahead + ctx_r = {la + ctx_r} "
+        f"frames ({(la + ctx_r) * 80} ms of audio; kernel == stride: {la}): "
+        f"the first {4 * (-(-(la + ctx_r + 1) // 4))} frames are generated "
+        "before the first chunk is out")
+
+    # generate_stream through it, full-width talker and predictor
+    e = TtsEngine(config=dataclasses.replace(eng.config, vocoder=gcfg),
+                  weights=(eng.models, gparams),
+                  speakers_dir=os.path.join(REPO, "speakers"), device=dev)
+    e.set_max_steps(32)
+    e.set_sampler_config(SamplerConfig(seed=0))
+    voice = e.get_speaker("vivian")
+    fused = fused_per_frame(e.config)
+    runs = []
+    for what in ("cold", "warm"):
+        run = run_main_path(rec, f"general vocoder generate_stream ({what})",
+                            lambda: stream_once(e, TEXT, voice), STEPS,
+                            fused)
+        peak = float(np.abs(run["samples"]).max()) if run["samples"].size \
+            else 0.0
+        check_stream(f"general vocoder stream {what}", run, e, 32,
+                     atol=GENERAL_REL * max(peak, 1e-6))
+        runs.append(run)
+    rtf = [r["wall"] / (len(r["samples"]) / 24000) for r in runs]
+    log(f"  general vocoder stream: {len(runs[1]['chunks'])} chunks, "
+        f"first-chunk ms cold {_fmt(runs[0]['first_ms'])}, warm "
+        f"{_fmt(runs[1]['first_ms'])}; streaming RTF incl. vocoding cold "
+        f"{rtf[0]:.3f}, warm {rtf[1]:.3f} "
+        f"({len(runs[1]['samples']) / 24000:.3f} s of audio) on {card}")
+    del e, gparams
+
+
+def phase_clone(eng, rec: Record, card: str, q48, q88):
+    """Voice cloning at full width through the engine's entry points, the
+    tiny config against the CPU, the general vocoder family, and the CLI
+    with --ref-audio (see the module docstring, phase 10)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine, VoiceFile, cli
+    from qwen3_tts_tpu_torch.assets import checkpoint
+    from qwen3_tts_tpu_torch.models import encoders
+    from qwen3_tts_tpu_torch.utils import cache as feature_cache
+    from qwen3_tts_tpu_torch.utils.audio import AudioSample
+
+    log(f"[10/10] clone: create_voice_file, clone requests and the general "
+        f"vocoder, full width, on {card}")
+    cfg = eng.config
+    dev = eng.device
+    spk = os.path.join(REPO, "speakers")
+    fused = fused_per_frame(cfg)
+    t0 = time.time()
+    eng.encoder, eng.speaker_encoder = encoders.random_encoders(
+        torch.Generator(device=dev).manual_seed(11), cfg, eng.vocoder_params)
+    torch.cuda.synchronize()
+    n_a = sum(t.numel() for _, t in checkpoint.flatten(eng.encoder.params))
+    n_s = sum(t.numel() for _, t in checkpoint.flatten(
+        eng.speaker_encoder.params))
+    tied = eng.encoder.params["codebooks"].data_ptr() \
+        == eng.vocoder_params["embed"].data_ptr()
+    log(f"  encoders: audio {n_a} and speaker {n_s} f32 parameters "
+        f"(codebooks tied to the vocoder's tables: {tied}) in "
+        f"{time.time() - t0:.2f} s")
+    if not tied:
+        fail("random_encoders: the RVQ codebooks are not the vocoder's")
+    tmp = tempfile.mkdtemp(prefix="qwen3_tts_clone_")
+    try:
+        # voice files from 4 s and 10 s of reference audio
+        voices = {}
+        for secs in (4, 10):
+            path = write_ref_wav(os.path.join(tmp, f"ref_{secs}s.wav"), secs,
+                                 seed=secs)
+            for what in ("cold", "warm"):
+                voice, parts = voice_file_times(eng, path)
+                log(f"  create_voice_file {secs} s ({what}): "
+                    f"{parts['total']:.1f} ms = mel {parts['mel']:.1f} + "
+                    "audio encoder "
+                    f"{parts['audio_encoder']:.1f} + speaker encoder "
+                    f"{parts['speaker_encoder']:.1f} (+ WAV read) host ms, "
+                    f"each synchronised, on {card}")
+            check_voice(f"voice file {secs} s", voice, secs * 24000,
+                        cfg.audio_encoder.code_vocab)
+            vpath = os.path.join(tmp, f"voice_{secs}s.json")
+            voice.save(vpath)
+            back = VoiceFile.load(vpath)
+            if back.audio_codes != voice.audio_codes or not np.allclose(
+                    back.speaker_embedding, voice.speaker_embedding,
+                    rtol=0, atol=0):
+                fail(f"voice file {secs} s: the saved JSON reloads "
+                     "differently")
+            voices[secs] = back
+
+        # the TTSC sidecar: written by the first call, read by the second
+        path = os.path.join(tmp, "ref_4s.wav")
+        codes, emb = eng.process_reference(path)
+        cache_path = os.path.join(tmp, "ref_4s.cache")
+        saved = eng.encoder, eng.speaker_encoder
+        eng.encoder = eng.speaker_encoder = None
+        try:
+            c2, e2 = eng.process_reference(path)
+        finally:
+            eng.encoder, eng.speaker_encoder = saved
+        same = (os.path.exists(cache_path) and np.array_equal(c2, codes)
+                and np.array_equal(e2, emb)
+                and list(c2) == voices[4].audio_codes)
+        log(f"  process_reference: {os.path.getsize(cache_path)} bytes of "
+            f".cache; with the encoders set to None the same codes and "
+            f"embedding: {same}")
+        if not same or not np.array_equal(
+                feature_cache.load_cache(cache_path)[0], codes):
+            fail("process_reference: the cache short-circuit failed")
+
+        # clone requests: dense, int4+int8, int8/int8 (kernel A)
+        clone = voices[10]
+        preset = eng.get_speaker("vivian")
+        e48 = TtsEngine(config=cfg, weights=(q48, eng.vocoder_params),
+                        speakers_dir=spk, device="cuda")
+        e88 = TtsEngine(config=cfg, weights=(q88, eng.vocoder_params),
+                        speakers_dir=spk, device="cuda")
+        for label, e, frames, need in (
+                ("dense bf16", eng, 32, STEPS),
+                ("int4+int8", e48, 32, STEPS),
+                ("int8/int8", e88, 16, ("qmatmul",) + STEPS)):
+            e.set_max_steps(frames)
+            e.set_sampler_config(SamplerConfig(seed=0))
+            audio = run_main_path(
+                rec, f"{label} clone (10 s reference) generate_with_voice",
+                lambda: e.generate_with_voice(CLONE_TEXT, clone), need,
+                fused)
+            check_wav(f"{label} clone", audio.samples, frames)
+            if e is e88:
+                continue
+            tc = prompt_times(e, clone, card)
+            tp = prompt_times(e, preset, card)
+            log(f"  {label}: clone prompt {tc['length']} rows, bucket "
+                f"{tc['bucket']}: prefill host {tc['prefill_host_ms']:.3f} "
+                f"ms, device {_fmt(tc['prefill_device_ms'])} ms; preset "
+                f"prompt {tp['length']} rows, bucket {tp['bucket']}: "
+                f"prefill host {tp['prefill_host_ms']:.3f} ms, device "
+                f"{_fmt(tp['prefill_device_ms'])} ms; ms/frame (32 frames, "
+                f"prefill subtracted) clone {tc['ms_per_frame']:.3f}, "
+                f"preset {tp['ms_per_frame']:.3f} on {card}")
+        del e48, e88
+
+        # a batch of a preset and a clone voice; a stream with the clone
+        eng.set_max_steps(32)
+        eng.set_sampler_config(SamplerConfig(seed=0))
+        pair = run_main_path(
+            rec, "dense bf16 B=2 generate_batch (preset + clone)",
+            lambda: eng.generate_batch([TEXT, CLONE_TEXT], [preset, clone]),
+            STEPS, fused)
+        for i, a in enumerate(pair):
+            check_wav(f"preset + clone B=2 row {i}", a.samples, 32)
+        runs = []
+        for what in ("cold", "warm"):
+            run = run_main_path(
+                rec, f"dense bf16 clone generate_stream ({what})",
+                lambda: stream_once(eng, CLONE_TEXT, clone), STEPS, fused)
+            check_stream(f"clone stream {what}", run, eng, 32)
+            runs.append(run)
+        rtf = [r["wall"] / (len(r["samples"]) / 24000) for r in runs]
+        log(f"  clone stream: {len(runs[1]['chunks'])} chunks, first-chunk "
+            f"ms cold {_fmt(runs[0]['first_ms'])}, warm "
+            f"{_fmt(runs[1]['first_ms'])}; streaming RTF incl. vocoding "
+            f"cold {rtf[0]:.3f}, warm {rtf[1]:.3f} "
+            f"({len(runs[1]['samples']) / 24000:.3f} s of audio) on {card}")
+
+        # engine.generate from a WAV (encoded, then the sidecar written)
+        gen_wav = write_ref_wav(os.path.join(tmp, "gen_ref.wav"), 4, seed=9)
+        audio = run_main_path(
+            rec, "dense bf16 generate(text, wav, ref_text)",
+            lambda: eng.generate(CLONE_TEXT, gen_wav, "A reference."),
+            STEPS, fused)
+        check_wav("generate(text, wav, ref_text)", audio.samples, 32)
+        if not os.path.exists(os.path.join(tmp, "gen_ref.cache")):
+            fail("generate: no .cache written beside the reference")
+        reset_counts()
+
+        tiny_clone_card_vs_cpu(tmp)
+        general_vocoder_checks(eng, rec, card, tmp)
+        reset_counts()
+
+        # the CLI on a full-width directory with the encoders beside it
+        model_dir = os.path.join(tmp, "model")
+        t0 = time.time()
+        eng.save_checkpoint(model_dir)
+        written = sorted(os.listdir(model_dir))
+        log(f"  save_checkpoint with the encoders: {written} in "
+            f"{time.time() - t0:.2f} s")
+        if "audio_encoder.npz" not in written \
+                or "speaker_encoder.npz" not in written:
+            fail("save_checkpoint did not write the encoders")
+        os.environ["QWEN3_TTS_OFFLINE"] = "1"
+        wav = os.path.join(tmp, "cli_clone.wav")
+        vjson = os.path.join(tmp, "cli_voice.json")
+        argv = ["--model-dir", model_dir, "--no-download", "--device",
+                str(dev), "--text", CLONE_TEXT, "--max-steps", "32",
+                "--seed", "0", "--speakers-dir", spk, "--output", wav,
+                "--ref-audio", os.path.join(tmp, "ref_4s.wav"), "--ref-text",
+                "A reference transcript.", "--save-voice", vjson]
+        # the sidecar written above would skip the encoders: remove it
+        os.remove(cache_path)
+        rc = run_main_path(rec, "cli --ref-audio --save-voice",
+                           lambda: cli.main(argv), STEPS)
+        if rc != 0 or not os.path.exists(wav):
+            fail(f"cli --ref-audio returned {rc} without writing {wav}")
+        check_wav("cli --ref-audio", AudioSample.load_wav(wav).samples, 32)
+        back = VoiceFile.load(vjson)
+        check_voice("cli --save-voice", back, 4 * 24000,
+                    cfg.audio_encoder.code_vocab)
+        if back.audio_codes != voices[4].audio_codes:
+            fail("cli --save-voice: codes differ from create_voice_file's "
+                 "on the same WAV")
+    finally:
+        eng.encoder = eng.speaker_encoder = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.path.exists(tmp):
+        fail(f"{tmp} was not removed")
+    reset_counts()
+
+
 def _fmt4(ms):
     return "none" if ms is None else f"{ms:.4f}"
 
@@ -2900,6 +3447,7 @@ def main() -> int:
     phase_stream(eng, rec, card, q48)
     phase_times(eng, rec, card, q48, q88)
     phase_checkpoint(eng, rec, card)
+    phase_clone(eng, rec, card, q48, q88)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB on {card}")
     print(card, flush=True)

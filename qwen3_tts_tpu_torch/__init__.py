@@ -1,9 +1,9 @@
 """qwen3_tts_tpu_torch — the PyTorch/CUDA port of qwen3_tts_tpu.
 
-Runs preset-speaker synthesis, offline and streaming, on an NVIDIA H100
-through kernels written by hand for Hopper (`csrc/*.cu`,
-`ops/elementwise_triton.py`), with a plain PyTorch version beside each
-kernel for CPU tensors. Imports torch, never JAX; the JAX package
+Runs preset-speaker synthesis and voice cloning from reference audio,
+offline and streaming, on an NVIDIA H100 through kernels written by hand
+for Hopper (`csrc/*.cu`, `ops/elementwise_triton.py`), with a plain
+PyTorch version beside each kernel for CPU tensors. Imports torch, never JAX; the JAX package
 `qwen3_tts_tpu` is the reference it is tested against.
 
 The public facade of the JAX package: TtsEngine, SamplerConfig,
@@ -28,10 +28,11 @@ __version__ = "0.1.0"
 
 
 class PromptBuilder:
-    """Static facade over `tts.prompt` (the clone prompt comes with
-    cloning)."""
+    """Static facade over `tts.prompt` (reference PromptBuilder,
+    src/tts/prompt.rs:24-278)."""
 
     build_core = staticmethod(_prompt.build_core)
+    build_clone_prompt = staticmethod(_prompt.build_clone_prompt)
     build_custom_prompt = staticmethod(_prompt.build_custom_prompt)
 
 

@@ -162,11 +162,17 @@ def main(argv=None) -> int:
           f"top_p={args.top_p}, seed={args.seed}")
 
     if args.ref_audio:
-        print("Feature extraction failed: cloning from reference audio is "
-              "not ported yet (pass --voice-file or --speaker)",
-              file=sys.stderr)
-        return 1
-    if args.voice_file:
+        print(f"Creating voice from reference: {args.ref_audio}")
+        try:
+            voice = engine.create_voice_file(args.ref_audio,
+                                             args.ref_text or "")
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"Feature extraction failed: {e}", file=sys.stderr)
+            return 1
+        if args.save_voice:
+            voice.save(args.save_voice)
+            print(f"Saved new voice file to: {args.save_voice}")
+    elif args.voice_file:
         try:
             voice = VoiceFile.load(args.voice_file)
         except (OSError, ValueError, KeyError) as e:
@@ -189,12 +195,8 @@ def main(argv=None) -> int:
         profiler = profile(activities=acts)
 
     t_gen = time.time()
-    try:
-        with profiler:
-            audio = _generate(engine, args, voice, t_gen)
-    except NotImplementedError as e:
-        print(f"Generation failed: {e}", file=sys.stderr)
-        return 1
+    with profiler:
+        audio = _generate(engine, args, voice, t_gen)
     gen_s = time.time() - t_gen
 
     if args.profile:

@@ -88,8 +88,23 @@ def assets_from_numpy(text_table, codec_tables, proj_weight, proj_bias,
 
 
 def vocoder_from_numpy(tree, device="cpu") -> Dict[str, Any]:
-    """A `models/vocoder` parameter tree; float leaves become f32."""
+    """A `models/vocoder` parameter tree of either upsampler family (the
+    kernel == stride stages' `w` / `b`, or the general family's `wt` /
+    `b` / `res` units and `final` conv) with or without snake alphas;
+    float leaves become f32."""
     return _to_torch(_tree(tree), device, None)
+
+
+def encoders_from_numpy(audio_tree, speaker_tree, config, device="cpu"):
+    """(AudioEncoder, SpeakerEncoder) holding the JAX package's encoder
+    parameters (`models/encoders.py` trees, nested or flat npz keys), f32,
+    for `config` (an EngineConfig)."""
+    from .models.encoders import AudioEncoder, SpeakerEncoder
+
+    return (AudioEncoder(_to_torch(_tree(audio_tree), device, None),
+                         config.audio_encoder),
+            SpeakerEncoder(_to_torch(_tree(speaker_tree), device, None),
+                           config.speaker_encoder, config.mel))
 
 
 def engine_from_jax_arrays(models: Dict[str, Any], vocoder_params,

@@ -1,5 +1,5 @@
 """TtsEngine: the public orchestration layer. Port of
-`qwen3_tts_tpu/tts/engine.py` for preset-speaker synthesis.
+`qwen3_tts_tpu/tts/engine.py`: preset-speaker synthesis and voice cloning.
 
 Weight sources, in this order:
   * `weights=(models, vocoder_params)`: weights built elsewhere
@@ -14,9 +14,21 @@ Weight sources, in this order:
     `{talker,predictor}.npz` or the reference's llama.cpp
     `qwen3_tts_{talker,predictor}.gguf` (k-quants dequantised to the model
     dtype at load, as in JAX: loaded weights are dense), `vocoder.npz` and
-    `vocoder_config.json`. `save_checkpoint` writes such a directory
-    (`assets/checkpoint.py` says how its f32-on-disk rule differs from the
-    JAX package's). Leaves load one at a time straight to the device.
+    `vocoder_config.json` (which may name the general upsampler family or
+    snake), and the optional `audio_encoder.npz` / `speaker_encoder.npz`.
+    `save_checkpoint` writes such a directory (`assets/checkpoint.py` says
+    how its f32-on-disk rule differs from the JAX package's). Leaves load
+    one at a time straight to the device.
+
+Cloning: `create_voice_file(wav, ref_text)` encodes 24 kHz reference audio
+into a `VoiceFile` (codes from the audio encoder, an embedding from the
+speaker encoder); `generate(text, wav, ref_text)` does the same through
+`process_reference`, whose TTSC `.cache` sidecar (`utils/cache.py`) skips
+the encoders the next time; a `VoiceFile` with `audio_codes` takes the
+clone prompt on every generation path. The encoders come from
+`model_dir` (missing files leave them None, as in JAX) or are set by the
+caller (`models.encoders.random_encoders`); without them the cloning
+entry points raise RuntimeError.
 
 Generation paths:
   * offline: `generate_with_voice` / `generate_batch` run prompt assembly,
@@ -38,10 +50,9 @@ Deliberate divergences from the JAX engine:
     stream loop once per 4-frame chunk (see `tts/generate.py`);
   * `generate_long` keeps a decoded token prefix as a chunk only where it
     is a prefix of the text (`startswith`; JAX tests `in`, which drops or
-    repeats characters when the prefix occurs later in the text).
-
-The audio encoders are absent (`encoder` and `speaker_encoder` are None):
-cloning comes later (ROADMAP queue 1) and raises.
+    repeats characters when the prefix occurs later in the text);
+  * `save_checkpoint` also writes the encoders when the engine has them
+    (the JAX engine's writes none), so a saved directory clones.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from ..core import protocol as P
 from ..core.config import (EngineConfig, SamplerConfig, load_vocoder_config,
                            save_vocoder_config)
 from ..download import Downloader, quant_dir
-from ..models import decoder, vocoder
+from ..models import decoder, encoders, vocoder
+from ..utils import cache as feature_cache
 from ..utils.audio import AudioSample
 from ..utils.tokenizer import load_tokenizer
 from ..utils.voice_file import VoiceFile
@@ -102,7 +114,9 @@ class TtsEngine:
         self.sampler_config = SamplerConfig()
         self.speakers: Dict[str, VoiceFile] = {}
         self._stream_fns: Dict[int, Tuple[Callable, Callable]] = {}
-        self.encoder = self.speaker_encoder = None   # cloning: not ported
+        # the cloning encoders: optional, like the reference's .ok() loads
+        self.encoder: Optional[encoders.AudioEncoder] = None
+        self.speaker_encoder: Optional[encoders.SpeakerEncoder] = None
 
         if weights is not None:
             self.models, self.vocoder_params = weights
@@ -110,6 +124,7 @@ class TtsEngine:
             self.models, self.vocoder_params = self._random_weights(seed)
         elif model_dir is not None:
             self.models, self.vocoder_params = self._load(model_dir)
+            self._load_optional_encoders(model_dir)
         else:
             raise ValueError("need model_dir or random_weights=True")
         # a bf16 vocoder trunk is cast once here; checkpoints store f32
@@ -202,11 +217,21 @@ class TtsEngine:
             f"no {kind} weights: tried {npz} and {gpath} "
             f"(run TtsEngine.download_models or tools/convert_weights.py)")
 
+    def _load_optional_encoders(self, model_dir: str) -> None:
+        """Encoders are optional: preset-speaker synthesis works without
+        them; cloning raises (src/tts/engine.rs:107-120, 289-295)."""
+        try:
+            self.encoder, self.speaker_encoder = encoders.load_encoders(
+                model_dir, self.config, device=self.device)
+        except FileNotFoundError:
+            self.encoder = self.speaker_encoder = None
+
     def save_checkpoint(self, out_dir: str) -> None:
         """Write every weight as a directory `TtsEngine(model_dir=...)`
         loads, in both packages: `{talker,predictor,vocoder}.npz` (bf16
-        leaves as f32), `vocoder_config.json` (f32, the checkpoint's dtype)
-        and the assets as `qwen3_assets.gguf`."""
+        leaves as f32), `vocoder_config.json` (f32, the checkpoint's dtype),
+        the assets as `qwen3_assets.gguf` and, when the engine has them,
+        `audio_encoder.npz` and `speaker_encoder.npz`."""
         os.makedirs(out_dir, exist_ok=True)
         for kind in ("talker", "predictor"):
             checkpoint.save_tree(os.path.join(out_dir, f"{kind}.npz"),
@@ -218,6 +243,12 @@ class TtsEngine:
             dataclasses.replace(self.config.vocoder, dtype="float32"))
         tables.save_assets(os.path.join(out_dir, "qwen3_assets.gguf"),
                            self.models["assets"])
+        if self.encoder is not None and self.speaker_encoder is not None:
+            checkpoint.save_tree(os.path.join(out_dir, "audio_encoder.npz"),
+                                 self.encoder.params)
+            checkpoint.save_tree(
+                os.path.join(out_dir, "speaker_encoder.npz"),
+                self.speaker_encoder.params)
 
     @staticmethod
     def download_models(model_dir: str = "models", quant: str = "none",
@@ -333,14 +364,20 @@ class TtsEngine:
     # ----------------------------------------------------------- generation
     def _prompt_for_voice(self, text: str, voice: VoiceFile,
                           instruct: Optional[str]) -> prompt.PromptData:
-        if voice.audio_codes:
-            raise NotImplementedError(
-                "voice cloning is not ported yet (ROADMAP queue 1)")
         ids = self.tokenizer.encode(text)
         instruct_ids = self.tokenizer.encode(instruct) if instruct else None
-        return prompt.build_core(
-            self.models["assets"], ids, lang_id=self.config.lang_id,
-            spk_emb=self._fit_spk(voice.spk_emb), instruct_ids=instruct_ids)
+        lang = self.config.lang_id
+        if not voice.audio_codes:
+            # preset path: spk_emb-only prompt (src/tts/engine.rs:398-412)
+            return prompt.build_core(
+                self.models["assets"], ids, lang_id=lang,
+                spk_emb=self._fit_spk(voice.spk_emb),
+                instruct_ids=instruct_ids)
+        return prompt.build_clone_prompt(
+            self.models["assets"], ids, voice.codes_array,
+            self.tokenizer.encode(voice.ref_text),
+            self._fit_spk(voice.spk_emb), lang_id=lang,
+            instruct_ids=instruct_ids)
 
     def _fit_spk(self, emb: np.ndarray) -> np.ndarray:
         """Truncate/zero-pad a speaker embedding to the table width."""
@@ -416,6 +453,65 @@ class TtsEngine:
         datas = [self._prompt_for_voice(t, v, instruct)
                  for t, v in zip(texts, voices)]
         return self._run_inference(datas)
+
+    def generate(self, text: str, ref_audio_path: str, ref_text: str,
+                 instruct: Optional[str] = None) -> AudioSample:
+        """Clone from raw reference audio (src/tts/engine.rs:243-272)."""
+        ref_codes, spk_emb = self.process_reference(ref_audio_path)
+        ids = self.tokenizer.encode(text)
+        instruct_ids = self.tokenizer.encode(instruct) if instruct else None
+        data = prompt.build_clone_prompt(
+            self.models["assets"], ids,
+            np.asarray(ref_codes, np.int64).reshape(-1, P.NUM_CODEBOOKS),
+            self.tokenizer.encode(ref_text), self._fit_spk(spk_emb),
+            lang_id=self.config.lang_id, instruct_ids=instruct_ids)
+        return self._run_inference([data])[0]
+
+    def _require_encoders(self, message: str) -> None:
+        if self.encoder is None or self.speaker_encoder is None:
+            raise RuntimeError(message)
+
+    def process_reference(self, audio_path: str
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Reference audio -> (flat codes int64, speaker embedding f32),
+        read from the TTSC sidecar `<audio>.cache` when it holds a valid
+        one, else encoded and written there (a failed write is ignored;
+        src/tts/engine.rs:275-302). The sample rate is not checked, as in
+        JAX: `create_voice_file` checks it."""
+        cache_path = os.path.splitext(audio_path)[0] + ".cache"
+        if os.path.exists(cache_path):
+            try:
+                return feature_cache.load_cache(cache_path)
+            except ValueError:
+                pass
+        self._require_encoders(
+            "AudioEncoder/SpeakerEncoder not loaded (required for "
+            "processing raw audio)")
+        audio = AudioSample.load_wav(audio_path)
+        codes = self.encoder.encode(audio.samples)
+        emb = self.speaker_encoder.encode(audio.samples)
+        try:
+            feature_cache.save_cache(cache_path, codes, emb)
+        except OSError:
+            pass
+        return codes, emb
+
+    def create_voice_file(self, audio_path: str, ref_text: str) -> VoiceFile:
+        """A VoiceFile from 24 kHz reference audio and its transcript
+        (src/tts/engine.rs:324-387)."""
+        self._require_encoders(
+            "AudioEncoder/SpeakerEncoder not loaded. Cloning requires "
+            "encoder checkpoints in <model_dir>.")
+        audio = AudioSample.load_wav(audio_path)
+        if audio.sample_rate != 24000:
+            raise ValueError(
+                f"Expected 24000Hz audio, found {audio.sample_rate}Hz")
+        codes = self.encoder.encode(audio.samples)
+        emb = self.speaker_encoder.encode(audio.samples)
+        return VoiceFile(
+            ref_text=ref_text,
+            audio_codes=[int(c) for c in np.asarray(codes).reshape(-1)],
+            speaker_embedding=[float(x) for x in np.asarray(emb)])
 
     def _long_chunks(self, text: str, max_chunk_tokens: int) -> List[str]:
         """Sentence-bounded chunks of at most `max_chunk_tokens` tokens, a

@@ -217,8 +217,10 @@ def generate_audio(models: Dict[str, Any], voc_params: Dict[str, Any],
                    ignore_eos: bool = False, step_cap: int | None = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offline synthesis: generation, then the vocoder's one-shot decode.
-    Returns (wav [B, (max_steps + lookahead) * frame_samples] f32, n_frames
-    [B]); callers trim each row to n_frames * frame_samples."""
+    Returns (wav [B, (max_steps + lookahead + ctx_r) * frame_samples] f32,
+    with ctx_r the general upsampler's emission delay (0 on the kernel ==
+    stride path), and n_frames [B]); callers trim each row to n_frames *
+    frame_samples."""
     from ..models import vocoder
 
     codes, n_frames = generate_codes(

@@ -1,6 +1,4 @@
-"""Prompt assembly for the preset-speaker path. Port of
-`qwen3_tts_tpu/tts/prompt.py::build_core`, `build_custom_prompt`,
-`PROMPT_BUCKET` and `pad_batch`.
+"""Prompt assembly. Port of `qwen3_tts_tpu/tts/prompt.py`.
 
 The prompt is a sequence of dim-wide vectors, each the sum of a text-table
 row and a codec-table row (or a raw speaker embedding):
@@ -10,11 +8,10 @@ row and a codec-table row (or a raw speaker embedding):
   3. control block            marker + codec0[{THINK, THINK_BOS, lang,
                               THINK_EOS}] (or the NOTHINK variant)
   4. speaker                  marker + codec0[spk_id]  |  marker + spk_emb
+     clone mid block          (cloning only) reference text, codec BOS,
+                              the reference's frames, a PAD terminator
   5. task text                BOS_TOKEN/ids/EOS_TOKEN each + codec0[PAD]
   6. activation               marker + codec0[BOS]
-
-The clone blocks (`build_clone_mid_block`, `build_clone_prompt`) come with
-the cloning port (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -52,6 +49,7 @@ def build_core(
     spk_id: Optional[int] = None,
     spk_emb: Optional[np.ndarray] = None,
     instruct_ids: Optional[Sequence[int]] = None,
+    mid_embeds: Optional[torch.Tensor] = None,
 ) -> PromptData:
     dim = assets.text_table.shape[1]
     parts = []
@@ -74,6 +72,8 @@ def build_core(
         emb = torch.as_tensor(np.asarray(spk_emb, np.float32),
                               device=assets.device)
         parts.append(marker[None] + emb[None])
+    if mid_embeds is not None:
+        parts.append(mid_embeds)
 
     pad0 = assets.codec_embedding(0, P.PAD)
     task = [P.BOS_TOKEN, *text_ids, P.EOS_TOKEN]
@@ -86,6 +86,44 @@ def build_core(
         spk_emb=(np.asarray(spk_emb, np.float32) if spk_emb is not None
                  else np.zeros((dim,), np.float32)),
     )
+
+
+def build_clone_mid_block(
+    assets: Assets,
+    ref_codes: np.ndarray,           # [n_frames, 16] (or flat multiple of 16)
+    ref_text_ids: Sequence[int],
+) -> torch.Tensor:
+    """The clone prompt's identity block (src/tts/prompt.rs:28-106): the
+    reference text (BOS/ids/EOS each + codec0[PAD]), then codec BOS, the
+    sum of each reference frame's 16 code rows and a PAD terminator, every
+    audio row with the marker added."""
+    marker = assets.text_embedding(P.TEXT_AUDIO_MARKER)
+    pad0 = assets.codec_embedding(0, P.PAD)
+    ref_codes = np.asarray(ref_codes, np.int64).reshape(-1, P.NUM_CODEBOOKS)
+
+    ids = [P.BOS_TOKEN, *ref_text_ids, P.EOS_TOKEN]
+    text_part = _text_rows(assets, ids) + pad0[None]
+    codec_bos = (marker + assets.codec_embedding(0, P.CODEC_BOS))[None]
+    frames = marker[None] + assets.frame_embedding_sum(
+        torch.as_tensor(ref_codes, device=assets.device))
+    terminator = (marker + pad0)[None]
+    return torch.cat([text_part, codec_bos, frames, terminator], dim=0)
+
+
+def build_clone_prompt(
+    assets: Assets,
+    text_ids: Sequence[int],
+    ref_codes: np.ndarray,
+    ref_text_ids: Sequence[int],
+    spk_emb: np.ndarray,
+    lang_id: Optional[int] = P.DEFAULT_LANG_ID,
+    instruct_ids: Optional[Sequence[int]] = None,
+) -> PromptData:
+    """Reference `build_clone_prompt` (src/tts/prompt.rs:28-118): the core
+    prompt with the speaker embedding and the clone mid block."""
+    mid = build_clone_mid_block(assets, ref_codes, ref_text_ids)
+    return build_core(assets, text_ids, lang_id=lang_id, spk_emb=spk_emb,
+                      instruct_ids=instruct_ids, mid_embeds=mid)
 
 
 def build_custom_prompt(

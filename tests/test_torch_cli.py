@@ -155,3 +155,64 @@ def test_cli_profile_writes_a_trace(tmp_path, speakers):
 def test_cli_missing_required_flag():
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args([])
+
+
+def test_cli_ref_audio_save_voice(tmp_path, speakers, capsys):
+    """--ref-audio --ref-text --save-voice on a directory the port saved,
+    with the encoders written beside it: exit 0, a WAV, and a voice JSON
+    that loads and clones."""
+    from qwen3_tts_tpu_torch import VoiceFile
+    from qwen3_tts_tpu_torch.assets import checkpoint
+    from qwen3_tts_tpu_torch.models import encoders
+
+    cfg = tiny_engine_config()
+    eng = TtsEngine(config=cfg, random_weights=True, seed=3, device="cpu",
+                    speakers_dir=str(speakers))
+    models = tmp_path / "models"
+    eng.save_checkpoint(str(models))
+    ae, se = encoders.random_encoders(torch.Generator().manual_seed(1), cfg,
+                                      eng.vocoder_params)
+    checkpoint.save_tree(str(models / "audio_encoder.npz"), ae.params)
+    checkpoint.save_tree(str(models / "speaker_encoder.npz"), se.params)
+    ref = tmp_path / "ref.wav"
+    AudioSample(samples=0.1 * np.random.default_rng(4).standard_normal(
+        3 * 2000).astype(np.float32)).save_wav(str(ref))
+    out, voice = tmp_path / "clone.wav", tmp_path / "voice.json"
+    base = ["--text", "clone from the cli", "--tiny", "--no-download",
+            "--model-dir", str(models), "--device", "cpu",
+            "--speakers-dir", str(speakers), "--max-steps", "4",
+            "--temperature", "0", "--seed", "1"]
+    assert cli.main(base + ["--output", str(out), "--ref-audio", str(ref),
+                            "--ref-text", "the reference",
+                            "--save-voice", str(voice)]) == 0
+    printed = capsys.readouterr().out
+    assert f"Creating voice from reference: {ref}" in printed
+    assert f"Saved new voice file to: {voice}" in printed
+    _wav_ok(out, 4)
+    vf = VoiceFile.load(str(voice))
+    assert vf.ref_text == "the reference"
+    assert len(vf.audio_codes) == 3 * 16
+    assert vf.audio_codes == [int(c) for c in ae.encode(
+        AudioSample.load_wav(str(ref)).samples)]
+    # the saved voice through --voice-file gives the same waveform
+    out2 = tmp_path / "again.wav"
+    assert cli.main(base + ["--output", str(out2), "--voice-file",
+                            str(voice)]) == 0
+    assert out2.read_bytes() == out.read_bytes()
+
+
+def test_cli_ref_audio_without_encoders_same_message(tmp_path, speakers,
+                                                     capsys):
+    """Without encoder checkpoints both CLIs exit 1 with JAX's message."""
+    ref = tmp_path / "ref.wav"
+    AudioSample(samples=np.zeros(4000, np.float32)).save_wav(str(ref))
+    args = ["--text", "x", "--tiny", "--random-weights", "--max-steps", "2",
+            "--speakers-dir", str(speakers), "--ref-audio", str(ref),
+            "--output", str(tmp_path / "o.wav")]
+    assert jcli.main(args + ["--compile-cache", "off"]) == 1
+    want = capsys.readouterr().err
+    assert cli.main(args + ["--device", "cpu"]) == 1
+    got = capsys.readouterr().err
+    assert "Feature extraction failed: AudioEncoder/SpeakerEncoder not " \
+           "loaded" in got
+    assert got.splitlines()[-1] == want.splitlines()[-1]

@@ -284,9 +284,9 @@ def test_voice_file_and_audio_copies_roundtrip(tmp_path):
 
 
 def test_facade_matches_jax():
-    """The package exports the JAX package's facade (PromptBuilder without
-    the clone prompt, which comes with cloning), and
-    PromptBuilder.build_custom_prompt equals JAX's on the same tables."""
+    """The package exports the JAX package's facade, and PromptBuilder's
+    build_core, build_custom_prompt and build_clone_prompt equal JAX's on
+    the same tables."""
     import jax
     import qwen3_tts_tpu as J
     import qwen3_tts_tpu_torch as T
@@ -298,10 +298,18 @@ def test_facade_matches_jax():
     ta = convert.assets_from_numpy(
         np.asarray(a.text_table), np.asarray(a.codec_tables),
         np.asarray(a.proj_weight), np.asarray(a.proj_bias))
-    for builder in ("build_core", "build_custom_prompt"):
+    def builders(cls):
+        return {k for k in vars(cls) if k.startswith("build")}
+    assert builders(J.PromptBuilder) == builders(T.PromptBuilder)
+    ref = np.random.default_rng(3).integers(0, 2048, size=(4, 16))
+    spk = np.random.default_rng(4).standard_normal(64).astype(np.float32)
+    for builder in ("build_core", "build_custom_prompt",
+                    "build_clone_prompt"):
         kw = dict(text_ids=[5, 6, 7], lang_id=2050, instruct_ids=[9, 10])
         if builder == "build_custom_prompt":
             kw["spk_id"] = 3065
+        if builder == "build_clone_prompt":
+            kw.update(ref_codes=ref, ref_text_ids=[11, 12], spk_emb=spk)
         want = getattr(J.PromptBuilder, builder)(a, **kw)
         got = getattr(T.PromptBuilder, builder)(ta, **kw)
         np.testing.assert_allclose(got.embeds.numpy(),
