@@ -170,6 +170,32 @@ result line:
                --ref-audio --ref-text --save-voice on a full-width
                directory save_checkpoint wrote (with the encoders): exit
                0, a WAV, a voice JSON that loads. Removed in any case
+ 11. serve     continuous batching at full width (serving.ServingEngine,
+               streams of up to 120 frames (10 s of speech), each engine
+               warmed up, then driven SERVE_RUNS times, each run with the
+               counts set to 0 just before and read just after, the
+               launches a frame those of the routes `talker_route` and
+               `frame_route` take at the batch): dense bf16 at B = 4 over 6
+               staggered streams (one admitted a tick; rows recycled), B =
+               16 with 4096-slot rows (the talker step kernel, the
+               predictor's chain), B = 32 with kv_window 1024 (both chains,
+               decode attention), int4+int8 at B = 8 (both step kernels);
+               every stream finite, whole frames within the frame cap, its
+               chunks concatenating to its result. Prints audio-s/s of the
+               batch over each run's wall (admissions included) and the
+               wall's parts (the step, the batched vocoder call,
+               admissions, the rest), ms a tick, admission ms (prefill +
+               copy) and
+               first-chunk ms after submit, and the batch cache's GiB. The
+               tiny f32 config's staggered streams: greedy codes on the card
+               equal to the CPU's and to each solo stream's. A talker step
+               captured from a real tick (ragged rows, an empty row set to
+               the cache's cap) against talker_step_fused_plain at
+               FULL_DEPTH_REL with the control, and its device ms with the
+               empty row at cap - 1 against slot 1. Then server.TtsServer on
+               127.0.0.1: /health, two concurrent POST /tts (one streamed,
+               chunked), /stats counting both, the finished streams
+               evicted. Prints the whole smoke's seconds
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -180,6 +206,7 @@ type's peak, and `bound_by`); the last line is {"ok": true, "device":
 {...}}.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -398,7 +425,7 @@ def phase_device():
         fail("triton is not installed")
     from qwen3_tts_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
-    log("[1/10] device")
+    log("[1/11] device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"triton {tv}  nvcc {nvcc}  python {sys.version.split()[0]}")
@@ -414,7 +441,7 @@ def phase_device():
 
 def phase_build():
     from qwen3_tts_tpu_torch.kernels import build
-    log("[2/10] build")
+    log("[2/11] build")
     t0 = time.time()
     path = build.build(verbose=True)
     build.lib()
@@ -428,7 +455,7 @@ def phase_kernels(rec: Record):
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
 
-    log("[3/10] kernels against their plain versions")
+    log("[3/11] kernels against their plain versions")
     log("  f32 tolerances: rtol 1e-4, atol 1e-4 (the kernels sum in another "
         "order than cuBLAS / PyTorch); bf16: relative error")
     dev = torch.device("cuda")
@@ -1172,7 +1199,7 @@ def phase_probes(rec: Record, card: str):
     import torch
     from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
 
-    log("[4/10] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
+    log("[4/11] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
         "--device cuda, then each kernel against its plain version")
     torch.cuda.synchronize()
     mp.reset_launch_counts()
@@ -1270,7 +1297,7 @@ def phase_agree(eng):
     the int4 talker with the int8 predictor, and the int8 talker."""
     from qwen3_tts_tpu_torch.core import protocol as P
 
-    log("[5/10] teacher-forced agreement, full width, bf16, peaked heads")
+    log("[5/11] teacher-forced agreement, full width, bf16, peaked heads")
     pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
     pp = peak_head(eng.models["predictor"],
                    [(q * P.CODE_VOCAB, P.CODE_VOCAB)
@@ -1469,7 +1496,7 @@ def phase_main(eng, rec: Record, q48, q88):
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
-    log("[6/10] main path: TtsEngine.generate_with_voice, full width")
+    log("[6/11] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
     fused = fused_per_frame(eng.config)
 
@@ -1722,7 +1749,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
 
     frames = 32
-    log(f"[7/10] stream: TtsEngine.generate_stream, full width, B=1, "
+    log(f"[7/11] stream: TtsEngine.generate_stream, full width, B=1, "
         f"{frames} frames")
     voice = eng.get_speaker("vivian")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
@@ -2009,7 +2036,7 @@ def frame_times(eng, models, label: str, card: str, g):
 def phase_times(eng, rec: Record, card: str, q48, q88):
     import torch
 
-    log(f"[8/10] times on {card} (CUDA events)")
+    log(f"[8/11] times on {card} (CUDA events)")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(5)
     # ms/frame and busy share per weight set; int8/int8 last (the first to
@@ -2819,7 +2846,7 @@ def phase_checkpoint(eng, rec: Record, card: str):
     from qwen3_tts_tpu_torch.assets.llama_gguf import export_llama_gguf
     from qwen3_tts_tpu_torch.utils.audio import AudioSample
 
-    log(f"[9/10] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
+    log(f"[9/11] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
         f"the CLI, full width, on {card}")
     cfg = eng.config
     spk = os.path.join(REPO, "speakers")
@@ -3239,7 +3266,7 @@ def phase_clone(eng, rec: Record, card: str, q48, q88):
     from qwen3_tts_tpu_torch.utils import cache as feature_cache
     from qwen3_tts_tpu_torch.utils.audio import AudioSample
 
-    log(f"[10/10] clone: create_voice_file, clone requests and the general "
+    log(f"[10/11] clone: create_voice_file, clone requests and the general "
         f"vocoder, full width, on {card}")
     cfg = eng.config
     dev = eng.device
@@ -3415,6 +3442,398 @@ def phase_clone(eng, rec: Record, card: str, q48, q88):
     reset_counts()
 
 
+# --------------------------------------------------------------- serving
+SERVE_FRAMES = 120    # set_max_steps of the serving runs: 10 s of speech
+SERVE_RUNS = 3        # runs of each serving engine
+
+
+def route_per_frame(cfg, models, B) -> dict:
+    """Launches a frame at batch B on the routes `talker_route` and
+    `frame_route` take: `fused_per_frame` where both take their kernel,
+    `chain_per_frame` where the talker takes its chain, and where only the
+    talker takes its kernel, the predictor's chain beside one talker_step."""
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    talker = ft.talker_route(models["talker"], B) == ft.KERNEL
+    predictor = fp.frame_route(models["predictor"], B) == fp.KERNEL
+    n = chain_per_frame(cfg, predictor)
+    if talker:
+        Lt = cfg.talker.n_layers
+        for k, less in (("gemv_all", 4 * Lt + 1), ("decode_attention", Lt),
+                        ("rms_norm", 1), ("rms_norm_gemv", 2 * Lt),
+                        ("qk_rope_gemv", Lt), ("silu_gemv", Lt),
+                        ("talker_kv_copy", 2)):
+            n[k] -= less
+        n["talker_step"] = 1
+    return n
+
+
+def serve_drive(srv, texts, voice, stagger):
+    """Submit `texts` to `srv` as rows free (one a tick with `stagger`, else
+    as many as fit), ticking until drained. Returns (streams: per stream
+    id its submit time, admission ms (prefill and copy, synchronised),
+    first-chunk time and chunks; tick seconds; wall seconds)."""
+    import torch
+    streams, ticks, pending = {}, [], list(texts)
+    t0 = time.perf_counter()
+    while pending or srv.slots.active():
+        while pending:
+            d = {"chunks": [], "first": None}
+
+            def on_chunk(piece, d=d):
+                if d["first"] is None:
+                    d["first"] = time.perf_counter()
+                d["chunks"].append(piece)
+
+            t = time.perf_counter()
+            sid = srv.submit(pending[0], voice, on_chunk=on_chunk)
+            if sid is None:
+                break
+            torch.cuda.synchronize()
+            d.update(submit=t, admit_ms=(time.perf_counter() - t) * 1e3)
+            streams[sid] = d
+            pending.pop(0)
+            if stagger:
+                break
+        t = time.perf_counter()
+        srv.step()
+        ticks.append(time.perf_counter() - t)
+    return streams, ticks, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def tick_parts(srv):
+    """Times, tick by tick, `srv`'s 4-frame step and its batched vocoder
+    call, each synchronised at its end (the tick reads both results on the
+    host right after, so the syncs add no wait). Yields {"step": [s, ...],
+    "vocoder": [s, ...]}; restores both on exit."""
+    import torch
+    from qwen3_tts_tpu_torch.models import vocoder as vmod
+    parts = {"step": [], "vocoder": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    step, decode = srv._step_fn, vmod.decode
+    srv._step_fn, vmod.decode = timed(step, "step"), timed(decode, "vocoder")
+    try:
+        yield parts
+    finally:
+        srv._step_fn, vmod.decode = step, decode
+
+
+def _med(xs):
+    import numpy as np
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def serve_run(rec, label, e, card, B, n_streams, window=None,
+              stagger=False):
+    """One ServingEngine(e, B, window), warmed up, then driven SERVE_RUNS
+    times over `n_streams` streams, each run with every count set to 0 just
+    before and read just after (`run_main_path`, the launches a frame of
+    `route_per_frame`). Every kernel with a count a frame there must
+    launch. Checks each stream (finite, whole frames, within the frame cap,
+    no error, chunks concatenating to the result) and prints, per run, the
+    batch's audio-s/s over the run's wall (every tick and admission in it),
+    and over all runs ms a tick, admission and first-chunk ms and the
+    cache's GiB. Returns (srv, the first run's streams)."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.serving import ServingEngine
+
+    srv = ServingEngine(e, max_streams=B, kv_window=window)
+    srv.warmup()
+    voice = e.get_speaker("vivian")
+    texts = [f"Stream {i}. {TEXT}" for i in range(n_streams)]
+    per_frame = route_per_frame(e.config, e.models, B)
+    need = [k for k, n in per_frame.items()
+            if n > 0 and k not in ("gemv_all", "talker_kv_copy")]
+    cap = min(e.max_steps,
+              e.config.vocoder.max_frames - srv.chunk_frames)
+    runs, first_run = [], None
+    for run in range(SERVE_RUNS):
+        with tick_parts(srv) as parts:
+            streams, ticks, wall = run_main_path(
+                rec, f"{label}, run {run + 1}",
+                lambda: serve_drive(srv, texts, voice, stagger), need,
+                per_frame)
+        first_run = first_run or streams
+        audio = 0.0
+        for sid, d in streams.items():
+            s = srv.streams[sid]
+            if s.error is not None or not s.done:
+                fail(f"{label}: stream {sid} did not finish: {s.error}")
+            check_wav(f"{label} stream {sid} (row {s.slot})",
+                      s.result.samples, cap)
+            if not d["chunks"] or not np.array_equal(
+                    np.concatenate(d["chunks"]), s.result.samples):
+                fail(f"{label}: stream {sid}'s chunks do not concatenate to "
+                     "its result")
+            audio += len(s.result.samples) / 24000
+        runs.append((streams, ticks, wall, audio))
+        admits = sum(d["admit_ms"] for d in streams.values()) / 1e3
+        other = wall - sum(parts["step"]) - sum(parts["vocoder"]) - admits
+        log(f"  {label}, run {run + 1}: {len(streams)} streams, "
+            f"{audio:.3f} s of audio in {wall:.3f} s wall (every tick and "
+            f"admission): {audio / wall:.3f} audio-s/s of the batch, "
+            f"{len(ticks)} ticks; the wall's parts: the 4-frame step (host "
+            f"launches and device, synchronised) {sum(parts['step']):.3f} s "
+            f"(median {_med(parts['step']) * 1e3:.2f} ms a tick), the "
+            f"batched vocoder call {sum(parts['vocoder']):.3f} s (median "
+            f"{_med(parts['vocoder']) * 1e3:.2f} ms), admissions "
+            f"{admits:.3f} s, the rest (reads, emits, flushes) {other:.3f} "
+            f"s, on {card}")
+        if run == 0:
+            log(f"  {label}, run 1: ms a tick in order "
+                f"{[round(t * 1e3, 1) for t in ticks]}")
+    rates = [a / w for _, _, w, a in runs]
+    tk = [t * 1e3 for _, ticks, _, _ in runs for t in ticks]
+    admit = [d["admit_ms"] for st, _, _, _ in runs for d in st.values()]
+    first = [(d["first"] - d["submit"]) * 1e3
+             for st, _, _, _ in runs for d in st.values()]
+    gib = sum(t.numel() * t.element_size()
+              for t in srv._state["cache"].values()) / 2**30
+    log(f"  {label}: audio-s/s of the batch over each run's wall "
+        f"{', '.join(f'{r:.3f}' for r in rates)} (median {_med(rates):.3f});"
+        f" ms a tick (4 frames) median {_med(tk):.2f} (min {min(tk):.2f}, "
+        f"max {max(tk):.2f}, {len(tk)} ticks); admission ms (prefill + copy) "
+        f"median {_med(admit):.2f} (min {min(admit):.2f}, max "
+        f"{max(admit):.2f}, {len(admit)}); first-chunk ms after submit "
+        f"median {_med(first):.2f} (min {min(first):.2f}, max "
+        f"{max(first):.2f}); batch cache "
+        f"{srv._state['cache']['k'].shape[3]} slots x {B} rows, {gib:.3f} "
+        f"GiB, on {card}")
+    return srv, first_run
+
+
+def capture_tick_step(rec, e, card):
+    """A full-width talker step captured from a real tick: rows admitted at
+    different ticks with prompts of different buckets (ragged slots), and
+    an empty row set to the cache's cap, as a row released long ago
+    reaches it (its write slot clamped to cap - 1, its attention over cap
+    - 1 slots). The step through the kernel against
+    `talker_step_fused_plain` on the same inputs (`step_check`, full depth
+    bf16: FULL_DEPTH_REL with the control), then its device ms as captured
+    and with the empty row at slot 1: what a row at the cap costs."""
+    import torch
+    from qwen3_tts_tpu_torch.models import talker as talker_mod
+    from qwen3_tts_tpu_torch.ops import fused_talker as ft
+    from qwen3_tts_tpu_torch.serving import ServingEngine
+
+    srv = ServingEngine(e, max_streams=4)
+    voice = e.get_speaker("vivian")
+    srv.submit(LONG_TEXT, voice)
+    for _ in range(3):
+        srv.step()
+    srv.submit(TEXT, voice)
+    srv.step()
+    srv.submit("A third stream.", voice)
+    srv.step()
+    cap = srv._state["cache"]["k"].shape[3]
+    with torch.inference_mode():
+        srv._state["slot"][3] = cap      # the empty row, at the cap
+    captured = {}
+    orig = talker_mod.step
+
+    def capture(params, cfg, fb, slot, pad, cache, plain=False):
+        if not captured:
+            captured.update(x=fb.clone(), slot=slot.clone(), pad=pad.clone(),
+                            k=cache["k"].clone(), v=cache["v"].clone())
+        return orig(params, cfg, fb, slot, pad, cache, plain)
+
+    talker_mod.step = capture
+    try:
+        srv.step()
+    finally:
+        talker_mod.step = orig
+    del srv
+    torch.cuda.empty_cache()
+    c = captured
+    slot = c["slot"]
+    cfg, tp = e.config.talker, e.models["talker"]
+    inputs = (c["x"], slot - c["pad"], slot, slot, c["pad"], c["k"], c["v"])
+    log(f"  captured tick: write slots {slot.tolist()} (cap {cap}), pad "
+        f"offsets {c['pad'].tolist()}")
+    if int(slot[3]) != cap - 1 or len(set(slot.tolist())) < 4:
+        fail("captured tick: the rows are not ragged with one at cap - 1")
+    with torch.inference_mode():
+        step_check(rec, f"full bf16 serving tick B=4 T={cap}", cfg, tp,
+                   inputs, dict(rel=FULL_DEPTH_REL), control=True)
+        low = slot.clone()
+        low[3] = 1
+        times = []
+        for s in (slot, low):
+            kk, vv = c["k"].clone(), c["v"].clone()
+            times.append(cuda_ms(lambda s=s, kk=kk, vv=vv: ft.talker_step_kernel(
+                tp, cfg, c["x"], s - c["pad"], s, s, c["pad"], kk, vv)))
+            del kk, vv
+    log(f"  talker_step, the captured tick B=4, {cap}-slot cache: "
+        f"{times[0]:.4f} ms with the empty row at cap - 1, {times[1]:.4f} ms "
+        f"with it at slot 1 (+{times[0] - times[1]:.4f} ms for the row at the"
+        f" cap) on {card}")
+
+
+def tiny_serve_card_vs_cpu():
+    """Reference on a small input for serving: the tiny f32 config's
+    staggered streams on 2 rows, greedy, on the card (kernels) against the
+    CPU (plain versions), and each against its solo stream on the card:
+    codes and frame counts equal."""
+    import numpy as np
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.serving import ServingEngine
+
+    cfg = tiny_engine_config(max_steps=12)
+    spk = os.path.join(REPO, "speakers")
+    on_card = TtsEngine(config=cfg, random_weights=True, seed=0,
+                        speakers_dir=spk, device="cuda")
+    on_cpu = TtsEngine(config=cfg, weights=(_to(on_card.models, "cpu"),
+                                            _to(on_card.vocoder_params,
+                                                "cpu")),
+                       speakers_dir=spk, device="cpu")
+    texts = ["first utterance", "second one", "the third text"]
+    codes = []
+    for e in (on_card, on_cpu):
+        e.set_sampler_config(SamplerConfig(temperature=0.0, top_k=0,
+                                           top_p=1.0, seed=0))
+        srv = ServingEngine(e, max_streams=2)
+        streams, _, _ = serve_drive(srv, texts, e.get_speaker("vivian"),
+                                    stagger=True)
+        codes.append([srv.streams[sid].frame_codes() for sid in streams])
+    voice = on_card.get_speaker("vivian")
+    solo = [stream_once(on_card, t, voice)["codes"][0] for t in texts]
+    same_cpu = all(np.array_equal(a, b) for a, b in zip(*codes))
+    same_solo = all(np.array_equal(a, b) for a, b in zip(codes[0], solo))
+    log(f"  tiny f32 staggered serving, 3 streams on 2 rows, frames "
+        f"{[len(c) for c in codes[0]]}: codes card vs CPU "
+        f"{'equal' if same_cpu else 'DIFFER'}, card vs each solo stream "
+        f"{'equal' if same_solo else 'DIFFER'}")
+    if not same_cpu or not same_solo or not all(len(c) for c in codes[0]):
+        fail("tiny f32 serving: the card's codes differ from the CPU's or "
+             "from the solo streams")
+
+
+def serve_http(rec, e, card):
+    """TtsServer on 127.0.0.1 over the full-width engine: /health, two
+    concurrent POST /tts (one plain, one streamed), /stats; the finished
+    streams evicted."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from qwen3_tts_tpu_torch import server
+
+    srv = server.TtsServer(e, max_streams=4)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(srv))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def req(method, path, body=None):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        t = time.perf_counter()
+        c.request(method, path,
+                  body=None if body is None else json.dumps(body))
+        r = c.getresponse()
+        data = r.read()
+        out = (r.status, dict(r.getheaders()), data,
+               time.perf_counter() - t)
+        c.close()
+        return out
+
+    try:
+        status, _, data, _ = req("GET", "/health")
+        if status != 200 or json.loads(data)["status"] != "ok":
+            fail(f"server /health: {status} {data!r}")
+        results = {}
+
+        def both():
+            threads = [threading.Thread(target=lambda k=k, b=b: results.__setitem__(
+                k, req("POST", "/tts", b)))
+                for k, b in (("plain", {"text": TEXT}),
+                             ("stream", {"text": TEXT, "stream": True}))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+
+        run_main_path(rec, "server: two concurrent POST /tts (one "
+                      "streamed), max_streams=4", both, STEPS,
+                      fused_per_frame(e.config))
+        for k in ("plain", "stream"):
+            if k not in results:
+                fail(f"server /tts {k}: no response")
+            status, headers, data, wall = results[k]
+            if status != 200 or data[:4] != b"RIFF":
+                fail(f"server /tts {k}: {status} {data[:200]!r}")
+            pcm = np.frombuffer(data[44:], "<i2")
+            check_wav(f"server /tts {k}", pcm.astype(np.float32) / 32768,
+                      SERVE_FRAMES)
+            chunked = headers.get("Transfer-Encoding") == "chunked"
+            if chunked != (k == "stream"):
+                fail(f"server /tts {k}: Transfer-Encoding {headers}")
+            log(f"  server /tts {k}: {len(pcm) // 2000} frames in "
+                f"{wall:.3f} s (request wall){', chunked' if chunked else ''}")
+        status, _, data, _ = req("GET", "/stats")
+        stats = json.loads(data)
+        log(f"  server /stats: {stats}")
+        if stats["streams_served"] != 2 or srv.serving.streams:
+            fail("server: /stats does not count the 2 requests, or finished "
+                 "streams were kept")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.shutdown()
+        thread.join(timeout=10)
+
+
+def phase_serve(eng, rec: Record, card: str, q48):
+    """Continuous-batching serving at full width (see the module docstring,
+    phase 11)."""
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+
+    log(f"[11/11] serve: ServingEngine and TtsServer, full width, on {card}")
+    eng.set_max_steps(SERVE_FRAMES)
+    eng.set_sampler_config(SamplerConfig(seed=0))
+    srv, streams = serve_run(rec, "dense bf16 serving B=4, 6 staggered "
+                             "streams", eng, card, 4, 6, stagger=True)
+    rows = [srv.streams[sid].slot for sid in streams]
+    if len(set(rows)) > 4 or len(set(rows)) == len(rows):
+        fail(f"serving B=4: rows {rows} were not recycled")
+    log(f"  rows of the 6 streams: {rows}")
+    del srv
+    torch.cuda.empty_cache()
+    for label, B, window in (
+            ("dense bf16 serving B=16, 4096 slots", 16, None),
+            ("dense bf16 serving B=32, kv_window 1024", 32, 1024)):
+        srv, _ = serve_run(rec, label, eng, card, B, B, window=window)
+        del srv
+        torch.cuda.empty_cache()
+    e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
+                    speakers_dir=os.path.join(REPO, "speakers"),
+                    device="cuda")
+    e48.set_max_steps(SERVE_FRAMES)
+    e48.set_sampler_config(SamplerConfig(seed=0))
+    srv, _ = serve_run(rec, "int4+int8 serving B=8", e48, card, 8, 8)
+    del srv, e48
+    torch.cuda.empty_cache()
+    reset_counts()
+    tiny_serve_card_vs_cpu()
+    capture_tick_step(rec, eng, card)
+    reset_counts()
+    serve_http(rec, eng, card)
+    reset_counts()
+
+
 def _fmt4(ms):
     return "none" if ms is None else f"{ms:.4f}"
 
@@ -3423,6 +3842,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "qwen3_tts_tpu_torch")):
         fail("qwen3_tts_tpu_torch/ not found beside chip_smoke.py: run it "
              "from a checkout of the repository")
+    t_start = time.time()
     sys.path.insert(0, REPO)
     card = phase_device()
     import torch
@@ -3443,11 +3863,17 @@ def main() -> int:
     phase_agree(eng)
     q48 = quantized_models(eng.models, "int4", "int8")
     q88 = quantized_models(eng.models, "int8", "int8")
-    phase_main(eng, rec, q48, q88)
-    phase_stream(eng, rec, card, q48)
-    phase_times(eng, rec, card, q48, q88)
-    phase_checkpoint(eng, rec, card)
-    phase_clone(eng, rec, card, q48, q88)
+    for name, run in (
+            ("main", lambda: phase_main(eng, rec, q48, q88)),
+            ("stream", lambda: phase_stream(eng, rec, card, q48)),
+            ("times", lambda: phase_times(eng, rec, card, q48, q88)),
+            ("checkpoint", lambda: phase_checkpoint(eng, rec, card)),
+            ("clone", lambda: phase_clone(eng, rec, card, q48, q88)),
+            ("serve", lambda: phase_serve(eng, rec, card, q48))):
+        t0 = time.time()
+        run()
+        log(f"  phase {name} took {time.time() - t0:.1f} s")
+    log(f"  the whole smoke took {time.time() - t_start:.1f} s")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB on {card}")
     print(card, flush=True)

@@ -31,17 +31,22 @@ def prefill(params: decoder.DecoderParams, cfg, prompt_embeds: torch.Tensor,
 
 
 def step(params: decoder.DecoderParams, cfg, feedback: torch.Tensor,
-         slot: int, pad_offset: torch.Tensor,
+         slot, pad_offset: torch.Tensor,
          cache: Dict[str, torch.Tensor], plain: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """One autoregressive step at cache slot `slot` (a host int, shared by
-    the rows), through the fused step; `plain` runs the plain versions of
-    its kernels instead (the on-card baseline). The step takes the slot,
-    the positions and the prefix bounds as device int32 [B]. Returns
-    (hidden [B, H], logits [B, vocab], cache updated in place)."""
+    """One autoregressive step at cache slot `slot`: a host int shared by
+    the rows (one stream or an offline batch), or a device int32 [B], one
+    slot a row (continuous batching). It runs through the fused step;
+    `plain` runs the plain versions of its kernels instead (the on-card
+    baseline). The step takes the slot, the positions and the prefix
+    bounds as device int32 [B]. Returns (hidden [B, H], logits [B, vocab],
+    cache updated in place)."""
     B = feedback.shape[0]
-    slot_b = torch.full((B,), slot, dtype=torch.int32,
-                        device=feedback.device)
+    if isinstance(slot, torch.Tensor):
+        slot_b = slot.to(torch.int32).reshape(B)
+    else:
+        slot_b = torch.full((B,), slot, dtype=torch.int32,
+                            device=feedback.device)
     fn = fused_talker.talker_step_fused_plain if plain \
         else fused_talker.talker_step_fused
     h, logits, k, v = fn(

@@ -17,6 +17,11 @@ Deliberate divergences from the JAX package:
   * the streaming step is a host loop of `frames_per_call` frame bodies
     (JAX: one jitted scan); the caller reads `active` and `done` back once
     per call;
+  * the cache slot is a host int where the rows share it (the offline and
+    stream paths: JAX's scalar slot) and a device int32 [B] where each row
+    has its own (serving: JAX's [B] slot); `_frame_body` clamps the int
+    with `min` and the tensor with `torch.clamp`, so the int paths make no
+    host read for it;
   * `make_stream_fns` has no `fused_rows`: that is the TPU kernel's VMEM
     placement of the predictor's int8 weights, which the port does not
     have (see `ops/fused_predictor.py`);
@@ -97,8 +102,16 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
 
     fb = _feedback_embedding(assets, codes, talker_cfg.hidden)
     # done rows keep being stepped; their write slot is clamped to the last
-    # one, which only ever touches rows that are already done
-    write_slot = min(state["slot"], cache_cap - 1)
+    # one, which only ever touches rows that are already done. The slot is
+    # a host int (offline, stream) or a device int32 [B] (serving): the
+    # int keeps host arithmetic, so neither path reads the device here
+    slot = state["slot"]
+    if isinstance(slot, torch.Tensor):
+        write_slot = torch.clamp(slot, max=cache_cap - 1)
+        next_slot = torch.clamp(slot + 1, max=cache_cap)
+    else:
+        write_slot = min(slot, cache_cap - 1)
+        next_slot = min(slot + 1, cache_cap)
     hidden, logits, cache = talker.step(
         models["talker"], talker_cfg, fb.to(getattr(torch, talker_cfg.dtype)),
         write_slot, state["pad_offset"], state["cache"], plain)
@@ -107,7 +120,7 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
         hidden=hidden,
         logits=logits,
         cache=cache,
-        slot=min(state["slot"] + 1, cache_cap),
+        slot=next_slot,
         step=state["step"] + 1,
         done=done,
         n_frames=state["n_frames"] + active.to(torch.int32),
