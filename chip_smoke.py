@@ -140,7 +140,21 @@ result line:
                with --long (a text of five sentences, one batch of five
                rows): WAVs of whole frames, finite. Prints the bytes
                written and the seconds to save, export and load each
-               layout; the directory is removed in any case
+               layout. Then the reference's raw release through the port's
+               tool (`tools/convert_weights.main`, in process): the llama
+               GGUFs, qwen3_tts_decoder.onnx written from the engine's
+               vocoder with torch names and anonymized, both encoder
+               graphs (seeded random_encoders, anonymized) and the general
+               snake vocoder anonymized, converted with no config: every
+               converted vocoder and encoder leaf torch.equal to the one
+               written, the derived configs equal to the written ones;
+               TtsEngine(model_dir=...) on the output: greedy codes
+               identical to the in-memory engine's, generate_with_voice
+               within GENERAL_REL of it (the step kernels launched),
+               create_voice_file on 4 s of audio with equal codes and the
+               speaker embedding within GENERAL_REL; the bytes and seconds
+               of each write, read and conversion. The directory is
+               removed in any case
  10. clone     voice cloning at full width: random encoders (audio
                1024 x 8, speaker 512 x 6, f32) with the RVQ codebooks tied
                to the vocoder's tables; create_voice_file on a 4 s and a
@@ -2921,10 +2935,229 @@ def phase_checkpoint(eng, rec: Record, card: str):
                     audio.samples).all():
                 fail(f"cli {flag}: the WAV is empty or not finite")
             check_wav(f"cli {flag}", audio.samples, 32 * 8)
+
+        # the reference's raw release (the GGUFs above, ONNX graphs) through
+        # the port's convert_weights, loaded and run on the card
+        release_checks(eng, rec, card, tmp, want, n_want)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if os.path.exists(tmp):
         fail(f"{tmp} was not removed")
+
+
+def leaves_equal(label, npz_path, tree, skip=()):
+    """Every leaf of the .npz at `npz_path` torch.equal to `tree`'s on its
+    device, the same paths (less `skip`); fails otherwise."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.assets import checkpoint
+    want = {k: v for k, v in checkpoint.flatten(tree) if k not in skip}
+    with np.load(npz_path) as f:
+        if sorted(k for k in f.files if k not in skip) != sorted(want):
+            fail(f"{label}: leaves {sorted(f.files)} != {sorted(want)}")
+        bad = [k for k, w in want.items()
+               if not torch.equal(torch.from_numpy(f[k]).to(w.device), w)]
+    log(f"  {label}: {len(want)} leaves torch.equal to those written: "
+        f"{not bad}")
+    if bad:
+        fail(f"{label}: leaves differ from those written: {bad[:8]}")
+
+
+def release_checks(eng, rec: Record, card: str, tmp: str, want, n_want):
+    """The reference's raw release at full width through the port's tool
+    (`tools/convert_weights.main`, in process): the llama GGUFs phase 9
+    wrote, `qwen3_tts_decoder.onnx` written from the engine's vocoder with
+    torch names and anonymized, both encoder graphs (seeded
+    random_encoders, anonymized), the general snake vocoder anonymized and
+    converted with no config. Every converted vocoder and encoder leaf
+    torch.equal to the one written; TtsEngine(model_dir=...) on the
+    output: greedy codes identical to the in-memory engine's, its waveform
+    within GENERAL_REL, create_voice_file's codes equal and embedding
+    within GENERAL_REL; the derived general config equal to the one
+    written. One graph in memory at a time; bytes and seconds of each
+    write, read and conversion."""
+    import dataclasses
+    import filecmp
+
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.assets import onnx
+    from qwen3_tts_tpu_torch.models import encoders, vocoder
+    from qwen3_tts_tpu_torch.tools import convert_weights as cw
+
+    t_phase = time.time()
+    cfg = eng.config
+    dev = eng.device
+    spk = os.path.join(REPO, "speakers")
+    rel = os.path.join(tmp, "release")
+    os.makedirs(rel)
+    for name in ("qwen3_tts_talker.gguf", "qwen3_tts_predictor.gguf",
+                 "qwen3_assets.gguf"):
+        os.replace(os.path.join(tmp, name), os.path.join(rel, name))
+
+    def timed(label, fn, path=None):
+        t0 = time.time()
+        out = fn()
+        dt = time.time() - t0
+        size = f" {os.path.getsize(path)} bytes," if path else ""
+        log(f"  {label}:{size} {dt:.2f} s on {card}")
+        return out
+
+    def write(name, fn):
+        path = os.path.join(rel, name)
+        timed(f"write {name}", lambda: fn(path), path)
+        timed(f"read {name}", lambda: onnx.read_model(path), path)
+        return path
+
+    def convert(label, argv, out):
+        rc = timed(f"convert {label} -> {out}",
+                   lambda: cw.main(argv + ["--out", out]))
+        if rc != 0:
+            fail(f"convert_weights {label} returned {rc}")
+
+    log(f"  release: the reference's raw artifacts at full width through "
+        f"python -m qwen3_tts_tpu_torch.tools.convert_weights, on {card}")
+    out = os.path.join(tmp, "converted")
+    for kind in ("talker", "predictor"):
+        gg = os.path.join(rel, f"qwen3_tts_{kind}.gguf")
+        convert(f"{os.path.basename(gg)} ({os.path.getsize(gg)} bytes)",
+                [f"--{kind}", gg], out)
+    shutil.copy(os.path.join(rel, "qwen3_assets.gguf"), out)
+
+    dec = write("qwen3_tts_decoder.onnx", lambda p: cw.write_vocoder_onnx(
+        p, eng.vocoder_params, cfg.vocoder))
+    convert("qwen3_tts_decoder.onnx", ["--vocoder", dec], out)
+    os.remove(dec)
+    # the decoder's unused head slot is not in the graph: converted as 0
+    head = "transformer/head"
+    leaves_equal("vocoder (named graph)", os.path.join(out, "vocoder.npz"),
+                 eng.vocoder_params, skip=(head,))
+    ae, se = encoders.random_encoders(
+        torch.Generator(device=dev).manual_seed(11), cfg, eng.vocoder_params)
+    for kind, enc in (("audio", ae), ("speaker", se)):
+        name = ("qwen3_tts_codec_encoder.onnx" if kind == "audio"
+                else "qwen3_tts_speaker_encoder.onnx")
+        path = write(name, lambda p: cw.write_encoder_onnx(
+            p, enc.params, kind, getattr(cfg, f"{kind}_encoder"),
+            anonymize=True))
+        convert(name, [f"--{kind}-encoder", path], out)
+        os.remove(path)
+        leaves_equal(f"{kind} encoder (anonymized graph)",
+                     os.path.join(out, f"{kind}_encoder.npz"), enc.params)
+
+    # the same decoder anonymized: the structural mapper at full width
+    anon = os.path.join(tmp, "converted_anonymized")
+    dec = write("qwen3_tts_decoder_anonymized.onnx",
+                lambda p: cw.write_vocoder_onnx(p, eng.vocoder_params,
+                                                cfg.vocoder, anonymize=True))
+    convert("qwen3_tts_decoder_anonymized.onnx", ["--vocoder", dec], anon)
+    os.remove(dec)
+    leaves_equal("vocoder (anonymized graph)",
+                 os.path.join(anon, "vocoder.npz"), eng.vocoder_params,
+                 skip=(head,))
+    same_cfg = filecmp.cmp(os.path.join(anon, "vocoder_config.json"),
+                           os.path.join(out, "vocoder_config.json"),
+                           shallow=False)
+    if not same_cfg:
+        fail("the anonymized decoder's vocoder_config.json differs from the "
+             "named one's")
+    shutil.rmtree(anon)
+
+    # the converted directory on the card against the in-memory engine
+    t0 = time.time()
+    e = TtsEngine(model_dir=out, config=cfg, speakers_dir=spk, device=dev)
+    torch.cuda.synchronize()
+    log(f"  converted engine: load {time.time() - t0:.2f} s on {card}; "
+        f"encoders loaded: {e.encoder is not None}")
+    vcfg = dataclasses.asdict(e.config.vocoder)
+    if vcfg != dataclasses.asdict(cfg.vocoder):
+        fail(f"the derived vocoder config {vcfg} != the engine's "
+             f"{dataclasses.asdict(cfg.vocoder)}")
+    fused = fused_per_frame(cfg)
+    got, n_got = run_main_path(
+        rec, "converted engine greedy generate_codes B=1 32 frames",
+        lambda: greedy_codes(e), STEPS, fused)
+    if not (torch.equal(got, want) and torch.equal(n_got, n_want)):
+        fail("the converted engine's greedy codes differ from the in-memory "
+             "engine's")
+    log("  converted engine: greedy codes identical to the in-memory "
+        "engine's: True")
+    saved = (eng.sampler_config, eng.max_steps, eng.encoder,
+             eng.speaker_encoder)
+    greedy = SamplerConfig(temperature=0.0, top_k=0, top_p=1.0, seed=0)
+    wavs = {}
+    try:
+        for label, x in (("in-memory", eng), ("converted", e)):
+            x.set_sampler_config(greedy)
+            x.set_max_steps(32)
+            wavs[label] = run_main_path(
+                rec, f"{label} engine generate_with_voice greedy",
+                lambda: x.generate_with_voice(
+                    TEXT, x.get_speaker("vivian")).samples, STEPS, fused)
+            check_wav(f"{label} engine", wavs[label], 32)
+        err = rel_err(torch.from_numpy(wavs["converted"]),
+                      torch.from_numpy(wavs["in-memory"])) \
+            if len(wavs["converted"]) == len(wavs["in-memory"]) else 1.0
+        log(f"  converted engine: waveform rel err {err:.3e} (limit "
+            f"{GENERAL_REL:g})")
+        if not err <= GENERAL_REL:
+            fail(f"the converted engine's waveform is {err:.3e} from the "
+                 "in-memory engine's")
+        ref = write_ref_wav(os.path.join(tmp, "ref_4s.wav"), 4, seed=4)
+        eng.encoder, eng.speaker_encoder = ae, se
+        v_want = eng.create_voice_file(ref, "A reference transcript.")
+        v_got = e.create_voice_file(ref, "A reference transcript.")
+        err = rel_err(torch.tensor(v_got.speaker_embedding),
+                      torch.tensor(v_want.speaker_embedding))
+        same = v_got.audio_codes == v_want.audio_codes
+        log(f"  create_voice_file through the converted encoders: "
+            f"{len(v_got.audio_codes) // 16} frames of codes equal: {same}; "
+            f"speaker embedding rel err {err:.3e}")
+        if not same or not err <= GENERAL_REL:
+            fail("create_voice_file through the converted encoders differs")
+    finally:
+        (eng.sampler_config, eng.max_steps, eng.encoder,
+         eng.speaker_encoder) = saved
+    del e
+
+    # the general snake vocoder, anonymized, converted with no config
+    gcfg = general_vocoder_config()
+    gparams = vocoder.init_vocoder(
+        torch.Generator(device=dev).manual_seed(23), gcfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def vary(node):         # alphas other than 1, so none is swapped
+        for k, v in node.items() if isinstance(node, dict) else ():
+            if k.startswith("alpha"):
+                v.uniform_(0.5, 1.5, generator=g)
+            elif isinstance(v, (dict, list)):
+                vary(v)
+        for v in node if isinstance(node, list) else ():
+            vary(v)
+
+    vary(gparams)
+    gdir = os.path.join(tmp, "converted_general")
+    dec = write("qwen3_tts_decoder_general.onnx",
+                lambda p: cw.write_vocoder_onnx(p, gparams, gcfg,
+                                                anonymize=True))
+    convert("qwen3_tts_decoder_general.onnx (no config)",
+            ["--vocoder", dec], gdir)
+    os.remove(dec)
+    leaves_equal("general vocoder (anonymized graph)",
+                 os.path.join(gdir, "vocoder.npz"), gparams, skip=(head,))
+    from qwen3_tts_tpu_torch.core.config import load_vocoder_config
+    derived = load_vocoder_config(os.path.join(gdir, "vocoder_config.json"))
+    pads = tuple(pl for pl, _ in vocoder.stage_pads(gcfg))
+    chans = tuple(vocoder.up_channels(gcfg)[1:])
+    same = (derived.upsample_pads == pads
+            and derived.upsample_channels == chans
+            and dataclasses.replace(derived, upsample_pads=None,
+                                    upsample_channels=None) == gcfg)
+    log(f"  general vocoder: derived config equal to the one written "
+        f"(pads {pads}, channels {chans} as implied): {same}")
+    if not same:
+        fail(f"derive_vocoder_config gave {derived}, written {gcfg}")
+    log(f"  release checks took {time.time() - t_phase:.1f} s on {card}")
 
 
 # ------------------------------------------------------------- cloning

@@ -2,7 +2,9 @@
 
 The layout of `qwen3_tts_tpu/assets/checkpoint.py`: one flat .npz whose
 keys are the "/"-joined tree paths (`layers/wqkv`, `up/0/w`), the layout
-`convert.unflatten` reads. Trees are nested dicts and lists of tensors.
+`convert.unflatten` reads. Trees are nested dicts and lists of tensors
+(or, for writing, numpy arrays: the converters of `tools/convert_weights.py`
+work in numpy).
 
 Deliberate divergence from the JAX package, in both directions:
   * writing: a bfloat16 leaf goes to disk as f32 (exact), the way the JAX
@@ -43,15 +45,23 @@ def flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def host_array(leaf) -> np.ndarray:
+    """A leaf as a numpy array on the host: a tensor copied from its
+    device (bf16 as f32, exact), an array as it is."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
 def save_tree(path: str, tree: Any) -> None:
-    """Write a tree of tensors as an .npz (`np.savez`'s format,
-    uncompressed), one leaf at a time; bf16 leaves as f32."""
+    """Write a tree of tensors or numpy arrays as an .npz (`np.savez`'s
+    format, uncompressed), one leaf at a time; bf16 tensors as f32."""
     with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, leaf in flatten(tree):
-            if leaf.dtype == torch.bfloat16:
-                leaf = leaf.float()
-            arr = leaf.detach().cpu().numpy()
+            arr = host_array(leaf)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, arr, allow_pickle=False)
             del arr     # one leaf on the host at a time

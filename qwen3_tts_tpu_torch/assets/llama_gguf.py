@@ -19,10 +19,10 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import numpy as np
-import torch
 
 from ..core.config import PredictorConfig, TalkerConfig
 from . import gguf
+from .checkpoint import host_array
 
 
 def _meta(f: gguf.GGUFFile, *keys, default=None):
@@ -109,12 +109,6 @@ def convert_llama_gguf(path: str, kind: str) -> Tuple[Any, Dict[str, Any]]:
     return cfg, params
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy()
-    return np.asarray(x)
-
-
 def export_llama_gguf(path: str, cfg, params: Dict[str, Any],
                       arch: str = "qwen3") -> None:
     """The inverse mapping: a decoder tree of numpy arrays or tensors (a
@@ -124,7 +118,7 @@ def export_llama_gguf(path: str, cfg, params: Dict[str, Any],
     layers = params["layers"]
 
     def lw(name, i):
-        return _host(layers[name][i])
+        return host_array(layers[name][i])
 
     nq_hd = cfg.n_q_heads * cfg.head_dim
     nk_hd = cfg.n_kv_heads * cfg.head_dim
@@ -144,8 +138,8 @@ def export_llama_gguf(path: str, cfg, params: Dict[str, Any],
         tensors[p + "ffn_gate.weight"] = w_gu[:, :F].T
         tensors[p + "ffn_up.weight"] = w_gu[:, F:].T
         tensors[p + "ffn_down.weight"] = lw("w_down", i).T
-    tensors["output_norm.weight"] = _host(params["final_norm"])
-    tensors["output.weight"] = _host(params["head"]).T
+    tensors["output_norm.weight"] = host_array(params["final_norm"])
+    tensors["output.weight"] = host_array(params["head"]).T
     meta = {
         f"{arch}.block_count": cfg.n_layers,
         f"{arch}.embedding_length": cfg.hidden,

@@ -20,9 +20,11 @@ kernel runs here in the JAX package, so none is written here. On the card
 the work runs with TF32 off (`core/precision.f32_exact`).
 
 Both encoders are optional at engine load, as the reference's `.ok()`
-loads are (`src/tts/engine.rs:107-120`). The torch-state-dict converters of
-the JAX module (`convert_*_state_dict`, `export_*_state_dict`) are not
-ported yet: they come with the ONNX converter (ROADMAP queue 1).
+loads are (`src/tts/engine.rs:107-120`). The torch-state-dict converters
+(`convert_*_state_dict`, `export_*_state_dict`) are the JAX module's, in
+numpy, so that `tools/convert_weights.py` writes what the JAX package's
+tool writes bit for bit; an export also takes a tree of tensors (on any
+device; bf16 leaves come out as f32).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..assets import checkpoint
+from ..assets.checkpoint import host_array
 from ..core.config import (AudioEncoderConfig, EngineConfig, MelConfig,
                            SpeakerEncoderConfig)
 from ..core.precision import f32_exact
@@ -285,3 +288,157 @@ def random_encoders(generator: torch.Generator, config: EngineConfig,
                                             device=device),
                        config.speaker_encoder, config.mel),
     )
+
+
+# ---------------------------------------------------------------- converters
+def convert_audio_encoder_state_dict(sd: Dict[str, np.ndarray],
+                                     cfg: AudioEncoderConfig | None = None
+                                     ) -> Dict[str, Any]:
+    """Torch state dict -> audio-encoder tree of numpy arrays (naming in
+    `tools/convert_weights.py`; a strided Conv1d [out, in, k] with k ==
+    stride becomes the matmul form [k*in, out])."""
+    cfg = cfg or AudioEncoderConfig()
+
+    def T(name):
+        return np.ascontiguousarray(np.asarray(sd[name], np.float32).T)
+
+    def raw(name):
+        return np.asarray(sd[name], np.float32)
+
+    down = []
+    for i, s in enumerate(cfg.downsample_factors):
+        w = raw(f"encoder.downsample.{i}.weight")    # [out, in, k], k == s
+        c_out, c_in, k = w.shape
+        assert k == s, f"downsample stage {i}: kernel {k} != stride {s}"
+        # y[t, o] = sum_{j,i} x[t*s+j, i] w[o, i, j] -> w2[(j*c_in)+i, o]
+        down.append({
+            "w": np.ascontiguousarray(
+                w.transpose(2, 1, 0).reshape(s * c_in, c_out)),
+            "b": raw(f"encoder.downsample.{i}.bias"),
+        })
+    stack = _convert_stack_sd(sd, "encoder.layers", cfg.n_layers)
+    return {
+        "down": down,
+        "stack": stack,
+        "final_norm": raw("encoder.norm.weight"),
+        "latent_proj": {"w": T("encoder.latent_proj.weight"),
+                        "b": raw("encoder.latent_proj.bias")},
+        "codebooks": np.stack([raw(f"quantizer.codebooks.{q}.weight")
+                               for q in range(cfg.num_codebooks)]),
+    }
+
+
+def convert_speaker_encoder_state_dict(sd: Dict[str, np.ndarray],
+                                       cfg: SpeakerEncoderConfig | None = None
+                                       ) -> Dict[str, Any]:
+    cfg = cfg or SpeakerEncoderConfig()
+
+    def T(name):
+        return np.ascontiguousarray(np.asarray(sd[name], np.float32).T)
+
+    def raw(name):
+        return np.asarray(sd[name], np.float32)
+
+    subs = []
+    for i, s in enumerate(cfg.subsample_factors):
+        w = raw(f"encoder.subsample.{i}.weight")     # [out, in, k], k == s
+        c_out, c_in, k = w.shape
+        assert k == s
+        subs.append({
+            "w": np.ascontiguousarray(
+                w.transpose(2, 1, 0).reshape(s * c_in, c_out)),
+            "b": raw(f"encoder.subsample.{i}.bias"),
+        })
+    stack = _convert_stack_sd(sd, "encoder.layers", cfg.n_layers)
+    return {
+        "sub": subs,
+        "stack": stack,
+        "final_norm": raw("encoder.norm.weight"),
+        "attn_w": T("pooling.attention.weight"),
+        "out_proj": {"w": T("projection.weight"),
+                     "b": raw("projection.bias")},
+    }
+
+
+def _convert_stack_sd(sd, prefix, n_layers):
+    """Bidirectional encoder stack: fused qkv + separate gate/up."""
+
+    def T(name):
+        return np.ascontiguousarray(np.asarray(sd[name], np.float32).T)
+
+    def raw(name):
+        return np.asarray(sd[name], np.float32)
+
+    layers: Dict[str, list] = {k: [] for k in (
+        "ln1", "wqkv", "wo", "ln2", "w_gate", "w_up", "w_down")}
+    for i in range(n_layers):
+        p = f"{prefix}.{i}."
+        layers["ln1"].append(raw(p + "input_layernorm.weight"))
+        layers["wqkv"].append(np.concatenate(
+            [T(p + "self_attn.q_proj.weight"),
+             T(p + "self_attn.k_proj.weight"),
+             T(p + "self_attn.v_proj.weight")], axis=1))
+        layers["wo"].append(T(p + "self_attn.o_proj.weight"))
+        layers["ln2"].append(raw(p + "post_attention_layernorm.weight"))
+        layers["w_gate"].append(T(p + "mlp.gate_proj.weight"))
+        layers["w_up"].append(T(p + "mlp.up_proj.weight"))
+        layers["w_down"].append(T(p + "mlp.down_proj.weight"))
+    return {k: np.stack(v) for k, v in layers.items()}
+
+
+def export_audio_encoder_state_dict(params, cfg: AudioEncoderConfig | None
+                                    = None) -> Dict[str, np.ndarray]:
+    """Inverse of convert_audio_encoder_state_dict."""
+    cfg = cfg or AudioEncoderConfig()
+    sd: Dict[str, np.ndarray] = {}
+    for i, s in enumerate(cfg.downsample_factors):
+        w2 = host_array(params["down"][i]["w"])           # [s*c_in, c_out]
+        c_out = w2.shape[1]
+        c_in = w2.shape[0] // s
+        sd[f"encoder.downsample.{i}.weight"] = np.ascontiguousarray(
+            w2.reshape(s, c_in, c_out).transpose(2, 1, 0))
+        sd[f"encoder.downsample.{i}.bias"] = host_array(params["down"][i]["b"])
+    _export_stack_sd(sd, "encoder.layers", params["stack"])
+    sd["encoder.norm.weight"] = host_array(params["final_norm"])
+    sd["encoder.latent_proj.weight"] = host_array(params["latent_proj"]["w"]).T
+    sd["encoder.latent_proj.bias"] = host_array(params["latent_proj"]["b"])
+    for q in range(cfg.num_codebooks):
+        sd[f"quantizer.codebooks.{q}.weight"] = host_array(
+            params["codebooks"][q])
+    return sd
+
+
+def export_speaker_encoder_state_dict(params, cfg: SpeakerEncoderConfig |
+                                      None = None) -> Dict[str, np.ndarray]:
+    cfg = cfg or SpeakerEncoderConfig()
+    sd: Dict[str, np.ndarray] = {}
+    for i, s in enumerate(cfg.subsample_factors):
+        w2 = host_array(params["sub"][i]["w"])
+        c_out = w2.shape[1]
+        c_in = w2.shape[0] // s
+        sd[f"encoder.subsample.{i}.weight"] = np.ascontiguousarray(
+            w2.reshape(s, c_in, c_out).transpose(2, 1, 0))
+        sd[f"encoder.subsample.{i}.bias"] = host_array(params["sub"][i]["b"])
+    _export_stack_sd(sd, "encoder.layers", params["stack"])
+    sd["encoder.norm.weight"] = host_array(params["final_norm"])
+    sd["pooling.attention.weight"] = host_array(params["attn_w"]).T
+    sd["projection.weight"] = host_array(params["out_proj"]["w"]).T
+    sd["projection.bias"] = host_array(params["out_proj"]["b"])
+    return sd
+
+
+def _export_stack_sd(sd, prefix, stack):
+    L = stack["ln1"].shape[0]
+    width = stack["wqkv"].shape[-1] // 3
+    for i in range(L):
+        p = f"{prefix}.{i}."
+        sd[p + "input_layernorm.weight"] = host_array(stack["ln1"][i])
+        wqkv = host_array(stack["wqkv"][i])
+        sd[p + "self_attn.q_proj.weight"] = wqkv[:, :width].T
+        sd[p + "self_attn.k_proj.weight"] = wqkv[:, width:2 * width].T
+        sd[p + "self_attn.v_proj.weight"] = wqkv[:, 2 * width:].T
+        sd[p + "self_attn.o_proj.weight"] = host_array(stack["wo"][i]).T
+        sd[p + "post_attention_layernorm.weight"] = host_array(stack["ln2"][i])
+        sd[p + "mlp.gate_proj.weight"] = host_array(stack["w_gate"][i]).T
+        sd[p + "mlp.up_proj.weight"] = host_array(stack["w_up"][i]).T
+        sd[p + "mlp.down_proj.weight"] = host_array(stack["w_down"][i]).T

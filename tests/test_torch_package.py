@@ -29,11 +29,40 @@ def test_import_leaves_jax_out():
             "qwen3_tts_tpu_torch.assets.checkpoint, "
             "qwen3_tts_tpu_torch.assets.gguf, "
             "qwen3_tts_tpu_torch.assets.llama_gguf, "
+            "qwen3_tts_tpu_torch.assets.onnx, "
+            "qwen3_tts_tpu_torch.tools.convert_weights, "
             "qwen3_tts_tpu_torch.download, qwen3_tts_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qwen3_tts_tpu.'))] "
             "+ [m for m in ('triton', 'qwen3_tts_tpu') if m in sys.modules]; "
             "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_convert_weights_runs_without_jax():
+    """`python -m qwen3_tts_tpu_torch.tools.convert_weights --help` as a
+    user runs it, and the same module run in a process that then lists
+    what it imported: neither `jax` nor the JAX package's modules nor
+    `tools/convert_weights.py`."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "qwen3_tts_tpu_torch.tools.convert_weights",
+         "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--vocoder" in proc.stdout and "--audio-encoder" in proc.stdout
+    code = ("import runpy, sys; "
+            "sys.argv = ['convert_weights', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('qwen3_tts_tpu_torch.tools.convert_weights',"
+            " run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'qwen3_tts_tpu.')) or m in ('qwen3_tts_tpu', "
+            "'convert_weights')]\n"
+            "assert not bad, bad\n"
+            "assert 'qwen3_tts_tpu_torch.assets.onnx' in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
