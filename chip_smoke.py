@@ -33,22 +33,25 @@ result line:
                epilogue) and decode attention twice and in two CUDA-graph
                replays give bit-identical outputs; the predictor frame
                kernel (csrc/predictor_frame.cu) against
-               frame_codes_fused_plain: the tiny f32 config's codes equal
-               on the card and to the CPU's at B = 1, 2, 3, 16, and at full
-               width with peaked heads code agreement >= 0.95 for dense
-               bf16 and int8 weights at B = 1, 2, 16, repeats and two
-               CUDA-graph replays of the cooperative launch bit-identical;
-               the talker step kernel (csrc/talker_step.cu) against
+               frame_codes_fused_plain: the tiny f32 config's and a small
+               f32 all-int4 predictor's codes equal on the card and to the
+               CPU's at B = 1, 2, 3, 16, the residual after the last pass
+               within rtol/atol 1e-4, and at full width with peaked heads
+               code agreement >= 0.95 for dense bf16, int8 and int4
+               weights at B = 1, 2, 16, repeats and two CUDA-graph replays
+               of the cooperative launch bit-identical; the talker step
+               kernel (csrc/talker_step.cu) against
                talker_step_fused_plain: hidden, logits and the cache slot
-               written, every other slot unchanged, at B = 1, 2 and MAX_B,
-               ~100 live slots of a 256 window and ~2100 of a 4096 cache:
-               f32 (rtol/atol 1e-4) at the tiny config, a small int4
-               talker and the full width and depth; bf16 (relative error
-               <= 8e-3) at the full width cut to 2 layers; bf16 at full
-               depth, relative error <= 3e-2, the chain's own error logged
-               beside it, and the plain step without its last layer
-               further than that; repeats and two CUDA-graph replays
-               bit-identical
+               written, every other slot unchanged, at B = 1, 2 and 16,
+               ~100 live slots of a 256 window and ~2100 of a 4096 cache,
+               and at B = 17, 24 and 32, ~700 of a 1024 window and ~2100
+               of a 4096 cache (full-depth f32 the 1024 window alone): f32
+               (rtol/atol 1e-4) at the tiny config, a small int4 talker
+               and the full width and depth; bf16 (relative error <= 8e-3)
+               at the full width cut to 2 layers; bf16 at full depth,
+               relative error <= 3e-2, the chain's own error logged beside
+               it, and the plain step without its last layer further than
+               that; repeats and two CUDA-graph replays bit-identical
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
                user runs it, every probe kernel launched; then each of the
@@ -64,31 +67,36 @@ result line:
   6. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
                width, B=1, 32 frames, generate_with_voice(vivian): a finite
                waveform, the talker step kernel and the predictor frame
-               kernel launched; generate_batch at B=2, then at B = MAX_B
-               + 1 (4 frames), where the talker keeps its chain of gemv,
-               decode attention and the Triton rms_norm. The same weights
-               quantized as the JAX bench's headline rung (talker int4,
-               predictor int8) through TtsEngine(weights=...): B=1, 32
-               frames, then B=2, then B = INT4_MAX_B + 1 (9) and MAX_B + 1
-               on the talker's chain (B4, and past 16 rows B8 for the
-               predictor's chain, launched); the int8/int8 rung, B=1, 16
-               frames, with qmatmul (int8 prefill) launched, then B =
-               MAX_B + 1 on the chain (B8 launched); an int4 predictor
-               (int4/int4, B=1, 8 frames), which keeps the predictor's
-               chain: B4, decode attention, the KV stores and
-               argmax_gather launched, the frame kernel not. The tiny f32
-               config's greedy codes on the card equal the CPU reference,
-               dense, int8, and int4 on a small int4-capable talker.
-               Counts are set to 0 just before each of these runs and read
-               just after; every full-width run on the talker kernel's
-               route (B <= 2 here) with a dense
-               or int8 predictor launches the talker step kernel and the
-               predictor frame kernel once a frame and none of the
-               chain's launches (no gemv, decode attention, Triton
-               rms_norm, fused piece, KV store or copy, argmax_gather); on
-               the talker's chain every count a frame is the chains' (113
-               talker gemv, 28 decode attention, one rms_norm, two cache
-               copies, and the predictor's chain past 16 rows).
+               kernel launched; generate_batch at B=2, then (4 frames) at
+               B = 17, where the talker takes its step kernel
+               (`talker_step_b17_32`) beside the predictor's chain (past
+               the dense route's limit, were it below the batch cap of 32,
+               the talker's chain of gemv, decode attention and the Triton
+               rms_norm).
+               The same weights quantized as the JAX bench's headline rung
+               (talker int4, predictor int8) through
+               TtsEngine(weights=...): B=1, 32 frames, then B=2, then past
+               the int4 route's limit (9) and at the cap, 32, on the
+               talker's chain (B4, and past 16 rows B8 for the predictor's
+               chain, launched); the int8/int8 rung, B=1, 16 frames, with
+               qmatmul (int8 prefill) launched, then past its route's
+               limit (25) on the chain (B8 launched); all five predictor
+               weights int4 (int4/int4, B=1, 8 frames): the frame kernel
+               (`predictor_frame_int4`) and the talker step kernel once a
+               frame and none of the chains' launches, where the measured
+               route takes int4 at B = 1. The tiny f32 config's greedy
+               codes on the card equal the CPU reference, dense, int8, and
+               int4 on a small int4-capable talker. Counts are set to 0
+               just before each of these runs and read just after; every
+               count a frame is the one of the routes `talker_route` and
+               `frame_route` take at the batch (`route_per_frame`): on the
+               kernels the talker step kernel and the predictor frame
+               kernel once a frame and none of the chain's launches (no
+               gemv, decode attention, Triton rms_norm, fused piece, KV
+               store or copy, argmax_gather); on the talker's chain the
+               chains' (113 talker gemv, 28 decode attention, one
+               rms_norm, two cache copies, and the predictor's chain past
+               16 rows).
   7. stream    TtsEngine.generate_stream at full width, B=1, 32 frames,
                dense bf16 and int4 talker + int8 predictor: a cold call,
                warmup, a warm call, each with the counts set to 0 just
@@ -118,12 +126,12 @@ result line:
                and without the qk epilogue, the down products with and
                without the silu prologue; B, B8, B4 and decode attention
                at each split count beside their plans' choice; the
-               predictor frame kernel a frame, dense / int8 at B = 1, 2, 4,
-               8, 16, against its bound and the chain of launches it
-               replaces (its plain version at B = 1); the talker
-               step kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8,
-               16, against its bound, the chain it replaces and its plain
-               version (the times behind MAX_B); kernel A a talker layer
+               predictor frame kernel a frame, dense / int8 / int4 at B =
+               1, 2, 4, 8, 16, against its bound and the chain of launches
+               it replaces (its plain version at B = 1); the talker step
+               kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8, 16,
+               17, 24, 32, against its bound, the chain it replaces and its
+               plain version; kernel A a talker layer
                at M = 64, 128, 192 and 1088 against its bound, its plain
                version, torch._weight_int8pack_mm and cuBLAS on bf16
                weights (a reference), and each product with the plan's
@@ -192,8 +200,10 @@ result line:
                `frame_route` take at the batch): dense bf16 at B = 4 over 6
                staggered streams (one admitted a tick; rows recycled), B =
                16 with 4096-slot rows (the talker step kernel, the
-               predictor's chain), B = 32 with kv_window 1024 (both chains,
-               decode attention), int4+int8 at B = 8 (both step kernels);
+               predictor's chain), B = 32 with kv_window 1024 (the talker
+               step kernel once a step where the dense route takes 32 rows,
+               `talker_step_b17_32`, else its chain; the predictor's
+               chain), int4+int8 at B = 8 (both step kernels);
                every stream finite, whole frames within the frame cap, its
                chunks concatenating to its result. Prints audio-s/s of the
                batch over each run's wall (admissions included) and the
@@ -244,8 +254,11 @@ def log(msg: str) -> None:
 
 # ------------------------------------------------------------------ helpers
 def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, the two maxima exact in f32 and their
+    ratio taken in f64 (an f32 quotient can round a ratio that equals a
+    limit past it: 2^-5 / 3.90625 is 0.008, in f32 0.0080000004)."""
     a, b = a.float(), b.float()
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
 def abs_err(a, b) -> float:
@@ -360,6 +373,15 @@ class Record:
         # the talker's whole decode step in one persistent launch
         "talker_step": ("cuda", "qwen3_tts_tpu_torch/csrc/talker_step.cu",
                         "qwen3_tts_tpu/ops/fused_talker.py:428"),
+        # the same two kernels' launches on two inputs counted apart by
+        # their wrappers (`.launches_int4`, `.launches_wide`): all five
+        # predictor weights int4, and 17-32 talker rows
+        "predictor_frame_int4": (
+            "cuda", "qwen3_tts_tpu_torch/csrc/predictor_frame.cu",
+            "qwen3_tts_tpu/ops/fused_predictor.py:610"),
+        "talker_step_b17_32": ("cuda",
+                               "qwen3_tts_tpu_torch/csrc/talker_step.cu",
+                               "qwen3_tts_tpu/ops/fused_talker.py:428"),
     }
 
     def __init__(self):
@@ -966,8 +988,8 @@ def phase_kernels_fused(rec: Record, randn):
 
 
 def frame_case(cfg, kind, B, seed, peak=False):
-    """Seeded predictor weights of `cfg` on the card (dense, or int8 as
-    `quant.quantize_decoder_params` makes them), the ptab of random assets,
+    """Seeded predictor weights of `cfg` on the card (dense, or int8 / int4
+    as `quant.quantize_decoder_params` makes them), the ptab of random assets,
     h1024 [B, H] and code_0 [B] (some out of range, some negative); `peak`
     makes the head decisive (`peak_head`)."""
     import torch
@@ -982,8 +1004,8 @@ def frame_case(cfg, kind, B, seed, peak=False):
     if peak:
         pp = peak_head(pp, [(q * P.CODE_VOCAB, P.CODE_VOCAB)
                             for q in range(P.NUM_CODEBOOKS)], seed=seed)
-    if kind == "int8":
-        pp = quant.quantize_decoder_params(pp, kind="int8")
+    if kind != "dense":
+        pp = quant.quantize_decoder_params(pp, kind=kind)
     assets = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
                                   proj_dim=cfg.hidden, device=dev)
     ptab, rows = fused_predictor.make_ptab(assets, cfg)
@@ -992,43 +1014,131 @@ def frame_case(cfg, kind, B, seed, peak=False):
     return pp, ptab, rows, h, code0
 
 
+# the small int4-capable width of the f32 checks (widths in whole pairs of
+# 128-row groups), as tests/test_torch_kernels.py and the JAX package's
+# own int4 test take it
+SMALL4 = dict(hidden=256, n_q_heads=2, n_kv_heads=2, head_dim=128,
+              ffn_dim=256)
+
+
+class LogitsRecorder:
+    """An op set (`ops/chain.py`) that keeps the logits of each head slice
+    the frame's argmax reads, in order (code q's at q - 1)."""
+
+    def __init__(self, ops):
+        self.ops, self.logits = ops, []
+
+    def __getattr__(self, name):
+        return getattr(self.ops, name)
+
+    def argmax_gather(self, logits, codes, qi, *rest):
+        self.logits.append(logits.float().clone())
+        return self.ops.argmax_gather(logits, codes, qi, *rest)
+
+
+def plain_tie(got, plains):
+    """Where the plain version on the card and on the CPU disagree with
+    each other (f32 sums in another order), the kernel's codes `got` must
+    equal one of them, and the other's first differing code must be a tie
+    in its own logits (relative 1e-6: a last-bit difference decides which
+    of two equal maxima wins). `plains`: (codes, LogitsRecorder) on the
+    card and on the CPU. Returns a description of the tie, or None."""
+    import torch
+    if torch.equal(plains[0][0].cpu(), plains[1][0].cpu()):
+        return None
+    for (mine, _), (other, logits) in ((plains[0], plains[1]),
+                                       (plains[1], plains[0])):
+        if not torch.equal(got.cpu(), mine.cpu()):
+            continue
+        b, q = (got.cpu() != other.cpu()).nonzero()[0].tolist()
+        lg = logits.logits[q - 1][b].cpu()
+        a, w = int(got[b, q]), int(other[b, q])
+        if abs(float(lg[a] - lg[w])) <= 1e-6 * abs(float(lg[w])):
+            return (f"row {b} code {q}: the other plain version's logits "
+                    f"tie, {float(lg[w])!r} at {w} and {float(lg[a])!r} at "
+                    f"{a}")
+    return None
+
+
+def frame_residual(fp, cfg, h, int4):
+    """The f32 residual after the last pass of the frame kernel's launch
+    on h1024 `h` (its workspace's `xres`, kept per device as the wrapper
+    keys it, h's; the next launch overwrites it)."""
+    import torch
+    B, dev = h.shape[0], h.device
+    t_bytes = 4 if cfg.dtype == "float32" else 2
+    with torch.cuda.device(dev):
+        nb = fp._plan(cfg, B, t_bytes, int4, dev)[1]
+        return fp._workspace(cfg, B, nb, dev)["xres"].clone()
+
+
 def phase_kernels_frame(rec: Record):
     """The predictor frame kernel (`csrc/predictor_frame.cu`) against its
     plain version `frame_codes_fused_plain`: the tiny f32 config's codes
-    equal on the card and to the CPU's, B = 1, 2, 3, 16; at full width with
-    peaked heads, code agreement >= 0.95 for dense bf16 and int8 weights at
-    B = 1, 2, 16 (bf16 sums in another order may flip a near tie); repeats
-    bit-identical, at B = 2 also two CUDA-graph replays of the cooperative
-    launch. max_abs_err: the largest |kernel code - plain code| over every
-    case."""
+    equal on the card and to the CPU's, B = 1, 2, 3, 16; all five weights
+    int4 at the small int4 f32 width (hidden 256, 2/2 heads of 128, ffn
+    256), B = 1, 2, 3, 16: codes equal on the card and to the CPU's, the
+    residual after the last pass rtol/atol 1e-4 against the plain chain's;
+    at full width with peaked heads, code agreement >= 0.95 for dense bf16,
+    int8 and int4 weights at B = 1, 2, 16 (bf16 sums in another order may
+    flip a near tie); repeats bit-identical, at B = 2 also two CUDA-graph
+    replays of the cooperative launch. max_abs_err: the largest |kernel -
+    plain| over every case, codes and residuals (the int4 cases under
+    `predictor_frame_int4`)."""
+    import dataclasses
+
     import torch
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.ops import chain
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
 
     tiny = tiny_engine_config().predictor
+    small4 = dataclasses.replace(tiny, mrope_sections=(64, 0, 0, 0),
+                                 **SMALL4)
     full = EngineConfig().predictor
 
-    def codes_err(got, want):
+    def codes_err(got, want, kind="dense"):
         e = abs_err(got, want)
-        rec.err["predictor_frame"] = max(rec.err["predictor_frame"], e)
+        name = "predictor_frame_int4" if kind == "int4" else \
+            "predictor_frame"
+        rec.err[name] = max(rec.err[name], e)
         return e
 
-    for B in (1, 2, 3, 16):
-        pp, ptab, rows, h, c0 = frame_case(tiny, "dense", B, 60 + B)
-        got = fp.predictor_frame_kernel(pp, tiny, ptab, rows, h, c0)
-        want = fp.frame_codes_fused_plain(pp, tiny, ptab, rows, h, c0)
-        cpu = fp.frame_codes_fused_plain(_to(pp, "cpu"), tiny, ptab.cpu(),
-                                         rows, h.cpu(), c0.cpu())
-        codes_err(got, want)
-        same = torch.equal(got, want) and torch.equal(got.cpu(), cpu)
-        log(f"  {'predictor_frame':16s} {f'tiny f32 B={B}':44s} codes "
-            f"{'equal' if same else 'DIFFER'} to the plain version on the "
-            "card and on the CPU")
-        if not same:
-            fail(f"predictor_frame tiny f32 B={B}: codes differ from the "
-                 "plain version")
-    for kind in ("dense", "int8"):
+    for cfg, kind, what in ((tiny, "dense", "tiny f32"),
+                            (small4, "int4", "small f32 int4")):
+        name = "predictor_frame_int4" if kind == "int4" else \
+            "predictor_frame"
+        for B in (1, 2, 3, 16):
+            pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 60 + B)
+            got = fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
+            res = frame_residual(fp, cfg, h, kind == "int4")
+            plains = []
+            for dev in ("cuda", "cpu"):
+                ops = LogitsRecorder(chain.PLAIN)
+                r = torch.empty(res.shape, device=dev)
+                codes = fp._frame(ops, _to(pp, dev), cfg, ptab.to(dev), rows,
+                                  h.to(dev), c0.to(dev), residual=r)
+                plains.append((codes, ops, r))
+            (want, _, want_res), (cpu, _, cpu_res) = plains
+            codes_err(got, want, kind)
+            same = torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+            # the int4 cases also take a tie that the two plain versions
+            # break differently (`plain_tie`); the tiny f32 check is exact
+            tie = None if same or kind != "int4" else \
+                plain_tie(got, [p[:2] for p in plains])
+            log(f"  {'predictor_frame':16s} {f'{what} B={B}':44s} codes "
+                f"{'equal' if same else 'DIFFER'} to the plain version on "
+                "the card and on the CPU" + (f"; {tie}, the kernel's equal "
+                                             "to the other's" if tie else ""))
+            if not same and tie is None:
+                fail(f"predictor_frame {what} B={B}: codes differ from the "
+                     "plain version")
+            ref = want_res if torch.equal(got, want) else cpu_res.cuda()
+            rec.check(name, res, ref,
+                      f"{what} B={B} residual after the last pass",
+                      rtol=1e-4, atol=1e-4)
+    for kind in ("dense", "int8", "int4"):
         for B in (1, 2, 16):
             pp, ptab, rows, h, c0 = frame_case(full, kind, B, 70 + B,
                                                peak=True)
@@ -1038,7 +1148,7 @@ def phase_kernels_frame(rec: Record):
             got = call()
             want = fp.frame_codes_fused_plain(pp, full, ptab, rows, h, c0)
             agree = float((got == want).float().mean())
-            e = codes_err(got, want)
+            e = codes_err(got, want, kind)
             # the cooperative launch captures: at B = 2 also two replays
             same = bit_identical(call) if B == 2 else \
                 torch.equal(got, call())
@@ -1115,10 +1225,11 @@ def step_check(rec, label, cfg, tp, inputs, tol, control=False):
     ph, pl, _, _ = ft.talker_step_fused_plain(tp, cfg, x, pos, slot, kv_len,
                                               vf, kc, vc)
     want_slots = [kc[:, rows, :, sl], vc[:, rows, :, sl]]
+    name = "talker_step_b17_32" if B > ft.WIDE_B else "talker_step"
     for what, a, b in (("hidden", h, ph), ("logits", lg, pl),
                        ("k slot", got_slots[0], want_slots[0]),
                        ("v slot", got_slots[1], want_slots[1])):
-        rec.check("talker_step", a, b, f"{label} {what}",
+        rec.check(name, a, b, f"{label} {what}",
                   quiet=what.endswith("slot"), **tol)
     if not control:
         return
@@ -1136,9 +1247,12 @@ def step_check(rec, label, cfg, tp, inputs, tol, control=False):
 
 def phase_kernels_step(rec: Record):
     """The talker step kernel (`csrc/talker_step.cu`) against its plain
-    version `talker_step_fused_plain` (`step_check`), at B = 1, 2 and
-    MAX_B, ~100 live slots of a 256-slot window and >= 2048 of a 4096-slot
-    cache (a small f32 talker: 300 of 512):
+    version `talker_step_fused_plain` (`step_check`), at B = 1, 2 and 16,
+    ~100 live slots of a 256-slot window and >= 2048 of a 4096-slot cache
+    (a small f32 talker: 300 of 512), and at B = 17, 24 and MAX_B (32) with
+    the 1024-slot window (~700 live) and the 4096-slot cache (the full f32
+    group the window alone: its 4096-slot cache would not fit beside its
+    copies; the tiny and small talkers their 512 slots):
 
       * f32, rtol/atol 1e-4: the tiny config (dense, int8), the small
         int4-capable talker (int4), and the full width AND depth (28 x
@@ -1151,7 +1265,8 @@ def phase_kernels_step(rec: Record):
         beside it and a control that must exceed the limit (the plain step
         without its last layer; `step_check`).
 
-    Repeats and two CUDA-graph replays bit-identical to the eager call."""
+    Repeats and two CUDA-graph replays bit-identical to the eager call.
+    Rows past 16 count as `talker_step_b17_32` in max_abs_err."""
     import dataclasses
 
     import torch
@@ -1161,33 +1276,48 @@ def phase_kernels_step(rec: Record):
     from qwen3_tts_tpu_torch.tools import frame_measure as fm
 
     tiny = tiny_engine_config().talker
-    small4 = dataclasses.replace(tiny, hidden=256, n_q_heads=2, n_kv_heads=2,
-                                 head_dim=128, ffn_dim=256,
-                                 mrope_sections=(32, 16, 16, 0))
+    small4 = dataclasses.replace(tiny, mrope_sections=(32, 16, 16, 0),
+                                 **SMALL4)
     full = EngineConfig().talker
+    full32 = dataclasses.replace(full, dtype="float32")
     f32 = dict(rtol=1e-4, atol=1e-4)
-    batches = sorted({1, 2, ft.MAX_B})
+    batches = (1, 2, ft.WIDE_B, 17, 24, ft.MAX_B)
     windows = ((256, 100), (4096, 2100))
-    groups = [("tiny f32", tiny, ("dense", "int8"), ((512, 100),), f32,
-               False, batches),
-              ("small f32", small4, ("int4",), ((512, 300),), f32, False,
-               batches),
-              ("full f32", dataclasses.replace(full, dtype="float32"),
-               ("dense", "int8", "int4"), windows, f32, False, batches),
+    wide = ((1024, 700), (4096, 2100))
+    kinds = ("dense", "int8", "int4")
+    # (label, config, kinds, windows at B <= 16, at B > 16, tolerance,
+    # control)
+    groups = [("tiny f32", tiny, ("dense", "int8"), ((512, 100),),
+               ((512, 100),), f32, False),
+              ("small f32", small4, ("int4",), ((512, 300),), ((512, 300),),
+               f32, False),
+              ("full f32", full32, kinds, windows, wide[:1], f32, False),
               ("full bf16 2 layers", dataclasses.replace(full, n_layers=2),
-               ("dense", "int8", "int4"), windows, dict(rel=8e-3), False,
-               batches),
-              ("full bf16", full, ("dense", "int8", "int4"), windows,
-               dict(rel=FULL_DEPTH_REL), True, batches)]
-    seed = 100
-    for what, cfg, kinds, wins, tol, control, bs in groups:
+               kinds, windows, wide, dict(rel=8e-3), False),
+              ("full bf16", full, kinds, windows, wide,
+               dict(rel=FULL_DEPTH_REL), True)]
+    gb = 2 * full.n_layers * ft.MAX_B * full.n_kv_heads * 4096 \
+        * full.head_dim * 4 / 1e9
+    log(f"  {'talker_step':16s} full f32 at B > {ft.WIDE_B}: the 1024-slot "
+        f"window only (a 4096-slot f32 cache is {gb:.1f} GB at B = "
+        f"{ft.MAX_B}, and the check holds two, beside the f32 weights and "
+        "the kernel's copies of them)")
+    # seeds: B <= 16 the sequence they always had, B > 16 a stream of
+    # their own
+    seed, wide_seed = 100, 1000
+    for what, cfg, kinds, wins, wins_wide, tol, control in groups:
         for kind in kinds:
             seed += 10
             tp = fm.step_weights(cfg, kind, seed)
-            for B in bs:
-                for T, live in wins:
-                    seed += 1
-                    inputs = fm.step_inputs(cfg, B, T, live, seed)
+            for B in batches:
+                for T, live in wins if B <= ft.WIDE_B else wins_wide:
+                    if B <= ft.WIDE_B:
+                        seed += 1
+                    else:
+                        wide_seed += 1
+                    inputs = fm.step_inputs(cfg, B, T, live,
+                                            seed if B <= ft.WIDE_B
+                                            else wide_seed)
                     label = f"{what} {kind} B={B} T={T} live~{live}"
                     step_check(rec, label, cfg, tp, inputs, tol, control)
                     x, pos, slot, kv_len, vf, kc, vc = inputs
@@ -1391,15 +1521,17 @@ def agree_run(eng, models, label, predictor=True):
 
 
 def fused_per_frame(cfg) -> dict:
-    """Launches a frame on the kernel routes (the talker at B <= its
-    MAX_B, a dense or int8 predictor at B <= its ROUTE_MAX_B): the talker
-    step kernel once and the predictor frame kernel once, and none of the
-    chain's launches: no gemv, decode attention, standalone rms_norm, fused
-    piece, KV store or copy, or argmax_gather."""
+    """Launches a frame on the kernel routes at B <= 16 with a dense or
+    int8 predictor (the talker at B <= its ROUTE_MAX_B, the predictor at
+    B <= its): the talker step kernel once and the predictor frame kernel
+    once, and none of the chain's launches: no gemv, decode attention,
+    standalone rms_norm, fused piece, KV store or copy, or argmax_gather
+    (`route_per_frame` for any other batch or weights)."""
     return {"talker_step": 1, "predictor_frame": 1, "gemv_all": 0,
             "decode_attention": 0, "rms_norm": 0, "rms_norm_gemv": 0,
             "qk_rope_gemv": 0, "silu_gemv": 0, "kv_store_gemv": 0,
-            "talker_kv_copy": 0, "argmax_gather": 0}
+            "talker_kv_copy": 0, "argmax_gather": 0,
+            "talker_step_b17_32": 0, "predictor_frame_int4": 0}
 
 
 def chain_per_frame(cfg, predictor_kernel: bool) -> dict:
@@ -1415,7 +1547,8 @@ def chain_per_frame(cfg, predictor_kernel: bool) -> dict:
     n = {"talker_step": 0, "predictor_frame": 1, "gemv_all": 4 * Lt + 1,
          "decode_attention": Lt, "rms_norm": 1, "rms_norm_gemv": 2 * Lt,
          "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
-         "talker_kv_copy": 2, "argmax_gather": 0}
+         "talker_kv_copy": 2, "argmax_gather": 0,
+         "talker_step_b17_32": 0, "predictor_frame_int4": 0}
     if not predictor_kernel:
         passes, heads = 16, 15
         n.update(predictor_frame=0, argmax_gather=heads,
@@ -1433,19 +1566,26 @@ def reset_counts() -> None:
     from qwen3_tts_tpu_torch.ops import chain, fused_predictor, fused_talker
     chain.reset_launch_counts()
     fused_predictor.predictor_frame_kernel.launches = 0
+    fused_predictor.predictor_frame_kernel.launches_int4 = 0
     fused_talker.talker_step_kernel.launches = 0
+    fused_talker.talker_step_kernel.launches_wide = 0
     fused_talker.talker_step_fused.kv_copies = 0
 
 
 def launch_counts() -> dict:
     """`chain.launch_counts()`, the step kernels' launches
-    (`predictor_frame`, `talker_step`), the talker chain's cache copies
-    (`talker_kv_copy`) and the gemv launches of every weight kind
-    (`gemv_all`)."""
+    (`predictor_frame`, `talker_step`; of those, the int4 frames and the
+    steps of 17-32 rows, `predictor_frame_int4`, `talker_step_b17_32`),
+    the talker chain's cache copies (`talker_kv_copy`) and the gemv
+    launches of every weight kind (`gemv_all`)."""
     from qwen3_tts_tpu_torch.ops import chain, fused_predictor, fused_talker
     counts = chain.launch_counts()
-    counts["predictor_frame"] = fused_predictor.predictor_frame_kernel.launches
-    counts["talker_step"] = fused_talker.talker_step_kernel.launches
+    frame, step = (fused_predictor.predictor_frame_kernel,
+                   fused_talker.talker_step_kernel)
+    counts["predictor_frame"] = frame.launches
+    counts["predictor_frame_int4"] = frame.launches_int4
+    counts["talker_step"] = step.launches
+    counts["talker_step_b17_32"] = step.launches_wide
     counts["talker_kv_copy"] = fused_talker.talker_step_fused.kv_copies
     counts["gemv_all"] = sum(counts[k] for k in ("gemv", "gemv_int8",
                                                  "gemv_int4"))
@@ -1531,24 +1671,32 @@ def phase_main(eng, rec: Record, q48, q88):
                                    [voice, voice]), STEPS, fused)
     for i, a in enumerate(pair):
         check_wav(f"dense bf16 B=2 row {i}", a.samples, 32)
-    def chain_run(e, label, gemv, nb=ft.MAX_B + 1):
-        """generate_batch of nb rows past the step kernel's batch limit, 4
-        frames: the talker keeps its chain (ops/fused_talker.py
-        talker_route), with the chains' launches a frame (the predictor's
-        as ops/fused_predictor.py frame_route takes it); `gemv`, the
-        weight kinds' gemv."""
-        kern = fp.frame_route(e.models["predictor"], nb) == fp.KERNEL
+    def batch_run(e, label, gemv, nb):
+        """generate_batch of nb rows, 4 frames, with the launches a frame
+        of the routes ops/fused_talker.py talker_route and
+        ops/fused_predictor.py frame_route take at nb (`route_per_frame`):
+        each kernel with a count a frame there must launch; `gemv`, the
+        weight kinds' gemv where a chain runs."""
+        per = route_per_frame(e.config, e.models, nb)
+        need = tuple(k for k, n in per.items() if n > 0 and k not in (
+            "gemv_all", "talker_kv_copy")) + (gemv if per["gemv_all"] else ())
+        talker = "talker step kernel" if per["talker_step"] else \
+            "talker chain"
         e.set_max_steps(4)
         rows = run_main_path(
-            rec, f"{label} B={nb} generate_batch (talker chain)",
+            rec, f"{label} B={nb} generate_batch ({talker})",
             lambda: e.generate_batch([f"Row {i}: {TEXT}" for i in range(nb)],
-                                     [voice] * nb),
-            gemv + ("decode_attention", "rms_norm") + FUSED,
-            chain_per_frame(e.config, kern))
+                                     [voice] * nb), need, per)
         for i, a in enumerate(rows):
             check_wav(f"{label} B={nb} row {i}", a.samples, 4)
 
-    chain_run(eng, "dense bf16", ("gemv",))
+    # past 16 rows: the talker's kernel where its route takes the batch
+    # (B = 17-32), the predictor's chain (the frame kernel stops at 16, as
+    # the TPU's), then past the talker's route limit, where that is below
+    # the batch cap (32, the chain's gemv's too), its chain as well
+    batch_run(eng, "dense bf16", ("gemv",), ft.WIDE_B + 1)
+    if ft.ROUTE_MAX_B["dense"] < ft.MAX_B:
+        batch_run(eng, "dense bf16", ("gemv",), ft.ROUTE_MAX_B["dense"] + 1)
 
     # the JAX bench's headline rung: talker int4, predictor int8; the int4
     # prefill is plain (qmatmul4, as in JAX) and the predictor has no
@@ -1565,32 +1713,39 @@ def phase_main(eng, rec: Record, q48, q88):
                                    [voice, voice]), need48, fused)
     for i, a in enumerate(pair):
         check_wav(f"int4+int8 B=2 row {i}", a.samples, 32)
-    # int4 talker weights keep the chain past INT4_MAX_B rows, and past
-    # MAX_B (the predictor takes the route its frame_route gives)
-    chain_run(e48, "int4+int8", ("gemv_int4",), ft.INT4_MAX_B + 1)
-    chain_run(e48, "int4+int8", ("gemv_int4", "gemv_int8"))
+    # int4 talker weights keep the chain past their route's limit (8 rows),
+    # and at the batch cap (the predictor takes the route its frame_route
+    # gives: its chain past 16 rows)
+    batch_run(e48, "int4+int8", ("gemv_int4",), ft.ROUTE_MAX_B["int4"] + 1)
+    batch_run(e48, "int4+int8", ("gemv_int4", "gemv_int8"), ft.MAX_B)
 
     # the second rung, int8/int8: the talker prefill runs kernel A
     e88 = TtsEngine(config=eng.config, weights=(q88, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
     engine_runs(e88, "int8/int8", 16, ("qmatmul",) + STEPS)
-    chain_run(e88, "int8/int8", ("gemv_int8",))
-    # an int4 predictor keeps the chain (ops/fused_predictor.py
-    # frame_route): B4 for its products, decode attention, the KV stores,
-    # argmax_gather; no frame kernel
+    if ft.ROUTE_MAX_B["int8"] < ft.MAX_B:
+        batch_run(e88, "int8/int8", ("gemv_int8",),
+                  ft.ROUTE_MAX_B["int8"] + 1)
+    # an int4 predictor (all five weights int4): its frame kernel once a
+    # frame where ops/fused_predictor.py frame_route takes B = 1 (its
+    # ROUTE_MAX_B["int4"] >= 1), the int4 talker's step kernel beside it
     q44 = quantized_models(eng.models, "int4", "int4")
     e44 = TtsEngine(config=eng.config, weights=(q44, eng.vocoder_params),
                     speakers_dir=spk, device="cuda")
     e44.set_max_steps(8)
     e44.set_sampler_config(SamplerConfig(seed=0))
+    per44 = route_per_frame(e44.config, e44.models, 1)
+    route44 = "frame kernel" if per44["predictor_frame"] else \
+        "predictor chain"
+    log(f"  int4/int4 B=1: the predictor's {route44} (ROUTE_MAX_B['int4'] "
+        f"= {fp.ROUTE_MAX_B['int4']})")
     audio = run_main_path(
-        rec, "int4/int4 (predictor chain) B=1 generate_with_voice",
+        rec, f"int4/int4 ({route44}) B=1 generate_with_voice",
         lambda: e44.generate_with_voice(TEXT, voice),
-        ("gemv_int4", "decode_attention", "kv_store_gemv", "argmax_gather",
-         "talker_step") + FUSED)
+        tuple(k for k, n in per44.items() if n > 0 and k not in (
+            "gemv_all", "talker_kv_copy"))
+        + (("gemv_int4",) if per44["gemv_all"] else ()), per44)
     check_wav("int4/int4 B=1", audio.samples, 8)
-    if launch_counts()["predictor_frame"]:
-        fail("int4/int4: the int4 predictor launched the frame kernel")
     del e48, e88, e44, q44
     reset_counts()
 
@@ -2424,8 +2579,7 @@ def frame_bytes_ops(params, cfg, B):
             head = n * (nb - 1) // nb
         else:
             stack += n
-    elt = 1 if isinstance(params["head"], dict) else \
-        params["head"].element_size()
+    elt = 2 if cfg.dtype == "bfloat16" else 4          # ptab's rows
     n_b = nb * stack + head + (nb - 1) * B * cfg.hidden * elt \
         + B * cfg.hidden * 4 + B * 4 + B * nb * 4
     K_N = sum(K * N for K, N in fp.stage_shapes(cfg).values()
@@ -2439,17 +2593,18 @@ def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
     CUDA-graph replay: the cooperative launch captures; and by the
     profiler) against its bound and the chain it replaces (`_frame` over
     the chain's kernels, ~670 launches; the kernels' device time in a
-    profiler trace, so host cost drops out), dense bf16 and int8 at each B
-    of `batches`, on the device (`fused_predictor.ROUTE_MAX_B` comes from
-    the end-to-end times, `tools/frame_measure.py route predictor`). The
-    plain version (profiler) at the first B. Dense at the first B is the
-    JSON line's entry; no single PyTorch call computes a frame."""
+    profiler trace, so host cost drops out), dense bf16, int8 and int4 at
+    each B of `batches`, on the device (`fused_predictor.ROUTE_MAX_B` comes
+    from the end-to-end times, `tools/frame_measure.py route predictor`).
+    The plain version (profiler) at the first B. Dense and int4 at the
+    first B are the JSON line's `predictor_frame` and
+    `predictor_frame_int4`; no single PyTorch call computes a frame."""
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.ops import chain
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
 
     cfg = EngineConfig().predictor
-    for kind in ("dense", "int8"):
+    for kind in ("dense", "int8", "int4"):
         for B in batches:
             pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
             args = (pp, cfg, ptab, rows, h, c0)
@@ -2468,19 +2623,20 @@ def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
                 plain_fn()
                 plain = profiled_device_ms(plain_fn, 1)
             n_b, ops = frame_bytes_ops(pp, cfg, B)
-            b_ms, b_by = bound(n_b, ops, "int8" if kind == "int8"
-                               else "bf16")
+            b_ms, b_by = bound(n_b, ops, "bf16" if kind == "dense"
+                               else "int8")
             log(f"  {'predictor_frame':16s} {f'full {kind} B={B}, a frame':44s}"
                 f" device: kernel {ms:.4f} ms (graph replay; profiler "
                 f"{_fmt4(prof)}), the chain it replaces {_fmt4(ch)} ms, "
                 f"plain {_fmt4(plain)} ms (profiler), bound {b_ms:.4f} ms "
                 f"({b_by}, {b_ms / ms:.1%} of it; {n_b / 1e9:.3f} GB) on "
                 f"{card}")
-            if kind == "dense" and B == batches[0]:
-                rec.ms["predictor_frame"], rec.plain_ms["predictor_frame"] = \
-                    ms, plain
-                rec.library_ms["predictor_frame"] = None
-                rec.bound["predictor_frame"] = (b_ms, b_by)
+            name = {"dense": "predictor_frame",
+                    "int4": "predictor_frame_int4"}.get(kind)
+            if name is not None and B == batches[0]:
+                rec.ms[name], rec.plain_ms[name] = ms, plain
+                rec.library_ms[name] = None
+                rec.bound[name] = (b_ms, b_by)
             del pp, args
 
 
@@ -2520,14 +2676,16 @@ def kernel_copy_bytes(params, cfg) -> int:
     return n
 
 
-def step_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
+def step_kernel_times(rec: Record, card: str,
+                      batches=(1, 2, 4, 8, 16, 17, 24, 32)):
     """The talker step kernel at full width, T = 256 with ~100 live slots
     (the offline window): device ms a step by CUDA-graph replay (and the
     profiler) against its bound, the chain it replaces (`_step` over the
     chain's kernels, ~142 launches; profiler) and its plain version
-    (profiler), dense bf16, int8 and int4, at each B of `batches`: the
-    measurement behind MAX_B. Dense B = 1 is the JSON line's entry; no
-    single PyTorch call computes a step."""
+    (profiler), dense bf16, int8 and int4, at each B of `batches` (the
+    route's limits come from the end-to-end times, `tools/frame_measure.py
+    route`). Dense B = 1 is the JSON line's `talker_step`, dense B = 32
+    its `talker_step_b17_32`; no single PyTorch call computes a step."""
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.ops import chain
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
@@ -2565,10 +2723,11 @@ def step_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
                 log(f"  {'talker_step':16s} {f'full {kind} weights':44s} the "
                     f"kernel's copies {kernel_copy_bytes(tp, cfg) / 1e9:.3f} GB "
                     f"of device memory beside {w_b / 1e9:.3f} GB of weights")
-            if kind == "dense" and B == 1:
-                rec.ms["talker_step"], rec.plain_ms["talker_step"] = ms, plain
-                rec.library_ms["talker_step"] = None
-                rec.bound["talker_step"] = (b_ms, b_by)
+            name = {1: "talker_step", 32: "talker_step_b17_32"}.get(B)
+            if kind == "dense" and name is not None:
+                rec.ms[name], rec.plain_ms[name] = ms, plain
+                rec.library_ms[name] = None
+                rec.bound[name] = (b_ms, b_by)
             del tp, args, kc, vc
 
 
@@ -3684,7 +3843,10 @@ def route_per_frame(cfg, models, B) -> dict:
     """Launches a frame at batch B on the routes `talker_route` and
     `frame_route` take: `fused_per_frame` where both take their kernel,
     `chain_per_frame` where the talker takes its chain, and where only the
-    talker takes its kernel, the predictor's chain beside one talker_step."""
+    talker takes its kernel, the predictor's chain beside one talker_step;
+    `talker_step_b17_32` once where the talker's kernel takes more than 16
+    rows, `predictor_frame_int4` once where the frame kernel takes int4
+    weights."""
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
     talker = ft.talker_route(models["talker"], B) == ft.KERNEL
@@ -3698,6 +3860,9 @@ def route_per_frame(cfg, models, B) -> dict:
                         ("talker_kv_copy", 2)):
             n[k] -= less
         n["talker_step"] = 1
+        n["talker_step_b17_32"] = int(B > ft.WIDE_B)
+    n["predictor_frame_int4"] = int(
+        predictor and fp.weight_kind(models["predictor"]["head"]) == "int4")
     return n
 
 

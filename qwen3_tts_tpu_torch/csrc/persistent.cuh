@@ -1,7 +1,7 @@
 // Device helpers shared by the persistent kernels (predictor_frame.cu,
 // talker_step.cu): mbarriers and TMA bulk copies, the atomics of the
-// talker's split and head counters, the counting grid barrier, and the
-// 8-wide shared-memory weight loads.
+// talker's split and head counters, the counting grid barrier, the 8-wide
+// shared-memory weight loads and the int4 product of a ring chunk.
 
 #pragma once
 
@@ -224,6 +224,83 @@ __device__ __forceinline__ Raw<__nv_bfloat16> ld_sm(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ Raw<int8_t> ld_sm(const int8_t* p) {
   return {*reinterpret_cast<const uint2*>(p)};
+}
+
+// x values k and k + 1 of a staged row (k even), one load: the two weight
+// rows of an int4 packed row
+__device__ __forceinline__ float2 x_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 x_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+constexpr int kG4Rows = kGroup4 / 2;     // packed int4 rows of a group
+
+// The int4 product of one ring chunk (talker_step.cu, predictor_frame.cu),
+// the weights' rows paired in a byte (ops/fused_predictor.py pair_int4: row
+// 2r low nibble, 2r + 1 high): a warp takes the chunk's groups of 64 packed
+// rows in turn (kWarps warps), a lane two of a group's packed rows (weight
+// rows k .. k + 3, x from the staged rows xs); the lane's dot with the
+// biased nibbles less 8 (exact in f32, gemv.cuh unpack4), then times the
+// group's multiplier once, in f32, into the unit sums v[(ub kMT + m) 8 + j].
+// Unit ub's packed rows at vals + ub rn 8, its multipliers at mul + ub rn /
+// 8; loads first, without branches: past nub the last unit again (its sums
+// are never stored).
+template <typename T, int kMT, int kUB, int kAcc, int kWarps>
+__device__ __forceinline__ void int4_chunk(const unsigned char* vals,
+                                           const unsigned char* mul, int rn,
+                                           int nub, const T* xs, int K,
+                                           int r0, float (&v)[kAcc]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ustride = rn * kVec;
+  const int ng = rn / kG4Rows;
+  for (int gi = warp; gi < ng; gi += kWarps) {
+    float dd[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) dd[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pr = gi * kG4Rows + h * 32 + lane;
+      const int k = 2 * (r0 + pr);              // weight rows k, k + 1
+      uint2 q[kUB];
+#pragma unroll
+      for (int ub = 0; ub < kUB; ++ub)
+        q[ub] = *reinterpret_cast<const uint2*>(
+            vals + min(ub, nub - 1) * ustride + pr * kVec);
+      float2 xv[kMT];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) xv[m] = x_pair(xs + m * K + k);
+#pragma unroll
+      for (int ub = 0; ub < kUB; ++ub) {
+        float lo[kVec], hi[kVec];
+        unpack4(q[ub].x, lo, hi);
+        unpack4(q[ub].y, lo + 4, hi + 4);
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            float& acc = dd[(ub * kMT + m) * kVec + j];
+            acc = fmaf(xv[m].x, lo[j], acc);
+            acc = fmaf(xv[m].y, hi[j], acc);
+          }
+      }
+    }
+#pragma unroll
+    for (int ub = 0; ub < kUB; ++ub) {
+      float mf[kVec];
+      m8_cvt(*reinterpret_cast<const uint2*>(
+                 mul + min(ub, nub - 1) * (rn / 8) + gi * kVec),
+             mf);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const int i = (ub * kMT + m) * kVec + j;
+          v[i] = fmaf(dd[i], mf[j], v[i]);
+        }
+    }
+  }
 }
 
 __device__ __forceinline__ void store_x(float* p, float v) { *p = v; }

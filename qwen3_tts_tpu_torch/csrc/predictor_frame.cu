@@ -22,7 +22,8 @@
 //
 // Bound: weight bytes. A pass reads the 8 layers' weights once (27.3 MB in
 //   bf16 at the full predictor width), a head slice 4.2 MB: 3.55 GB a frame
-//   dense bf16, 1.06 ms at 3.35 TB/s; half of it int8. At B <= 16 each
+//   dense bf16, 1.06 ms at 3.35 TB/s; half of it int8, about a quarter
+//   int4 (its multipliers a 64th more). At B <= 16 each
 //   weight element is used B times, far below the tensor cores' balance
 //   point. What a frame pays on top is latency: 527 dependent stages, each
 //   a grid barrier, its first activation loads and its epilogue (measured
@@ -89,13 +90,26 @@
 //     (three warps share an SM sub-partition's register file): attention
 //     loads its cached keys and values in two rounds, and ~360 bytes a
 //     thread spill to local memory.
+//   * int4, the step kernel's machinery (talker_step.cu): the kernel's copy
+//     pairs adjacent rows in a byte (ops/fused_predictor.py pair_int4: row
+//     2r low nibble, 2r + 1 high) and keeps each unit's multipliers [K /
+//     128, 8] in its own rows; the producer copies a chunk's multipliers
+//     with its rows (whole pairs of groups) into the buffer's last 64th,
+//     which int4 adds to each ring buffer. A warp takes a group of a chunk
+//     (64 packed rows), a lane two of its packed rows; the lane's dot of
+//     the group with the biased nibbles less 8 (exact in f32, gemv.cuh
+//     unpack4) is multiplied by the group's multiplier once, in f32, and
+//     the column scale comes in the epilogue. All five weights int4 or none
+//     (the TPU kernel gates on wqkv alone; quantize_decoder_params makes
+//     all five): the host routes a mix to the chain, the kernel refuses it.
 //   * x rows: a row pass stages up to kMT rows (1, 2, 4, or 8 in bf16 and
-//     4 in f32; B > kMT takes ceil(B / kMT) passes over a stage, its
-//     weights streamed once a pass) in shared memory in T after their
-//     prologue (every product's input is a T-rounded value, so this is
-//     exact); a thread holds kMT * 8 sums for each unit of a batch (32 or
-//     64), reduced through one warp reduce-scatter per 32 sums and the
-//     warps in order.
+//     4 in f32; at most 4 with int4 weights, kFMaxMT4, whose group sums a
+//     lane holds beside the stage's; B > kMT takes ceil(B / kMT) passes
+//     over a stage, its weights streamed once a pass) in shared memory in T
+//     after their prologue (every product's input is a T-rounded value, so
+//     this is exact); a thread holds kMT * 8 sums for each unit of a batch
+//     (32 or 64), reduced through one warp reduce-scatter per 32 sums and
+//     the warps in order.
 //   * A trace, compiled in only with -DKERNEL_TRACE (persistent.cuh
 //     kTrace) and on when args.trace is set: every block's consumer thread
 //     0 writes %globaltimer at each grid barrier's arrival and release,
@@ -105,10 +119,13 @@
 //     in those builds only, cuts the products out (kNoWork: no copies, no
 //     sums; what is left is barriers, prologues and epilogues).
 // Scope: T = float or bf16; each of the five weights dense in T or int8
-//   with an f32 per-column scale (mixed kinds too); 1 <= B <= 16; hd a
-//   power of two in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, CV
-//   multiples of 8. int4 weights keep the chain (ops/fused_predictor.py
-//   frame_route).
+//   with an f32 per-column scale (mixed kinds too), or all five int4
+//   (biased nibbles, an int8 multiplier per 128-row group and column, an
+//   f32 column scale: per group (x . (nib - 8)) * m8 in f32, then the
+//   column scale, the order of ops/quant.py panel_matmul4_plain up to the
+//   order of the sums; H, F and nq * hd multiples of 256); 1 <= B <= 16
+//   (the TPU kernel's `max_b`); hd a power of two in [8, 128]; nq / nk <=
+//   4; H <= 2048; H, F, nq * hd, CV multiples of 8.
 
 #include "persistent.cuh"
 
@@ -120,12 +137,14 @@ constexpr int kFBlock = kFThreads + 32;  // + the producer warp
 constexpr int kUnit = 8;                 // columns of a unit
 constexpr int kFMaxB = 16;
 constexpr int kFMaxMT = 8;
+constexpr int kFMaxMT4 = 4;              // x rows a pass with int4 weights
 constexpr int kCodes = 16;               // protocol.NUM_CODEBOOKS
 constexpr int kFMaxG = 4;                // q heads per kv head
 constexpr int kFMaxHd = 128;
 constexpr int kXPer = 8;                 // norm inputs a thread holds
 constexpr int kFRing = 6;                // ring buffers
 enum { kQkv = 0, kWo = 1, kGu = 2, kDown = 3, kHead = 4 };
+enum { kDense = 0, kInt8 = 1, kInt4 = 2 };
 // args.mode bits (-DKERNEL_TRACE builds only)
 enum { kNoWork = 1 };
 // trace words (tools/frame_measure.py trace), a block's kTrStride words
@@ -153,8 +172,9 @@ __host__ __device__ constexpr int frame_barriers(int L) {
 
 // ops/fused_predictor.py _FrameArgs, field for field.
 struct FrameArgs {
-  const void* w[5];       // packed [L, N / 8, K, 8] (head [16 CV / 8, H, 8])
-  const float* sc[5];     // int8 column scales [L, N] / [16 * CV]; null dense
+  const void* w[5];       // packed [L, N / 8, Kp, 8] (head [16 CV / 8, Kp, 8])
+  const int8_t* m8[5];    // int4: multipliers [L, N / 8, K / 128, 8]; else null
+  const float* sc[5];     // column scales [L, N] / [16 * CV]; null dense
   const void* ln1;        // [L, H] T
   const void* ln2;        // [L, H] T
   const void* q_norm;     // [L, hd] T
@@ -174,6 +194,7 @@ struct FrameArgs {
   float* part_v;          // [nb, B] the head's per-block partials
   int* part_i;
   unsigned long long* bar;  // the grid barrier's arrival count
+  int kind[5];            // kDense, kInt8, kInt4
   int B, H, L, nq, nk, hd, F, CV, R, rows0;
   int chunk;              // bytes of a ring buffer
   int mode;               // kNoWork (trace builds only)
@@ -205,12 +226,13 @@ __device__ __forceinline__ int unit_owner(int x, int U, int nb) {
                           static_cast<unsigned>(U));
 }
 
-// A weight stage in the packed layout: its x width K, columns N, the bytes
-// of a unit row (8 columns), the element offsets of its layer (or head
-// slice) in the values and the scales, the block's units [u0, u0 + nu).
+// A weight stage in the packed layout: its x width K, packed rows Kp (K /
+// 2 for int4), columns N, the bytes of a unit row (8 columns), the element
+// offsets of its layer (or head slice) in the values, the scales and the
+// int4 multipliers, the block's units [u0, u0 + nu).
 struct FGeom {
-  int mat, layer, slice, K, N, wb, u0, nu;
-  long long off, soff;
+  int mat, layer, slice, kind, K, Kp, N, wb, u0, nu;
+  long long off, soff, moff;
 };
 
 template <typename T>
@@ -227,9 +249,12 @@ __device__ __forceinline__ FGeom geom(const FrameArgs& a, int mat, int layer,
     case kDown: d.K = a.F; d.N = a.H; break;
     default: d.K = a.H; d.N = a.CV; break;
   }
-  d.wb = kUnit * (a.sc[mat] != nullptr ? 1 : static_cast<int>(sizeof(T)));
+  d.kind = a.kind[mat];
+  d.Kp = d.kind == kInt4 ? d.K / 2 : d.K;
+  d.wb = kUnit * (d.kind == kDense ? static_cast<int>(sizeof(T)) : 1);
   d.soff = static_cast<long long>(mat == kHead ? slice : layer) * d.N;
-  d.off = d.soff * d.K;
+  d.off = d.soff * d.Kp;
+  d.moff = d.soff * (d.K / kGroup4);
   const int U = d.N / kUnit;
   d.u0 = unit_lo(U, blockIdx.x, gridDim.x);
   d.nu = unit_lo(U, blockIdx.x + 1, gridDim.x) - d.u0;
@@ -264,11 +289,19 @@ __host__ __device__ constexpr int f_units_a_batch(int mt) {
 }
 
 // rows of a chunk of a batch of nub units: as many as `chunk` bytes hold,
-// even (whole 16-byte copies), at most K (ops/fused_predictor.py
-// chunk_rows)
+// even (whole 16-byte copies); with int4 whole pairs of groups (128 packed
+// rows: the group's multipliers are 16 bytes a unit); at most Kp
+// (ops/fused_predictor.py chunk_rows)
 __device__ __forceinline__ int f_chunk_rows(int chunk, int nub, int wb,
-                                            int K) {
-  return min(K, (chunk / (nub * wb)) & ~1);
+                                            int Kp, bool i4) {
+  return min(Kp, (chunk / (nub * wb)) & (i4 ? ~127 : ~1));
+}
+
+// bytes of a ring buffer: `chunk` bytes of values, then with int4 weights
+// the chunk's multipliers (8 bytes a group of 64 packed rows and unit: a
+// 64th of the values' bytes; ops/fused_predictor.py ring_bytes)
+__host__ __device__ inline int f_buf(const FrameArgs& a) {
+  return a.chunk + (a.kind[0] == kInt4 ? a.chunk / 64 : 0);
 }
 
 // ---------------------------------------------------------------- smem
@@ -291,7 +324,7 @@ __host__ __device__ inline int fixed_smem(int mt, int kmax, int hd,
 
 template <typename T, int kMT>
 struct Smem {
-  unsigned char* ring;          // [kFRing][chunk]
+  unsigned char* ring;          // [kFRing][f_buf]
   unsigned long long* full;     // [kFRing]
   unsigned long long* empty;    // [kFRing]
   unsigned long long* tsum;     // [kTrSums] the trace's sums
@@ -311,7 +344,7 @@ template <typename T, int kMT>
 __device__ Smem<T, kMT> carve(unsigned char* base, const FrameArgs& a) {
   Smem<T, kMT> s;
   s.ring = base;
-  unsigned char* p = base + kFRing * a.chunk;
+  unsigned char* p = base + kFRing * f_buf(a);
   s.full = reinterpret_cast<unsigned long long*>(p);
   s.empty = s.full + kFRing;
   p += 2 * kFRing * 8;
@@ -385,20 +418,24 @@ struct FrameWalk {
     g = static_cast<const char*>(a->w[d.mat]) + d.off * (d.wb / kUnit);
     done = false;
   }
+  __device__ bool i4() const { return d.kind == kInt4; }
   __device__ int nub() const { return min(kUB, d.nu - ul); }
   __device__ int rows() const {
-    return f_chunk_rows(a->chunk, nub(), d.wb, d.K);
+    return f_chunk_rows(a->chunk, nub(), d.wb, d.Kp, i4());
   }
-  // bytes of each unit's copy of the chunk, and unit i's source
-  __device__ unsigned bytes() const {
-    return static_cast<unsigned>(min(rows(), d.K - r0) * d.wb);
-  }
+  // the chunk's rows, and unit i's sources: values, int4 multipliers
+  __device__ int rn() const { return min(rows(), d.Kp - r0); }
   __device__ const char* src(int i) const {
-    return g + (static_cast<long long>(d.u0 + ul + i) * d.K + r0) * d.wb;
+    return g + (static_cast<long long>(d.u0 + ul + i) * d.Kp + r0) * d.wb;
+  }
+  __device__ const int8_t* msrc(int i) const {
+    return a->m8[d.mat] + d.moff +
+           (static_cast<long long>(d.u0 + ul + i) * (d.K / kGroup4) +
+            r0 / kG4Rows) * kUnit;
   }
   __device__ void advance() {
     r0 += rows();
-    if (r0 < d.K) return;
+    if (r0 < d.Kp) return;
     r0 = 0;
     ul += kUB;
     if (ul < d.nu) return;
@@ -410,7 +447,8 @@ struct FrameWalk {
 
 // The producer (lane 0 of the block's last warp): every chunk of the frame
 // in the consumers' order, each into ring buffer ci % kFRing once the
-// consumers have released its last use.
+// consumers have released its last use: unit i's rows at i rn wb, int4's
+// multipliers at chunk + i rn / 8.
 template <typename T, int kMT>
 __device__ void produce(const FrameArgs& a, const Smem<T, kMT>& sm) {
   if (no_work(a)) return;
@@ -427,13 +465,18 @@ __device__ void produce(const FrameArgs& a, const Smem<T, kMT>& sm) {
       if (tb != nullptr) waited += global_ns() - t0;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const unsigned bytes = fw.bytes();
-    const int nub = fw.nub();
-    mbar_expect(sm.full + b, bytes * nub);
-    unsigned char* dst = sm.ring + static_cast<long long>(b) * a.chunk;
-    for (int i = 0; i < nub; ++i)
-      bulk_copy(dst + static_cast<long long>(i) * bytes, fw.src(i), bytes,
+    const int rn = fw.rn(), nub = fw.nub();
+    const bool i4 = fw.i4();
+    const unsigned vb = static_cast<unsigned>(rn * fw.d.wb);
+    const unsigned mb = i4 ? static_cast<unsigned>(rn / 8) : 0u;
+    mbar_expect(sm.full + b, (vb + mb) * nub);
+    unsigned char* dst = sm.ring + static_cast<long long>(b) * f_buf(a);
+    for (int i = 0; i < nub; ++i) {
+      bulk_copy(dst + static_cast<long long>(i) * vb, fw.src(i), vb,
                 sm.full + b);
+      if (i4)
+        bulk_copy(dst + a.chunk + i * mb, fw.msrc(i), mb, sm.full + b);
+    }
   }
   if (tb != nullptr) {
     tb[kTrPWait] += waited;
@@ -794,28 +837,35 @@ __device__ __forceinline__ float f_scatter(float (&v)[kAcc], int lane) {
 // producer does), then the batch's sums reduced over the block and the
 // stage's epilogue: qkv / gate-up f32 out, wo / down added into the
 // residual, the head's logits rounded through T into the rows' argmax.
-template <typename T, int kMT, typename W>
+// Dense and int8: a thread a row of the chunk (int8's column scale in the
+// epilogue). int4 (kMT <= kFMaxMT4): a warp a group of the chunk, a lane
+// two of its packed rows (four weight rows); the lane's dot with the
+// nibbles less 8, then times the group's multiplier, once; the column
+// scale in the epilogue.
+template <typename T, int kMT, int kKind>
 __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
                         const FGeom& d, int c0, int mt, int& ci,
                         unsigned long long* tb) {
+  using W = typename std::conditional<kKind == kDense, T, int8_t>::type;
   constexpr int kAcc = f_acc(kMT);
   constexpr int kUB = f_units_a_batch(kMT);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool tr = tb != nullptr && threadIdx.x == 0;
   const bool work = !no_work(a);
-  const int K = d.K;
+  const int K = d.K, Kp = d.Kp;
+  const int bufb = f_buf(a);
   const float* scale = a.sc[d.mat] == nullptr ? nullptr : a.sc[d.mat] + d.soff;
   unsigned long long waited = 0, tp1 = 0, tp2 = 0;
   const unsigned long long tp0 = tr ? global_ns() : 0;
   int chunks = 0;
   for (int ul = 0; ul < d.nu; ul += kUB) {
     const int nub = min(kUB, d.nu - ul);
-    const int R = f_chunk_rows(a.chunk, nub, d.wb, K);
+    const int R = f_chunk_rows(a.chunk, nub, d.wb, Kp, kKind == kInt4);
     float v[kAcc];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) v[i] = 0.f;
-    for (int r0 = 0; work && r0 < K; r0 += R, ++ci) {
-      const int rn = min(R, K - r0);
+    for (int r0 = 0; work && r0 < Kp; r0 += R, ++ci) {
+      const int rn = min(R, Kp - r0);
       const int b = ci % kFRing;
       const unsigned long long t0 = tr ? global_ns() : 0;
       mbar_wait(sm.full + b, (ci / kFRing) & 1);
@@ -824,27 +874,32 @@ __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
         waited += t1 - t0;
         if (chunks++ == 0) tp1 = t1;
       }
-      const unsigned char* buf = sm.ring + static_cast<long long>(b) * a.chunk;
-      for (int r = threadIdx.x; r < rn; r += kFThreads) {
-        const int k = r0 + r;
-        float xv[kMT];
+      const unsigned char* buf = sm.ring + static_cast<long long>(b) * bufb;
+      if constexpr (kKind != kInt4) {
+        for (int r = threadIdx.x; r < rn; r += kFThreads) {
+          const int k = r0 + r;
+          float xv[kMT];
 #pragma unroll
-        for (int m = 0; m < kMT; ++m) xv[m] = to_f32(sm.xs[m * K + k]);
+          for (int m = 0; m < kMT; ++m) xv[m] = to_f32(sm.xs[m * K + k]);
 #pragma unroll
-        for (int ub = 0; ub < kUB; ++ub)
-          if (ub < nub) {
-            float wv[kUnit];
-            cvt8(ld_sm(reinterpret_cast<const W*>(
-                     buf + (static_cast<long long>(ub) * rn + r) * d.wb)),
-                 wv);
+          for (int ub = 0; ub < kUB; ++ub)
+            if (ub < nub) {
+              float wv[kUnit];
+              cvt8(ld_sm(reinterpret_cast<const W*>(
+                       buf + (static_cast<long long>(ub) * rn + r) * d.wb)),
+                   wv);
 #pragma unroll
-            for (int m = 0; m < kMT; ++m)
+              for (int m = 0; m < kMT; ++m)
 #pragma unroll
-              for (int j = 0; j < kUnit; ++j) {
-                float& acc = v[(ub * kMT + m) * kUnit + j];
-                acc = fmaf(xv[m], wv[j], acc);
-              }
-          }
+                for (int j = 0; j < kUnit; ++j) {
+                  float& acc = v[(ub * kMT + m) * kUnit + j];
+                  acc = fmaf(xv[m], wv[j], acc);
+                }
+            }
+        }
+      } else if constexpr (kMT <= kFMaxMT4) {
+        int4_chunk<T, kMT, kUB, kAcc, kFWarps>(buf, buf + a.chunk, rn, nub,
+                                               sm.xs, K, r0, v);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty + b);    // the buffer is free
@@ -973,10 +1028,13 @@ __device__ void stage(const FrameArgs& a, const Smem<T, kMT>& sm,
       stage_norm<T, kMT>(a, sm, src, ln, c0, mt, once);
     }
     csync();
-    if (a.sc[mat] != nullptr)
-      product<T, kMT, int8_t>(a, sm, d, c0, mt, ci, tb);
-    else
-      product<T, kMT, T>(a, sm, d, c0, mt, ci, tb);
+    if (d.kind == kInt8) {
+      product<T, kMT, kInt8>(a, sm, d, c0, mt, ci, tb);
+    } else if (d.kind == kDense) {
+      product<T, kMT, kDense>(a, sm, d, c0, mt, ci, tb);
+    } else if constexpr (kMT <= kFMaxMT4) {      // int4: at most 4 rows
+      product<T, kMT, kInt4>(a, sm, d, c0, mt, ci, tb);
+    }
   }
   if (mat == kHead) {
     csync();
@@ -1072,17 +1130,31 @@ FrameKernel frame_kernel_of(int dtype, int mt) {
 }
 
 // x rows a pass (ops/fused_predictor.py row_pass): 1, 2, 4, else 8 in bf16
-// and 4 in f32, so the staged rows take at most 16 bytes a K element
-int frame_rows(int B, int tsize) {
-  const int mt = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
-  return mt * tsize > 16 ? 16 / tsize : mt;
+// and 4 in f32, so the staged rows take at most 16 bytes a K element; at
+// most 4 with int4 weights
+int frame_rows(int B, int tsize, bool i4) {
+  int mt = B == 1 ? 1 : B == 2 ? 2 : B <= 4 ? 4 : 8;
+  if (mt * tsize > 16) mt = 16 / tsize;
+  return i4 && mt > kFMaxMT4 ? kFMaxMT4 : mt;
 }
 
 bool bad_frame(const FrameArgs& a, int mt, int tsize) {
   const bool pow2 = a.hd >= 8 && a.hd <= kFMaxHd && !(a.hd & (a.hd - 1));
-  for (int i = 0; i < 5; ++i)
-    if (a.w[i] == nullptr) return true;
-  return a.B < 1 || a.B > kFMaxB || mt != frame_rows(a.B, tsize) ||
+  int n4 = 0;
+  for (int i = 0; i < 5; ++i) {
+    if (a.kind[i] < kDense || a.kind[i] > kInt4 ||
+        (a.kind[i] != kDense) != (a.sc[i] != nullptr) ||
+        (a.kind[i] == kInt4) != (a.m8[i] != nullptr) || a.w[i] == nullptr)
+      return true;
+    n4 += a.kind[i] == kInt4;
+  }
+  // int4: all five or none, whole pairs of groups in every K, a chunk of
+  // whole multiplier copies holding two groups of a batch
+  const int g2 = 2 * kGroup4;
+  if (n4 != 0 && (n4 != 5 || a.H % g2 || a.F % g2 || (a.nq * a.hd) % g2 ||
+                  a.chunk % 1024 || a.chunk < 4096))
+    return true;
+  return a.B < 1 || a.B > kFMaxB || mt != frame_rows(a.B, tsize, n4 != 0) ||
          a.L < 1 || !pow2 || a.nk < 1 || a.nq % a.nk ||
          a.nq / a.nk > kFMaxG || a.H % kUnit || a.F % kUnit ||
          a.H > kXPer * kFThreads || a.CV % kUnit || a.R < 1 ||
@@ -1119,7 +1191,8 @@ int predictor_frame_query(int dtype, int mt, int smem, int* out) {
 }
 
 // One frame: `args` a FrameArgs (ops/fused_predictor.py _FrameArgs), nb
-// blocks (SMs x resident blocks), smem = the fixed part + kFRing * chunk.
+// blocks (SMs x resident blocks), smem = the fixed part + kFRing buffers
+// (chunk bytes, and a 64th of that for int4's multipliers).
 int predictor_frame_launch(const void* args, int dtype, int mt, int nb,
                            int smem, void* stream) {
   if (args == nullptr || (dtype != 0 && dtype != 1) || nb < 1)
@@ -1128,7 +1201,7 @@ int predictor_frame_launch(const void* args, int dtype, int mt, int nb,
   const int tsize = dtype == 0 ? 4 : 2;
   if (bad_frame(a, mt, tsize) ||
       smem != fixed_smem(mt, kmax_of(a.H, a.nq, a.hd, a.F), a.hd, tsize) +
-                  kFRing * a.chunk)
+                  kFRing * f_buf(a))
     return static_cast<int>(cudaErrorInvalidValue);
   const FrameKernel kernel = frame_kernel_of(dtype, mt);
   cudaError_t e = cudaFuncSetAttribute(

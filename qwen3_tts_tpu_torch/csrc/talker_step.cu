@@ -19,7 +19,7 @@
 // Bound: weight bytes. A step reads the 28 layers' weights and the head
 //   once: 2.83 GB dense bf16 at the full talker width, 0.845 ms at 3.35
 //   TB/s (int8 about half, int4 about a quarter); the live cache slots add
-//   ~0.1 MB a layer per row. At B <= 16 each weight element is used B
+//   ~0.1 MB a layer per row. At B <= 32 each weight element is used B
 //   times, far below the tensor cores' balance point. What a step pays on
 //   top is latency: 112 dependent stages, each a grid barrier, its first
 //   activation loads and its epilogue, and attention, which reads no
@@ -132,7 +132,10 @@
 //   with an f32 column scale (mixed too), or all five int4 (biased nibbles,
 //   an int8 multiplier per 128-row group and column, an f32 column scale:
 //   per group (x . (nib - 8)) * m8 in f32, the order of ops/quant.py
-//   panel_matmul4_plain up to the order of the sums); 1 <= B <= 16; hd a
+//   panel_matmul4_plain up to the order of the sums); 1 <= B <= 32 (the
+//   TPU kernel's `batch <= 32`; the fixed shared part depends on the row
+//   pass, not on B, and the attention units, their counters and states are
+//   in the workspace, sized B nk S); hd a
 //   power of two in [8, 128]; nq / nk <= 4; H <= 2048; H, F, nq * hd, V
 //   multiples of 8.
 
@@ -144,7 +147,7 @@ constexpr int kSThreads = 256;           // consumer threads
 constexpr int kSWarps = kSThreads / 32;
 constexpr int kSBlock = kSThreads + 32;  // + the producer warp
 constexpr int kSUnit = 8;                // columns of a unit
-constexpr int kSMaxB = 16;
+constexpr int kSMaxB = 32;             // the TPU kernel's batch cap
 constexpr int kSMaxMT = 8;
 constexpr int kSMaxMT4 = 4;              // x rows a pass with int4 weights
 constexpr int kSMaxG = 4;
@@ -154,7 +157,6 @@ constexpr int kSMaxSplits = 16;
 constexpr int kSAhead = 8;               // cache slots a warp loads at once
 constexpr int kSPreSlots = 256;          // a unit's slots the producer
                                          // brings into the L2 ahead
-constexpr int kG4Rows = kGroup4 / 2;     // packed int4 rows of a group
 constexpr float kSNeg = -1e30f;
 // The weight ring (ops/fused_talker.py RING, CHUNK). -DSTEP_RING /
 // -DSTEP_CHUNK build a variant for tools/frame_measure.py ring.
@@ -356,14 +358,6 @@ __device__ __forceinline__ void i8_cvt(uint2 q, float* w) {
   w[5] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7541)) - kBias;
   w[6] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7542)) - kBias;
   w[7] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7543)) - kBias;
-}
-
-// x values k and k + 1 of a staged row (k even), one load
-__device__ __forceinline__ float2 x_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 x_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // the first unit of `units` dealt over nb blocks that block blk owns
@@ -722,55 +716,8 @@ __device__ void s_product(const StepArgs& a, const SSmem<T, kMT>& sm,
           }
         }
       } else if constexpr (kMT <= kSMaxMT4) {
-        const int ng = rn / kG4Rows;
-        for (int gi = warp; gi < ng; gi += kSWarps) {
-          float dd[kAcc];
-#pragma unroll
-          for (int i = 0; i < kAcc; ++i) dd[i] = 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int pr = gi * kG4Rows + h * 32 + lane;
-            const int k = 2 * (r0 + pr);        // weight rows k, k + 1
-            uint2 q[kUB];                       // loads first, no branches
-#pragma unroll
-            for (int ub = 0; ub < kUB; ++ub)
-              q[ub] = *reinterpret_cast<const uint2*>(
-                  buf + min(ub, nub - 1) * ustride + pr * kSUnit);
-            float2 xv[kMT];
-#pragma unroll
-            for (int m = 0; m < kMT; ++m) xv[m] = x_pair(sm.xs + m * K + k);
-#pragma unroll
-            for (int ub = 0; ub < kUB; ++ub) {
-              float lo[kSUnit], hi[kSUnit];
-              unpack4(q[ub].x, lo, hi);
-              unpack4(q[ub].y, lo + 4, hi + 4);
-#pragma unroll
-              for (int m = 0; m < kMT; ++m)
-#pragma unroll
-                for (int j = 0; j < kSUnit; ++j) {
-                  float& acc = dd[(ub * kMT + m) * kSUnit + j];
-                  acc = fmaf(xv[m].x, lo[j], acc);
-                  acc = fmaf(xv[m].y, hi[j], acc);
-                }
-            }
-          }
-          // the group's multipliers, after its dot, in f32
-#pragma unroll
-          for (int ub = 0; ub < kUB; ++ub) {
-            float mf[kSUnit];
-            m8_cvt(*reinterpret_cast<const uint2*>(
-                       buf + kSChunk + min(ub, nub - 1) * (rn / 8) +
-                       gi * kSUnit),
-                   mf);
-#pragma unroll
-            for (int m = 0; m < kMT; ++m)
-#pragma unroll
-              for (int j = 0; j < kSUnit; ++j) {
-                const int i = (ub * kMT + m) * kSUnit + j;
-                v[i] = fmaf(dd[i], mf[j], v[i]);
-              }
-          }
-        }
+        int4_chunk<T, kMT, kUB, kAcc, kSWarps>(buf, buf + kSChunk, rn, nub,
+                                               sm.xs, K, r0, v);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty + b);    // the buffer is free

@@ -6,13 +6,14 @@ decided by `frame_route` before any launch, from the weights' kinds and the
 batch alone (JAX's own split is `usable` against `predictor.frame_codes`,
 `qwen3_tts_tpu/tts/generate.py:97-104`):
 
-  kernel  dense (f32 / bf16) or int8 weights and B <= ROUTE_MAX_B of
-          their kinds: one persistent CUDA kernel a frame,
-          `csrc/predictor_frame.cu` (`predictor_frame_kernel`, which takes
-          B <= MAX_B), the TPU kernel's own shape;
-  chain   int4 weights, or a larger B: a chain of the port's kernels
-          (`ops/chain.py`) driven from Python (`_frame`), which with the
-          plain op set is also the kernel's plain version
+  kernel  dense (f32 / bf16) or int8 weights (any mix of the two), or
+          all five int4, and B <= ROUTE_MAX_B of their kinds: one
+          persistent CUDA kernel a frame, `csrc/predictor_frame.cu`
+          (`predictor_frame_kernel`, which takes B <= MAX_B), the TPU
+          kernel's own shape;
+  chain   a larger B, or int4 mixed with another kind: a chain of the
+          port's kernels (`ops/chain.py`) driven from Python (`_frame`),
+          which with the plain op set is also the kernel's plain version
           (`frame_codes_fused_plain`).
 
 The chain, pass by pass:
@@ -66,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -77,8 +78,11 @@ from .gemv import EPI_F32_ROUND_DT
 
 
 def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
-           ptab_rows: int, h1024: torch.Tensor,
-           code_0: torch.Tensor) -> torch.Tensor:
+           ptab_rows: int, h1024: torch.Tensor, code_0: torch.Tensor,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The chain; `residual`, if given, receives the f32 residual after
+    the last pass (what the frame kernel leaves in its workspace's
+    `xres`)."""
     chain.check_weights(params, cfg, "predictor")
     lw = params["layers"]
     head = params["head"]
@@ -136,6 +140,8 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
         if not last:
             stack_pass(qi + 1)
             head_slice(qi)
+    if residual is not None:
+        residual.copy_(x_res)
     return codes
 
 
@@ -165,9 +171,13 @@ MAX_B = 16
 # the route's, per weight kind: the largest B at which every end-to-end run
 # of a frame on the kernel beat every run on the chain (PERF.md's predictor
 # route table, tools/frame_measure.py route predictor); past it the runs
-# overlap (dense B = 12, both kinds at 16) or were not taken
-ROUTE_MAX_B = {"dense": 9, "int8": 12}
+# overlap (dense B = 12, both kinds at 16) or were not taken; all-int4
+# weights won every run at B = 1, 2, 4, 8, 9, 12 and 16 (their chain of B4
+# launches took 33-81 ms a frame on the host, the kernel 6-36)
+ROUTE_MAX_B = {"dense": 9, "int8": 12, "int4": 16}
 UNIT = 8            # columns of a work unit (csrc/predictor_frame.cu kUnit)
+MAX_MT4 = 4         # x rows a pass with int4 weights (kFMaxMT4, kSMaxMT4)
+GROUP4_ROWS = quant.GROUP4 // 2     # packed int4 rows of a group (kG4Rows)
 MAX_G = 4           # q heads per kv head
 MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kXPer)
 RING = 6            # ring buffers (kFRing): a deeper ring takes L1 the
@@ -177,6 +187,7 @@ _WARPS = 8          # consumer warps of a block (kFWarps)
 _STAGES = ("qkv", "wo", "gu", "down", "head")
 _WEIGHTS = {"qkv": "wqkv", "wo": "wo", "gu": "w_gu", "down": "w_down"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = {"dense": 0, "int8": 1, "int4": 2}
 
 
 def _weights(params):
@@ -184,26 +195,56 @@ def _weights(params):
         | {"head": params["head"]}
 
 
-def frame_route(params: Dict[str, Any], B: int) -> str:
-    """KERNEL for dense or int8 predictor weights (any mix of the two) at
-    B <= ROUTE_MAX_B of each kind present; CHAIN for int4 weights or a
-    larger B. Decided from the weights' kinds and the batch alone, before
-    any launch, never on a failure: a kernel that does not build or launch
-    raises."""
-    weights = _weights(params).values()
-    if any(quant.is_quantized4(w) for w in weights):
+def weight_kind(w) -> str:
+    return "int4" if quant.is_quantized4(w) else \
+        "int8" if quant.is_quantized(w) else "dense"
+
+
+def weight_parts(w, shape, dt) -> Dict[Optional[str], tuple]:
+    """{part (None: the weight itself): (shape, dtype)} of what the
+    persistent kernels read of a weight of `shape` [..., K, N], by its kind:
+    dense values in dt; int8 values and f32 column scales; int4's packed
+    values [..., K / 2, N], int8 multipliers [..., K / 128, N] and f32
+    column scales."""
+    kind = weight_kind(w)
+    lead, (K, N) = tuple(shape[:-2]), shape[-2:]
+    if kind == "int4":
+        return {"q4": (lead + (K // 2, N), torch.int8),
+                "m8": (lead + (K // quant.GROUP4, N), torch.int8),
+                "scale": (lead + (N,), torch.float32)}
+    if kind == "int8":
+        return {"q": (tuple(shape), torch.int8),
+                "scale": (lead + (N,), torch.float32)}
+    return {None: (tuple(shape), dt)}
+
+
+def route(weights, B: int, limits: Dict[str, int]) -> str:
+    """KERNEL at B <= `limits` of each weight kind present (dense and int8
+    in any mix, or all five int4); CHAIN for a larger B or int4 mixed with
+    another kind (the persistent kernels refuse the mix; the chain refuses
+    it too, as the TPU kernels do). Decided from the weights' kinds and the
+    batch alone, before any launch, never on a failure: a kernel that does
+    not build or launch raises."""
+    kinds = {weight_kind(w) for w in weights}
+    if "int4" in kinds and len(kinds) > 1:
         return CHAIN
-    kinds = {"int8" if quant.is_quantized(w) else "dense" for w in weights}
-    return KERNEL if B <= min(ROUTE_MAX_B[k] for k in kinds) else CHAIN
+    return KERNEL if B <= min(limits[k] for k in kinds) else CHAIN
 
 
-def row_pass(B: int, t_bytes: int) -> int:
-    """x rows a row pass stages (kMT): 1, 2, 4, else 8 in bf16 and 4 in
-    f32, so the staged rows take at most 16 bytes a K element (B > kMT:
-    ceil(B / kMT) passes over each stage, the weights streamed once a
-    pass; csrc/predictor_frame.cu frame_rows)."""
+def frame_route(params: Dict[str, Any], B: int) -> str:
+    """The frame kernel's route (`route`) at ROUTE_MAX_B."""
+    return route(_weights(params).values(), B, ROUTE_MAX_B)
+
+
+def row_pass(B: int, t_bytes: int, int4: bool = False) -> int:
+    """x rows a row pass stages (kMT) in both persistent kernels: 1, 2, 4,
+    else 8 in bf16 and 4 in f32, so the staged rows take at most 16 bytes a
+    K element; at most MAX_MT4 with int4 weights (B > kMT: ceil(B / kMT)
+    passes over each stage, the weights streamed once a pass;
+    csrc/predictor_frame.cu frame_rows, csrc/talker_step.cu step_rows)."""
     mt = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
-    return min(mt, 16 // t_bytes)
+    mt = min(mt, 16 // t_bytes)
+    return min(mt, MAX_MT4) if int4 else mt
 
 
 def units_a_batch(mt: int) -> int:
@@ -260,12 +301,12 @@ def frame_plan(cfg, B: int, nb: int) -> Dict[str, list]:
     return plan
 
 
-def frame_smem_fixed(cfg, B: int, t_bytes: int) -> int:
+def frame_smem_fixed(cfg, B: int, t_bytes: int, int4: bool = False) -> int:
     """Bytes of a block's shared memory besides the ring
     (csrc/predictor_frame.cu fixed_smem): the ring's mbarriers, the trace's
     sums, the staged x rows, the sums' scratch, the head's argmax and
     codes, the warps' head vectors and attention scores."""
-    mt = row_pass(B, t_bytes)
+    mt = row_pass(B, t_bytes, int4)
     hd, NB = cfg.head_dim, protocol.NUM_CODEBOOKS
     kmax = max(cfg.hidden, cfg.n_q_heads * hd, cfg.ffn_dim)
     xs = -(-(mt * kmax * t_bytes) // 16) * 16
@@ -274,26 +315,39 @@ def frame_smem_fixed(cfg, B: int, t_bytes: int) -> int:
         + _WARPS * MAX_G * (NB + 1))
 
 
-def frame_smem(fixed: int, smem_max: int) -> int:
-    """Bytes of a block's shared memory: the fixed part and the ring's RING
-    buffers of CHUNK bytes; raises where that exceeds smem_max."""
-    smem = fixed + RING * CHUNK
+def ring_bytes(int4: bool = False, chunk: int = CHUNK) -> int:
+    """The ring's shared memory: RING buffers of `chunk` bytes of values,
+    with int4 weights each a 64th longer for the chunk's multipliers
+    (csrc/predictor_frame.cu f_buf)."""
+    return RING * (chunk + (chunk // 64 if int4 else 0))
+
+
+def frame_smem(fixed: int, smem_max: int, int4: bool = False) -> int:
+    """Bytes of a block's shared memory: the fixed part and the ring
+    (`ring_bytes`); raises where that exceeds smem_max."""
+    smem = fixed + ring_bytes(int4)
     if smem > smem_max:
         raise ValueError(f"predictor_frame: {fixed} bytes of fixed shared "
                          f"memory leave no room for {RING} {CHUNK}-byte ring "
-                         f"buffers in {smem_max}")
+                         f"buffers{' and their multipliers' if int4 else ''} "
+                         f"in {smem_max}")
     return smem
 
 
 def row_bytes(kind: str, t_bytes: int) -> int:
-    """Bytes of one packed row of a unit (8 columns): T or int8."""
+    """Bytes of one packed row of a unit (8 columns): T, int8, or 8 bytes
+    of two nibbles a column (int4, half the rows)."""
     return UNIT * (t_bytes if kind == "dense" else 1)
 
 
-def chunk_rows(chunk: int, nub: int, wb: int, K: int) -> int:
-    """Rows of a batch of nub units a ring buffer holds (even: whole
-    16-byte copies), at most K (csrc/predictor_frame.cu f_chunk_rows)."""
-    return min(K, (chunk // (nub * wb)) & ~1)
+def chunk_rows(chunk: int, nub: int, wb: int, Kp: int,
+               int4: bool = False) -> int:
+    """Rows of a batch of nub units a ring buffer of `chunk` bytes holds,
+    at most Kp (csrc/predictor_frame.cu f_chunk_rows, csrc/talker_step.cu
+    s_chunk_rows): even (whole 16-byte copies);
+    with int4 whole pairs of groups (128 packed rows), whose multipliers (8
+    bytes a group and unit) go to the buffer's last 64th."""
+    return min(Kp, (chunk // (nub * wb)) & (~127 if int4 else ~1))
 
 
 def frame_stages(cfg) -> list:
@@ -312,22 +366,24 @@ def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
                    chunk: int) -> list:
     """Block blk's ring chunks in the order producer and consumers walk
     them (csrc/predictor_frame.cu FrameWalk): (stage index, stage, layer,
-    head slice, row pass, first unit, units, first row, rows)."""
+    head slice, row pass, first unit, units, first packed row, rows)."""
     out = []
-    mt = row_pass(B, t_bytes)
+    mt = row_pass(B, t_bytes, "int4" in kinds)
     ub_n = units_a_batch(mt)
     shapes = stage_shapes(cfg)
     for s, (st, l, q) in enumerate(frame_stages(cfg)):
         K, N = shapes[st]
-        wb = row_bytes(kinds[_STAGES.index(st)], t_bytes)
+        kind = kinds[_STAGES.index(st)]
+        Kp = K // 2 if kind == "int4" else K
+        wb = row_bytes(kind, t_bytes)
         lo, hi = split_units(N // UNIT, nb)[blk]
         for rc in range(-(-B // mt)):
             for ul in range(lo, hi, ub_n):
                 nub = min(ub_n, hi - ul)
-                R = chunk_rows(chunk, nub, wb, K)
-                for r0 in range(0, K, R):
+                R = chunk_rows(chunk, nub, wb, Kp, kind == "int4")
+                for r0 in range(0, Kp, R):
                     out.append((s, st, l, q, rc, ul, nub, r0,
-                                min(R, K - r0)))
+                                min(R, Kp - r0)))
     return out
 
 
@@ -345,6 +401,18 @@ def unpack_units(p: torch.Tensor) -> torch.Tensor:
     """The inverse of `pack_units`: [..., N / 8, K, 8] -> [..., K, N]."""
     U, K, _ = p.shape[-3:]
     return p.transpose(-3, -2).reshape(*p.shape[:-3], K, U * UNIT)
+
+
+def pair_int4(q4: torch.Tensor) -> torch.Tensor:
+    """int4 values [..., K / 2, N] as ops/quant.py packs them (row r's
+    nibble low, row r + K / 2's high) -> the persistent kernels' pairs:
+    packed row r holds weight row 2 r in its low nibble and 2 r + 1 in its
+    high one, so a 128-row group is 64 consecutive packed rows (the biased
+    nibbles unchanged)."""
+    qu = q4.to(torch.int32) & 0xFF
+    nib = torch.cat([qu & 0xF, qu >> 4], dim=-2)            # [..., K, N]
+    return (nib[..., 0::2, :] | (nib[..., 1::2, :] << 4)).to(
+        torch.uint8).view(torch.int8)
 
 
 # copies of the weights the kernels have read, by (the weight's id, the
@@ -365,10 +433,14 @@ def derived(w: torch.Tensor, kind: str, fn) -> torch.Tensor:
     return _derived[key][2]
 
 
-def packed_weight(w: torch.Tensor) -> torch.Tensor:
-    """`pack_units(w)`, made once per weight tensor and kept while it
-    lives (the kernel's extra copy of the predictor weights: 285 MB dense
-    bf16 at full width, half for int8)."""
+def packed_weight(w: torch.Tensor, part: str = "values") -> torch.Tensor:
+    """The kernel's copy of a weight part, made once per tensor and kept
+    while it lives: `pack_units` of the values or of int4's multipliers
+    ("m8"); int4's values ("q4") paired first (`pair_int4`). The kernel's
+    extra copy of the predictor weights: 285 MB dense bf16 at full width,
+    half for int8, about a quarter for int4."""
+    if part == "q4":
+        return derived(w, "units q4", lambda t: pack_units(pair_int4(t)))
     return derived(w, "units", pack_units)
 
 
@@ -416,11 +488,13 @@ def block_partials(logits: torch.Tensor, nb: int):
 
 class _FrameArgs(ctypes.Structure):
     """`FrameArgs` of csrc/predictor_frame.cu, field for field."""
-    _fields_ = [("w", ctypes.c_void_p * 5), ("sc", ctypes.c_void_p * 5)] \
+    _fields_ = [("w", ctypes.c_void_p * 5), ("m8", ctypes.c_void_p * 5),
+                ("sc", ctypes.c_void_p * 5)] \
         + [(f, ctypes.c_void_p) for f in (
             "ln1", "ln2", "q_norm", "k_norm", "final_norm", "ptab", "h1024",
             "code0", "codes", "xres", "qkv", "gu", "kc", "vc", "cos", "sin",
             "part_v", "part_i", "bar")] \
+        + [("kind", ctypes.c_int * 5)] \
         + [(f, ctypes.c_int) for f in ("B", "H", "L", "nq", "nk", "hd", "F",
                                        "CV", "R", "rows0", "chunk", "mode")] \
         + [("eps", ctypes.c_float), ("trace", ctypes.c_void_p)]
@@ -443,8 +517,8 @@ def _geometry(cfg):
 
 
 # made once per (config geometry, device): the RoPE tables of positions
-# 0..15; per (geometry, B, device, stream): the kernel's workspace; per
-# (geometry, B, weight kinds, device): the launch plan
+# 0..15; per (geometry, B, blocks, device, stream): the kernel's workspace;
+# per (geometry, B, dtype, int4 or not, device): the launch plan
 _tables: dict = {}
 _workspaces: dict = {}
 _plans: dict = {}
@@ -495,16 +569,17 @@ def _query(dtype: int, mt: int, smem: int):
     return out[0], out[1], out[2]
 
 
-def _plan(cfg, B: int, t_bytes: int, dev):
+def _plan(cfg, B: int, t_bytes: int, int4: bool, dev):
     """(x rows a pass, blocks, shared memory a block): the fixed part and
     the ring, the grid SMs x the resident blocks per SM at that shared
     memory."""
-    key = (_geometry(cfg), B, t_bytes, CHUNK, dev)
+    key = (_geometry(cfg), B, t_bytes, int4, CHUNK, dev)
     if key not in _plans:
-        mt = row_pass(B, t_bytes)
+        mt = row_pass(B, t_bytes, int4)
         dtype = 0 if t_bytes == 4 else 1
         _, smem_max, sms = _query(dtype, mt, 0)
-        smem = frame_smem(frame_smem_fixed(cfg, B, t_bytes), smem_max)
+        smem = frame_smem(frame_smem_fixed(cfg, B, t_bytes, int4), smem_max,
+                          int4)
         per_sm = _query(dtype, mt, smem)[0]
         if per_sm < 1:
             raise RuntimeError(f"predictor_frame: no block fits an SM at "
@@ -544,20 +619,22 @@ def _check_frame(params, cfg, ptab, h1024, code_0):
             "gu": (L, H, 2 * F), "down": (L, F, H), "head": (H, NB * CV)}
     kinds = []
     for st, w in _weights(params).items():
-        q8 = quant.is_quantized(w)
-        v = w["q"] if q8 else w
-        ok = tuple(v.shape) == want[st] and v.is_contiguous() \
-            and v.dtype == (torch.int8 if q8 else dt) \
-            and v.data_ptr() % 16 == 0
-        if q8:
-            sc = w["scale"]
-            ok = ok and sc.dtype == torch.float32 and sc.is_contiguous() \
-                and tuple(sc.shape) == want[st][:-2] + want[st][-1:]
-        if not ok:
-            raise ValueError(f"predictor_frame: {st} weight must be "
-                             f"contiguous 16-byte aligned {dt} or int8 "
-                             f"(with f32 scales) {want[st]}")
-        kinds.append("int8" if q8 else "dense")
+        for k, (shape, dtype) in weight_parts(w, want[st], dt).items():
+            t = w if k is None else w[k]
+            if tuple(t.shape) != shape or t.dtype != dtype \
+                    or not t.is_contiguous() or t.data_ptr() % 16:
+                part = st if k is None else f"{st} {k}"
+                raise ValueError(f"predictor_frame: {part} must be "
+                                 f"contiguous 16-byte aligned {dtype} "
+                                 f"{shape}")
+        kinds.append(weight_kind(w))
+    if "int4" in kinds:
+        g2 = 2 * quant.GROUP4
+        if kinds.count("int4") != len(kinds) or H % g2 or F % g2 \
+                or (nq * hd) % g2:
+            raise ValueError("predictor_frame: int4 weights all five or "
+                             f"none, hidden, ffn_dim and n_q_heads * "
+                             f"head_dim multiples of {g2}")
     lw = params["layers"]
     for name, shape in (("ln1", (L, H)), ("ln2", (L, H)),
                         ("q_norm", (L, hd)), ("k_norm", (L, hd))):
@@ -576,9 +653,11 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
                            ptab_rows: int, h1024: torch.Tensor,
                            code_0: torch.Tensor) -> torch.Tensor:
     """The frame in one launch of csrc/predictor_frame.cu (dense or int8
-    weights, B <= MAX_B): codes [B, 16] int32, as `frame_codes_fused_plain`
-    computes them. On a CPU tensor it takes that plain version; on a CUDA
-    tensor it launches the kernel or raises."""
+    weights, or all five int4; B <= MAX_B): codes [B, 16] int32, as
+    `frame_codes_fused_plain` computes them. On a CPU tensor it takes that
+    plain version; on a CUDA tensor it launches the kernel or raises.
+    `.launches` counts its launches, `.launches_int4` those of them with
+    int4 weights."""
     kinds = _check_frame(params, cfg, ptab, h1024, code_0)
     if h1024.device.type == "cpu":
         return frame_codes_fused_plain(params, cfg, ptab, ptab_rows, h1024,
@@ -592,9 +671,10 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
     dt = getattr(torch, cfg.dtype)
     t_bytes = 4 if dt == torch.float32 else 2
     B = h1024.shape[0]
+    int4 = "int4" in kinds
     from ..kernels import build
     with torch.cuda.device(dev):
-        mt, nb, smem = _plan(cfg, B, t_bytes, dev)
+        mt, nb, smem = _plan(cfg, B, t_bytes, int4, dev)
         ws = _workspace(cfg, B, nb, dev)
         cos, sin = _rope_table(cfg, dev)
         h = h1024.float().contiguous()
@@ -604,9 +684,15 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
         lw = params["layers"]
         a = _FrameArgs()
         for i, w in enumerate(_weights(params).values()):
-            q8 = quant.is_quantized(w)
-            a.w[i] = packed_weight(w["q"] if q8 else w).data_ptr()
-            a.sc[i] = w["scale"].data_ptr() if q8 else None
+            kind = kinds[i]
+            if kind == "int4":
+                a.w[i] = packed_weight(w["q4"], "q4").data_ptr()
+                a.m8[i] = packed_weight(w["m8"], "m8").data_ptr()
+            else:
+                a.w[i] = packed_weight(w["q"] if kind == "int8"
+                                       else w).data_ptr()
+            a.sc[i] = w["scale"].data_ptr() if kind != "dense" else None
+            a.kind[i] = _KINDS[kind]
         for name, t in (("ln1", lw["ln1"]), ("ln2", lw["ln2"]),
                         ("q_norm", lw["q_norm"]), ("k_norm", lw["k_norm"]),
                         ("final_norm", params["final_norm"]), ("ptab", ptab),
@@ -631,10 +717,12 @@ def predictor_frame_kernel(params: Dict[str, Any], cfg, ptab: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "predictor_frame")
     predictor_frame_kernel.launches += 1
+    predictor_frame_kernel.launches_int4 += int4
     return codes
 
 
 predictor_frame_kernel.launches = 0
+predictor_frame_kernel.launches_int4 = 0
 
 
 def make_ptab(assets, cfg) -> Tuple[torch.Tensor, int]:

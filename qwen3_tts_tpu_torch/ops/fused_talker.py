@@ -5,10 +5,11 @@ On the TPU this is one Pallas kernel. Here it takes one of two routes,
 decided by `talker_route` before any launch, from the weights and the batch
 alone:
 
-  kernel  dense (f32 / bf16) or int8 weights and B <= MAX_B, int4
-          weights and B <= INT4_MAX_B: one persistent CUDA kernel a step,
-          `csrc/talker_step.cu` (`talker_step_kernel`), the TPU kernel's
-          own shape;
+  kernel  B <= ROUTE_MAX_B of the weights' kind (dense f32 / bf16 or
+          int8, in any mix, or all five int4): one persistent CUDA kernel
+          a step, `csrc/talker_step.cu` (`talker_step_kernel`, which takes
+          B <= MAX_B = 32, the TPU kernel's cap), the TPU kernel's own
+          shape;
   chain   larger batches: a chain of the port's kernels (`ops/chain.py`)
           driven per layer from Python (`_step`), which with the plain op
           set is also the kernel's plain version (`talker_step_fused_plain`).
@@ -49,7 +50,10 @@ import torch
 
 from . import chain, quant, rope
 from .flash_decode import NEG_INF
-from .fused_predictor import derived, pack_units, split_units
+from .fused_predictor import (CHAIN, GROUP4_ROWS, KERNEL, MAX_MT4,
+                              chunk_rows, derived, pack_units, pair_int4,
+                              route, row_bytes, row_pass, split_units,
+                              units_a_batch, weight_kind, weight_parts)
 from .gemv import EPI_F32_ROUND_DT
 
 
@@ -129,26 +133,28 @@ def talker_step_fused_plain(params, cfg, x, positions, slot, kv_len,
 
 
 # ------------------------------------------------------------- step kernel
-KERNEL, CHAIN = "kernel", "chain"
-# The route's batch limits, from `generate_codes` ms a frame on each route
-# at B = 1, 2, 4, 8, 16, five runs a side in turns, with the device ms a
+MAX_B = 32          # the kernel's batch cap (csrc/talker_step.cu kSMaxB)
+WIDE_B = 16         # the cap before it: `.launches_wide` counts B > WIDE_B
+# The route's batch limits per weight kind, from `generate_codes` ms a
+# frame on each route, five runs a side in turns, with the device ms a
 # frame beside them (tools/frame_measure.py route; NVIDIA H100 80GB HBM3 at
 # 700 W, PERF.md, "the route's batch limit"): the kernel where every
 # kernel run beat every chain run, and where the runs overlapped, the
 # route that took less device time (as for ROUTE_MAX_B in
-# ops/fused_predictor.py). Dense and int8: the
-# kernel at every B (its device ms the lower at each), so the limit is the
-# kernel's cap. int4: the kernel through B = 8; at 16 the chain (16.27
-# against 17.90 device ms a frame; B = 9-15 were not run).
-MAX_B = 16          # the kernel's batch cap (csrc/talker_step.cu kSMaxB)
-INT4_MAX_B = 8
+# ops/fused_predictor.py). At B = 1, 2, 4, 8, 16: dense and int8 on the
+# kernel at every B (its device ms the lower at each); int4 through B = 8,
+# at 16 the chain (16.27 against 17.90 device ms a frame). At B = 16, 17,
+# 24, 32: dense on the kernel at each (every run faster at 17 and 32, less
+# device time at 16 and 24); int8 on the kernel through 24, at 32 the
+# chain (29.55 against 27.74 device ms a frame; B = 25-31 were not run);
+# int4 the chain at each (17.30 / 21.28 / 23.75 / 30.31 against 16.35 /
+# 21.24 / 22.81 / 27.52).
+ROUTE_MAX_B = {"dense": 32, "int8": 24, "int4": 8}
 UNIT = 8            # columns of a work unit (csrc/talker_step.cu kSUnit)
 MAX_G = 4           # q heads per kv head
 MAX_H = 2048        # hidden: a thread holds 8 of a row's values (kSXPer)
 MAX_SPLITS = 16     # attention splits per (row, kv head)
 MIN_SPLIT_SLOTS = 32    # cache slots a split at least
-MAX_MT4 = 4         # x rows a pass with int4 weights (kSMaxMT4)
-GROUP4_ROWS = quant.GROUP4 // 2     # packed int4 rows of a group (kG4Rows)
 # The weight ring, one size for every B and dtype (csrc/talker_step.cu
 # kSRing, kSChunk; `_plan` checks the library's own): RING buffers of
 # CHUNK bytes of values (and int4's multipliers, `ring_bytes`), measured on
@@ -170,38 +176,10 @@ def _weights(params):
         | {"head": params["head"]}
 
 
-def weight_kind(w) -> str:
-    return "int4" if quant.is_quantized4(w) else \
-        "int8" if quant.is_quantized(w) else "dense"
-
-
 def talker_route(params: Dict[str, Any], B: int) -> str:
-    """KERNEL at B <= MAX_B for dense and int8 talker weights (in any mix)
-    and at B <= INT4_MAX_B for int4 weights (all or none, as the TPU kernel
-    and the chain refuse a mix); else CHAIN. Decided from the weights and
-    the batch alone, before any launch, never on a failure: a kernel that
-    does not build or launch raises."""
-    kinds = {weight_kind(w) for w in _weights(params).values()}
-    if "int4" in kinds and len(kinds) > 1:
-        return CHAIN
-    return KERNEL if B <= (INT4_MAX_B if "int4" in kinds else MAX_B) \
-        else CHAIN
-
-
-def row_pass(B: int, t_bytes: int, int4: bool = False) -> int:
-    """x rows a row pass stages (kMT): 1, 2, 4, else 8 in bf16 and 4 in
-    f32, so the staged rows take at most 16 bytes a K element; at most
-    MAX_MT4 with int4 weights (B > kMT: ceil(B / kMT) passes over each
-    stage, the weights streamed once a pass; csrc/talker_step.cu
-    step_rows)."""
-    mt = 1 if B == 1 else 2 if B == 2 else 4 if B <= 4 else 8
-    mt = min(mt, 16 // t_bytes)
-    return min(mt, MAX_MT4) if int4 else mt
-
-
-def units_a_batch(mt: int) -> int:
-    """Units a batch: a thread holds 32 sums (64 at 8 rows)."""
-    return max(32, 8 * mt) // (8 * mt)
+    """The step kernel's route (ops/fused_predictor.py `route`) at
+    ROUTE_MAX_B."""
+    return route(_weights(params).values(), B, ROUTE_MAX_B)
 
 
 def stage_shapes(cfg) -> Dict[str, Tuple[int, int]]:
@@ -316,21 +294,6 @@ def step_smem(cfg, B: int, t_bytes: int, smem_max: int,
     return smem
 
 
-def row_bytes(kind: str, t_bytes: int) -> int:
-    """Bytes of one packed row of a unit (8 columns): T, int8, or 8 bytes
-    of two nibbles a column (int4, half the rows)."""
-    return UNIT * (t_bytes if kind == "dense" else 1)
-
-
-def chunk_rows(nub: int, wb: int, Kp: int, int4: bool = False,
-               chunk: int = CHUNK) -> int:
-    """Rows of a batch of nub units a ring buffer holds, at most Kp
-    (csrc/talker_step.cu s_chunk_rows): even (whole 16-byte copies); with
-    int4 whole pairs of groups (128 packed rows), whose multipliers (8
-    bytes a group and unit) go to the buffer's multiplier part."""
-    return min(Kp, (chunk // (nub * wb)) & (~127 if int4 else ~1))
-
-
 def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
                    chunk: int = CHUNK) -> list:
     """Block blk's ring chunks in the order producer and consumers walk
@@ -351,7 +314,7 @@ def chunk_sequence(cfg, B: int, nb: int, blk: int, kinds, t_bytes: int,
         for rc in range(-(-B // mt)):
             for ul in range(lo, hi, ub_n):
                 nub = min(ub_n, hi - ul)
-                R = chunk_rows(nub, wb, Kp, kind == "int4", chunk)
+                R = chunk_rows(chunk, nub, wb, Kp, kind == "int4")
                 for r0 in range(0, Kp, R):
                     out.append((st, l, rc, ul, nub, r0, min(R, Kp - r0)))
     return out
@@ -382,18 +345,6 @@ def group_qkv(t: torch.Tensor, nq: int, nk: int, hd: int) -> torch.Tensor:
         cols += list(range((nq + j) * hd, (nq + j + 1) * hd))
         cols += list(range((nq + nk + j) * hd, (nq + nk + j + 1) * hd))
     return t[..., torch.tensor(cols, device=t.device)].contiguous()
-
-
-def pair_int4(q4: torch.Tensor) -> torch.Tensor:
-    """int4 values [..., K / 2, N] as ops/quant.py packs them (row r's
-    nibble low, row r + K / 2's high) -> the kernel's pairs: packed row r
-    holds weight row 2 r in its low nibble and 2 r + 1 in its high one, so
-    a 128-row group is 64 consecutive packed rows (the biased nibbles
-    unchanged)."""
-    qu = q4.to(torch.int32) & 0xFF
-    nib = torch.cat([qu & 0xF, qu >> 4], dim=-2)            # [..., K, N]
-    return (nib[..., 0::2, :] | (nib[..., 1::2, :] << 4)).to(
-        torch.uint8).view(torch.int8)
 
 
 def kernel_copy(t: torch.Tensor, stage: str, part: str = "", cfg=None):
@@ -608,19 +559,7 @@ def _check_step(params, cfg, x, k_cache, v_cache):
     want["head"] = stage_shapes(cfg)["head"]
     kinds = []
     for st, w in _weights(params).items():
-        kind = weight_kind(w)
-        K, N = want[st][-2:]
-        lead = want[st][:-2]
-        if kind == "int4":
-            parts = {"q4": (lead + (K // 2, N), torch.int8),
-                     "m8": (lead + (K // quant.GROUP4, N), torch.int8),
-                     "scale": (lead + (N,), torch.float32)}
-        elif kind == "int8":
-            parts = {"q": (want[st], torch.int8),
-                     "scale": (lead + (N,), torch.float32)}
-        else:
-            parts = {None: (want[st], dt)}
-        for k, (shape, dtype) in parts.items():
+        for k, (shape, dtype) in weight_parts(w, want[st], dt).items():
             t = w if k is None else w[k]
             if tuple(t.shape) != shape or t.dtype != dtype \
                     or not t.is_contiguous() or t.data_ptr() % 16 \
@@ -629,7 +568,7 @@ def _check_step(params, cfg, x, k_cache, v_cache):
                 raise ValueError(f"talker_step: {part} must be contiguous "
                                  f"16-byte aligned {dtype} {shape} on "
                                  f"{x.device}")
-        kinds.append(kind)
+        kinds.append(weight_kind(w))
     lw = params["layers"]
     for name, shape in (("ln1", (L, H)), ("ln2", (L, H)),
                         ("q_norm", (L, hd)), ("k_norm", (L, hd))):
@@ -656,7 +595,9 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
     the caches updated in place. On a CPU tensor it takes that plain
     version; on a CUDA tensor it launches the kernel or raises. positions,
     slot, kv_len and valid_from become device int32 [B]; the RoPE tables
-    are made on the device from positions."""
+    are made on the device from positions. `.launches` counts its
+    launches, `.launches_wide` those of them at B > 16 (the rows the kernel
+    took past its first cap)."""
     kinds = _check_step(params, cfg, x, k_cache, v_cache)
     if x.device.type == "cpu":
         return talker_step_fused_plain(params, cfg, x, positions, slot,
@@ -714,7 +655,9 @@ def talker_step_kernel(params: Dict[str, Any], cfg, x, positions, slot,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "talker_step")
     talker_step_kernel.launches += 1
+    talker_step_kernel.launches_wide += B > WIDE_B
     return hidden, logits, k_cache, v_cache
 
 
 talker_step_kernel.launches = 0
+talker_step_kernel.launches_wide = 0

@@ -9,7 +9,7 @@ repo's root (each mode imports its `chip_smoke.py`):
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure sass [SOURCE ...]
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py talker-ab TAG
-    python3 qwen3_tts_tpu_torch/tools/frame_measure.py route [predictor] [B ...]
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py route [predictor] [KIND ...] [B ...]
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py frame-ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py step-ab TAG
 
@@ -19,8 +19,8 @@ library of its own, built in the measuring process) and on while a
 trace buffer is set (`fused_predictor.TRACE`, `fused_talker.TRACE`). The
 library the port runs has none of it.
 
-trace   the predictor frame kernel's timeline: full width, dense bf16 and
-        int8, at each B given (1 and 16 by default), each in two modes
+trace   the predictor frame kernel's timeline: full width, dense bf16,
+        int8 and int4, at each B given (1 and 16 by default), each in two modes
         (`fused_predictor.MODE`): as built, and with the products cut out
         (nowork: no weight copies, no sums; barriers, prologues and
         epilogues are left). Per run: ms a frame (CUDA events over 10
@@ -77,19 +77,22 @@ ab      one tree's side of a parent-vs-change A/B, run from the tree's
 talker-ab  the same with the talker step first: `talker_step_fused` at
         full width, dense, int8 and int4, B = 1 and 2, device ms a step
         (profiler) and ms a step of eager calls (CUDA events); then `ab`.
-route [predictor] [B ...]
+route [predictor] [KIND ...] [B ...]
         the measurement behind the talker route's batch limits
-        (`ops/fused_talker.py MAX_B`, `INT4_MAX_B`), or with `predictor`
-        the frame route's (`ops/fused_predictor.py ROUTE_MAX_B`), end to
-        end: `generate_codes` (ignore_eos) at full width, at each B given
-        (1, 2, 4, 8, 16 by default), the talker with dense bf16, int8/int8
-        and int4+int8 weights (the predictor: dense bf16 and int8/int8) on
-        its kernel (the limits set to the kernel's cap) and on its chain
-        (set to 0), five runs a side in turns kernel, chain, chain,
-        kernel, ...: ms a frame (CUDA events over 16 frames, the prefill
-        subtracted; the host loop's pace where it bounds the frame), the
-        medians, whether every kernel run beat every chain run, and device
-        ms a frame (profiler, prefill + 4 frames less the prefill).
+        (`ops/fused_talker.py ROUTE_MAX_B`), or with `predictor` the frame
+        route's (`ops/fused_predictor.py ROUTE_MAX_B`), end to end:
+        `generate_codes` (ignore_eos) at full width, at each B given (1,
+        2, 4, 8, 16 by default; the talker takes B up to its cap, 32, the
+        predictor up to 16), for each weight KIND given (dense, int8,
+        int4; all three by default): the talker with dense bf16, int8/int8
+        and int4+int8 weights, the predictor with dense bf16, int8/int8
+        and int4/int4, on its kernel (every kind's limit set to the
+        kernel's cap) and on its chain (set to 0), five runs a side in
+        turns kernel, chain, chain, kernel, ...: ms a frame (CUDA events
+        over 16 frames, the prefill subtracted; the host loop's pace where
+        it bounds the frame), the medians, whether every kernel run beat
+        every chain run, and device ms a frame (profiler, prefill + 4
+        frames less the prefill).
 step-ab   one tree's side of a parent-vs-change A/B of the talker step
         kernel alone, run from the tree's root like `ab`: device ms a step
         by CUDA-graph replay at full width (256 slots, ~100 live), dense,
@@ -214,12 +217,13 @@ def run_trace(batches=(1, 16), modes=("", "nowork")) -> None:
     ptab, rows = fp.make_ptab(assets, cfg)
     frames = 10
     for kind, pp in (("dense", dense),
-                     ("int8", quant.quantize_decoder_params(dense, "int8"))):
+                     ("int8", quant.quantize_decoder_params(dense, "int8")),
+                     ("int4", quant.quantize_decoder_params(dense, "int4"))):
         for B in batches:
             h = torch.randn(B, cfg.hidden, generator=g, device=dev)
             c0 = torch.randint(0, 2048, (B,), generator=g, device=dev)
             with torch.cuda.device(dev):
-                nb = fp._plan(cfg, B, 2, dev)[1]
+                nb = fp._plan(cfg, B, 2, kind == "int4", dev)[1]
             fp.TRACE = torch.zeros(nb * fp.TRACE_STRIDE, dtype=torch.int64,
                                    device=dev)
             for mode in modes:
@@ -569,9 +573,20 @@ def codes_runs(models, cfg, prompt, pad, frames):
     return run, timed
 
 
-def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
+# the weight sets of each route's KIND: (label, talker kind, predictor kind)
+ROUTE_SETS = {"talker": {"dense": ("dense bf16", "dense", "dense"),
+                         "int8": ("int8/int8", "int8", "int8"),
+                         "int4": ("int4+int8", "int4", "int8")},
+              "predictor": {"dense": ("dense bf16", "dense", "dense"),
+                            "int8": ("int8/int8", "int8", "int8"),
+                            "int4": ("int4/int4", "int4", "int4")}}
+
+
+def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16),
+                kinds=("dense", "int8", "int4")) -> None:
     """Both routes of the talker step, or of the predictor frame, end to
-    end (module docstring, `route`)."""
+    end (module docstring, `route`), for the weight sets of `kinds`: the
+    talker's or the predictor's weights of that kind (`ROUTE_SETS`)."""
     import torch
     import chip_smoke as c
     card = c.phase_device()
@@ -586,30 +601,22 @@ def route_times(which: str = "talker", batches=(1, 2, 4, 8, 16)) -> None:
     cfg, dev = eng.config, eng.device
     g = torch.Generator(device=dev).manual_seed(7)
     frames = 16
-    if which == "talker":
-        sets = (("dense bf16", eng.models),
-                ("int8/int8", c.quantized_models(eng.models, "int8", "int8")),
-                ("int4+int8", c.quantized_models(eng.models, "int4", "int8")))
-        kernel = ft.talker_step_kernel
-        limits = (ft.MAX_B, ft.INT4_MAX_B)
+    mod = ft if which == "talker" else fp
+    kernel = ft.talker_step_kernel if which == "talker" \
+        else fp.predictor_frame_kernel
+    limits = mod.ROUTE_MAX_B
 
-        def set_route(route):
-            ft.MAX_B = ft.INT4_MAX_B = limits[0] if route == "kernel" else 0
+    def set_route(route):
+        mod.ROUTE_MAX_B = {k: mod.MAX_B if route == "kernel" else 0
+                           for k in limits}
 
-        def restore():
-            ft.MAX_B, ft.INT4_MAX_B = limits
-    else:
-        sets = (("dense bf16", eng.models),
-                ("int8/int8", c.quantized_models(eng.models, "int8", "int8")))
-        kernel = fp.predictor_frame_kernel
-        limits = fp.ROUTE_MAX_B
-
-        def set_route(route):
-            fp.ROUTE_MAX_B = {k: fp.MAX_B if route == "kernel" else 0
-                              for k in limits}
-
-        def restore():
-            fp.ROUTE_MAX_B = limits
+    def restore():
+        mod.ROUTE_MAX_B = limits
+    sets = []
+    for kind in kinds:
+        label, tk, pk = ROUTE_SETS[which][kind]
+        sets.append((label, eng.models if kind == "dense"
+                     else c.quantized_models(eng.models, tk, pk)))
     for label, models in sets:
         for B in batches:
             prompt = 0.1 * torch.randn(B, 64, cfg.talker.hidden,
@@ -893,9 +900,11 @@ def main(argv) -> int:
         frame_ab(argv[1])
         return 0
     if argv[:1] == ["route"]:
-        which = argv[1] if argv[1:2] and not argv[1].isdigit() else "talker"
+        which = "predictor" if "predictor" in argv[1:] else "talker"
+        kinds = tuple(a for a in argv[1:] if a in ROUTE_SETS[which])
         batches = tuple(int(b) for b in argv[1:] if b.isdigit())
-        route_times(which, batches or (1, 2, 4, 8, 16))
+        route_times(which, batches or (1, 2, 4, 8, 16),
+                    kinds or ("dense", "int8", "int4"))
         return 0
     print(__doc__)
     return 2

@@ -497,8 +497,8 @@ MID_PREDICTOR = dict(hidden=256, n_layers=4, n_q_heads=4, n_kv_heads=2,
 
 
 def _frame_case(dev, cfg, kind, B, seed, peak=False):
-    """Seeded predictor weights (dense or int8), ptab, h1024 and code_0 on
-    the card. `peak` boosts 4 columns of each head slice 24x, so the argmax
+    """Seeded predictor weights (dense, int8 or int4), ptab, h1024 and
+    code_0 on the card. `peak` boosts 4 columns of each head slice 24x, so the argmax
     races a few well-separated candidates (chip_smoke.py peak_head)."""
     from qwen3_tts_tpu_torch.assets import tables
     from qwen3_tts_tpu_torch.core import protocol
@@ -513,8 +513,8 @@ def _frame_case(dev, cfg, kind, B, seed, peak=False):
                 protocol.CODE_VOCAB, generator=g, device=dev)[:4]
             head[:, cols] *= 24.0
         pp["head"] = head.to(pp["head"].dtype)
-    if kind == "int8":
-        pp = quant.quantize_decoder_params(pp, kind="int8")
+    if kind != "dense":
+        pp = quant.quantize_decoder_params(pp, kind=kind)
     assets = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
                                   proj_dim=cfg.hidden, device=dev)
     ptab, rows = fused_predictor.make_ptab(assets, cfg)
@@ -550,10 +550,38 @@ def test_predictor_frame_tiny_f32_codes_equal_plain(dev, B):
     assert torch.equal(got.cpu(), cpu)
 
 
-@pytest.mark.parametrize("kind", ["dense", "int8"])
+@pytest.mark.parametrize("B", [1, 2, 3, 16])
+def test_predictor_frame_int4_small_f32_codes_equal_plain(dev, B):
+    """All five weights int4 at the small int4-capable f32 width (hidden
+    256, 2/2 heads of 128, ffn 256): the frame kernel's codes equal to the
+    plain version on the card and on the CPU; frame_codes_fused launches
+    it once where frame_route takes it."""
+    import dataclasses
+    cfg = dataclasses.replace(tiny_engine_config().predictor, hidden=256,
+                              n_q_heads=2, n_kv_heads=2, head_dim=128,
+                              ffn_dim=256, mrope_sections=(64, 0, 0, 0))
+    pp, ptab, rows, h, code0 = _frame_case(dev, cfg, "int4", B, 81 + B)
+    routed = fused_predictor.frame_route(pp, B) == fused_predictor.KERNEL
+    assert routed == (B <= fused_predictor.ROUTE_MAX_B["int4"])
+    before = fused_predictor.predictor_frame_kernel.launches_int4
+    got = fused_predictor.predictor_frame_kernel(pp, cfg, ptab, rows, h,
+                                                 code0)
+    assert fused_predictor.predictor_frame_kernel.launches_int4 == before + 1
+    want = fused_predictor.frame_codes_fused_plain(pp, cfg, ptab, rows, h,
+                                                   code0)
+    assert torch.equal(got, want)
+    cpu = fused_predictor.frame_codes_fused_plain(
+        {k: ({n: ({m: u.cpu() for m, u in t.items()} if isinstance(t, dict)
+                  else t.cpu()) for n, t in v.items()}
+             if isinstance(v, dict) else v.cpu()) for k, v in pp.items()},
+        cfg, ptab.cpu(), rows, h.cpu(), code0.cpu())
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
 @pytest.mark.parametrize("B", [1, 2, 16])
 def test_predictor_frame_mid_bf16_agrees_with_plain(dev, kind, B):
-    """A mid size in bf16, dense and int8 weights, peaked heads: codes
+    """A mid size in bf16, dense, int8 and int4 weights, peaked heads: codes
     agree with the plain version in >= 95% of places (bf16 sums in another
     order may flip a near tie, which then changes the frame's later
     inputs); code_0 column exact."""
@@ -576,7 +604,8 @@ def test_predictor_frame_repeats_bit_identical(dev):
     import dataclasses
     tiny = tiny_engine_config().predictor
     mid = dataclasses.replace(tiny, **MID_PREDICTOR)
-    for cfg, kind in ((tiny, "dense"), (mid, "dense"), (mid, "int8")):
+    for cfg, kind in ((tiny, "dense"), (mid, "dense"), (mid, "int8"),
+                      (mid, "int4")):
         pp, ptab, rows, h, code0 = _frame_case(dev, cfg, kind, 3, 41)
         a, b = (fused_predictor.predictor_frame_kernel(
             pp, cfg, ptab, rows, h, code0) for _ in range(2))
@@ -610,22 +639,25 @@ def _step_case(dev, kind, B, dtype, seed, T=256):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
-@pytest.mark.parametrize("B", [1, 2, 5, 16])
+@pytest.mark.parametrize("B", [1, 2, 5, 16, 17, 32])
 def test_talker_step_kernel_matches_plain(dev, dtype, kind, B):
     """The step kernel against talker_step_fused_plain: hidden, logits and
     the cache slot written (f32 rtol/atol 1e-4; bf16 max |d| <= 8e-3 of the
     largest magnitude, chip_smoke.py's bound); every other slot unchanged;
     one launch a step through talker_step_fused where the route takes the
-    kernel, else through the kernel's wrapper."""
-    tc, tp, x, pos, slot, kv_len, vf, cache = _step_case(dev, kind, B, dtype,
-                                                         50 + B)
+    kernel, else through the kernel's wrapper; B up to the kernel's cap,
+    32 (a 512-slot cache past 16 rows, whose slots reach 308)."""
+    tc, tp, x, pos, slot, kv_len, vf, cache = _step_case(
+        dev, kind, B, dtype, 50 + B, T=256 if B <= 16 else 512)
     before = fused_talker.talker_step_kernel.launches
+    wide = fused_talker.talker_step_kernel.launches_wide
     kk, kv = cache["k"].clone(), cache["v"].clone()
     step = fused_talker.talker_step_fused \
         if fused_talker.talker_route(tp, B) == fused_talker.KERNEL \
         else fused_talker.talker_step_kernel
     a = step(tp, tc, x, pos, slot, kv_len, vf, kk, kv)
     assert fused_talker.talker_step_kernel.launches == before + 1
+    assert fused_talker.talker_step_kernel.launches_wide == wide + (B > 16)
     b = fused_talker.talker_step_fused_plain(tp, tc, x, pos, slot, kv_len,
                                              vf, cache["k"].clone(),
                                              cache["v"].clone())

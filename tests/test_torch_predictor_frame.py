@@ -35,7 +35,13 @@ from qwen3_tts_tpu_torch.ops import fused_predictor as fp
 
 FULL = tconfig.EngineConfig().predictor
 TINY = tconfig.tiny_engine_config().predictor
+# the small int4-capable predictor of chip_smoke.py (widths in 256-row
+# groups)
+SMALL4 = dataclasses.replace(TINY, hidden=256, n_q_heads=2, n_kv_heads=2,
+                             head_dim=128, ffn_dim=256,
+                             mrope_sections=(64, 0, 0, 0))
 CONFIGS = {"full": FULL, "tiny": TINY}
+CONFIGS4 = {"full": FULL, "small4": SMALL4}     # int4-capable widths
 H100_SMEM = 232448          # opt-in shared memory per block (H100)
 
 
@@ -68,20 +74,20 @@ def _meta_params(cfg, kind):
             "head": w(H, cfg.vocab)}
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["small4"])
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 9, 10, 12, 13, 16, 17])
 def test_route(config, kind, B, monkeypatch):
-    """Dense weights at B <= 9 and int8 weights at B <= 12 go to the
-    frame kernel (every end-to-end run on it beat every run on the chain
-    there on the card); int4 weights or larger batches to the chain, and
-    frame_codes_fused takes that route."""
-    assert fp.ROUTE_MAX_B == {"dense": 9, "int8": 12}
+    """Dense weights at B <= 9, int8 weights at B <= 12 and all-int4
+    weights at B <= ROUTE_MAX_B["int4"] go to the frame kernel (every
+    end-to-end run on it beat every run on the chain there on the card);
+    larger batches to the chain, and frame_codes_fused takes that
+    route."""
+    assert fp.ROUTE_MAX_B == {"dense": 9, "int8": 12, "int4": 16}
     assert max(fp.ROUTE_MAX_B.values()) <= fp.MAX_B
-    cfg = CONFIGS[config]
+    cfg = CONFIGS.get(config, SMALL4)
     params = _meta_params(cfg, kind)
-    want = fp.CHAIN if kind == "int4" or B > fp.ROUTE_MAX_B[kind] \
-        else fp.KERNEL
+    want = fp.CHAIN if B > fp.ROUTE_MAX_B[kind] else fp.KERNEL
     assert fp.frame_route(params, B) == want
     taken = []
     monkeypatch.setattr(fp, "predictor_frame_kernel",
@@ -92,18 +98,27 @@ def test_route(config, kind, B, monkeypatch):
     assert taken == [want]
 
 
-def test_route_mixed_dense_int8_is_kernel_and_int4_anywhere_is_chain():
-    params = _meta_params(TINY, "dense")
-    mixed = dict(params, head=_meta_params(TINY, "int8")["head"])
+def test_route_mixed_dense_int8_is_kernel_and_int4_in_a_mix_is_chain():
+    """Dense and int8 mix on the kernel route; int4 mixed with another
+    kind goes to the chain (the kernel refuses the mix, as the TPU kernel
+    and the chain do), all five int4 to the kernel."""
+    params = _meta_params(SMALL4, "dense")
+    mixed = dict(params, head=_meta_params(SMALL4, "int8")["head"])
     assert fp.frame_route(mixed, 4) == fp.KERNEL
     assert fp.frame_route(mixed, 9) == fp.KERNEL
     assert fp.frame_route(mixed, 10) == fp.CHAIN    # the dense limit
     assert fp.frame_route(mixed, fp.MAX_B + 1) == fp.CHAIN
-    one4 = dict(params, head=_meta_params(TINY, "int4")["head"])
-    assert fp.frame_route(one4, 1) == fp.CHAIN
+    for other in ("dense", "int8"):
+        base = _meta_params(SMALL4, other)
+        one4 = dict(base, head=_meta_params(SMALL4, "int4")["head"])
+        assert fp.frame_route(one4, 1) == fp.CHAIN
+        four = _meta_params(SMALL4, "int4")
+        one_other = dict(four, head=base["head"])
+        assert fp.frame_route(one_other, 1) == fp.CHAIN
+    assert fp.frame_route(_meta_params(SMALL4, "int4"), 1) == fp.KERNEL
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["small4"])
 @pytest.mark.parametrize("nb", [132, 114, 1])
 @pytest.mark.parametrize("B", [1, 2, 16])
 def test_work_plan_covers_each_column_once(config, nb, B):
@@ -112,7 +127,7 @@ def test_work_plan_covers_each_column_once(config, nb, B):
     block holding wo columns computes every (row, kv head) attention unit
     in wo's prologue, the others none; each unit's k / v store at slot p
     falls to one block, and that block holds wo columns."""
-    cfg = CONFIGS[config]
+    cfg = CONFIGS.get(config, SMALL4)
     plan = fp.frame_plan(cfg, B, nb)
     shapes = fp.stage_shapes(cfg)
     units = B * cfg.n_kv_heads
@@ -145,6 +160,9 @@ def test_work_plan_covers_each_column_once(config, nb, B):
         assert hi > lo and plan["attention"][blk] == (0, units)
     assert fp.row_pass(B, 2) == {1: 1, 2: 2}.get(B, 4 if B <= 4 else 8)
     assert fp.row_pass(B, 4) == {1: 1, 2: 2}.get(B, 4)
+    for t_bytes in (2, 4):                      # int4: at most MAX_MT4
+        assert fp.row_pass(B, t_bytes, True) == min(fp.row_pass(B, t_bytes),
+                                                    fp.MAX_MT4)
 
 
 # the ring's walk at three widths: the tiny CPU config, a small one with
@@ -158,7 +176,7 @@ MIXED = ("int8", "dense", "int8", "dense", "int8")
 
 
 @pytest.mark.parametrize("config", sorted(WALKS))
-@pytest.mark.parametrize("kinds", ["dense", "int8", "mixed"])
+@pytest.mark.parametrize("kinds", ["dense", "int8", "int4", "mixed"])
 @pytest.mark.parametrize("B", [1, 2, 5, 16])
 def test_ring_chunks_cover_each_weight_row_once(config, kinds, B):
     """The producer's and the consumers' chunk sequence of a block, bf16
@@ -167,14 +185,19 @@ def test_ring_chunks_cover_each_weight_row_once(config, kinds, B):
     within a stage row pass, unit batch and rows in order; per stage and
     row pass, every packed row of every unit the block owns in exactly one
     chunk, each chunk at most a buffer, whole 16-byte copies, at least
-    two rows."""
+    two rows; int4 chunks in whole pairs of groups, their multipliers
+    within the buffer's last 64th (the small and full widths: the tiny
+    one's are not whole groups)."""
     cfg = WALKS[config]
+    if kinds == "int4" and config == "tiny":
+        return
     kinds = MIXED if kinds == "mixed" else (kinds,) * 5
+    int4 = "int4" in kinds
     nb = 132
     stages = fp.frame_stages(cfg)
     assert len(stages) == fp.frame_barriers(cfg)
     for t_bytes in (2, 4):
-        mt = fp.row_pass(B, t_bytes)
+        mt = fp.row_pass(B, t_bytes, int4)
         for blk in (0, 57, nb - 1):
             seq = fp.chunk_sequence(cfg, B, nb, blk, kinds, t_bytes,
                                     fp.CHUNK)
@@ -186,11 +209,17 @@ def test_ring_chunks_cover_each_weight_row_once(config, kinds, B):
                 wb = fp.row_bytes(kinds[fp._STAGES.index(st)], t_bytes)
                 assert nub * rn * wb <= fp.CHUNK and (rn * wb) % 16 == 0
                 assert rn >= 2 and 1 <= nub <= fp.units_a_batch(mt)
+                if int4:
+                    g2 = 2 * fp.GROUP4_ROWS
+                    assert rn % g2 == 0 and r0 % g2 == 0
+                    assert nub * (rn // fp.GROUP4_ROWS) * 8 \
+                        <= fp.CHUNK // 64
                 for u in range(ul, ul + nub):
                     seen.setdefault((s, rc, u), []).append((r0, rn))
             shapes = fp.stage_shapes(cfg)
             for s, (st, l, q) in enumerate(stages):
                 K, N = shapes[st]
+                K = K // 2 if int4 else K
                 lo, hi = fp.split_units(N // fp.UNIT, nb)[blk]
                 for rc in range(-(-B // mt)):
                     for u in range(lo, hi):
@@ -202,30 +231,45 @@ def test_ring_chunks_cover_each_weight_row_once(config, kinds, B):
             assert not seen
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-@pytest.mark.parametrize("kind", ["dense", "int8"])
+@pytest.mark.parametrize("config", sorted(CONFIGS) + ["small4"])
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
 def test_shared_memory_plan_fits_a_block(config, kind, B):
     """In bf16 and in f32, the fixed part (staged x rows, scratch, the
     warps' head vectors) and the kernel's ring (kFRing buffers of CHUNK
-    bytes) fit the H100's opt-in shared memory per block at every B <= 16,
-    and the plan refuses what does not fit; a buffer holds at least two
-    rows of every batch of every stage."""
+    bytes, with int4 weights each a 64th longer for the multipliers) fit
+    the H100's opt-in shared memory per block at every B <= 16, and the
+    plan refuses what does not fit; a buffer holds at least two rows (int4:
+    two groups) of every batch of every stage."""
     src = (pathlib.Path(fp.__file__).parent.parent / "csrc"
            / "predictor_frame.cu").read_text()
     assert int(re.search(r"constexpr int kFRing = (\d+);", src)[1]) \
-        == fp.RING >= 2 and fp.CHUNK % 16 == 0
-    cfg = CONFIGS[config]
+        == fp.RING >= 2 and fp.CHUNK % 1024 == 0
+    assert int(re.search(r"constexpr int kFMaxMT4 = (\d+);", src)[1]) \
+        == fp.MAX_MT4
+    assert int(re.search(r"constexpr int kFMaxB = (\d+);", src)[1]) \
+        == fp.MAX_B
+    if kind == "int4" and config == "tiny":
+        return                          # int4 needs widths of 256 rows
+    cfg = CONFIGS.get(config, SMALL4)
+    int4 = kind == "int4"
+    ring = fp.RING * (fp.CHUNK + (fp.CHUNK // 64 if int4 else 0))
+    assert fp.ring_bytes(int4) == ring
     for t_bytes in (2, 4):
-        fixed = fp.frame_smem_fixed(cfg, B, t_bytes)
-        assert fp.frame_smem(fixed, H100_SMEM) == fixed + fp.RING * fp.CHUNK \
+        fixed = fp.frame_smem_fixed(cfg, B, t_bytes, int4)
+        assert fp.frame_smem(fixed, H100_SMEM, int4) == fixed + ring \
             <= H100_SMEM
         with pytest.raises(ValueError, match="no room"):
-            fp.frame_smem(fixed, fixed + fp.RING * fp.CHUNK - 1)
+            fp.frame_smem(fixed, fixed + ring - 1, int4)
         wb = fp.row_bytes(kind, t_bytes)
-        nub = fp.units_a_batch(fp.row_pass(B, t_bytes))
+        mt = fp.row_pass(B, t_bytes, int4)
+        nub = fp.units_a_batch(mt)
         for K, _ in fp.stage_shapes(cfg).values():
-            assert fp.chunk_rows(fp.CHUNK, nub, wb, K) >= 2
+            Kp = K // 2 if int4 else K
+            rows = fp.chunk_rows(fp.CHUNK, nub, wb, Kp, int4)
+            assert rows >= (2 * fp.GROUP4_ROWS if int4 else 2)
+        if int4:
+            assert mt <= fp.MAX_MT4
 
 
 def test_ring_holds_a_stage_share_at_full_width():
@@ -349,21 +393,26 @@ def test_better_is_a_strict_total_order():
 PC = PredictorConfig(hidden=32, n_layers=2, n_q_heads=2, n_kv_heads=2,
                      head_dim=16, ffn_dim=64, max_seq=32,
                      mrope_sections=(8, 0, 0, 0), dtype="float32")
+# int4 needs widths in whole packed groups (multiples of 256): the
+# 256-wide config of JAX's own int4 test (tests/test_fused_predictor.py)
+PC4 = PredictorConfig(hidden=256, n_layers=2, n_q_heads=2, n_kv_heads=2,
+                      head_dim=128, ffn_dim=256, max_seq=32,
+                      mrope_sections=(64, 0, 0, 0), dtype="float32")
 
 
-def _frame_inputs(kind, B, seed):
+def _frame_inputs(kind, B, seed, cfg=PC):
     k1, k2 = jax.random.split(jax.random.key(seed))
-    jp = jdecoder.init_decoder(k1, PC)
+    jp = jdecoder.init_decoder(k1, cfg)
     if kind != "dense":
         jp = jquant.quantize_decoder_params(jp, kind=kind)
     ja = jtables.random_assets(k2, text_vocab=64, codec_rows=2176,
-                               dim=64, proj_dim=PC.hidden)
+                               dim=64, proj_dim=cfg.hidden)
     ta = convert.assets_from_numpy(
         np.asarray(ja.text_table), np.asarray(ja.codec_tables),
         np.asarray(ja.proj_weight), np.asarray(ja.proj_bias))
     tp = convert.decoder_from_numpy(jax.tree.map(np.asarray, jp))
     rng = np.random.default_rng(seed)
-    h1024 = rng.standard_normal((B, PC.hidden)).astype(np.float32)
+    h1024 = rng.standard_normal((B, cfg.hidden)).astype(np.float32)
     code0 = rng.integers(-3, 2300, B).astype(np.int32)
     return jp, ja, tp, ta, h1024, code0
 
@@ -389,6 +438,50 @@ def test_frame_codes_fused_matches_jax_kernel(kind, B):
                                      torch.from_numpy(h1024),
                                      torch.from_numpy(code0))
     assert torch.equal(kern, got)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_int4_frame_kernel_route_matches_jax(B):
+    """All five predictor weights int4 at the small int4 width: the
+    kernel route of frame_codes_fused (on the CPU: its plain version)
+    against JAX's predictor.frame_codes on the same int4 weights (which
+    JAX's own test holds equal to its Pallas kernel) and against that
+    Pallas kernel in interpret mode: codes exact."""
+    jp, ja, tp, ta, h1024, code0 = _frame_inputs("int4", B, 11 + B, PC4)
+    ref = np.asarray(jpredictor.frame_codes(jp, PC4, ja, jnp.asarray(h1024),
+                                            jnp.asarray(code0)))
+    jptab, jrows = jfused_predictor.make_ptab(ja, PC4)
+    pallas = jfused_predictor.frame_codes_fused(
+        jp, PC4, jptab, jrows, jnp.asarray(h1024), jnp.asarray(code0),
+        interpret=True)
+    np.testing.assert_array_equal(np.asarray(pallas), ref)
+    ptab, rows = fp.make_ptab(ta, PC4)
+    assert fp.frame_route(tp, B) == fp.KERNEL
+    got = fp.frame_codes_fused(tp, PC4, ptab, rows, torch.from_numpy(h1024),
+                               torch.from_numpy(code0))
+    assert got.dtype == torch.int32 and got.shape == (B, 16)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    kern = fp.predictor_frame_kernel(tp, PC4, ptab, rows,
+                                     torch.from_numpy(h1024),
+                                     torch.from_numpy(code0))
+    assert torch.equal(kern, got)
+
+
+def test_int4_kernel_refuses_a_mix_and_partial_groups():
+    """The frame kernel takes int4 only as all five weights and only at
+    widths of whole pairs of groups: a mix with int8, or int4 at a width
+    that is not, raises on the CPU as on the card."""
+    _, _, tp, ta, h1024, code0 = _frame_inputs("int4", 2, 4, PC4)
+    ptab, rows = fp.make_ptab(ta, PC4)
+    h, c0 = torch.from_numpy(h1024), torch.from_numpy(code0)
+    _, _, tp8, _, _, _ = _frame_inputs("int8", 2, 4, PC4)
+    mixed = dict(tp, head=tp8["head"])
+    with pytest.raises(ValueError, match="all five"):
+        fp.predictor_frame_kernel(mixed, PC4, ptab, rows, h, c0)
+    narrow = dataclasses.replace(PC4, ffn_dim=128)
+    with pytest.raises(ValueError, match="multiples of 256"):
+        fp.predictor_frame_kernel(_meta_params(narrow, "int4"), narrow,
+                                  ptab, rows, h, c0)
 
 
 def test_frame_codes_fused_chain_route_matches_jax():

@@ -80,15 +80,17 @@ def _meta_params(cfg, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("B", [1, 2, ft.INT4_MAX_B + 1, ft.MAX_B,
-                               ft.MAX_B + 1])
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 16, 17, 24, 32, 33])
 def test_route(kind, B, monkeypatch):
-    """Dense and int8 weights take the step kernel at B <= MAX_B, int4
-    weights at B <= INT4_MAX_B, and the chain above it; talker_step_fused
-    takes that route."""
+    """Each weight kind takes the step kernel at B <= its ROUTE_MAX_B
+    (measured on the card, at most the kernel's cap MAX_B = 32, the TPU
+    kernel's) and the chain above it; talker_step_fused takes that
+    route."""
+    assert ft.MAX_B == 32 and ft.WIDE_B == 16
+    assert ft.ROUTE_MAX_B == {"dense": 32, "int8": 24, "int4": 8}
+    assert max(ft.ROUTE_MAX_B.values()) <= ft.MAX_B
     params = _meta_params(FULL, kind)
-    limit = ft.INT4_MAX_B if kind == "int4" else ft.MAX_B
-    want = ft.KERNEL if B <= limit else ft.CHAIN
+    want = ft.KERNEL if B <= ft.ROUTE_MAX_B[kind] else ft.CHAIN
     assert ft.talker_route(params, B) == want
     taken = []
     monkeypatch.setattr(ft, "talker_step_kernel",
@@ -108,12 +110,12 @@ def test_route_mixed_kinds():
     one4 = dict(params, head=_meta_params(FULL, "int4")["head"])
     assert ft.talker_route(one4, 1) == ft.CHAIN
     # the main path's B = 1 and generate_batch's 2, for every kind
-    assert min(ft.MAX_B, ft.INT4_MAX_B) >= 2
+    assert min(ft.ROUTE_MAX_B.values()) >= 2
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 @pytest.mark.parametrize("nb", [132, 114, 1])
-@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("B", [1, 2, 16, 17, 24, 32])
 def test_work_plan_covers_each_column_once(config, nb, B):
     """Every output column of every stage goes to exactly one block, in
     contiguous ranges in block order; the attention units (row, kv head,
@@ -151,7 +153,7 @@ RING_CASES = {"dense": ("dense",) * 5, "int8": ("int8",) * 5,
 
 @pytest.mark.parametrize("config", sorted(CONFIGS4))
 @pytest.mark.parametrize("kind", sorted(RING_CASES))
-@pytest.mark.parametrize("B", [1, 2, 5, 16])
+@pytest.mark.parametrize("B", [1, 2, 5, 16, 17, 32])
 def test_ring_chunks_cover_each_weight_row_once(config, kind, B):
     """The producer's and the consumers' chunk sequence of a block, bf16
     and f32, dense, int8, int4 and mixed weights: per stage and row pass,
@@ -211,7 +213,7 @@ def _check_chunks(cfg, B, nb, kinds, t_bytes):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("B", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16, 17, 24, 32])
 def test_shared_memory_plan_fits_a_block(kind, B):
     """The ring is one size for every B and dtype: at the full width in
     bf16 and in f32 the fixed part (staged x rows, scratch) and RING
@@ -229,7 +231,7 @@ def test_shared_memory_plan_fits_a_block(kind, B):
         nub = ft.units_a_batch(ft.row_pass(B, t_bytes, int4))
         for K, _ in ft.stage_shapes(FULL).values():
             Kp = K // 2 if int4 else K
-            rows = ft.chunk_rows(nub, wb, Kp, int4)
+            rows = ft.chunk_rows(ft.CHUNK, nub, wb, Kp, int4)
             assert rows >= (2 * ft.GROUP4_ROWS if int4 else 2)
         if int4:
             assert ft.row_pass(B, t_bytes, True) <= ft.MAX_MT4
@@ -246,7 +248,7 @@ def test_shared_memory_plan_raises_without_room():
 
 @pytest.mark.parametrize("config", sorted(CONFIGS4))
 @pytest.mark.parametrize("nb", [132, 114, 1])
-@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("B", [1, 2, 16, 32])
 @pytest.mark.parametrize("T", [256, 4096])
 def test_head_counters_and_attention_units_cover_once(config, nb, B, T):
     """The deal that replaces the grid barrier between qkv and attention:
@@ -332,6 +334,7 @@ def test_args_and_trace_words_match_kernel():
     assert const("kTrBars") == fm.T_BARS >= ft.step_barriers(FULL)
     assert 2 * fm.T_BARS <= fm.T_T0
     assert const("kSMaxMT4") == ft.MAX_MT4
+    assert const("kSMaxB") == ft.MAX_B
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -472,8 +475,8 @@ def test_int4_group_order_matches_panel_matmul4(M, x_dtype):
                                atol=2e-6 * big * float(q["scale"].max()))
 
 
-@pytest.mark.parametrize("B", [1, 2, 16])
-@pytest.mark.parametrize("T", [256, 4096])
+@pytest.mark.parametrize("B", [1, 2, 16, 17, 32])
+@pytest.mark.parametrize("T", [256, 1024, 4096])
 @pytest.mark.parametrize("nb", [132, 7])
 def test_attention_splits_cover_live_ranges_once(B, T, nb):
     """S from B, nk, the grid and the capacity only; split s of each row's
@@ -544,15 +547,38 @@ def test_step_matches_jax_kernel_over_steps(case):
     side carrying its own cache: B = 2 with left pad [0, 3] and per-row
     slots (row 1 one token behind), the same numpy feedback each step."""
     cfg, kind = STEP_CASES[case]
-    B, S = 2, 6
+    tp = _steps_against_jax(cfg, kind, 2, 3)
+    assert ft.talker_route(tp, 2) == ft.KERNEL
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+@pytest.mark.parametrize("B", [17, 32])
+def test_wide_step_matches_jax_kernel(case, B):
+    """The step kernel's rows past 16 (its cap is the TPU kernel's 32):
+    two consecutive steps of the kernel's wrapper (on the CPU: its plain
+    version, after the kernel's own checks) against JAX's
+    talker_step_fused in interpret mode, odd rows left-padded by 3 and one
+    token behind; tolerances as above."""
+    cfg, kind = STEP_CASES[case]
+    _steps_against_jax(cfg, kind, B, 2, ft.talker_step_kernel)
+
+
+def _steps_against_jax(cfg, kind, B, steps, step_fn=None):
+    """`steps` consecutive steps of `step_fn` (default the route,
+    talker_step_fused) against JAX's talker_step_fused in interpret mode
+    at batch B, each side carrying its own cache: rows 1, 3, ... with left
+    pad 3 and one token behind, the same numpy feedback each step.
+    Returns the port's params."""
+    step_fn = step_fn or ft.talker_step_fused
+    S = 6
     rng = np.random.default_rng(7)
     ks = jax.random.split(jax.random.key(1), 2)
     jp = jdecoder.init_decoder(ks[0], cfg)
     if kind != "dense":
         jp = jquant.quantize_decoder_params(jp, kind=kind)
     tp = convert.decoder_from_numpy(jax.tree.map(np.asarray, jp))
-    assert ft.talker_route(tp, B) == ft.KERNEL
-    pad = np.asarray([0, 3], np.int32)
+    odd = (np.arange(B) % 2).astype(np.int32)
+    pad = 3 * odd
     x = (0.1 * rng.standard_normal((B, S, cfg.hidden))).astype(np.float32)
     pos = jnp.maximum(jnp.arange(S)[None] - jnp.asarray(pad)[:, None], 0)
     _, _, jc = jdecoder.forward(jp, cfg, jnp.asarray(x), pos,
@@ -561,15 +587,15 @@ def test_step_matches_jax_kernel_over_steps(case):
     jk, jv = jc["k"], jc["v"]
     tk = torch.from_numpy(np.array(jk))
     tv = torch.from_numpy(np.array(jv))
-    slot = np.asarray([S, S - 1], np.int32)       # row 1 one token behind
+    slot = S - odd                       # odd rows one token behind
     launches = ft.talker_step_kernel.launches
-    for step in range(3):
+    for step in range(steps):
         fb = (0.1 * rng.standard_normal((B, cfg.hidden))).astype(np.float32)
         jh, jl, jk, jv = jfused_talker.talker_step_fused(
             jp, cfg, jnp.asarray(fb), jnp.asarray(slot - pad),
             jnp.asarray(slot), jnp.asarray(slot), jnp.asarray(pad), jk, jv,
             interpret=True)
-        th, tl, tk, tv = ft.talker_step_fused(
+        th, tl, tk, tv = step_fn(
             tp, cfg, torch.from_numpy(fb), torch.from_numpy(slot - pad),
             torch.from_numpy(slot), torch.from_numpy(slot),
             torch.from_numpy(pad), tk, tv)
@@ -588,6 +614,7 @@ def test_step_matches_jax_kernel_over_steps(case):
     assert ft.talker_step_kernel.launches == launches   # CPU: plain only
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=0,
                                atol=1e-5)
+    return tp
 
 
 def test_kernel_refuses_what_it_does_not_take():
