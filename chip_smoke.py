@@ -64,6 +64,27 @@ result line:
                argmax >= 0.93, predictor codes >= 0.95, for dense weights,
                for the int4 talker with the int8 predictor, and for the
                int8 talker
+ 5b. predictor `models/predictor.py` (frame_codes, Jacobi decoding) and
+               the loop's Jacobi branch: kernel A against its plain version
+               at the int8 predictor's products and a head slice view, M =
+               1, 2, 16, 32, 64 (rtol = atol = 1e-4); at f32 (the tiny
+               config dense, a 256-wide int8 one on kernel A), B = 1 and 4:
+               frame_codes, Jacobi with zero, oracle and adversarial drafts
+               and the frame kernel's codes equal to each other and to the
+               CPU's; at full width bf16, dense and int8, B = 1 and 4:
+               Jacobi self-consistent (a verifying pass over its codes
+               reproduces codes 1-15, the oracle draft takes one pass),
+               with peaked heads Jacobi's and frame_codes's codes each
+               agreeing with the frame kernel's >= 0.95; frame_codes on int8
+               weights counted as a main-path run (kernel A, decode
+               attention); generate_codes with QWEN3_TTS_PRED_JACOBI=1: the
+               tiny f32 config's codes equal to the default path's and the
+               CPU's, full width 32 frames dense and 8 int8/int8 (kernel A
+               launched) against the default path in turns. Prints the
+               device ms of one Jacobi pass, passes a frame, ms a frame of
+               Jacobi, frame_codes and the frame kernel's route in one call,
+               and kernel A a predictor layer at M = 16 and 64 against its
+               bound, its plain version and torch._weight_int8pack_mm
   6. main      TtsEngine(random_weights=True, seed=0) at full EngineConfig()
                width, B=1, 32 frames, generate_with_voice(vivian): a finite
                waveform, the talker step kernel and the predictor frame
@@ -127,16 +148,17 @@ result line:
                without the silu prologue; B, B8, B4 and decode attention
                at each split count beside their plans' choice; the
                predictor frame kernel a frame, dense / int8 / int4 at B =
-               1, 2, 4, 8, 16, against its bound and the chain of launches
-               it replaces (its plain version at B = 1); the talker step
-               kernel a step, dense / int8 / int4 at B = 1, 2, 4, 8, 16,
-               17, 24, 32, against its bound, the chain it replaces and its
-               plain version; kernel A a talker layer
-               at M = 64, 128, 192 and 1088 against its bound, its plain
-               version, torch._weight_int8pack_mm and cuBLAS on bf16
-               weights (a reference), and each product with the plan's
-               tiles against the other tiles, K splits and row tiles;
-               B4 against torch._weight_int4pack_mm on the same weights
+               1, 2, 16, against its bound and the chain of launches it
+               replaces (its plain version at B = 1); the talker step
+               kernel a step, dense / int8 / int4 at B = 1, 2, 16, 17, 32,
+               against its bound, the chain it replaces and its plain
+               version (other batches: their `batches` argument); kernel
+               A a talker layer at M = 64, 128, 192 and 1088 against its
+               bound, its plain version, torch._weight_int8pack_mm and
+               cuBLAS on bf16 weights (a reference), and each product with
+               the plan's tiles against the other tiles, K splits and row
+               tiles; B4 against torch._weight_int4pack_mm on the same
+               weights
   9. checkpoint  the engine's save_checkpoint at full EngineConfig() width
                (dense bf16) into a temporary directory, then
                TtsEngine(model_dir=..., device="cuda") on it: greedy
@@ -161,8 +183,12 @@ result line:
                within GENERAL_REL of it (the step kernels launched),
                create_voice_file on 4 s of audio with equal codes and the
                speaker embedding within GENERAL_REL; the bytes and seconds
-               of each write, read and conversion. The directory is
-               removed in any case
+               of each write, read and conversion. Then `python -m
+               qwen3_tts_tpu_torch.tools.validate_release --device cuda`
+               (in process) on that release in the downloader's layout
+               (the llama GGUFs, the decoder and encoder graphs, a
+               tokenizer.json): exit 0. The directory is removed in any
+               case
  10. clone     voice cloning at full width: random encoders (audio
                1024 x 8, speaker 512 x 6, f32) with the RVQ codebooks tied
                to the vocoder's tables; create_voice_file on a 4 s and a
@@ -989,9 +1015,10 @@ def phase_kernels_fused(rec: Record, randn):
 
 def frame_case(cfg, kind, B, seed, peak=False):
     """Seeded predictor weights of `cfg` on the card (dense, or int8 / int4
-    as `quant.quantize_decoder_params` makes them), the ptab of random assets,
-    h1024 [B, H] and code_0 [B] (some out of range, some negative); `peak`
-    makes the head decisive (`peak_head`)."""
+    as `quant.quantize_decoder_params` makes them), random assets, their
+    ptab, h1024 [B, H] and code_0 [B] (some out of range, some negative);
+    `peak` makes the head decisive (`peak_head`). Returns (params, assets,
+    ptab, ptab rows, h1024, code_0)."""
     import torch
     from qwen3_tts_tpu_torch.assets import tables
     from qwen3_tts_tpu_torch.core import protocol as P
@@ -1011,7 +1038,7 @@ def frame_case(cfg, kind, B, seed, peak=False):
     ptab, rows = fused_predictor.make_ptab(assets, cfg)
     h = torch.randn(B, cfg.hidden, generator=g, device=dev)
     code0 = torch.randint(-3, 2300, (B,), generator=g, device=dev)
-    return pp, ptab, rows, h, code0
+    return pp, assets, ptab, rows, h, code0
 
 
 # the small int4-capable width of the f32 checks (widths in whole pairs of
@@ -1110,7 +1137,7 @@ def phase_kernels_frame(rec: Record):
         name = "predictor_frame_int4" if kind == "int4" else \
             "predictor_frame"
         for B in (1, 2, 3, 16):
-            pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 60 + B)
+            pp, _, ptab, rows, h, c0 = frame_case(cfg, kind, B, 60 + B)
             got = fp.predictor_frame_kernel(pp, cfg, ptab, rows, h, c0)
             res = frame_residual(fp, cfg, h, kind == "int4")
             plains = []
@@ -1140,8 +1167,8 @@ def phase_kernels_frame(rec: Record):
                       rtol=1e-4, atol=1e-4)
     for kind in ("dense", "int8", "int4"):
         for B in (1, 2, 16):
-            pp, ptab, rows, h, c0 = frame_case(full, kind, B, 70 + B,
-                                               peak=True)
+            pp, _, ptab, rows, h, c0 = frame_case(full, kind, B, 70 + B,
+                                                  peak=True)
 
             def call(pp=pp, ptab=ptab, rows=rows, h=h, c0=c0):
                 return fp.predictor_frame_kernel(pp, full, ptab, rows, h, c0)
@@ -1518,6 +1545,351 @@ def agree_run(eng, models, label, predictor=True):
             f"{frac_p:.3f} (gate 0.95)")
     if frac_p < 0.95:
         fail(f"{label}: predictor agreement {frac_p:.3f} < 0.95")
+
+
+# ------------------------------------------------- models/predictor.py
+# kernel A's shapes on an int8 predictor (`models/predictor.py`): qkv, wo,
+# gate/up and down of EngineConfig().predictor (hidden 1024, 8 + 2 x 8
+# heads of 128, ffn 3072)
+PREDICTOR_INT8 = [(1024, 3072), (1024, 1024), (1024, 6144), (3072, 1024)]
+PREDICTOR_A_ROWS = (1, 2, 16, 32, 64)   # B, 2B (a prefill), 16B (a pass)
+# the f32 width at which int8 predictor weights take kernel A (widths in
+# multiples of 128), four layers
+MID_F32 = dict(hidden=256, n_layers=4, n_q_heads=4, n_kv_heads=2,
+               head_dim=64, ffn_dim=512, mrope_sections=(32, 0, 0, 0))
+JACOBI_ENV = "QWEN3_TTS_PRED_JACOBI"
+
+
+@contextlib.contextmanager
+def jacobi_on():
+    """QWEN3_TTS_PRED_JACOBI=1 inside the block, as it was after."""
+    old = os.environ.get(JACOBI_ENV)
+    os.environ[JACOBI_ENV] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[JACOBI_ENV]
+        else:
+            os.environ[JACOBI_ENV] = old
+
+
+def loop_codes(e, models, frames):
+    """generate_codes(ignore_eos=True) on `models`, the vivian prompt, B =
+    1, greedy, `frames` frames: (codes, n_frames)."""
+    import torch
+    from qwen3_tts_tpu_torch.tts import generate
+    cfg = e.config
+    d = e._prompt_for_voice(TEXT, e.get_speaker("vivian"), None)
+    b, o = e._pad_prompts([d.embeds])
+    with torch.inference_mode():
+        return generate.generate_codes(
+            models, cfg.talker, cfg.predictor, b, o, None, 0.0, 0, 1.0,
+            frames, ignore_eos=True)
+
+
+def predictor_kernel_a(rec: Record, randn):
+    """Kernel A against its plain version at the int8 predictor's products
+    and a 2048-column head slice (a view of the 32768-column head), M =
+    1, 2, 16, 32, 64, x bf16 and f32 (phase 3's rtol = atol = 1e-4), and a
+    repeat bit-identical."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import quant
+
+    for K, N in PREDICTOR_INT8 + [(1024, 4096), (1024, 2048)]:
+        if N == 2048:
+            wide = quant.quantize(randn(K, 16 * N, scale=0.02))
+            q, sc = wide["q"][:, 5 * N:6 * N], wide["scale"][5 * N:6 * N]
+        else:
+            qw = quant.quantize(randn(K, N, scale=0.02))
+            q, sc = qw["q"], qw["scale"]
+        err, same = 0.0, True
+        for M in PREDICTOR_A_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = randn(M, K, dtype=dt)
+                got = quant.qmatmul_kernel(x, q, sc)
+                e, _ = rec.check(
+                    "qmatmul", got, quant.qmatmul_kernel_plain(x, q, sc),
+                    f"predictor {K}x{N} M={M} x {str(dt)[6:]}",
+                    rtol=1e-4, atol=1e-4, quiet=True)
+                err = max(err, e)
+                same &= torch.equal(got, quant.qmatmul_kernel(x, q, sc))
+        log(f"  qmatmul          predictor {K}x{N}"
+            f"{' (head slice view)' if N == 2048 else ''}, M="
+            f"{PREDICTOR_A_ROWS}, x bf16 / f32: max|d|={err:.3e} (rtol/atol "
+            f"1e-4) ok; repeats {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            fail(f"qmatmul predictor {K}x{N}: repeats differ")
+
+
+def predictor_small_card_vs_cpu():
+    """frame_codes, frame_codes_jacobi (zero, oracle and adversarial
+    drafts) and the frame kernel's codes at f32, B = 1 and 4: the tiny
+    config dense, and MID_F32 with int8 weights (kernel A): all equal to
+    each other on the card and to frame_codes on the CPU."""
+    import dataclasses
+
+    import torch
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.models import predictor as pm
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+
+    tiny = tiny_engine_config().predictor
+    mid = dataclasses.replace(tiny, **MID_F32)
+    for cfg, kind, what in ((tiny, "dense", "tiny f32"),
+                            (mid, "int8", "mid f32 int8")):
+        for B in (1, 4):
+            pp, assets, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
+            want = pm.frame_codes(_to(pp, "cpu"), cfg, _to(assets, "cpu"),
+                                  h.cpu(), c0.cpu())
+            got = {"frame_codes": pm.frame_codes(pp, cfg, assets, h, c0),
+                   "frame kernel": fp.predictor_frame_kernel(
+                       pp, cfg, ptab, rows, h, c0)}
+            drafts = {"zero": None, "oracle": want[:, 1:].cuda(),
+                      "adversarial": ((want[:, 1:] + 7) % 2048).cuda()}
+            passes = {}
+            for name, d in drafts.items():
+                got[f"jacobi {name}"] = pm.frame_codes_jacobi(
+                    pp, cfg, assets, h, c0, d)
+                passes[name] = pm.frame_codes_jacobi.passes
+            bad = [k for k, v in got.items() if not torch.equal(v.cpu(),
+                                                                want)]
+            log(f"  {what} B={B}: frame_codes, the frame kernel and Jacobi "
+                f"(zero / oracle / adversarial drafts: {passes['zero']} / "
+                f"{passes['oracle']} / {passes['adversarial']} passes) "
+                f"equal to the CPU's frame_codes: {not bad}")
+            if bad or passes["oracle"] != 1:
+                fail(f"predictor {what} B={B}: {bad} differ from the CPU's "
+                     f"codes, or the oracle draft took {passes['oracle']} "
+                     "passes")
+
+
+def predictor_times(label, pp, cfg, assets, ptab, rows, card, B, g):
+    """Device ms of one Jacobi pass (profiler) and ms a frame (CUDA events
+    after warmup, host gaps included) of frame_codes_jacobi (zero draft),
+    frame_codes and the frame kernel's route, in the same call."""
+    import torch
+    from qwen3_tts_tpu_torch.models import predictor as pm
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+
+    h = torch.randn(B, cfg.hidden, generator=g, device=g.device)
+    c0 = torch.randint(0, 2048, (B,), generator=g, device=g.device)
+    codes = torch.cat([c0[:, None].int(), torch.zeros(
+        B, 15, dtype=torch.int32, device=g.device)], 1)
+    with torch.inference_mode():
+        pm.jacobi_pass(pp, cfg, assets, h, codes)
+        pass_dev = profiled_device_ms(
+            lambda: pm.jacobi_pass(pp, cfg, assets, h, codes), 3)
+        pass_ms = cuda_ms(lambda: pm.jacobi_pass(pp, cfg, assets, h, codes),
+                          reps=10, warmup=2)
+        pm.frame_codes_jacobi.passes_total = 0
+        jac = cuda_ms(lambda: pm.frame_codes_jacobi(pp, cfg, assets, h, c0),
+                      reps=3, warmup=1)
+        passes = pm.frame_codes_jacobi.passes_total / 4
+        fc = cuda_ms(lambda: pm.frame_codes(pp, cfg, assets, h, c0),
+                     reps=3, warmup=1)
+        kern = cuda_ms(lambda: fp.frame_codes_fused(pp, cfg, ptab, rows, h,
+                                                    c0), reps=10, warmup=2)
+    log(f"  {label} B={B}: one Jacobi pass {_fmt(pass_dev)} device ms "
+        f"(profiler), {pass_ms:.3f} ms (events); Jacobi {jac:.3f} ms a frame"
+        f" ({passes:g} passes, zero draft); frame_codes {fc:.3f} ms a frame;"
+        f" the frame kernel's route "
+        f"({fp.frame_route(pp, B)}) {kern:.3f} ms a frame, on {card}")
+
+
+def phase_predictor(eng, rec: Record, card: str, q88):
+    """`models/predictor.py` on the card: kernel A at the int8 predictor's
+    shapes; the small f32 checks (`predictor_small_card_vs_cpu`); at full
+    width bf16, dense and int8 (the int8/int8 and int4+int8 rungs' predictor)
+    at B = 1 and 4: Jacobi self-consistency (one verifying pass over its own
+    codes reproduces codes 1-15, and they as the draft take one pass), and
+    with peaked heads Jacobi's and frame_codes's codes each agreeing with
+    the frame kernel's >= 0.95; frame_codes int8 counted as a main-path run
+    (kernel A, decode attention); the loop with QWEN3_TTS_PRED_JACOBI=1:
+    the tiny f32 config's greedy codes equal to the default path's on the
+    card and the CPU's, then at full width B = 1, 32 frames dense and 8
+    frames int8/int8 (kernel A launched), passes and ms a frame against
+    the default path's in the same call; times (`predictor_times`,
+    `qmatmul_times` at the predictor's shapes, M = 16 and 64)."""
+    import torch
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.models import predictor as pm
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    from qwen3_tts_tpu_torch.ops import quant
+    from qwen3_tts_tpu_torch.tts import generate
+
+    log(f"[5b/11] predictor: models/predictor.py (frame_codes, Jacobi "
+        f"decoding) and the loop's Jacobi branch, full width, on {card}")
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    t_phase = time.time()
+
+    def took(what):
+        log(f"  ({what}: {time.time() - t_phase:.1f} s into the phase)")
+
+    predictor_kernel_a(rec, randn)
+    predictor_small_card_vs_cpu()
+    took("kernel A and the f32 checks")
+
+    cfg = eng.config.predictor
+    assets = eng.models["assets"]
+    ptab, rows = generate.predictor_tables(eng.models, cfg)
+    dense = eng.models["predictor"]
+    kinds = (("dense bf16", dense), ("int8", q88["predictor"]))
+    # made outside inference mode: the frame kernel keys its packed copies
+    # of the weights by their version counters
+    peaked = peak_head(dense, [(q * P.CODE_VOCAB, P.CODE_VOCAB)
+                               for q in range(P.NUM_CODEBOOKS)])
+    peaked = (("dense bf16", peaked),
+              ("int8", quant.quantize_decoder_params(peaked, kind="int8")))
+    with torch.inference_mode():
+        for label, pp in kinds:
+            for B in (1, 4):
+                h = torch.randn(B, cfg.hidden, generator=g, device=dev)
+                c0 = torch.randint(0, 2048, (B,), generator=g, device=dev)
+                jac = pm.frame_codes_jacobi(pp, cfg, assets, h, c0)
+                p0 = pm.frame_codes_jacobi.passes
+                again = pm.frame_codes_jacobi(pp, cfg, assets, h, c0,
+                                              jac[:, 1:])
+                p1 = pm.frame_codes_jacobi.passes
+                verify = pm.jacobi_pass(pp, cfg, assets, h, jac)
+                ok = (torch.equal(verify, jac[:, 1:])
+                      and torch.equal(again, jac) and p1 == 1)
+                log(f"  {label} B={B}: Jacobi from the zero draft in {p0} "
+                    f"passes; a verifying pass over its codes reproduces "
+                    f"codes 1-15 and they as the draft take {p1} pass: "
+                    f"{ok}")
+                if not ok:
+                    fail(f"predictor {label} B={B}: Jacobi is not "
+                         "self-consistent")
+
+        # agreement with the frame kernel, peaked heads
+        for label, pp in peaked:
+            for B in (1, 4):
+                agree = {"jacobi": 0, "frame_codes": 0}
+                total = 0
+                for _ in range({1: 4, 4: 2}[B]):    # frames
+                    h = torch.randn(B, cfg.hidden, generator=g, device=dev)
+                    c0 = torch.randint(0, 2048, (B,), generator=g,
+                                       device=dev)
+                    kern = fp.frame_codes_fused(pp, cfg, ptab, rows, h, c0)
+                    for name, got in (
+                            ("jacobi", pm.frame_codes_jacobi(
+                                pp, cfg, assets, h, c0)),
+                            ("frame_codes", pm.frame_codes(
+                                pp, cfg, assets, h, c0))):
+                        agree[name] += int((got == kern).sum())
+                    total += kern.numel()
+                fr = {k: v / total for k, v in agree.items()}
+                log(f"  {label} B={B} peaked heads: codes agreement with the "
+                    f"frame kernel's ({fp.frame_route(pp, B)} route): Jacobi "
+                    f"{fr['jacobi']:.4f}, frame_codes {fr['frame_codes']:.4f}"
+                    f" (gate 0.95)")
+                if min(fr.values()) < 0.95:
+                    fail(f"predictor {label} B={B}: agreement {fr} < 0.95")
+        del peaked
+
+        # frame_codes on int8 weights as a main-path run: kernel A and
+        # decode attention counted
+        h = torch.randn(4, cfg.hidden, generator=g, device=dev)
+        c0 = torch.randint(0, 2048, (4,), generator=g, device=dev)
+        run_main_path(rec, "frame_codes int8 B=4",
+                      lambda: pm.frame_codes(q88["predictor"], cfg, assets,
+                                             h, c0),
+                      ("qmatmul", "decode_attention"))
+
+    took("full-width checks")
+    # the loop: tiny f32 on the card and the CPU, default vs Jacobi
+    tiny_loop_jacobi()
+    # full width: dense 32 frames, int8/int8 8 frames
+    for label, models, frames in (("dense bf16", eng.models, 32),
+                                  ("int8/int8", q88, 8)):
+        need = ("talker_step", "qmatmul") if label == "int8/int8" \
+            else ("talker_step",)
+        times = {}
+        for mode in ("default", "jacobi"):
+            ctx = jacobi_on() if mode == "jacobi" else contextlib.nullcontext()
+            with ctx:
+                pm.frame_codes_jacobi.passes_total = 0
+                torch.cuda.synchronize()
+                t0 = time.time()
+                short = loop_codes(eng, models, 4)
+                torch.cuda.synchronize()
+                t1 = time.time()
+                codes, n = run_main_path(
+                    rec, f"generate_codes {label} B=1 {frames} frames "
+                    f"({mode})", lambda: loop_codes(eng, models, frames),
+                    need)
+                t2 = time.time()
+            if not (torch.equal(n.cpu(), torch.full((1,), frames,
+                                                    dtype=torch.int32))
+                    and codes.shape == (1, frames, 16)
+                    and bool((codes >= 0).all())
+                    and bool((codes[..., 1:] < P.CODE_VOCAB).all())):
+                fail(f"generate_codes {label} ({mode}): {tuple(codes.shape)}"
+                     f" codes, n_frames {n.tolist()}")
+            per = ((t2 - t1) - (t1 - t0)) / (frames - 4) * 1e3
+            passes = pm.frame_codes_jacobi.passes_total / (frames + 4)
+            times.setdefault(mode, []).append((per, passes))
+        (d, _), = times["default"]
+        (j, jp), = times["jacobi"]
+        log(f"  loop {label} B=1: {_fmt(j)} ms a frame with "
+            f"QWEN3_TTS_PRED_JACOBI=1 ({jp:g} passes a frame) against "
+            f"{_fmt(d)} on the default path (host wall, prefill subtracted), "
+            f"on {card}")
+
+    took("the loop")
+    for (label, pp), B in ((kinds[0], 1), (kinds[0], 4), (kinds[1], 1)):
+        predictor_times(label, pp, cfg, assets, ptab, rows, card, B, g)
+    qmatmul_times(rec, card, g, rows=(16, 64), shapes=PREDICTOR_INT8,
+                  what="predictor", json_row=None)
+    took("times")
+
+
+def tiny_loop_jacobi():
+    """The tiny f32 config, B = 2 ragged: greedy generate_codes with
+    QWEN3_TTS_PRED_JACOBI=1 on the card equal to the default path's on the
+    card and to the CPU's with the variable set."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.core.config import tiny_engine_config
+    from qwen3_tts_tpu_torch.models import predictor as pm
+    from qwen3_tts_tpu_torch.tts import generate
+
+    cfg = tiny_engine_config(max_steps=8)
+    teng = TtsEngine(config=cfg, random_weights=True, seed=0,
+                     speakers_dir=os.path.join(REPO, "speakers"),
+                     device="cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((0.1 * rng.standard_normal(
+        (2, 9, cfg.talker.hidden))).astype(np.float32))
+    x[1, :3] = 0
+    pad = torch.tensor([0, 3], dtype=torch.int32)
+
+    def run(models, dev):
+        with torch.inference_mode():
+            return generate.generate_codes(
+                models, cfg.talker, cfg.predictor, x.to(dev), pad.to(dev),
+                None, 0.0, 0, 1.0, cfg.max_steps, ignore_eos=True)
+
+    base = run(teng.models, "cuda")
+    with jacobi_on():
+        pm.frame_codes_jacobi.passes_total = 0
+        jac = run(teng.models, "cuda")
+        passes = pm.frame_codes_jacobi.passes_total
+        cpu = run(_to(teng.models, "cpu"), "cpu")
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in
+               zip(base + jac, jac + cpu))
+    log(f"  tiny f32 B=2 greedy generate_codes with QWEN3_TTS_PRED_JACOBI=1"
+        f" ({passes / cfg.max_steps:g} passes a frame) equal to the default "
+        f"path's on the card and to the CPU's: {same}")
+    if not same or passes < cfg.max_steps:
+        fail("tiny f32: the Jacobi loop's codes differ, or it did not run")
 
 
 def fused_per_frame(cfg) -> dict:
@@ -2089,7 +2461,7 @@ def prefill_trace(run):
 
 def frame_times(eng, models, label: str, card: str, g):
     """ms/frame of generate_codes(ignore_eos) through the kernels and
-    through their plain versions, in alternating runs (kernel, plain, plain,
+    through their plain versions, in alternating runs (kernel, plain,
     kernel), and the kernel path's device busy share."""
     import torch
     from qwen3_tts_tpu_torch.tts import generate
@@ -2120,7 +2492,7 @@ def frame_times(eng, models, label: str, card: str, g):
         return s.elapsed_time(e)
 
     per_frame, prefills = {}, {}
-    for plain in (False, True, True, False):        # kernel, plain, plain, kernel
+    for plain in (False, True, False):              # kernel, plain, kernel
         run(plain, 2)                                # warm up
         total = timed(plain, frames)
         prefill = timed(plain, 0)
@@ -2210,10 +2582,13 @@ def phase_times(eng, rec: Record, card: str, q48, q88):
     g = torch.Generator(device=dev).manual_seed(5)
     # ms/frame and busy share per weight set; int8/int8 last (the first to
     # drop if the run outgrows its time limit)
+    t0 = time.time()
     for label, models in (("dense bf16", eng.models),
                           ("int4+int8", q48), ("int8/int8", q88)):
         frame_times(eng, models, label, card, g)
+    log(f"  (frame_times: {time.time() - t0:.1f} s into the phase)")
     kernel_times(rec, card, g)
+    log(f"  (kernel_times: {time.time() - t0:.1f} s into the phase)")
     split_times(card, g)
     qmatmul_plan_times(card, g)
 
@@ -2445,26 +2820,28 @@ def kernel_times(rec: Record, card: str, g):
 TALKER_INT8 = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
 
 
-def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088)):
-    """Kernel A a talker layer (qkv + wo + gate/up + down, int8) at each M
-    of `rows` (B = 1, 2, 3 and 17 prompts of 64 tokens): device ms by
-    CUDA-graph replay, weights rotating over copies past the 50 MB L2, its
-    plain version, the one PyTorch call of the same function
+def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088),
+                  shapes=None, what="talker", json_row=64):
+    """Kernel A a talker layer (qkv + wo + gate/up + down, int8; `shapes`
+    and `what` another model's) at each M of `rows` (B = 1, 2, 3 and 17
+    prompts of 64 tokens): device ms by CUDA-graph replay, weights rotating
+    over copies past the 50 MB L2, its plain version, the one PyTorch call of the same function
     (`torch._weight_int8pack_mm`: x bf16 @ int8 [N, K]^T * scale, out bf16)
     and, as a reference only, cuBLAS on a bf16 copy of the weights
     (`torch.matmul`, twice the weight bytes); the bound from the layer's
-    bytes or operations, the larger. M = 64 goes into the JSON line (the
-    comparable case of earlier PRs)."""
+    bytes or operations, the larger. M = `json_row` goes into the JSON
+    line (64: the comparable case of earlier PRs; None: no row)."""
     import torch
     from qwen3_tts_tpu_torch.ops import quant
 
     dev = g.device
+    shapes = shapes or TALKER_INT8
     int8mm = getattr(torch, "_weight_int8pack_mm", None)
     for M in rows:
         copies = 4
         mats = []
         for _ in range(copies):
-            for K, N in TALKER_INT8:
+            for K, N in shapes:
                 w = quant.quantize(
                     0.02 * torch.randn(K, N, generator=g, device=dev))
                 mats.append((torch.randn(M, K, generator=g, device=dev)
@@ -2494,7 +2871,7 @@ def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088)):
                     f"{str(exc).splitlines()[0][:120]}")
             del packed
         dense = [(x, (w["q"].float() * w["scale"]).bfloat16())
-                 for x, w in mats[:len(TALKER_INT8)]]
+                 for x, w in mats[:len(shapes)]]
 
         def dcall(dense=dense):
             for x, wd in dense:
@@ -2506,13 +2883,13 @@ def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088)):
         ops = sum(2.0 * M * w["q"].numel() for _, w in mats) / copies
         b_ms, b_by = bound(n_b, ops, "bf16")
         host = cuda_ms(kern) / copies
-        log(f"  qmatmul          talker layer int8 qkv+wo+gate/up+down, M={M}"
+        log(f"  qmatmul          {what} layer int8 qkv+wo+gate/up+down, M={M}"
             f" bf16: device kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"_weight_int8pack_mm {_fmt4(lib)} ms, bound {b_ms:.4g} ms "
             f"({b_by}, {b_ms / ms:.1%} of it); reference cuBLAS bf16 "
             f"weights (2x the weight bytes) {ref:.4f} ms; eager host-timed "
             f"{host:.4f} ms on {card}")
-        if M == 64:
+        if M == json_row:
             rec.ms["qmatmul"], rec.plain_ms["qmatmul"] = ms, plain
             rec.library_ms["qmatmul"] = lib
             rec.bound["qmatmul"] = (b_ms, b_by)
@@ -2588,7 +2965,7 @@ def frame_bytes_ops(params, cfg, B):
     return n_b, ops
 
 
-def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
+def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 16)):
     """The predictor frame kernel per frame at full width (device ms by
     CUDA-graph replay: the cooperative launch captures; and by the
     profiler) against its bound and the chain it replaces (`_frame` over
@@ -2606,7 +2983,7 @@ def frame_kernel_times(rec: Record, card: str, batches=(1, 2, 4, 8, 16)):
     cfg = EngineConfig().predictor
     for kind in ("dense", "int8", "int4"):
         for B in batches:
-            pp, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
+            pp, _, ptab, rows, h, c0 = frame_case(cfg, kind, B, 90 + B)
             args = (pp, cfg, ptab, rows, h, c0)
             ms = graph_ms(lambda: fp.predictor_frame_kernel(*args), reps=10)
             prof = profiled_device_ms(
@@ -2677,7 +3054,7 @@ def kernel_copy_bytes(params, cfg) -> int:
 
 
 def step_kernel_times(rec: Record, card: str,
-                      batches=(1, 2, 4, 8, 16, 17, 24, 32)):
+                      batches=(1, 2, 16, 17, 32)):
     """The talker step kernel at full width, T = 256 with ~100 live slots
     (the offline window): device ms a step by CUDA-graph replay (and the
     profiler) against its bound, the chain it replaces (`_step` over the
@@ -3183,10 +3560,18 @@ def release_checks(eng, rec: Record, card: str, tmp: str, want, n_want):
                 [f"--{kind}", gg], out)
     shutil.copy(os.path.join(rel, "qwen3_assets.gguf"), out)
 
+    # the downloader's layout for validate_release (`validate_release`
+    # below): the GGUFs linked, the graphs moved in once converted
+    vdir = os.path.join(tmp, "validate")
+    os.makedirs(os.path.join(vdir, "gguf"))
+    os.makedirs(os.path.join(vdir, "onnx"))
+    for name in ("qwen3_tts_talker.gguf", "qwen3_tts_predictor.gguf",
+                 "qwen3_assets.gguf"):
+        os.link(os.path.join(rel, name), os.path.join(vdir, "gguf", name))
     dec = write("qwen3_tts_decoder.onnx", lambda p: cw.write_vocoder_onnx(
         p, eng.vocoder_params, cfg.vocoder))
     convert("qwen3_tts_decoder.onnx", ["--vocoder", dec], out)
-    os.remove(dec)
+    os.replace(dec, os.path.join(vdir, "onnx", os.path.basename(dec)))
     # the decoder's unused head slot is not in the graph: converted as 0
     head = "transformer/head"
     leaves_equal("vocoder (named graph)", os.path.join(out, "vocoder.npz"),
@@ -3200,7 +3585,7 @@ def release_checks(eng, rec: Record, card: str, tmp: str, want, n_want):
             p, enc.params, kind, getattr(cfg, f"{kind}_encoder"),
             anonymize=True))
         convert(name, [f"--{kind}-encoder", path], out)
-        os.remove(path)
+        os.replace(path, os.path.join(vdir, "onnx", name))
         leaves_equal(f"{kind} encoder (anonymized graph)",
                      os.path.join(out, f"{kind}_encoder.npz"), enc.params)
 
@@ -3316,7 +3701,58 @@ def release_checks(eng, rec: Record, card: str, tmp: str, want, n_want):
         f"(pads {pads}, channels {chans} as implied): {same}")
     if not same:
         fail(f"derive_vocoder_config gave {derived}, written {gcfg}")
+    validate_release(rec, card, vdir)
     log(f"  release checks took {time.time() - t_phase:.1f} s on {card}")
+
+
+# a WordLevel tokenizer.json in the HF `tokenizers` format, written as JSON
+# so that writing it needs no `tokenizers` library
+TOKENIZER_JSON = {
+    "version": "1.0", "truncation": None, "padding": None,
+    "added_tokens": [], "normalizer": None,
+    "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+    "decoder": None,
+    "model": {"type": "WordLevel", "unk_token": "[UNK]", "vocab": {
+        w: i for i, w in enumerate(["[UNK]", "hello", "from", "the",
+                                    "release", "validator", "world"])}}}
+
+
+def validate_release(rec: Record, card: str, vdir: str):
+    """`python -m qwen3_tts_tpu_torch.tools.validate_release --model-dir
+    DIR --device cuda` (in process, counted as a main-path run) on the
+    full-width release in the downloader's layout: the llama GGUFs and the
+    assets, the named decoder graph, both anonymized encoder graphs and a
+    tokenizer.json; quant gate 0 (random weights). Exit 0 and every check
+    passed, or skipped for its reason, else the run fails."""
+    import io
+
+    from qwen3_tts_tpu_torch.tools import validate_release as vr
+
+    os.makedirs(os.path.join(vdir, "tokenizer"))
+    with open(os.path.join(vdir, "tokenizer", "tokenizer.json"), "w") as f:
+        json.dump(TOKENIZER_JSON, f)
+    argv = ["--model-dir", vdir, "--device", "cuda", "--quant-gate", "0"]
+    buf = io.StringIO()
+
+    def call():
+        with contextlib.redirect_stdout(buf):
+            return vr.main(argv)
+
+    t0 = time.time()
+    rc = run_main_path(rec, "validate_release --device cuda", call,
+                       ("talker_step", "predictor_frame", "qmatmul",
+                        "decode_attention"))
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for line in buf.getvalue().strip().splitlines()[:-1]:
+        log(line)
+    for name, c in report["checks"].items():
+        log(f"  validate_release {name:20s} {c['status']:5s} "
+            f"{c.get('detail', '')}")
+    log(f"  python -m qwen3_tts_tpu_torch.tools.validate_release --model-dir "
+        f"DIR --device cuda: exit {rc}, pass {report['pass']}, "
+        f"{time.time() - t0:.1f} s on {card}")
+    if rc != 0 or not report["pass"]:
+        fail(f"validate_release returned {rc} on the full-width release")
 
 
 # ------------------------------------------------------------- cloning
@@ -4262,6 +4698,7 @@ def main() -> int:
     q48 = quantized_models(eng.models, "int4", "int8")
     q88 = quantized_models(eng.models, "int8", "int8")
     for name, run in (
+            ("predictor", lambda: phase_predictor(eng, rec, card, q88)),
             ("main", lambda: phase_main(eng, rec, q48, q88)),
             ("stream", lambda: phase_stream(eng, rec, card, q48)),
             ("times", lambda: phase_times(eng, rec, card, q48, q88)),

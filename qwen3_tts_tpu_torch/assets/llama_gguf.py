@@ -71,11 +71,12 @@ def convert_llama_gguf(path: str, kind: str) -> Tuple[Any, Dict[str, Any]]:
     nq_hd = cfg.n_q_heads * cfg.head_dim
     nk_hd = cfg.n_kv_heads * cfg.head_dim
 
+    # read_tensor returns a fresh array: an F32 tensor needs no second copy
     def t(name):
-        return f.read_tensor(name).astype(np.float32).T
+        return f.read_tensor(name).astype(np.float32, copy=False).T
 
     def raw(name):
-        return f.read_tensor(name).astype(np.float32)
+        return f.read_tensor(name).astype(np.float32, copy=False)
 
     def stack(*shape):
         return np.empty((L,) + shape, np.float32)

@@ -65,6 +65,10 @@ class Assets:
         emb = self.codec_tables[q, safe]
         return torch.where(valid[..., None], emb, torch.zeros_like(emb))
 
+    def codec_embedding_1024(self, q, code) -> torch.Tensor:
+        """Table row then projection (`src/assets_manager.rs:439-442`)."""
+        return self.project(self.codec_embedding(q, code))
+
     def text_embedding(self, token_id) -> torch.Tensor:
         """text_table[token_id] with the deterministic OOB fallback pattern."""
         token_id = torch.as_tensor(token_id, dtype=torch.long,

@@ -153,6 +153,8 @@ class ServingEngine:
             n_frames=torch.zeros(B, dtype=torch.int32, device=dev),
             temperature=float(sc.temperature),
             top_p=float(sc.top_p),
+            prev_codes=torch.zeros(B, P.NUM_CODEBOOKS - 1, dtype=torch.int32,
+                                   device=dev),
         )
 
     @torch.inference_mode()
@@ -316,7 +318,8 @@ def _scatter_row(big, small, row: int) -> None:
     own extent are masked by its kv_len, so staggered admission does not
     interact. The copy takes the row's whole cache ([L, B, nk, T, hd], a
     `[:, row]` slice); slots past the prefill's extent, if its cache is
-    shorter, are zeroed."""
+    shorter, are zeroed. The row's `prev_codes` (the Jacobi draft) stay as
+    they are, as in JAX: a draft changes the passes, never the codes."""
     for name in ("k", "v"):
         b, s = big["cache"][name], small["cache"][name]
         T = s.shape[3]

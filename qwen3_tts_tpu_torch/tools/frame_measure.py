@@ -691,7 +691,7 @@ def frame_ab(tag: str) -> None:
                            ("int4", (1,))))
     for kind in ("dense", "int8"):
         for B in (1, 4, 8, 16):
-            pp, *rest = c.frame_case(cfg.predictor, kind, B, 90 + B)
+            pp, _, *rest = c.frame_case(cfg.predictor, kind, B, 90 + B)
             args = (pp, cfg.predictor, *rest)
             ms = c.graph_ms(lambda: fp.predictor_frame_kernel(*args),
                             reps=10)

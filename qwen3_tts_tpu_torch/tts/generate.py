@@ -25,19 +25,27 @@ Deliberate divergences from the JAX package:
   * `make_stream_fns` has no `fused_rows`: that is the TPU kernel's VMEM
     placement of the predictor's int8 weights, which the port does not
     have (see `ops/fused_predictor.py`);
-  * there is no Jacobi predictor path yet (ROADMAP queue 1, still to
-    port: `predictor.frame_codes` and Jacobi decoding).
+  * Jacobi decoding (QWEN3_TTS_PRED_JACOBI=1, read per frame body where
+    JAX reads it at trace time; `models/predictor.frame_codes_jacobi`)
+    reads each row's verified frontier back to the host once a pass, at
+    most 15 reads a frame, where JAX's `while_loop` stays on the device: a
+    fixed 15 passes under a device mask would always cost 15 passes. The
+    draft is the previous frame's codes 1-15 (`prev_codes`), as in JAX; a
+    state without `prev_codes` takes the default path. Jacobi decoding
+    goes through `models/decoder.forward` (kernel A for int8 weights), so
+    `plain` does not apply to it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..assets.tables import Assets
 from ..core import protocol, sampling
-from ..models import decoder, talker
+from ..models import decoder, predictor, talker
 from ..ops import fused_predictor
 
 GenState = Dict[str, Any]
@@ -76,6 +84,23 @@ def predictor_tables(models: Dict[str, Any], pred_cfg):
     return models["pred_ptab"], models["pred_rows"]
 
 
+def _predict_codes(models: Dict[str, Any], pred_cfg, h1024: torch.Tensor,
+                   code0: torch.Tensor, draft: Optional[torch.Tensor] = None,
+                   plain: bool = False) -> torch.Tensor:
+    """Frame expansion: Jacobi decoding with the previous frame's codes as
+    the draft where QWEN3_TTS_PRED_JACOBI=1 and a draft is given, else the
+    fused predictor (its plain version when `plain`), which routes to the
+    frame kernel or the chain."""
+    if os.environ.get("QWEN3_TTS_PRED_JACOBI") == "1" and draft is not None:
+        return predictor.frame_codes_jacobi(
+            models["predictor"], pred_cfg, models["assets"], h1024, code0,
+            draft)
+    ptab, rows = predictor_tables(models, pred_cfg)
+    expand = fused_predictor.frame_codes_fused_plain if plain \
+        else fused_predictor.frame_codes_fused
+    return expand(models["predictor"], pred_cfg, ptab, rows, h1024, code0)
+
+
 def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
                 state: GenState, ignore_eos: bool = False,
                 plain: bool = False
@@ -94,10 +119,8 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
 
     assets = models["assets"]
     h1024 = assets.project(state["hidden"].float())
-    ptab, rows = predictor_tables(models, pred_cfg)
-    expand = fused_predictor.frame_codes_fused_plain if plain \
-        else fused_predictor.frame_codes_fused
-    codes = expand(models["predictor"], pred_cfg, ptab, rows, h1024, code0)
+    codes = _predict_codes(models, pred_cfg, h1024, code0,
+                           state.get("prev_codes"), plain)
     codes = torch.where(active[:, None], codes, torch.zeros_like(codes))
 
     fb = _feedback_embedding(assets, codes, talker_cfg.hidden)
@@ -124,6 +147,7 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
         step=state["step"] + 1,
         done=done,
         n_frames=state["n_frames"] + active.to(torch.int32),
+        prev_codes=codes[:, 1:],
     )
     return new_state, codes, active
 
@@ -158,6 +182,9 @@ def init_state(models: Dict[str, Any], talker_cfg,
         n_frames=torch.zeros(B, dtype=torch.int32, device=dev),
         temperature=float(temperature),
         top_p=float(top_p),
+        # the previous frame's codebooks 1..15: the Jacobi draft
+        prev_codes=torch.zeros(B, protocol.NUM_CODEBOOKS - 1,
+                               dtype=torch.int32, device=dev),
     )
 
 

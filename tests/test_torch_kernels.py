@@ -14,6 +14,8 @@ sums (max |d| <= 1e-5 of the output's largest magnitude: exact products,
 another order of the sums).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -160,6 +162,71 @@ def test_qmatmul_column_view(dev, M):
     assert q.stride(0) == 4096
     _close(quant.qmatmul_kernel(x, q, sc),
            quant.qmatmul_kernel_plain(x, q, sc), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 2, 16, 32, 64])
+@pytest.mark.parametrize("K,N", [(1024, 4096), (1024, 1024), (1024, 6144),
+                                 (3072, 1024), (1024, 2048)])
+def test_qmatmul_predictor_shapes(dev, dtype, M, K, N):
+    """Kernel A at the int8 predictor's products (`models/predictor.py`):
+    qkv, wo, gate/up and down, and a head slice (a 2048-column view of the
+    32768-column head, as `decoder.head_logits` takes it), at M = B (a
+    single-token step), 2B (the prefill) and 16B (a Jacobi pass)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = _randn(g, M, K, dtype=dtype)
+    if N == 2048:
+        qw = quant.quantize(_randn(g, K, 16 * N, scale=0.02))
+        q, sc = qw["q"][:, 5 * N:6 * N], qw["scale"][5 * N:6 * N]
+    else:
+        qw = quant.quantize(_randn(g, K, N, scale=0.02))
+        q, sc = qw["q"], qw["scale"]
+    got = quant.qmatmul_kernel(x, q, sc)
+    _close(got, quant.qmatmul_kernel_plain(x, q, sc), torch.float32)
+    assert torch.equal(got, quant.qmatmul_kernel(x, q, sc))
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8"])
+def test_predictor_frame_codes_and_jacobi_f32_equal_cpu(dev, kind):
+    """`models/predictor.py` on the card, f32 at MID_PREDICTOR's widths
+    (multiples of 128, so int8 weights take kernel A; decode attention in
+    frame_codes's steps): frame_codes and frame_codes_jacobi with zero,
+    oracle and adversarial drafts equal each other and the CPU's codes."""
+    from qwen3_tts_tpu_torch.assets import tables
+    from qwen3_tts_tpu_torch.models import decoder, predictor
+
+    cfg = dataclasses.replace(tiny_engine_config().predictor,
+                              **dict(MID_PREDICTOR, dtype="float32"))
+    g = torch.Generator().manual_seed(12)
+    p = decoder.init_decoder(g, cfg, scale=0.5)
+    if kind == "int8":
+        p = quant.quantize_decoder_params(p, kind="int8")
+    a = tables.random_assets(g, text_vocab=64, codec_rows=2176, dim=64,
+                             proj_dim=cfg.hidden)
+    h = torch.randn(3, cfg.hidden, generator=g)
+    c0 = torch.randint(0, 2048, (3,), generator=g)
+    want = predictor.frame_codes(p, cfg, a, h, c0)
+
+    def to(t):
+        return {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(dev)
+
+    pd = to(p)
+    ad = tables.Assets(*(getattr(a, f.name).to(dev)
+                         for f in dataclasses.fields(a)))
+    hd, cd = h.to(dev), c0.to(dev)
+    a_launches = quant.qmatmul_kernel.launches
+    d_launches = flash_decode.decode_attention_stacked.launches
+    got = predictor.frame_codes(pd, cfg, ad, hd, cd)
+    assert torch.equal(got.cpu(), want)
+    assert flash_decode.decode_attention_stacked.launches > d_launches
+    if kind == "int8":
+        assert quant.qmatmul_kernel.launches > a_launches
+    for draft in (None, want[:, 1:], (want[:, 1:] + 7) % 2048):
+        jac = predictor.frame_codes_jacobi(
+            pd, cfg, ad, hd, cd, None if draft is None else draft.to(dev))
+        assert torch.equal(jac.cpu(), want)
+    assert predictor.frame_codes_jacobi.passes <= 15
 
 
 @pytest.mark.parametrize("case", ["k_not_128", "n_not_128", "ldq_odd",
