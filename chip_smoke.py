@@ -133,8 +133,8 @@ result line:
                stream step with its 4096-slot cache against the offline
                window's 256
   8. times     ms/frame of generate_codes through kernels and through the
-               plain versions (CUDA events), dense and int4+int8 (and
-               int8/int8), the device busy share of the kernel paths and
+               plain versions (CUDA events), dense and int4+int8, the
+               device busy share of the kernel paths and
                the device ms and CUDA kernels per frame by kernel name
                (torch.profiler: prefill + 4 frames less the prefill), the
                prefill's CUDA kernels, device ms and the share of it in
@@ -148,9 +148,9 @@ result line:
                without the silu prologue; B, B8, B4 and decode attention
                at each split count beside their plans' choice; the
                predictor frame kernel a frame, dense / int8 / int4 at B =
-               1, 2, 16, against its bound and the chain of launches it
+               1, 16, against its bound and the chain of launches it
                replaces (its plain version at B = 1); the talker step
-               kernel a step, dense / int8 / int4 at B = 1, 2, 16, 17, 32,
+               kernel a step, dense / int8 / int4 at B = 1, 16, 17, 32,
                against its bound, the chain it replaces and its plain
                version (other batches: their `batches` argument); kernel
                A a talker layer at M = 64, 128, 192 and 1088 against its
@@ -245,7 +245,45 @@ result line:
                empty row at cap - 1 against slot 1. Then server.TtsServer on
                127.0.0.1: /health, two concurrent POST /tts (one streamed,
                chunked), /stats counting both, the finished streams
-               evicted. Prints the whole smoke's seconds
+               evicted
+ 12. parallel  `parallel/` on the one card: decode attention at a
+               tensor-parallel rank's head counts (the talker's 8/4 and
+               4/2 over the 256- and 4096-slot caches, the predictor's 4/4
+               and 2/2 over 32 bf16 slots) and kernel A at a rank's int8
+               products (the talker's layer at a model axis of 2 and 4,
+               the predictor's at 2, a rank's head slice; M = 1, 64)
+               against their plain versions; then TP_RANKS = 2 gloo ranks
+               over CUDA tensors (`chip_smoke.py --parallel-rank`, each
+               killed past TP_TIMEOUT_S), each building EngineConfig()'s
+               full weights from seed 0 (a checksum broadcast: both equal
+               to this engine's) and keeping its shards. On mesh (1, 2),
+               dense bf16 and int8/int8 with peaked heads: the 64-token
+               prefill and 16 frames teacher-forced on the codes of this
+               process's greedy single-process run (talker steps through
+               decoder.forward, frames through models/predictor.
+               frame_codes), counted (decode attention, and kernel A for
+               int8, launched; counts set to 0 just before, read just
+               after) and timed: predictor codes against that run's >=
+               0.95, the ranks' codes equal; the prefill and each step
+               against the single process from the same state (the ranks'
+               caches gathered): talker argmax agreement >= 0.93, the
+               hidden's distance to the single process in f32 within
+               TP_BF16_MARGIN x the single process's own in bf16; one step
+               from phase 3's states in its three tiers: f32 at full width
+               and depth (dense) within rtol/atol 1e-4, bf16 cut to 2
+               layers within 8e-3, bf16 at full depth with the control
+               (the last layer dropped) beyond FULL_DEPTH_REL (the bf16
+               errors logged: the single process's own rounding is of
+               FULL_DEPTH_REL's size there). On mesh (2, 1) the
+               sequence-split prefill of 1024 tokens against the
+               single-process prefill (hidden and cache within
+               FULL_DEPTH_REL, the control further). Prints ms a frame of
+               the 2-rank path, collectives a frame and their share of the
+               wall, each rank's peak memory, and the kernels' device times
+               at a rank's shapes (and decode attention at frame_codes's
+               8/8 over 32 bf16 slots) against their plain versions, SDPA
+               / torch._weight_int8pack_mm and their bounds. Prints the
+               whole smoke's seconds
 
 The line before the last is a JSON object with one entry per kernel (its
 launches on the main path, max |kernel - plain|, device ms of the kernel,
@@ -408,6 +446,14 @@ class Record:
         "talker_step_b17_32": ("cuda",
                                "qwen3_tts_tpu_torch/csrc/talker_step.cu",
                                "qwen3_tts_tpu/ops/fused_talker.py:428"),
+        # decode attention and kernel A at a tensor-parallel rank's shapes
+        # (phase 12: heads and widths over a model axis of 2), their
+        # launches those of the 2-rank path
+        "decode_attention_tp": (
+            "cuda", "qwen3_tts_tpu_torch/csrc/decode_attention.cu",
+            "qwen3_tts_tpu/ops/flash_decode.py:129"),
+        "qmatmul_tp": ("cuda", "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
+                       "qwen3_tts_tpu/ops/quant.py:208"),
     }
 
     def __init__(self):
@@ -487,7 +533,7 @@ def phase_device():
         fail("triton is not installed")
     from qwen3_tts_tpu_torch.kernels import build
     nvcc = build.find_nvcc()
-    log("[1/11] device")
+    log("[1/12] device")
     log(card)
     log(f"  torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"triton {tv}  nvcc {nvcc}  python {sys.version.split()[0]}")
@@ -503,7 +549,7 @@ def phase_device():
 
 def phase_build():
     from qwen3_tts_tpu_torch.kernels import build
-    log("[2/11] build")
+    log("[2/12] build")
     t0 = time.time()
     path = build.build(verbose=True)
     build.lib()
@@ -517,7 +563,7 @@ def phase_kernels(rec: Record):
     from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
 
-    log("[3/11] kernels against their plain versions")
+    log("[3/12] kernels against their plain versions")
     log("  f32 tolerances: rtol 1e-4, atol 1e-4 (the kernels sum in another "
         "order than cuBLAS / PyTorch); bf16: relative error")
     dev = torch.device("cuda")
@@ -1201,16 +1247,17 @@ def phase_kernels_frame(rec: Record):
 FULL_DEPTH_REL = 3e-2
 
 
+def last_layer_dropped(params, cfg):
+    """A decoder's params and config without its last layer."""
+    return first_layers(params, cfg, cfg.n_layers - 1)
+
+
 def drop_last_layer(tp, cfg, inputs):
     """The control of the full-depth limit: the same step's params, config
     and inputs with the talker's last layer cut off (its five stages)."""
-    import dataclasses
     L = cfg.n_layers - 1
-    lw = {k: (v[:L] if not isinstance(v, dict)
-              else {n: t[:L] for n, t in v.items()})
-          for k, v in tp["layers"].items()}
     x, pos, slot, kv_len, vf, kc, vc = inputs
-    return (dict(tp, layers=lw), dataclasses.replace(cfg, n_layers=L),
+    return (*last_layer_dropped(tp, cfg),
             (x, pos, slot, kv_len, vf, kc[:L].clone(), vc[:L].clone()))
 
 
@@ -1370,7 +1417,7 @@ def phase_probes(rec: Record, card: str):
     import torch
     from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
 
-    log("[4/11] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
+    log("[4/12] probes: python -m qwen3_tts_tpu_torch.tools.mosaic_probe "
         "--device cuda, then each kernel against its plain version")
     torch.cuda.synchronize()
     mp.reset_launch_counts()
@@ -1468,7 +1515,7 @@ def phase_agree(eng):
     the int4 talker with the int8 predictor, and the int8 talker."""
     from qwen3_tts_tpu_torch.core import protocol as P
 
-    log("[5/11] teacher-forced agreement, full width, bf16, peaked heads")
+    log("[5/12] teacher-forced agreement, full width, bf16, peaked heads")
     pt = peak_head(eng.models["talker"], [(0, P.TALKER_SAMPLE_LIMIT)])
     pp = peak_head(eng.models["predictor"],
                    [(q * P.CODE_VOCAB, P.CODE_VOCAB)
@@ -1718,7 +1765,7 @@ def phase_predictor(eng, rec: Record, card: str, q88):
     from qwen3_tts_tpu_torch.ops import quant
     from qwen3_tts_tpu_torch.tts import generate
 
-    log(f"[5b/11] predictor: models/predictor.py (frame_codes, Jacobi "
+    log(f"[5b/12] predictor: models/predictor.py (frame_codes, Jacobi "
         f"decoding) and the loop's Jacobi branch, full width, on {card}")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(17)
@@ -2022,7 +2069,7 @@ def phase_main(eng, rec: Record, q48, q88):
     from qwen3_tts_tpu_torch.ops import fused_predictor as fp
     from qwen3_tts_tpu_torch.ops import fused_talker as ft
 
-    log("[6/11] main path: TtsEngine.generate_with_voice, full width")
+    log("[6/12] main path: TtsEngine.generate_with_voice, full width")
     voice = eng.get_speaker("vivian")
     fused = fused_per_frame(eng.config)
 
@@ -2290,7 +2337,7 @@ def phase_stream(eng, rec: Record, card: str, q48):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
 
     frames = 32
-    log(f"[7/11] stream: TtsEngine.generate_stream, full width, B=1, "
+    log(f"[7/12] stream: TtsEngine.generate_stream, full width, B=1, "
         f"{frames} frames")
     voice = eng.get_speaker("vivian")
     e48 = TtsEngine(config=eng.config, weights=(q48, eng.vocoder_params),
@@ -2574,17 +2621,17 @@ def frame_times(eng, models, label: str, card: str, g):
             "trace)")
 
 
-def phase_times(eng, rec: Record, card: str, q48, q88):
+def phase_times(eng, rec: Record, card: str, q48):
     import torch
 
-    log(f"[8/11] times on {card} (CUDA events)")
+    log(f"[8/12] times on {card} (CUDA events)")
     dev = eng.device
     g = torch.Generator(device=dev).manual_seed(5)
-    # ms/frame and busy share per weight set; int8/int8 last (the first to
-    # drop if the run outgrows its time limit)
+    # ms/frame and busy share per weight set; int8/int8 left out for the
+    # smoke's 1200 s limit beside phase 12: `frame_times(eng, q88,
+    # "int8/int8", card, g)` times it alone
     t0 = time.time()
-    for label, models in (("dense bf16", eng.models),
-                          ("int4+int8", q48), ("int8/int8", q88)):
+    for label, models in (("dense bf16", eng.models), ("int4+int8", q48)):
         frame_times(eng, models, label, card, g)
     log(f"  (frame_times: {time.time() - t0:.1f} s into the phase)")
     kernel_times(rec, card, g)
@@ -2626,6 +2673,74 @@ def int4pack_mats(mats):
     return out
 
 
+def attention_case(g, label, nq, nk, T, kv, qdt, cdt, record,
+                   name="decode_attention"):
+    """A timing case of decode attention over 8 layers of a cache (a tuple
+    for `time_cases`); its library yardstick is SDPA over k / v built
+    beforehand as the live slots followed by the current token (in q's
+    dtype, as SDPA takes one dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.ops import flash_decode
+
+    dev = g.device
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    kc, vc = randn(8, 1, nk, T, 128, dtype=cdt), randn(8, 1, nk, T, 128,
+                                                      dtype=cdt)
+    q, kn, vn = (randn(1, nq, 128, dtype=qdt), randn(1, nk, 128, dtype=qdt),
+                 randn(1, nk, 128, dtype=qdt))
+    lens = torch.tensor([kv], dtype=torch.int32, device=dev)
+    vf = torch.zeros(1, dtype=torch.int32, device=dev)
+    kl = [torch.cat([kc[l, :, :, :kv], kn[:, :, None]], 2).to(qdt)
+          for l in range(8)]
+    vl = [torch.cat([vc[l, :, :, :kv], vn[:, :, None]], 2).to(qdt)
+          for l in range(8)]
+    q4 = q[:, :, None]
+
+    def attn(fn):
+        def call():
+            for l in range(8):
+                fn(q, kc, vc, kn, vn, l, lens, vf)
+        return call
+
+    def sdpa():
+        for l in range(8):
+            F.scaled_dot_product_attention(q4, kl[l], vl[l], enable_gqa=True)
+
+    # a call's bytes: q, k_new, v_new, kv_len, valid_from and the live
+    # slots of k and v read, the output written; 8 calls
+    n_b = 8 * (nbytes(q, kn, vn, q, lens, vf)
+               + 2 * nk * kv * 128 * kc.element_size())
+    return (name, f"{label}, per layer", 8,
+            attn(flash_decode.decode_attention_stacked),
+            attn(flash_decode.decode_attention_plain), sdpa,
+            n_b, 8 * 4.0 * nq * (kv + 1) * 128, "f32", record)
+
+
+def time_cases(rec: Record, card: str, cases):
+    """Each case's device time (CUDA-graph replay) against its plain
+    version, its PyTorch call and its bound; a case marked `record` goes
+    into the JSON line under its name."""
+    for (name, label, per, kfn, pfn, lfn, n_b, n_ops, kind,
+         record) in cases:
+        ms = graph_ms(kfn) / per
+        plain = graph_ms(pfn) / per
+        lib = graph_ms(lfn) / per if lfn is not None else None
+        b_ms, b_by = bound(n_b / per, n_ops / per, kind)
+        host = cuda_ms(kfn) / per
+        log(f"  {name:16s} {label:60s} device: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library {_fmt4(lib)} ms, bound {b_ms:.3g} ms "
+            f"({b_by}, {b_ms / ms:.1%} of it); host-bound eager kernel "
+            f"{host:.4f} ms on {card}")
+        if record:
+            rec.ms[name], rec.plain_ms[name] = ms, plain
+            rec.library_ms[name] = lib
+            rec.bound[name] = (b_ms, b_by)
+
+
 def kernel_times(rec: Record, card: str, g):
     """Each kernel's device time (REPS calls captured in one CUDA graph and
     replayed, so host launch cost drops out) against its plain version, one
@@ -2637,7 +2752,6 @@ def kernel_times(rec: Record, card: str, g):
     import torch
     import torch.nn.functional as F
     from qwen3_tts_tpu_torch.ops import elementwise as el
-    from qwen3_tts_tpu_torch.ops import flash_decode
     from qwen3_tts_tpu_torch.ops import gemv as G
     from qwen3_tts_tpu_torch.ops import quant
 
@@ -2725,52 +2839,15 @@ def kernel_times(rec: Record, card: str, g):
              x, w[0], quant.GROUP4, w[1])), qbytes(b4_mats, 2),
          qops(b4_mats), "bf16", True)]
 
-    # decode attention over 8 layers of a cache; its library yardstick is
-    # SDPA over k / v built beforehand as the live slots followed by the
-    # current token (in q's dtype, as SDPA takes one dtype)
-    def attention_case(label, nq, nk, T, kv, qdt, cdt, record):
-        kc, vc = randn(8, 1, nk, T, 128, dtype=cdt), randn(8, 1, nk, T, 128,
-                                                          dtype=cdt)
-        q, kn, vn = (randn(1, nq, 128, dtype=qdt), randn(1, nk, 128,
-                                                         dtype=qdt),
-                     randn(1, nk, 128, dtype=qdt))
-        lens = torch.tensor([kv], dtype=torch.int32, device=dev)
-        vf = torch.zeros(1, dtype=torch.int32, device=dev)
-        kl = [torch.cat([kc[l, :, :, :kv], kn[:, :, None]], 2).to(qdt)
-              for l in range(8)]
-        vl = [torch.cat([vc[l, :, :, :kv], vn[:, :, None]], 2).to(qdt)
-              for l in range(8)]
-        q4 = q[:, :, None]
-
-        def attn(fn):
-            def call():
-                for l in range(8):
-                    fn(q, kc, vc, kn, vn, l, lens, vf)
-            return call
-
-        def sdpa():
-            for l in range(8):
-                F.scaled_dot_product_attention(q4, kl[l], vl[l],
-                                               enable_gqa=True)
-
-        # a call's bytes: q, k_new, v_new, kv_len, valid_from and the live
-        # slots of k and v read, the output written; 8 calls
-        n_b = 8 * (nbytes(q, kn, vn, q, lens, vf)
-                   + 2 * nk * kv * 128 * kc.element_size())
-        return ("decode_attention", f"{label}, per layer", 8,
-                attn(flash_decode.decode_attention_stacked),
-                attn(flash_decode.decode_attention_plain), sdpa,
-                n_b, 8 * 4.0 * nq * (kv + 1) * 128, "f32", record)
-
     bf, f32 = torch.bfloat16, torch.float32
     cases += [
-        attention_case("16/8 hd128 kv_len=1000 T=1024 bf16", 16, 8, 1024,
+        attention_case(g, "16/8 hd128 kv_len=1000 T=1024 bf16", 16, 8, 1024,
                        1000, bf, bf, False),
-        attention_case("talker 16/8 hd128 kv_len=96 T=256 bf16", 16, 8, 256,
-                       96, bf, bf, True),
-        attention_case("talker stream 16/8 hd128 kv_len=96 T=4096 bf16", 16,
-                       8, 4096, 96, bf, bf, False),
-        attention_case("predictor 8/8 hd128 kv_len=8 T=32 bf16 q / f32 "
+        attention_case(g, "talker 16/8 hd128 kv_len=96 T=256 bf16", 16, 8,
+                       256, 96, bf, bf, True),
+        attention_case(g, "talker stream 16/8 hd128 kv_len=96 T=4096 bf16",
+                       16, 8, 4096, 96, bf, bf, False),
+        attention_case(g, "predictor 8/8 hd128 kv_len=8 T=32 bf16 q / f32 "
                        "cache", 8, 8, 32, 8, bf, f32, False)]
 
     # the Triton passes at the main path's shapes; no single PyTorch call
@@ -2795,33 +2872,21 @@ def kernel_times(rec: Record, card: str, g):
          None, nbytes(logits) + 4 + 1024 * 2 + nbytes(xo), 2048.0, "f32",
          True)]
 
-    for (name, label, per, kfn, pfn, lfn, n_b, n_ops, kind,
-         record) in cases:
-        ms = graph_ms(kfn) / per
-        plain = graph_ms(pfn) / per
-        lib = graph_ms(lfn) / per if lfn is not None else None
-        b_ms, b_by = bound(n_b / per, n_ops / per, kind)
-        host = cuda_ms(kfn) / per
-        log(f"  {name:16s} {label:60s} device: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, library {_fmt4(lib)} ms, bound {b_ms:.3g} ms "
-            f"({b_by}, {b_ms / ms:.1%} of it); host-bound eager kernel "
-            f"{host:.4f} ms on {card}")
-        if record:
-            rec.ms[name], rec.plain_ms[name] = ms, plain
-            rec.library_ms[name] = lib
-            rec.bound[name] = (b_ms, b_by)
+    time_cases(rec, card, cases)
     qmatmul_times(rec, card, g)
     norm_fusion_times(rec, card, g)
     epilogue_fusion_times(rec, card, g)
-    frame_kernel_times(rec, card)
-    step_kernel_times(rec, card)
+    # B = 2 left out of the full smoke for its 1200 s limit beside phase
+    # 12; the functions' defaults keep it for runs of their own
+    frame_kernel_times(rec, card, batches=(1, 16))
+    step_kernel_times(rec, card, batches=(1, 16, 17, 32))
 
 
 TALKER_INT8 = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
 
 
 def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088),
-                  shapes=None, what="talker", json_row=64):
+                  shapes=None, what="talker", json_row=64, name="qmatmul"):
     """Kernel A a talker layer (qkv + wo + gate/up + down, int8; `shapes`
     and `what` another model's) at each M of `rows` (B = 1, 2, 3 and 17
     prompts of 64 tokens): device ms by CUDA-graph replay, weights rotating
@@ -2830,7 +2895,8 @@ def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088),
     and, as a reference only, cuBLAS on a bf16 copy of the weights
     (`torch.matmul`, twice the weight bytes); the bound from the layer's
     bytes or operations, the larger. M = `json_row` goes into the JSON
-    line (64: the comparable case of earlier PRs; None: no row)."""
+    line (64: the comparable case of earlier PRs; None: no row) under
+    `name`."""
     import torch
     from qwen3_tts_tpu_torch.ops import quant
 
@@ -2890,9 +2956,9 @@ def qmatmul_times(rec: Record, card: str, g, rows=(64, 128, 192, 1088),
             f"weights (2x the weight bytes) {ref:.4f} ms; eager host-timed "
             f"{host:.4f} ms on {card}")
         if M == json_row:
-            rec.ms["qmatmul"], rec.plain_ms["qmatmul"] = ms, plain
-            rec.library_ms["qmatmul"] = lib
-            rec.bound["qmatmul"] = (b_ms, b_by)
+            rec.ms[name], rec.plain_ms[name] = ms, plain
+            rec.library_ms[name] = lib
+            rec.bound[name] = (b_ms, b_by)
         del mats
 
 
@@ -3396,7 +3462,7 @@ def phase_checkpoint(eng, rec: Record, card: str):
     from qwen3_tts_tpu_torch.assets.llama_gguf import export_llama_gguf
     from qwen3_tts_tpu_torch.utils.audio import AudioSample
 
-    log(f"[9/11] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
+    log(f"[9/12] checkpoint: save_checkpoint, TtsEngine(model_dir=...) and "
         f"the CLI, full width, on {card}")
     cfg = eng.config
     spk = os.path.join(REPO, "speakers")
@@ -4094,7 +4160,7 @@ def phase_clone(eng, rec: Record, card: str, q48, q88):
     from qwen3_tts_tpu_torch.utils import cache as feature_cache
     from qwen3_tts_tpu_torch.utils.audio import AudioSample
 
-    log(f"[10/11] clone: create_voice_file, clone requests and the general "
+    log(f"[10/12] clone: create_voice_file, clone requests and the general "
         f"vocoder, full width, on {card}")
     cfg = eng.config
     dev = eng.device
@@ -4635,7 +4701,7 @@ def phase_serve(eng, rec: Record, card: str, q48):
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
 
-    log(f"[11/11] serve: ServingEngine and TtsServer, full width, on {card}")
+    log(f"[11/12] serve: ServingEngine and TtsServer, full width, on {card}")
     eng.set_max_steps(SERVE_FRAMES)
     eng.set_sampler_config(SamplerConfig(seed=0))
     srv, streams = serve_run(rec, "dense bf16 serving B=4, 6 staggered "
@@ -4666,6 +4732,694 @@ def phase_serve(eng, rec: Record, card: str, q48):
     reset_counts()
     serve_http(rec, eng, card)
     reset_counts()
+
+
+# ------------------------------------------------- parallel/ (phase 12)
+TP_RANKS = 2             # one card: two gloo ranks over its CUDA tensors
+TP_TIMEOUT_S = 300       # every child is killed past it
+TP_PROMPT, TP_FRAMES, TP_WINDOW = 64, 16, 256
+TP_CLOCK_FRAMES = 4      # frames of the run that times the collectives
+SP_TOKENS = 1024
+# kernel A's products of one layer on a rank of a model axis of 2 (its
+# columns of wqkv and w_gu, its rows of wo and w_down), and of 4
+TALKER_INT8_TP2 = [(2048, 2048), (1024, 2048), (2048, 6144), (3072, 2048)]
+TALKER_INT8_TP4 = [(2048, 1024), (512, 2048), (2048, 3072), (1536, 2048)]
+PREDICTOR_INT8_TP2 = [(1024, 1536), (512, 1024), (1024, 3072), (1536, 1024)]
+
+
+def tree_checksum(*trees) -> float:
+    """Sum of |w| over every leaf, in f64: equal on two processes only for
+    the same weights."""
+    import dataclasses
+    import torch
+    total = 0.0
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif dataclasses.is_dataclass(t):
+            stack.extend(getattr(t, f.name) for f in dataclasses.fields(t))
+        else:
+            total += float(torch.sum(t.abs(), dtype=torch.float64))
+    return total
+
+
+def tp_peaked(models):
+    """The engine's models with phase 5's peaked talker and predictor
+    heads (the agreement gates' regime)."""
+    from qwen3_tts_tpu_torch.core import protocol as P
+    return {"talker": peak_head(models["talker"],
+                                [(0, P.TALKER_SAMPLE_LIMIT)]),
+            "predictor": peak_head(models["predictor"],
+                                   [(q * P.CODE_VOCAB, P.CODE_VOCAB)
+                                    for q in range(P.NUM_CODEBOOKS)]),
+            "assets": models["assets"]}
+
+
+def tp_frames(pt, tc, x, assets, frames, *, pred=None, codes=None,
+              h1024=None, tp=None, refs=None):
+    """The talker's prefill of x [1, S, H], then a frame at a time: a
+    talker step through decoder.forward (`talker.step_unfused`) and, with
+    `pred` = (params, config), the frame's expansion through
+    `models/predictor.frame_codes`. Greedy where `codes` is None (the
+    frames' codes are the run's own); else teacher-forced: frame f's
+    feedback is codes[f], its expansion starts from h1024[f] and
+    codes[f, 0]. `tp` runs this rank's shards. With `refs` = ([(key,
+    params, config), ...], this rank computes them) the prefill and every
+    step are also run single-process from the same state (the ranks'
+    caches gathered) by each (params, config). Returns {"hidden" [F + 1,
+    H] f32, "logits" [F + 1, vocab] f32, "argmax" [F + 1] of the logits'
+    [0, 2160), "codes" [F, 16] (the expansion's) or None, "h1024" [F,
+    1024], and "<key>_hidden" / "<key>_logits" of each ref (on the rank
+    that computes them)}."""
+    import torch
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.models import decoder, predictor, talker
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    from qwen3_tts_tpu_torch.tts import generate
+
+    dev = x.device
+    S = x.shape[1]
+    lim = P.TALKER_SAMPLE_LIMIT
+    pos = torch.arange(S, device=dev)[None]
+    pad = torch.zeros(1, dtype=torch.int32, device=dev)
+    same = {}
+
+    def reference(state, run):
+        """`run`(params, config, cache) by each ref from `state` (this
+        rank's cache, gathered; None: an empty cache)."""
+        full = None
+        if state is not None:
+            full = {k: (pmesh.all_gather(v, tp, dim=2) if tp is not None
+                        else v) for k, v in state.items()}
+        if not refs[1]:
+            return
+        for key, params, cfg in refs[0]:
+            L = cfg.n_layers
+            cache = (decoder.init_kv_cache(cfg, 1, length=TP_WINDOW,
+                                           device=dev) if full is None
+                     else {k: v[:L].clone() for k, v in full.items()})
+            h, lg = run(params, cfg, cache)
+            same.setdefault(f"{key}_hidden", []).append(h.float())
+            same.setdefault(f"{key}_logits", []).append(lg.float())
+
+    if refs is not None:
+        reference(None, lambda p, c, cache: [
+            t[:, -1] for t in decoder.forward(p, c, x, pos, cache, 0)[:2]])
+    cache = decoder.init_kv_cache(tc, 1, length=TP_WINDOW, device=dev, tp=tp)
+    h, lg, cache = decoder.forward(pt, tc, x, pos, cache, 0, tp=tp)
+    hidden, logits = h[:, -1], lg[:, -1]
+    hs, lgs, out, h1s = [hidden.float()], [logits.float()], [], []
+    for f in range(frames):
+        if codes is None:
+            h1 = assets.project(hidden.float())
+            c0 = lgs[-1][:, :lim].argmax(-1).to(torch.int32)
+        else:
+            h1, c0 = h1024[f:f + 1], codes[f:f + 1, 0]
+        if pred is not None:
+            out.append(predictor.frame_codes(pred[0], pred[1], assets, h1, c0,
+                                             tp))
+        h1s.append(h1)
+        fb = codes[f:f + 1] if codes is not None else out[-1]
+        fb = generate._feedback_embedding(assets, fb, tc.hidden).to(x.dtype)
+        if refs is not None:
+            reference(cache, lambda p, c, cache, fb=fb, f=f: talker.
+                      step_unfused(p, c, fb, S + f, pad, cache)[:2])
+        hidden, logits, cache = talker.step_unfused(pt, tc, fb, S + f, pad,
+                                                    cache, tp)
+        hs.append(hidden.float())
+        lgs.append(logits.float())
+    res = {"hidden": torch.cat(hs), "logits": torch.cat(lgs),
+           "codes": torch.cat(out) if out else None, "h1024": torch.cat(h1s)}
+    res["argmax"] = res["logits"][:, :lim].argmax(-1)
+    res.update({k: torch.cat(v) for k, v in same.items()})
+    return res
+
+
+def same_state_stats(run, key) -> dict:
+    """`tp_frames`'s comparison of its hidden and argmax with ref `key`'s
+    from the same states: each state's relative error and the largest,
+    the argmax agreement."""
+    from qwen3_tts_tpu_torch.core import protocol as P
+    want = run[f"{key}_hidden"]
+    rels = [rel_err(run["hidden"][i], want[i]) for i in range(len(want))]
+    am = run[f"{key}_logits"][:, :P.TALKER_SAMPLE_LIMIT].argmax(-1)
+    return {"rels": rels, "max": max(rels),
+            "agree": float((run["argmax"] == am).float().mean())}
+
+
+def to_f32(tree):
+    """A decoder tree with its float leaves in f32 (int8 / int4 entries
+    stay)."""
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def first_layers(params, cfg, n):
+    """A decoder's params and config cut to its first n layers."""
+    import dataclasses
+    lw = {k: (v[:n] if not isinstance(v, dict)
+              else {m: t[:n] for m, t in v.items()})
+          for k, v in params["layers"].items()}
+    return dict(params, layers=lw), dataclasses.replace(cfg, n_layers=n)
+
+
+TP_STEP_STATES = ((256, 100), (4096, 2100))     # phase 3's (T, live)
+# bf16 at full depth: the tensor-parallel talker's distance to the single
+# process in f32 against the single process's own in bf16. The two bf16
+# runs differ from each other by as much as each from the f32 one
+# (2-4e-2 on the teacher-forced states), so FULL_DEPTH_REL cannot tell
+# them apart; the f32 and 2-layer tiers are the strict checks
+TP_BF16_MARGIN = 1.25
+
+
+def tp_step_tiers(mesh, tp, me, cfg, cfg32, peaked, voc, kinds, full,
+                  full32, local):
+    """One talker step on this rank's shards against the single process's
+    step (`talker.step_unfused`) on the same random state (phase 3's: x
+    0.1 N(0, 1), a N(0, 1) cache with `live` slots, B = 1), the state's
+    cache split over the ranks by kv head; phase 3's three tiers: f32 at
+    full width and depth (dense: kernel A rounds x to bf16, so the int8
+    talker has no f32 tier), hidden and logits within rtol/atol 1e-4;
+    bf16 at full width cut to 2 layers, relative error <= 8e-3; bf16 at
+    full width and depth, <= FULL_DEPTH_REL, the single step without its
+    last layer further. Returns [(tier, T, live, hidden err, logits err,
+    control err or None, ok)] on the rank that compares (`me`)."""
+    import torch
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    from qwen3_tts_tpu_torch.parallel import run as prun
+
+    tcfg = prun.tp_config(mesh, cfg).talker
+    tiers = []
+    if kinds is None:
+        # the f32 talker's shards (the predictor's are not used)
+        local32 = prun.shard_models(mesh, cfg32, dict(peaked, talker=full32),
+                                    voc, kinds)[0]
+        tiers.append(("full f32", local32["talker"], full32,
+                      prun.tp_config(mesh, cfg32).talker, cfg32.talker,
+                      dict(rtol=1e-4, atol=1e-4)))
+    l2, lc2 = first_layers(local["talker"], tcfg, 2)
+    f2, fc2 = first_layers(full, cfg.talker, 2)
+    tiers.append(("full bf16 2 layers", l2, f2, lc2, fc2, dict(rel=8e-3)))
+    tiers.append(("full bf16", local["talker"], full, tcfg, cfg.talker,
+                  dict(rel=FULL_DEPTH_REL)))
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = pmesh.coordinates(mesh)
+    spec = pmesh.P(None, None, "model")
+    out, seed = [], 300
+    for tier, lp, fp, lc, fc, tol in tiers:
+        dt = getattr(torch, fc.dtype)
+        for T, live in TP_STEP_STATES:
+            seed += 1
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            x = (0.1 * torch.randn(1, fc.hidden, generator=g,
+                                   device="cuda")).to(dt)
+            cache = {k: torch.randn(fc.n_layers, 1, fc.n_kv_heads, T,
+                                    fc.head_dim, generator=g,
+                                    device="cuda").to(dt) for k in "kv"}
+            pad = torch.zeros(1, dtype=torch.int32, device="cuda")
+            mine = {k: pmesh.local_slice(v, spec, shape, coords)
+                    for k, v in cache.items()}
+            h, lg, _ = talker.step_unfused(lp, lc, x, live, pad, mine, tp)
+            if not me:
+                continue
+            wh, wl, _ = talker.step_unfused(
+                fp, fc, x, live, pad, {k: v.clone() for k, v in
+                                       cache.items()})
+            row = {"tier": tier, "T": T, "live": live}
+            if "rel" in tol:
+                row.update(h=rel_err(h, wh), lg=rel_err(lg, wl))
+                row["ok"] = max(row["h"], row["lg"]) <= tol["rel"]
+            else:
+                row.update(h=abs_err(h, wh), lg=abs_err(lg, wl))
+                row["ok"] = all(torch.allclose(a.float(), b.float(), **tol)
+                                for a, b in ((h, wh), (lg, wl)))
+            if tier == "full bf16":
+                # the control, and both steps against the f32 step
+                cp, cc = last_layer_dropped(fp, fc)
+                ch = talker.step_unfused(cp, cc, x, live, pad, {
+                    k: v[:cc.n_layers].clone() for k, v in cache.items()})[0]
+                th = talker.step_unfused(full32, cfg32.talker, x, live, pad, {
+                    k: v.clone() for k, v in cache.items()})[0]
+                row.update(ctl=rel_err(ch, wh), tp_f32=rel_err(h, th),
+                           single_f32=rel_err(wh, th))
+                row["ok"] = row["ctl"] > tol["rel"]
+            out.append(row)
+    return out
+
+
+def tp_kernel_checks(rec: Record, g):
+    """Decode attention at a rank's head counts (the talker's 16/8 at a
+    model axis of 2 and 4: 8/4, 4/2, over the 256-slot window and the
+    4096-slot cache; the predictor's 8/8: 4/4, 2/2, bf16 cache of 32
+    slots) and kernel A at a rank's int8 products (the talker's layer at
+    2 and 4, the predictor's at 2, a rank's head-slice view; M = 1, 64)
+    against their plain versions."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import flash_decode, quant
+
+    dev = g.device
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    bf = torch.bfloat16
+    for dt, tol in ((torch.float32, None), (bf, 8e-3)):
+        for nq, nk, T, cases in (
+                (8, 4, 256, [(0, 0), (1, 0), (96, 0), (200, 17)]),
+                (4, 2, 256, [(1, 0), (96, 0), (255, 3)]),
+                (8, 4, 4096, [(96, 0), (2100, 0)]),
+                (4, 2, 4096, [(96, 0), (2100, 5)]),
+                (4, 4, 32, [(0, 0), (2, 0), (9, 0), (16, 0)]),
+                (2, 2, 32, [(2, 0), (16, 0)])):
+            kc, vc = randn(2, 1, nk, T, 128, dtype=dt), randn(
+                2, 1, nk, T, 128, dtype=dt)
+            q = randn(1, nq, 128, dtype=dt)
+            kn, vn = randn(1, nk, 128, dtype=dt), randn(1, nk, 128, dtype=dt)
+            for kv_len, vfrom in cases:
+                lens = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+                vf = torch.tensor([vfrom], dtype=torch.int32, device=dev)
+                got = flash_decode.decode_attention_stacked(
+                    q, kc, vc, kn, vn, 1, lens, vf)
+                want = flash_decode.decode_attention_plain(
+                    q, kc, vc, kn, vn, 1, lens, vf)
+                label = (f"rank {nq}/{nk} T={T} kv_len={kv_len} vfrom="
+                         f"{vfrom} {str(dt)[6:]}")
+                if tol is None:
+                    rec.check("decode_attention_tp", got, want, label,
+                              rtol=1e-4, atol=1e-4)
+                else:
+                    rec.check("decode_attention_tp", got, want, label,
+                              rel=tol)
+    head = quant.quantize(randn(1024, 16384, scale=0.02))
+    for what, shapes in (("talker model=2", TALKER_INT8_TP2),
+                         ("talker model=4", TALKER_INT8_TP4),
+                         ("predictor model=2", PREDICTOR_INT8_TP2),
+                         ("predictor head slice of a rank", [None])):
+        err = 0.0
+        for shape in shapes:
+            if shape is None:
+                q, sc = head["q"][:, 6144:8192], head["scale"][6144:8192]
+            else:
+                w = quant.quantize(randn(*shape, scale=0.02))
+                q, sc = w["q"], w["scale"]
+            for M in (1, 64):
+                for dt in (bf, torch.float32):
+                    x = randn(M, q.shape[0], dtype=dt)
+                    e, _ = rec.check(
+                        "qmatmul_tp", quant.qmatmul_kernel(x, q, sc),
+                        quant.qmatmul_kernel_plain(x, q, sc),
+                        f"{what} {tuple(q.shape)} M={M}", rtol=1e-4,
+                        atol=1e-4, quiet=True)
+                    err = max(err, e)
+        log(f"  {'qmatmul_tp':16s} {what}: {len(shapes)} products, M = 1, "
+            f"64, x bf16 / f32: max|d|={err:.3e} (rtol/atol 1e-4) ok")
+
+
+def tp_kernel_times(rec: Record, card: str, g):
+    """Device times (CUDA-graph replay) of decode attention at a rank's
+    head counts and of kernel A a rank's layer, against their plain
+    versions, one PyTorch call (SDPA, torch._weight_int8pack_mm) and their
+    bounds; and decode attention at `models/predictor.frame_codes`'s shape
+    (8/8 heads, bf16 cache of 32 slots)."""
+    import torch
+    bf = torch.bfloat16
+    time_cases(rec, card, [
+        attention_case(g, "talker rank 8/4 (model=2) kv_len=96 T=256 bf16",
+                       8, 4, 256, 96, bf, bf, True, "decode_attention_tp"),
+        attention_case(g, "talker rank 4/2 (model=4) kv_len=96 T=256 bf16",
+                       4, 2, 256, 96, bf, bf, False, "decode_attention_tp"),
+        attention_case(g, "talker rank 8/4 stream kv_len=96 T=4096 bf16", 8,
+                       4, 4096, 96, bf, bf, False, "decode_attention_tp"),
+        attention_case(g, "talker rank 4/2 stream kv_len=96 T=4096 bf16", 4,
+                       2, 4096, 96, bf, bf, False, "decode_attention_tp"),
+        attention_case(g, "predictor rank 4/4 (model=2) kv_len=8 T=32 bf16",
+                       4, 4, 32, 8, bf, bf, False, "decode_attention_tp"),
+        attention_case(g, "frame_codes predictor 8/8 kv_len=8 T=32 bf16 "
+                       "cache", 8, 8, 32, 8, bf, bf, False)])
+    qmatmul_times(rec, card, g, rows=(1, 64), shapes=TALKER_INT8_TP2,
+                  what="talker rank (model=2)", name="qmatmul_tp")
+    qmatmul_times(rec, card, g, rows=(1, 64), shapes=PREDICTOR_INT8_TP2,
+                  what="predictor rank (model=2)", json_row=None)
+
+
+class CollectiveClock:
+    """dist.all_reduce and dist.broadcast counted and timed on the host,
+    the stream synchronized before and after each call (so a call's time
+    is its own, not the work it waits for)."""
+
+    def __init__(self):
+        self.n, self.s = 0, 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self.saved = {k: getattr(dist, k) for k in ("all_reduce",
+                                                    "broadcast")}
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.n += 1
+                return out
+            return call
+        for k, fn in self.saved.items():
+            setattr(dist, k, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self.saved.items():
+            setattr(dist, k, fn)
+
+
+def parallel_child(rank: int, port: int, tmp: str) -> int:
+    """A rank of phase 12's world (gloo, TP_RANKS ranks on the one card):
+    builds the full models (seed 0, as the parent's engine), keeps its
+    shards, and runs the teacher-forced tensor-parallel frames (mesh (1,
+    2)) dense and int8/int8, then the sequence-split prefill (mesh (2,
+    1)); writes its results to `tmp`."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    if not os.path.isdir(os.path.join(REPO, "qwen3_tts_tpu_torch")):
+        fail("qwen3_tts_tpu_torch/ not found beside chip_smoke.py")
+    sys.path.insert(0, REPO)
+    if not torch.cuda.is_available():
+        fail("parallel child: no CUDA card")
+    torch.cuda.set_device(0)
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.models import decoder
+    from qwen3_tts_tpu_torch.ops import flash_decode, quant
+    from qwen3_tts_tpu_torch.parallel import context as pcontext
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    from qwen3_tts_tpu_torch.parallel import run as prun
+    from qwen3_tts_tpu_torch.tts.engine import random_weights
+
+    def say(msg):
+        log(f"[rank {rank}] {msg}")
+
+    t_start = time.time()
+    pmesh.initialize_multihost(f"127.0.0.1:{port}", TP_RANKS, rank,
+                               backend="gloo", timeout_s=TP_TIMEOUT_S)
+    cfg = EngineConfig()
+    models, voc = random_weights(cfg, 0, "cuda")
+    ck = torch.tensor([tree_checksum(models["talker"], models["predictor"],
+                                     models["assets"], voc)],
+                      dtype=torch.float64, device="cuda")
+    res = {"checksum": float(ck)}
+    dist.broadcast(ck, src=0)
+    res["checksum_rank0"] = float(ck)
+    inp = torch.load(os.path.join(tmp, "tp_inputs.pt"))
+    x = inp["x"].cuda()
+    mesh = pmesh.make_mesh(1, TP_RANKS, device_type="cuda")
+    tp = pmesh.group(mesh, "model")
+    tcfg = prun.tp_config(mesh, cfg)
+    peaked = tp_peaked(models)
+    say(f"full weights, checksum, mesh (1, {TP_RANKS}) in "
+        f"{time.time() - t_start:.1f} s")
+    cfg32 = dataclasses.replace(cfg, talker=dataclasses.replace(
+        cfg.talker, dtype="float32"), predictor=dataclasses.replace(
+        cfg.predictor, dtype="float32"))
+    talker32 = to_f32(peaked["talker"])
+    for label, kinds in (("dense bf16", None),
+                         ("int8/int8", {"talker": "int8",
+                                        "predictor": "int8"})):
+        local, _ = prun.shard_models(mesh, cfg, peaked, voc, kinds)
+        full = peaked["talker"] if kinds is None else \
+            quant.quantize_decoder_params(peaked["talker"], kind="int8")
+        full32 = talker32 if kinds is None else to_f32(full)
+        ref = {k: v.cuda() for k, v in inp[label].items()}
+
+        def run(local, tcfg, x, frames=TP_FRAMES, ref=ref, **kw):
+            return tp_frames(local["talker"], tcfg.talker, x, local["assets"],
+                             frames, codes=ref["codes"], h1024=ref["h1024"],
+                             tp=tp, **kw)
+
+        pred = (local["predictor"], tcfg.predictor)
+        me = rank == 0
+        with torch.inference_mode():
+            # the path: counted and timed
+            torch.cuda.synchronize()
+            flash_decode.decode_attention_stacked.launches = 0
+            quant.qmatmul_kernel.launches = 0
+            t0 = time.time()
+            out = run(local, tcfg, x, pred=pred)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = {"decode_attention_tp":
+                      flash_decode.decode_attention_stacked.launches,
+                      "qmatmul_tp": quant.qmatmul_kernel.launches}
+            got = {"codes": out["codes"].cpu(), "argmax": out["argmax"].cpu(),
+                   "hidden": out["hidden"].cpu(), "counts": counts,
+                   "ms_frame": 1e3 * wall / TP_FRAMES}
+            # the talker from the same states as the single process: in
+            # bf16 against the single process in bf16 and in f32 (the
+            # same weights)
+            same = run(local, tcfg, x, refs=([
+                ("bf16", full, cfg.talker), ("f32", full32, cfg32.talker)],
+                me))
+            if me:
+                got["vs_bf16"] = same_state_stats(same, "bf16")
+                got["vs_f32"] = same_state_stats(same, "f32")
+                got["bf16_vs_f32"] = max(
+                    rel_err(same["bf16_hidden"][i], same["f32_hidden"][i])
+                    for i in range(TP_FRAMES + 1))
+            # one step from phase 3's states, in its three tiers
+            got["steps"] = tp_step_tiers(
+                mesh, tp, me, cfg, cfg32, peaked, voc, kinds, full, full32,
+                local)
+            if label == "dense bf16":
+                with CollectiveClock() as clock:
+                    t0 = time.time()
+                    run(local, tcfg, x, TP_CLOCK_FRAMES, pred=pred)
+                    torch.cuda.synchronize()
+                    got["collectives_frame"] = clock.n / TP_CLOCK_FRAMES
+                    got["collective_share"] = clock.s / (time.time() - t0)
+        res[label] = got
+        say(f"{label}: prefill + {TP_FRAMES} teacher-forced frames in "
+            f"{wall:.2f} s, launches {json.dumps(counts)}")
+        del local, full, full32
+        torch.cuda.empty_cache()
+    del talker32
+
+    # the sequence-split prefill of one long prompt: mesh (2, 1)
+    m21 = pmesh.make_mesh(TP_RANKS, 1, device_type="cuda")
+    tc = cfg.talker
+    g = torch.Generator(device="cuda").manual_seed(37)
+    xs = (0.05 * torch.randn(1, SP_TOKENS, tc.hidden, generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    pos = torch.arange(SP_TOKENS, device="cuda")[None]
+    pt = models["talker"]
+    cp, cc = last_layer_dropped(pt, tc)
+
+    def prefill(fn, params, config):
+        cache = decoder.init_kv_cache(config, 1, length=SP_TOKENS,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h, _, cache = fn(params, config, cache)
+        torch.cuda.synchronize()
+        return h, cache, 1e3 * (time.time() - t0)
+
+    split = (lambda p, c, cache: pcontext.prefill_sequence_sharded(
+        m21, p, c, xs, pos, cache, 0))
+    whole = (lambda p, c, cache: decoder.forward(p, c, xs, pos, cache, 0,
+                                                 with_logits=False))
+    with torch.inference_mode():
+        prefill(split, pt, tc)                  # warm: the next is timed
+        h, cache, ms = prefill(split, pt, tc)
+        res["sp"] = {"ms": ms}
+        if rank == 0:
+            rh, rc, ref_ms = prefill(whole, pt, tc)
+            ch = prefill(whole, cp, cc)[0]
+            res["sp"].update({
+                "h_rel": rel_err(h, rh), "k_rel": rel_err(cache["k"], rc["k"]),
+                "v_rel": rel_err(cache["v"], rc["v"]),
+                "ctl_rel": rel_err(ch, rh), "ref_ms": ref_ms})
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["wall_s"] = time.time() - t_start
+    torch.save(res, os.path.join(tmp, f"tp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    say(f"done in {res['wall_s']:.1f} s, peak {res['peak_gib']:.2f} GiB")
+    return 0
+
+
+def phase_parallel(eng, rec: Record, card: str):
+    """`parallel/` on the card: the kernels at a rank's shapes; a world of
+    TP_RANKS gloo processes on the one card (`parallel_child`), each
+    building EngineConfig()'s full weights from seed 0 and keeping its
+    shards: the weights' checksum against this process's engine; the
+    64-token prefill and 16 frames teacher-forced on the codes of this
+    process's greedy single-process run, dense and int8/int8, and one
+    step from phase 3's states in its three tiers (the gates in the
+    module docstring, phase 12); the sequence-split prefill of 1024
+    tokens against the single-process prefill; then the kernels' times."""
+    import tempfile
+
+    import torch
+    log(f"[12/12] parallel: parallel/ (tensor-parallel frames, the "
+        f"sequence-split prefill) in {TP_RANKS} gloo ranks on {card}")
+    t_phase = time.time()
+    dev = eng.device
+    g = torch.Generator(device=dev).manual_seed(41)
+    tp_kernel_checks(rec, g)
+    cfg = eng.config
+    tc, pc = cfg.talker, cfg.predictor
+    peaked = tp_peaked(eng.models)
+    kinds = {"dense bf16": peaked,
+             "int8/int8": quantized_models(peaked, "int8", "int8")}
+    x = (0.05 * torch.randn(1, TP_PROMPT, tc.hidden, generator=g,
+                            device=dev)).to(torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="tp_smoke_")
+    try:
+        refs, inputs = {}, {"x": x.cpu()}
+        with torch.inference_mode():
+            for label, m in kinds.items():
+                ref = tp_frames(m["talker"], tc, x, m["assets"], TP_FRAMES,
+                                pred=(m["predictor"], pc))
+                refs[label] = ref
+                inputs[label] = {"codes": ref["codes"].cpu(),
+                                 "h1024": ref["h1024"].cpu()}
+        torch.save(inputs, os.path.join(tmp, "tp_inputs.pt"))
+        # the ranks build ~20 GiB each on this card: give back this
+        # process's cached blocks first
+        del kinds, peaked, ref
+        torch.cuda.empty_cache()
+        log(f"  this process: {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+            f"reserved before the ranks start")
+        want_ck = tree_checksum(eng.models["talker"],
+                                eng.models["predictor"],
+                                eng.models["assets"], eng.vocoder_params)
+        log(f"  references (single process, greedy, {TP_FRAMES} frames, "
+            f"dense and int8/int8) in {time.time() - t_phase:.1f} s")
+        torch.cuda.synchronize()
+        from qwen3_tts_tpu_torch.tools import multihost_smoke as launcher
+        procs, logs = launcher.start_ranks(
+            lambda r, port: [sys.executable, os.path.abspath(__file__),
+                             "--parallel-rank", str(r), str(port), tmp],
+            TP_RANKS, TP_RANKS)
+        rcs, outs = launcher.finish_ranks(procs, logs, TP_TIMEOUT_S)
+        for out in outs:
+            for line in out.splitlines():
+                if "hostname of the client socket" not in line:
+                    log(f"  | {line}")
+        if rcs != [0] * TP_RANKS:
+            fail(f"parallel: the ranks exited {rcs}")
+        ranks = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"))
+                 for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cks = [r["checksum"] for r in ranks] + [ranks[1]["checksum_rank0"]]
+    ok = all(abs(c - want_ck) <= 1e-9 * abs(want_ck) for c in cks)
+    log(f"  weights' checksum: this engine {want_ck:.6f}, ranks "
+        f"{[round(c, 6) for c in cks[:-1]]}, broadcast from rank 0 "
+        f"{cks[-1]:.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("parallel: the ranks did not build the engine's weights")
+    lim = FULL_DEPTH_REL
+    for label, ref in refs.items():
+        got0 = ranks[0][label]
+        for row in got0["steps"]:
+            tier = row["tier"]
+            head = (f"  {label}, one step from phase 3's state (T={row['T']}, "
+                    f"live {row['live']}), {tier}: ")
+            if tier == "full f32":
+                msg = (f"hidden max|d|={row['h']:.2e}, logits max|d|="
+                       f"{row['lg']:.2e} (rtol/atol 1e-4)")
+            elif tier == "full bf16 2 layers":
+                msg = (f"hidden rel={row['h']:.2e}, logits rel="
+                       f"{row['lg']:.2e} (<= 8e-3)")
+            else:
+                msg = (f"control (last layer dropped) rel={row['ctl']:.2e} "
+                       f"(> {lim:g}); hidden rel={row['h']:.2e}, logits rel="
+                       f"{row['lg']:.2e} against the single process in bf16 "
+                       f"(not gated at {lim:g}); against it in f32: hidden "
+                       f"rel {row['tp_f32']:.2e}, the single process in "
+                       f"bf16 {row['single_f32']:.2e}")
+            log(head + msg + f" {'ok' if row['ok'] else 'FAIL'}")
+            if not row["ok"]:
+                fail(f"parallel {label} {tier}: the step disagrees with the "
+                     "single process")
+        st, st32 = got0["vs_bf16"], got0["vs_f32"]
+        own = got0["bf16_vs_f32"]
+        ok = st["agree"] >= 0.93 and st32["max"] <= TP_BF16_MARGIN * own
+        log(f"  {label}: the prefill and {TP_FRAMES} teacher-forced steps, "
+            f"each from the same state as the single process (the ranks' "
+            f"caches gathered): talker argmax agreement {st['agree']:.3f} "
+            f"(gate 0.93); hidden rel <= {st32['max']:.2e} against the "
+            f"single process in f32, where the single process in bf16 is "
+            f"<= {own:.2e} (gate: <= {TP_BF16_MARGIN:g} x it) "
+            f"{'ok' if ok else 'FAIL'}; against the single process in "
+            f"bf16 <= {st['max']:.2e} (not gated); each state's rel against "
+            f"bf16: " + " ".join(f"{r:.1e}" for r in st["rels"]))
+        if not ok:
+            fail(f"parallel {label}: the talker disagrees with the single "
+                 "process")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            agree_p = float((got["codes"][:, 1:] == ref["codes"][:, 1:]
+                             .cpu()).float().mean())
+            lockstep = (torch.equal(got["codes"], got0["codes"])
+                        and torch.equal(got["argmax"], got0["argmax"]))
+            ok = agree_p >= 0.95 and lockstep
+            drift = rel_err(got["hidden"], ref["hidden"].cpu())
+            agree_run = float((got["argmax"] == ref["argmax"].cpu()).float()
+                              .mean())
+            log(f"  {label} rank {r}: predictor codes agreement "
+                f"{agree_p:.3f} (gate 0.95), the ranks' codes and argmax "
+                f"{'equal' if lockstep else 'DIFFER'}; over the whole "
+                f"teacher-forced run (drift through the caches, not gated): "
+                f"hidden rel {drift:.2e}, argmax agreement {agree_run:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"parallel {label} rank {r}: disagrees with the single "
+                     "process")
+            counts = got["counts"]
+            need = ("decode_attention_tp",) + (
+                ("qmatmul_tp",) if label.startswith("int8") else ())
+            missing = [k for k in need if counts[k] <= 0]
+            if missing:
+                fail(f"parallel {label} rank {r}: kernels never launched: "
+                     f"{missing}")
+            rec.add_launches(counts)
+            clock = (f", {got['collectives_frame']:.1f} collectives a frame, "
+                     f"{got['collective_share']:.1%} of the wall in them (a "
+                     f"run of {TP_CLOCK_FRAMES} frames, synchronized around "
+                     f"each)" if "collectives_frame" in got else "")
+            log(f"  {label} rank {r}: {got['ms_frame']:.1f} ms a frame (host "
+                f"clock, the prefill included){clock}, kernel launches "
+                f"{json.dumps(counts)} on {card}")
+    sp = ranks[0]["sp"]
+    ok = max(sp["h_rel"], sp["k_rel"], sp["v_rel"]) <= lim < sp["ctl_rel"]
+    log(f"  sequence-split prefill, {SP_TOKENS} tokens over {TP_RANKS} "
+        f"ranks: hidden rel={sp['h_rel']:.2e}, cache k rel={sp['k_rel']:.2e}"
+        f", v rel={sp['v_rel']:.2e} (<= {lim:g}); control rel="
+        f"{sp['ctl_rel']:.2e} (> {lim:g}) {'ok' if ok else 'FAIL'}; "
+        f"{sp['ms']:.1f} ms against {sp['ref_ms']:.1f} single-process (host "
+        f"clock, rank 0) on {card}")
+    if not ok:
+        fail("parallel: the sequence-split prefill disagrees")
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+    walls = ", ".join(f"{r['wall_s']:.1f}" for r in ranks)
+    log(f"  peak device memory of the ranks: {peaks} GiB; their walls "
+        f"{walls} s")
+    tp_kernel_times(rec, card, g)
+    log(f"  (phase 12: {time.time() - t_phase:.1f} s)")
 
 
 def _fmt4(ms):
@@ -4701,10 +5455,11 @@ def main() -> int:
             ("predictor", lambda: phase_predictor(eng, rec, card, q88)),
             ("main", lambda: phase_main(eng, rec, q48, q88)),
             ("stream", lambda: phase_stream(eng, rec, card, q48)),
-            ("times", lambda: phase_times(eng, rec, card, q48, q88)),
+            ("times", lambda: phase_times(eng, rec, card, q48)),
             ("checkpoint", lambda: phase_checkpoint(eng, rec, card)),
             ("clone", lambda: phase_clone(eng, rec, card, q48, q88)),
-            ("serve", lambda: phase_serve(eng, rec, card, q48))):
+            ("serve", lambda: phase_serve(eng, rec, card, q48)),
+            ("parallel", lambda: phase_parallel(eng, rec, card))):
         t0 = time.time()
         run()
         log(f"  phase {name} took {time.time() - t0:.1f} s")
@@ -4720,4 +5475,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_child(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     sys.exit(main())

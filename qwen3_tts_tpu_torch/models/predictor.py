@@ -46,9 +46,12 @@ from . import decoder
 
 def frame_codes(params: decoder.DecoderParams, cfg, assets: Assets,
                 talker_hidden_1024: torch.Tensor,
-                code_0: torch.Tensor) -> torch.Tensor:
+                code_0: torch.Tensor, tp=None) -> torch.Tensor:
     """Expand code_0 [B] into the full 16-code frame from the projected
-    talker hidden [B, 1024] f32. Returns [B, 16] int32."""
+    talker hidden [B, 1024] f32. Returns [B, 16] int32. With `tp` (the
+    mesh's model group) `params` is this rank's shard: each codebook's
+    head slice comes from the rank that holds it (`decoder.head_logits`),
+    so every rank of the group draws the same codes."""
     B = code_0.shape[0]
     NB, CV = protocol.NUM_CODEBOOKS, protocol.CODE_VOCAB
     dev = talker_hidden_1024.device
@@ -58,15 +61,16 @@ def frame_codes(params: decoder.DecoderParams, cfg, assets: Assets,
     qs = torch.arange(NB + 1, device=dev)
     pos = qs[None].expand(B, NB + 1)
     code_0 = code_0.to(torch.int32)
-    cache = decoder.init_kv_cache(cfg, B, device=dev)
+    cache = decoder.init_kv_cache(cfg, B, device=dev, tp=tp)
 
     # prefill: [proj(m_hidden), codec_emb_1024(0, code_0)] at positions 0, 1
     c0_emb = assets.codec_embedding_1024(qs[0], code_0)
     x = torch.stack([talker_hidden_1024, c0_emb], dim=1)       # [B, 2, H]
     h, _, cache = decoder.forward(params, cfg, x.to(dt), pos[:, :2], cache,
-                                  qs[0], with_logits=False)
+                                  qs[0], with_logits=False, tp=tp)
     # only codebook 1's head slice is needed from the prefill
-    row_logits = decoder.head_logits(params, h[:, -1], 0, CV)  # [B, 2048]
+    row_logits = decoder.head_logits(params, h[:, -1], 0, CV,
+                                     tp)                        # [B, 2048]
 
     codes = torch.empty(B, NB, dtype=torch.int32, device=dev)
     codes[:, 0] = code_0
@@ -80,8 +84,8 @@ def frame_codes(params: decoder.DecoderParams, cfg, assets: Assets,
         emb = assets.codec_embedding_1024(qs[q], code_q)
         h, _, cache = decoder.forward(params, cfg, emb[:, None].to(dt),
                                       pos[:, q + 1:q + 2], cache, qs[q + 1],
-                                      with_logits=False)
-        row_logits = decoder.head_logits(params, h[:, -1], q * CV, CV)
+                                      with_logits=False, tp=tp)
+        row_logits = decoder.head_logits(params, h[:, -1], q * CV, CV, tp)
     return codes
 
 

@@ -4,6 +4,11 @@
 Ragged prompt batches are LEFT-padded: row b's prompt occupies cache slots
 [pad_offset[b], prompt_slots); RoPE positions are max(slot - pad_offset, 0)
 and pad slots are masked out of attention through `kv_valid_from`.
+
+With `tp` (the mesh's model group, `parallel/`) the prefill and
+`step_unfused` run this rank's shard through `decoder.forward`: the
+persistent step kernel holds whole layers in one launch, and a collective
+cannot run inside it, so a tensor-parallel step is JAX's unfused step.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from . import decoder
 
 
 def prefill(params: decoder.DecoderParams, cfg, prompt_embeds: torch.Tensor,
-            pad_offset: torch.Tensor, cache: Dict[str, torch.Tensor]
+            pad_offset: torch.Tensor, cache: Dict[str, torch.Tensor],
+            tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Prompt [B, S, H] through the talker. Returns (hidden of the last
     position [B, H], its logits [B, vocab], cache)."""
@@ -26,7 +32,23 @@ def prefill(params: decoder.DecoderParams, cfg, prompt_embeds: torch.Tensor,
     positions = (slots - pad_offset.long()[:, None]).clamp_min(0)
     h, logits, cache = decoder.forward(
         params, cfg, prompt_embeds, positions, cache, 0,
-        kv_valid_from=pad_offset)
+        kv_valid_from=pad_offset, tp=tp)
+    return h[:, -1], logits[:, -1], cache
+
+
+def step_unfused(params: decoder.DecoderParams, cfg, feedback: torch.Tensor,
+                 slot, pad_offset: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], tp=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Dict[str, torch.Tensor]]:
+    """One step through `decoder.forward` at S = 1 (JAX's step where its
+    fused kernel does not run): decode attention, kernel A for int8
+    weights. `slot` a host int shared by the rows. Returns (hidden [B, H],
+    logits [B, vocab], cache updated in place)."""
+    positions = (slot - pad_offset.long())[:, None]
+    h, logits, cache = decoder.forward(
+        params, cfg, feedback[:, None], positions, cache, slot,
+        kv_valid_from=pad_offset, tp=tp)
     return h[:, -1], logits[:, -1], cache
 
 

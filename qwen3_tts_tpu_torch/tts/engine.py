@@ -92,6 +92,28 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
+def random_weights(cfg: EngineConfig, seed: int, device):
+    """(models, vocoder params) of `TtsEngine(random_weights=True, seed)`:
+    four generators on `device` seeded seed * 4 + i."""
+    gens = []
+    for i in range(4):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed * 4 + i)
+        gens.append(g)
+    assets = tables.random_assets(
+        gens[0],
+        text_vocab=P.TEXT_VOCAB if cfg.talker.hidden >= 2048 else 1024,
+        codec_rows=3072 if cfg.talker.hidden >= 2048 else 2176,
+        dim=cfg.talker.hidden, proj_dim=cfg.predictor.hidden, device=device)
+    models = {
+        "talker": decoder.init_decoder(gens[1], cfg.talker, device=device),
+        "predictor": decoder.init_decoder(gens[2], cfg.predictor,
+                                          device=device),
+        "assets": assets,
+    }
+    return models, vocoder.init_vocoder(gens[3], cfg.vocoder, device=device)
+
+
 class TtsEngine:
     def __init__(
         self,
@@ -140,25 +162,7 @@ class TtsEngine:
             self.load_speakers(sdir)
 
     def _random_weights(self, seed: int):
-        cfg = self.config
-        dev = self.device
-        gens = []
-        for i in range(4):
-            g = torch.Generator(device=dev)
-            g.manual_seed(seed * 4 + i)
-            gens.append(g)
-        assets = tables.random_assets(
-            gens[0],
-            text_vocab=P.TEXT_VOCAB if cfg.talker.hidden >= 2048 else 1024,
-            codec_rows=3072 if cfg.talker.hidden >= 2048 else 2176,
-            dim=cfg.talker.hidden, proj_dim=cfg.predictor.hidden, device=dev)
-        models = {
-            "talker": decoder.init_decoder(gens[1], cfg.talker, device=dev),
-            "predictor": decoder.init_decoder(gens[2], cfg.predictor,
-                                              device=dev),
-            "assets": assets,
-        }
-        return models, vocoder.init_vocoder(gens[3], cfg.vocoder, device=dev)
+        return random_weights(self.config, seed, self.device)
 
     def _load(self, model_dir: str):
         """The checkpoint directory's weights (see the module docstring)."""

@@ -34,6 +34,14 @@ Deliberate divergences from the JAX package:
     state without `prev_codes` takes the default path. Jacobi decoding
     goes through `models/decoder.forward` (kernel A for int8 weights), so
     `plain` does not apply to it.
+  * `tp` (the mesh's model group, `parallel/run.sharded_generate_step`)
+    runs this rank's shard: the prefill, the talker step through
+    `decoder.forward` (`talker.step_unfused`) and the frame through
+    `models/predictor.frame_codes`, as JAX's sharded program does on its
+    CPU mesh, where neither fused kernel runs. A collective cannot run
+    inside the persistent kernels. Every rank of the group sees the same
+    gathered logits and draws the same greedy codes, so the host's `done`
+    read decides the same on each and the ranks stay in lockstep.
 """
 
 from __future__ import annotations
@@ -103,10 +111,11 @@ def _predict_codes(models: Dict[str, Any], pred_cfg, h1024: torch.Tensor,
 
 def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
                 state: GenState, ignore_eos: bool = False,
-                plain: bool = False
+                plain: bool = False, tp=None
                 ) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
     """One frame. Returns (state, frame codes [B, 16], active [B] bool).
-    `plain` runs the fused steps' plain versions (the on-card baseline)."""
+    `plain` runs the fused steps' plain versions (the on-card baseline);
+    `tp` this rank's tensor-parallel shard (module docstring)."""
     code0 = _sample_code0(state["logits"], state["generator"],
                           state["temperature"], top_k, state["top_p"])
     eos = torch.zeros_like(code0, dtype=torch.bool) if ignore_eos \
@@ -119,8 +128,12 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
 
     assets = models["assets"]
     h1024 = assets.project(state["hidden"].float())
-    codes = _predict_codes(models, pred_cfg, h1024, code0,
-                           state.get("prev_codes"), plain)
+    if tp is None:
+        codes = _predict_codes(models, pred_cfg, h1024, code0,
+                               state.get("prev_codes"), plain)
+    else:
+        codes = predictor.frame_codes(models["predictor"], pred_cfg, assets,
+                                      h1024, code0, tp)
     codes = torch.where(active[:, None], codes, torch.zeros_like(codes))
 
     fb = _feedback_embedding(assets, codes, talker_cfg.hidden)
@@ -135,9 +148,15 @@ def _frame_body(models: Dict[str, Any], talker_cfg, pred_cfg, top_k: int,
     else:
         write_slot = min(slot, cache_cap - 1)
         next_slot = min(slot + 1, cache_cap)
-    hidden, logits, cache = talker.step(
-        models["talker"], talker_cfg, fb.to(getattr(torch, talker_cfg.dtype)),
-        write_slot, state["pad_offset"], state["cache"], plain)
+    fb = fb.to(getattr(torch, talker_cfg.dtype))
+    if tp is None:
+        hidden, logits, cache = talker.step(
+            models["talker"], talker_cfg, fb, write_slot,
+            state["pad_offset"], state["cache"], plain)
+    else:
+        hidden, logits, cache = talker.step_unfused(
+            models["talker"], talker_cfg, fb, write_slot,
+            state["pad_offset"], state["cache"], tp)
     new_state = dict(
         state,
         hidden=hidden,
@@ -162,14 +181,17 @@ def cache_window(talker_cfg, prompt_len: int, max_steps: int) -> int:
 def init_state(models: Dict[str, Any], talker_cfg,
                prompt_embeds: torch.Tensor, pad_offset: torch.Tensor,
                generator: torch.Generator | None, temperature: float,
-               top_p: float, cache_len: int | None = None) -> GenState:
+               top_p: float, cache_len: int | None = None,
+               tp=None) -> GenState:
     """Talker prefill -> the initial generation state."""
     B, S, _ = prompt_embeds.shape
     dev = prompt_embeds.device
-    cache = decoder.init_kv_cache(talker_cfg, B, length=cache_len, device=dev)
+    cache = decoder.init_kv_cache(talker_cfg, B, length=cache_len, device=dev,
+                                  tp=tp)
     hidden, logits, cache = talker.prefill(
         models["talker"], talker_cfg,
-        prompt_embeds.to(getattr(torch, talker_cfg.dtype)), pad_offset, cache)
+        prompt_embeds.to(getattr(torch, talker_cfg.dtype)), pad_offset, cache,
+        tp)
     return dict(
         generator=generator,
         hidden=hidden,
@@ -193,25 +215,27 @@ def generate_codes(models: Dict[str, Any], talker_cfg, pred_cfg,
                    generator: torch.Generator | None, temperature: float,
                    top_k: int, top_p: float, max_steps: int,
                    ignore_eos: bool = False, step_cap: int | None = None,
-                   plain: bool = False
+                   plain: bool = False, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offline generation. Returns (codes [B, max_steps, 16] int32, rows
     zero past each utterance's EOS, and n_frames [B] int32). `step_cap`
     (<= max_steps) stops the loop early. `ignore_eos` (measurement only)
     never stops on EOS, so every run covers `step_cap` frames; `plain`
-    (measurement only) runs the plain versions of the kernels."""
+    (measurement only) runs the plain versions of the kernels; `tp` this
+    rank's tensor-parallel shard (module docstring)."""
     B = prompt_embeds.shape[0]
     cap = min(max_steps if step_cap is None else int(step_cap), max_steps)
     state = init_state(
         models, talker_cfg, prompt_embeds, pad_offset, generator,
         temperature, top_p,
-        cache_len=cache_window(talker_cfg, prompt_embeds.shape[1], max_steps))
+        cache_len=cache_window(talker_cfg, prompt_embeds.shape[1], max_steps),
+        tp=tp)
     codes_buf = torch.zeros(B, max_steps, protocol.NUM_CODEBOOKS,
                             dtype=torch.int32, device=prompt_embeds.device)
     while state["step"] < cap:
         step = state["step"]
         state, codes, _ = _frame_body(models, talker_cfg, pred_cfg, top_k,
-                                      state, ignore_eos, plain)
+                                      state, ignore_eos, plain, tp)
         codes_buf[:, step] = codes
         if state["step"] % DONE_CHECK_EVERY == 0 \
                 and bool(state["done"].all()):
@@ -254,8 +278,8 @@ def generate_audio(models: Dict[str, Any], voc_params: Dict[str, Any],
                    prompt_embeds: torch.Tensor, pad_offset: torch.Tensor,
                    generator: torch.Generator | None, temperature: float,
                    top_k: int, top_p: float, max_steps: int,
-                   ignore_eos: bool = False, step_cap: int | None = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   ignore_eos: bool = False, step_cap: int | None = None,
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Offline synthesis: generation, then the vocoder's one-shot decode.
     Returns (wav [B, (max_steps + lookahead + ctx_r) * frame_samples] f32,
     with ctx_r the general upsampler's emission delay (0 on the kernel ==
@@ -265,7 +289,7 @@ def generate_audio(models: Dict[str, Any], voc_params: Dict[str, Any],
 
     codes, n_frames = generate_codes(
         models, talker_cfg, pred_cfg, prompt_embeds, pad_offset, generator,
-        temperature, top_k, top_p, max_steps, ignore_eos, step_cap)
+        temperature, top_k, top_p, max_steps, ignore_eos, step_cap, tp=tp)
     B = codes.shape[0]
     wav, _, _ = vocoder.decode(
         voc_params, voc_cfg, codes,
