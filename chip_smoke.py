@@ -58,7 +58,10 @@ result line:
                eight kernels (csrc/probes.cu) against its plain version at
                the TPU probe's shapes (equal, except the int8 panel's f32
                sums: max |d| <= 1e-5 x max |plain|), the TPU probe's own
-               check, the edge indices, and device times (CUDA graph replay)
+               check, the edge indices, non-constant inputs
+               (`mosaic_probe.varied_inputs`: hbm_scratch on an arange and
+               normal draws, fori_dma at 1-5 and 9 steps, the int8 panel
+               at three row strides), and device times (CUDA graph replay)
   5. agree     teacher-forced agreement at full width in bf16, kernels vs
                plain from the same state, with peaked heads: talker step
                argmax >= 0.93, predictor codes >= 0.95, for dense weights,
@@ -1472,16 +1475,39 @@ def phase_probes(rec: Record, card: str):
             fail(f"probe {label}: kernel differs from its plain version")
     log(f"  edge indices: {len(edge)} cases (one-hot codes outside [0, 256), "
         "clamped device-held starts) equal")
+    # non-constant inputs: a CTA that copied another slice of a constant
+    # tile would still agree; fori_dma at ring-sized and longer loops
+    probes = {p.name: p for p in mp.PROBES}
+    varied = mp.varied_inputs(dev, seed=3)
+    for name, label, args in varied:
+        p = probes[name]
+        ok, err = mp.agree(p, p.kernel(*args), p.plain(*args))
+        rec.err[PROBE + name] = max(rec.err[PROBE + name], err)
+        if not ok:
+            fail(f"probe {name} ({label}): kernel differs from its plain "
+                 f"version, max|d| {err:g}")
+    log(f"  varied inputs: {len(varied)} cases ("
+        + "; ".join(f"{n} {l}" for n, l, _ in varied) + ") agree")
 
     # the one PyTorch call of a probe's function, where there is one; none
     # for dyn_sublane and dyn_col_dma (a start read on the device, clamped
-    # as lax.dynamic_slice clamps it), rot (rotate-half negates one half)
-    # and int8_panel (no call multiplies bf16 by int8 weights as they are)
+    # as lax.dynamic_slice clamps it) and rot (rotate-half negates one
+    # half). int8_panel's is torch._weight_int8pack_mm on the panel
+    # transposed to [256, 512] once, outside the timed call, with unit
+    # scales (as kernel A's yardstick); it returns bf16, not f32
+    x8, w8 = inputs["int8_panel"]
+    w8t = w8[:, :mp.PANEL_N].t().contiguous()
+    ones8 = torch.ones(mp.PANEL_N, dtype=torch.bfloat16, device=dev)
     library = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
                "fori_dma": lambda w: torch.sum(w, 0),
                "argmax": lambda x: torch.argmax(x, -1),
                "onehot": lambda codes, tab: torch.index_select(
-                   tab, 0, codes[:, 0])}
+                   tab, 0, codes[:, 0]),
+               "int8_panel": lambda x, w: torch._weight_int8pack_mm(
+                   x, w8t, ones8)}
+    log(f"  torch._weight_int8pack_mm (bf16 out) against the plain panel: "
+        f"relative error "
+        f"{rel_err(library['int8_panel'](x8, w8), mp.int8_panel_plain(x8, w8)):.2e}")
     for p in mp.PROBES:
         args = inputs[p.name]
         name = PROBE + p.name

@@ -5,9 +5,11 @@
 //
 //   hbm_scratch   (:38)  1-D bulk async copies (cp.async.bulk) completing on
 //                        an mbarrier, a bulk store to a device-memory scratch
-//                        and back, fence.proxy.async between the proxies
-//   fori_dma      (:65)  a loop of bulk copies into one shared buffer, one
-//                        mbarrier re-armed each step (phase parity)
+//                        and back, fence.proxy.async between the proxies;
+//                        the rows dealt to 16 CTAs
+//   fori_dma      (:65)  a loop of bulk copies through a ring of stage
+//                        buffers, one mbarrier a stage re-armed each use
+//                        (phase parity)
 //   argmax        (:93)  per-row (value, index) warp/block reduction
 //   dyn_sublane   (:115) a device-held index read in the kernel, a 128 KB
 //                        dynamic shared buffer indexed by it
@@ -19,8 +21,11 @@
 //                        registers, mma.sync m16n8k16 bf16 -> f32
 //
 // Bound: none of them is a path of the system; each is one block (or a few)
-// at fixed small shapes, launch latency first. They are right and simple,
-// not fast. Every launch function returns cudaGetLastError().
+// at fixed small shapes, latency first: launch and dependent copies, not
+// bytes. hbm_scratch and fori_dma were redesigned for this card (their
+// copies spread over CTAs, or kept in flight by a ring); the other six are
+// right and simple, not fast. Every launch function returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,14 +81,24 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
-// shared -> global, then wait until the writes have completed
-__device__ __forceinline__ void bulk_s2g_wait(void* dst, const void* src,
-                                              uint32_t bytes) {
+// shared -> global, `bytes` contiguous, as one bulk group
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                         uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
                    "l"(dst),
                "r"(smem_u32(src)), "r"(bytes)
                : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk groups have read their sources (shared memory may be
+// written again)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's bulk groups have completed their writes
+__device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
@@ -121,66 +136,114 @@ __device__ __forceinline__ int dynamic_start(int start, int dim, int size) {
 constexpr int kThreads = 256;
 
 // ------------------------------------------------------- 5: hbm_scratch
+// The tile's 64 rows are dealt to kScratchCtas CTAs, a slice of rows each.
+// Each CTA runs the whole protocol on its slice, so the slices' copies go
+// through as many SMs' copy engines at once: bulk load on an mbarrier
+// (phase 0); bulk store to its part of the scratch, its source read
+// awaited before the generic clear of the buffer and fence.proxy.async,
+// its writes awaited before the reload (phase 1); then 2x with 16-byte
+// stores, one float4 a thread. Three dependent round trips through the
+// L2 remain: they, not bytes, bound it. 16 CTAs of 4 rows measured ~3%
+// faster than 8 of 8 and 32 of 2, 4 of 16 ~12% slower (H100, CUDA-graph
+// replay; tools/frame_measure.py probes with -DSCRATCH_CTAS=N).
 constexpr int kScratchElems = 64 * 128;
-constexpr uint32_t kScratchBytes = kScratchElems * sizeof(float);  // 32 KB
+#ifndef SCRATCH_CTAS
+#define SCRATCH_CTAS 16
+#endif
+constexpr int kScratchCtas = SCRATCH_CTAS;               // 4 rows a CTA
+static_assert(64 % kScratchCtas == 0, "whole rows a CTA");
+constexpr int kScratchSlice = kScratchElems / kScratchCtas;
+constexpr uint32_t kScratchSliceBytes = kScratchSlice * sizeof(float);
+constexpr int kScratchThreads = kScratchSlice / 4;      // a float4 each
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScratchThreads)
 hbm_scratch_kernel(const float* __restrict__ x, float* scratch,
                    float* __restrict__ out) {
-  __shared__ __align__(128) float buf[kScratchElems];
+  __shared__ __align__(128) float4 buf[kScratchThreads];
   __shared__ __align__(8) uint64_t bar;
   const int tid = threadIdx.x;
-  if (tid == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  if (tid == 0) {                       // x -> shared (phase 0)
-    mbar_expect_tx(&bar, kScratchBytes);
-    bulk_g2s(buf, x, kScratchBytes, &bar);
+  const int64_t base = (int64_t)blockIdx.x * kScratchSlice;
+  if (tid == 0) {                       // x's slice -> shared (phase 0)
+    mbar_init(&bar, 1);
+    mbar_expect_tx(&bar, kScratchSliceBytes);
+    bulk_g2s(buf, x + base, kScratchSliceBytes, &bar);
   }
+  __syncthreads();
   mbar_wait(&bar, 0);
-  if (tid == 0) bulk_s2g_wait(scratch, buf, kScratchBytes);  // -> scratch
+  if (tid == 0) {                       // -> the slice's part of the scratch
+    bulk_s2g(scratch + base, buf, kScratchSliceBytes);
+    bulk_wait_read();
+  }
   __syncthreads();
   // clear the buffer with generic stores, so that only the reload can
   // refill it; the fence orders them before the async write below
-  for (int i = tid; i < kScratchElems; i += kThreads) buf[i] = 0.f;
+  buf[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {                       // scratch -> shared (phase 1)
-    mbar_expect_tx(&bar, kScratchBytes);
-    bulk_g2s(buf, scratch, kScratchBytes, &bar);
+    bulk_wait();
+    mbar_expect_tx(&bar, kScratchSliceBytes);
+    bulk_g2s(buf, scratch + base, kScratchSliceBytes, &bar);
   }
   mbar_wait(&bar, 1);
-  for (int i = tid; i < kScratchElems; i += kThreads) out[i] = 2.f * buf[i];
+  const float4 v = buf[tid];
+  reinterpret_cast<float4*>(out + base)[tid] =
+      make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
 // ---------------------------------------------------------- 6: fori_dma
+// A ring of kForiStages stage buffers, each on its own mbarrier: the
+// first min(steps, kForiStages) copies are issued before any sum, and
+// stage s = i % kForiStages, once step i has been summed from it, is
+// re-armed (phase i / kForiStages + 1, parity) with step i + kForiStages.
+// So the copies' latencies overlap instead of adding up; the sum stays in
+// the order o = 0; o += w[i]. One CTA, a thread sums one float4. At the
+// probe's 4 steps, 4 stages measured ~2% faster than 3 and ~5% than 2
+// (H100, CUDA-graph replay; tools/frame_measure.py probes with
+// -DFORI_STAGES=N), and the rows dealt to 2 or 8 CTAs, a ring each, no
+// faster than one.
 constexpr int kSliceElems = 8 * 128;
+#ifndef FORI_STAGES
+#define FORI_STAGES 4
+#endif
+constexpr int kForiStages = FORI_STAGES;
 constexpr uint32_t kSliceBytes = kSliceElems * sizeof(float);      // 4 KB
+constexpr int kForiThreads = kSliceElems / 4;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kForiThreads)
 fori_dma_kernel(const float* __restrict__ w, float* __restrict__ out,
                 int steps) {
-  __shared__ __align__(128) float buf[kSliceElems];
-  __shared__ __align__(8) uint64_t bar;
+  __shared__ __align__(128) float4 buf[kForiStages][kForiThreads];
+  __shared__ __align__(8) uint64_t full[kForiStages];
   const int tid = threadIdx.x;
-  constexpr int kPer = kSliceElems / kThreads;
-  float acc[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
-  if (tid == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  for (int i = 0; i < steps; ++i) {
-    if (tid == 0) {
-      mbar_expect_tx(&bar, kSliceBytes);
-      bulk_g2s(buf, w + (int64_t)i * kSliceElems, kSliceBytes, &bar);
+  if (tid == 0) {
+    for (int s = 0; s < kForiStages; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < kForiStages && s < steps; ++s) {
+      mbar_expect_tx(&full[s], kSliceBytes);
+      bulk_g2s(buf[s], w + (int64_t)s * kSliceElems, kSliceBytes, &full[s]);
     }
-    mbar_wait(&bar, i & 1);             // step i completes phase i
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[j] += buf[tid + j * kThreads];
-    fence_proxy_async();                // reads before the next async write
-    __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) out[tid + j * kThreads] = acc[j];
+  __syncthreads();
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kForiStages;
+    mbar_wait(&full[s], (i / kForiStages) & 1);
+    const float4 v = buf[s][tid];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+    if (i + kForiStages < steps) {      // refill stage s with step i + S
+      fence_proxy_async();              // the reads before the async write
+      __syncthreads();
+      if (tid == 0) {
+        mbar_expect_tx(&full[s], kSliceBytes);
+        bulk_g2s(buf[s], w + (int64_t)(i + kForiStages) * kSliceElems,
+                 kSliceBytes, &full[s]);
+      }
+    }
+  }
+  reinterpret_cast<float4*>(out)[tid] = acc;
 }
 
 // ------------------------------------------------------------ 7: argmax
@@ -381,7 +444,8 @@ extern "C" {
 int probe_hbm_scratch_launch(const void* x, void* scratch, void* out, int n,
                              void* stream) {
   if (n != kScratchElems) return static_cast<int>(cudaErrorInvalidValue);
-  hbm_scratch_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  hbm_scratch_kernel<<<kScratchCtas, kScratchThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(scratch),
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -390,7 +454,8 @@ int probe_hbm_scratch_launch(const void* x, void* scratch, void* out, int n,
 // w f32 [steps, 8, 128] -> out f32 [8, 128]
 int probe_fori_dma_launch(const void* w, void* out, int steps, void* stream) {
   if (steps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  fori_dma_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  fori_dma_kernel<<<1, kForiThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<float*>(out), steps);
   return static_cast<int>(cudaGetLastError());
 }

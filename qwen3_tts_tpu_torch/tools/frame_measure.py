@@ -1,6 +1,7 @@
-"""On-card measurements of the persistent kernels, beside `chip_smoke.py`
-(PERF.md's stage traces and A/B numbers come from here). Run from the
-repo's root (each mode imports its `chip_smoke.py`):
+"""On-card measurements of the persistent kernels and the capability
+probes, beside `chip_smoke.py` (PERF.md's stage traces and A/B numbers
+come from here). Run from the repo's root (each mode imports its
+`chip_smoke.py`):
 
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure trace [B ...]
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure talker
@@ -12,6 +13,7 @@ repo's root (each mode imports its `chip_smoke.py`):
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py route [predictor] [KIND ...] [B ...]
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py frame-ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py step-ab TAG
+    python3 -m qwen3_tts_tpu_torch.tools.frame_measure probes [PARENT_CU] [DEFS ...]
 
 Both persistent kernels carry a trace that is compiled in only for
 `trace` and `talker` (`kernels/build.py trace_build`, -DKERNEL_TRACE: a
@@ -110,6 +112,21 @@ frame-ab  one tree's side of a parent-vs-change A/B of both persistent
         the chain.
         Run the trees in turns, parent, change, change, parent, ..., five
         processes a side.
+probes [PARENT_CU] [DEFS ...]
+        the probe kernels' designs side by side in one process:
+        `csrc/probes.cu` alone built as `kernels/build.py` builds it
+        (ptxas's registers and spills printed), a parent's copy of it
+        (PARENT_CU, a path ending in .cu) and this source with each
+        DEFS given (NAME=VALUE[,NAME=VALUE]: -D overrides of its
+        geometry), all at once; each library loaded in turn in place of
+        the port's. Two rounds, the libraries in turns (parent, this,
+        variants, then back): every probe held against its plain
+        version on the tool's inputs and `mosaic_probe.varied_inputs`,
+        then its device ms by CUDA-graph replay; beside them the PyTorch
+        calls of hbm_scratch (`torch.mul`), fori_dma (`torch.sum`) and
+        int8_panel (`torch._weight_int8pack_mm` on w[:, :256] transposed
+        once outside the timed call, bf16 out), and each kernel's loss to
+        its call (ms over the call's ms).
 """
 
 from __future__ import annotations
@@ -861,6 +878,100 @@ def ab(tag: str) -> None:
                   f"{card}", flush=True)
 
 
+def probe_times(parent, variants) -> None:
+    """The probe kernels' designs side by side (module docstring,
+    `probes`)."""
+    import ctypes
+    import subprocess
+    import torch
+    import chip_smoke as c
+    from qwen3_tts_tpu_torch.kernels import build
+    from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
+
+    card = c.phase_device()
+    out = os.path.join(build.BUILD_DIR, "probes")
+    os.makedirs(out, exist_ok=True)
+    this = os.path.join(build.CSRC_DIR, "probes.cu")
+    specs = ([("parent", parent, [])] if parent else []) + [("this", this, [])]
+    specs += [(v, this, ["-D" + d for d in v.split(",")]) for v in variants]
+    procs = []
+    for i, (tag, src, defs) in enumerate(specs):
+        path = os.path.join(out, f"probes_{i}.so")
+        procs.append((tag, path, subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas=-v", *defs,
+             "-I" + build.CSRC_DIR, "-shared", "-o", path, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for tag, path, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"probes {tag}: nvcc failed\n{text}")
+        for ln in text.splitlines():
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
+                print(f"  {tag} ptxas: {ln.strip()[:150]}", flush=True)
+        handle = ctypes.CDLL(path)
+        for name, argtypes in build.SIGNATURES.items():
+            if name.startswith("probe_"):
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        libs[tag] = handle
+
+    dev = torch.device("cuda")
+    inputs = mp.probe_inputs(dev, seed=1)
+    cases = [(p.name, "the tool's", inputs[p.name]) for p in mp.PROBES]
+    cases += list(mp.varied_inputs(dev, seed=2))
+    probes = {p.name: p for p in mp.PROBES}
+    x8, w8 = inputs["int8_panel"]
+    w8t = w8[:, :mp.PANEL_N].t().contiguous()
+    ones8 = torch.ones(mp.PANEL_N, dtype=torch.bfloat16, device=dev)
+    calls = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
+             "fori_dma": lambda w: torch.sum(w, 0),
+             "int8_panel": lambda x, w: torch._weight_int8pack_mm(
+                 x, w8t, ones8)}
+    got = calls["int8_panel"](x8, w8).float()
+    want = mp.int8_panel_plain(x8, w8)
+    print(f"  torch._weight_int8pack_mm (bf16 out) against the plain panel: "
+          f"relative error {c.rel_err(got, want):.2e}", flush=True)
+    times = {}
+    order = list(libs)
+    try:
+        for rnd in range(2):
+            for tag in order + order[::-1]:
+                build._lib = libs[tag]
+                for name, label, args in cases:
+                    p = probes[name]
+                    ok, err = mp.agree(p, p.kernel(*args), p.plain(*args))
+                    if not ok:
+                        raise RuntimeError(f"{tag} {name} ({label}): kernel "
+                                           f"differs from plain, {err:g}")
+                for p in mp.PROBES:
+                    args = inputs[p.name]
+                    ms = c.graph_ms(lambda: p.kernel(*args))
+                    times.setdefault((tag, p.name), []).append(ms)
+                    print(f"  round {rnd} {tag:24s} {p.name:12s} {ms:.5f} ms "
+                          f"(graph replay) on {card}", flush=True)
+            for name, fn in calls.items():
+                args = inputs[name]
+                ms = c.graph_ms(lambda: fn(*args))
+                times.setdefault(("call", name), []).append(ms)
+                print(f"  round {rnd} {'PyTorch call':24s} {name:12s} "
+                      f"{ms:.5f} ms (graph replay) on {card}", flush=True)
+    finally:
+        build._lib = None
+    print(f"  {len(cases)} cases held against plain for each library",
+          flush=True)
+    for tag in order:
+        for p in mp.PROBES:
+            ms = times[(tag, p.name)]
+            line = f"  {tag:24s} {p.name:12s} {min(ms):.5f}-{max(ms):.5f} ms"
+            if p.name in calls:
+                ref = times[("call", p.name)]
+                line += (f", call {min(ref):.5f}-{max(ref):.5f} ms, loss "
+                         f"{sum(ms) / sum(ref) * len(ref) / len(ms):.2f}x")
+            print(line + f" on {card}", flush=True)
+
+
 def main(argv) -> int:
     sys.path.insert(0, os.getcwd())
     if argv[:1] == ["trace"]:
@@ -898,6 +1009,11 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "frame-ab":
         frame_ab(argv[1])
+        return 0
+    if argv[:1] == ["probes"]:
+        parent = [a for a in argv[1:] if a.endswith(".cu")]
+        probe_times(parent[0] if parent else None,
+                    [a for a in argv[1:] if not a.endswith(".cu")])
         return 0
     if argv[:1] == ["route"]:
         which = "predictor" if "predictor" in argv[1:] else "talker"

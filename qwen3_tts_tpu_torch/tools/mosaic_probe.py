@@ -13,9 +13,11 @@ written out in torch:
   #   probe         TPU (tools/mosaic_probe.py)    Hopper
   5   hbm_scratch   :38  HBM scratch, DMA there    cp.async.bulk on an mbarrier,
                          and back                  bulk store to a scratch and
-                                                   back, fence.proxy.async
-  6   fori_dma      :65  DMA of w[i] in a fori     bulk copies into one buffer,
-                         loop                      one mbarrier's phase parity
+                                                   back, fence.proxy.async;
+                                                   16 CTAs of 4 rows
+  6   fori_dma      :65  DMA of w[i] in a fori     bulk copies through a ring of
+                         loop                      4 stages, an mbarrier each
+                                                   re-armed on phase parity
   7   argmax        :93  max + iota-min            (value, index) reduction
   8   dyn_sublane   :115 SMEM index, dynamic row   device-held index, 128 KB
                                                    dynamic shared memory
@@ -38,9 +40,11 @@ picks an index, so they must be equal. Probe 12: every int8 value is exact
 in bf16 and every bf16 x int8 product is exact in f32, so only the order
 of the sums differs: max |kernel - plain| <= 1e-5 * max |plain|.
 
-These are not kernels of the synthesis path: they are right and simple, not
-fast. On a CPU tensor each wrapper runs its plain version; on a CUDA tensor
-it launches its kernel or raises.
+These are not kernels of the synthesis path. hbm_scratch and fori_dma
+were redesigned for the H100 (their copies spread over CTAs, or kept in
+flight by a ring); the other six are right and simple, not fast. On a CPU
+tensor each wrapper runs its plain version; on a CUDA tensor it launches
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -79,6 +83,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None,
         raise ValueError(f"{name}: tensor is not contiguous")
 
 
+def _aligned(name: str, t: torch.Tensor) -> None:
+    """Bulk copies read from 16-byte aligned addresses."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not 16-byte aligned")
+
+
 def dynamic_start(start: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     """A start index as lax.dynamic_slice takes it: a negative start counts
     from the end, then the start is clamped so that `size` elements fit."""
@@ -106,10 +116,12 @@ def hbm_scratch_plain(x: torch.Tensor) -> torch.Tensor:
 
 def hbm_scratch(x: torch.Tensor) -> torch.Tensor:
     """x f32 [64, 128] -> 2 * x, after x went shared memory -> a 32 KB
-    device-memory scratch -> shared memory by bulk async copies."""
+    device-memory scratch -> shared memory by bulk async copies, 4 rows a
+    CTA."""
     if x.device.type == "cpu":
         return hbm_scratch_plain(x)
     _check("hbm_scratch", x, torch.float32, SCRATCH_SHAPE)
+    _aligned("hbm_scratch", x)
     out, scratch = torch.empty_like(x), torch.empty_like(x)
     _launch("hbm_scratch", "probe_hbm_scratch_launch", x.device, x, scratch,
             out, x.numel())
@@ -127,11 +139,13 @@ def fori_dma_plain(w: torch.Tensor) -> torch.Tensor:
 
 
 def fori_dma(w: torch.Tensor) -> torch.Tensor:
-    """w f32 [n, 8, 128] -> Σ_i w[i] [8, 128], one bulk copy of w[i] per
-    loop step into one 4 KB shared buffer."""
+    """w f32 [n, 8, 128] -> Σ_i w[i] [8, 128], one 4 KB bulk copy of w[i]
+    per loop step through a ring of stage buffers, the next copies in
+    flight while w[i] is summed."""
     if w.device.type == "cpu":
         return fori_dma_plain(w)
     _check("fori_dma", w, torch.float32)
+    _aligned("fori_dma", w)
     if w.dim() != 3 or tuple(w.shape[1:]) != (8, 128) or w.shape[0] < 1:
         raise ValueError(f"fori_dma: w {tuple(w.shape)}, expected [n, 8, 128]")
     out = torch.empty(8, 128, dtype=torch.float32, device=w.device)
@@ -298,6 +312,7 @@ def int8_panel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return int8_panel_plain(x, w)
     _check("int8_panel x", x, torch.bfloat16, PANEL_X_SHAPE)
+    _aligned("int8_panel x", x)
     _check("int8_panel w", w, torch.int8, None, x.device)
     if w.dim() != 2 or w.shape[0] != PANEL_X_SHAPE[1] \
             or w.shape[1] < PANEL_N or w.shape[1] % 16 or w.data_ptr() % 16:
@@ -413,6 +428,36 @@ def probe_inputs(device, seed: int = 0) -> Dict[str, tuple]:
             t(rng.standard_normal(PANEL_X_SHAPE, np.float32)).bfloat16(),
             t(rng.integers(-127, 127, (512, 512)).astype(np.int8))),
     }
+
+
+FORI_STEPS = (1, 2, 3, 4, 5, 9)
+
+
+def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
+    """(probe name, label, inputs) of the cases a constant or fixed input
+    would not tell apart: hbm_scratch on an arange and on normal draws (a
+    CTA that copied another slice would still give 2.0 on ones), fori_dma
+    on normal draws at each of FORI_STEPS steps, int8_panel on draws from
+    `seed` over the whole int8 range with three row strides (ldw 256, 400,
+    512)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    cases = [("hbm_scratch", "arange", (t(np.arange(
+        SCRATCH_SHAPE[0] * SCRATCH_SHAPE[1], dtype=np.float32).reshape(
+            SCRATCH_SHAPE)),)),
+             ("hbm_scratch", f"normal, seed {seed}", (t(rng.standard_normal(
+                 SCRATCH_SHAPE, np.float32)),))]
+    cases += [("fori_dma", f"steps={n}, normal", (t(rng.standard_normal(
+        (n, 8, 128), np.float32)),)) for n in FORI_STEPS]
+    for ldw in (PANEL_N, 400, 512):
+        cases.append(("int8_panel", f"ldw={ldw}, seed {seed}", (
+            t(rng.standard_normal(PANEL_X_SHAPE, np.float32)).bfloat16(),
+            t(rng.integers(-128, 128, (PANEL_X_SHAPE[1], ldw)).astype(
+                np.int8)))))
+    return tuple(cases)
 
 
 def agree(probe: Probe, got: torch.Tensor, want: torch.Tensor

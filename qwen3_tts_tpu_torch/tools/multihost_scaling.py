@@ -62,11 +62,17 @@ def per_host_cores() -> int:
     return max(1, len(_allowed_cpus()) // 2)
 
 
-def default_ranks_per_host() -> int:
+def default_ranks_per_host(device: str = "cpu") -> int:
     """One rank a core of a host's share, as a power of two up to 4 (the
-    test geometry's heads divide a model axis of 1, 2 or 4)."""
+    test geometry's heads divide a model axis of 1, 2 or 4); on cards at
+    most half of them, so that the 2-host run has a card a rank (NCCL
+    refuses two ranks on one card)."""
+    cap = min(4, per_host_cores())
+    if device == "cuda":
+        import torch
+        cap = min(cap, max(1, torch.cuda.device_count() // 2))
     n = 1
-    while n * 2 <= min(4, per_host_cores()):
+    while n * 2 <= cap:
         n *= 2
     return n
 
@@ -186,7 +192,7 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=None)
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
-    rph = a.ranks_per_host or default_ranks_per_host()
+    rph = a.ranks_per_host or default_ranks_per_host(a.device)
     if a.rank is not None:
         return worker(a.rank, a.world, a.port, rph, a.steps, a.reps, a.out,
                       a.mode, a.backend, a.device)

@@ -524,7 +524,10 @@ def test_quantized_talker_step_matches_plain(dev, kind):
 @pytest.mark.parametrize("name", [p.name for p in mosaic_probe.PROBES])
 def test_probe_kernel_matches_plain(dev, name):
     """Each probe kernel against its plain version at the TPU probe's
-    shapes, and the TPU probe's own check."""
+    shapes, and the TPU probe's own check; then on the non-constant inputs
+    of `varied_inputs` (hbm_scratch on an arange and normal draws, fori_dma
+    at 1-5 and 9 steps, the int8 panel on a second seed at three row
+    strides)."""
     probe = next(p for p in mosaic_probe.PROBES if p.name == name)
     args = mosaic_probe.probe_inputs(dev)[name]
     got = probe.kernel(*args)
@@ -532,6 +535,27 @@ def test_probe_kernel_matches_plain(dev, name):
     ok, err = mosaic_probe.agree(probe, got, probe.plain(*args))
     assert ok, err
     probe.check(got, *args)
+    for pname, label, args in mosaic_probe.varied_inputs(dev, seed=4):
+        if pname == name:
+            ok, err = mosaic_probe.agree(probe, probe.kernel(*args),
+                                         probe.plain(*args))
+            assert ok, (label, err)
+
+
+@pytest.mark.parametrize("name", ["hbm_scratch", "fori_dma", "int8_panel"])
+def test_probe_bulk_copy_refuses_misaligned_data(dev, name):
+    """The bulk copies read 16-byte aligned addresses: a view 4 bytes off
+    is refused before any launch."""
+    probe = next(p for p in mosaic_probe.PROBES if p.name == name)
+    args = list(mosaic_probe.probe_inputs(dev)[name])
+    x = args[0]
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+    off = 4 // x.element_size()
+    args[0] = flat[off:off + x.numel()].view(x.shape).copy_(x)
+    before = probe.kernel.launches
+    with pytest.raises(ValueError, match="aligned"):
+        probe.kernel(*args)
+    assert probe.kernel.launches == before
 
 
 def test_probe_kernels_edge_indices(dev):

@@ -29,6 +29,23 @@ def _run(module, *args, timeout=TIMEOUT_S):
     return proc.returncode, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("device,cards,cores,want", [
+    ("cpu", 0, 16, 4), ("cpu", 0, 3, 2), ("cuda", 4, 16, 2),
+    ("cuda", 8, 16, 4), ("cuda", 2, 16, 1), ("cuda", 1, 16, 1)])
+def test_scaling_default_ranks_fit_the_cards(monkeypatch, device, cards,
+                                             cores, want):
+    """The harness's 2-host run starts twice the ranks of a host: on cards
+    a host takes at most half of them, a card a rank (four cards: 2 + 2,
+    where four ranks a host by cores put two ranks on a card, which NCCL
+    refuses)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.tools import multihost_scaling as ms
+    monkeypatch.setattr(ms, "per_host_cores", lambda: cores)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert ms.default_ranks_per_host(device) == want
+
+
 def test_two_host_gloo_smoke():
     rc, out = _run("multihost_smoke", "--timeout", "100")
     assert rc == 0, out[-4000:]

@@ -159,6 +159,67 @@ def test_dyn_col_dma_clamps_like_dynamic_slice(q):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+VARIED = tprobe.varied_inputs("cpu", seed=5)
+
+
+@pytest.mark.parametrize("case", VARIED, ids=[f"{n}-{l}" for n, l, _ in VARIED])
+def test_plain_on_varied_inputs_matches_numpy(case):
+    """The plain versions on the non-constant inputs the card checks use,
+    against numpy: 2x exactly, the sum in the kernel's order (o = 0;
+    o += w[i]) exactly, and the panel within PANEL_REL_TOL of an f64
+    product (exact products; the sums' order differs)."""
+    name, _, args = case
+    probe = next(p for p in tprobe.PROBES if p.name == name)
+    got = probe.plain(*args)
+    a = [t.float().numpy() for t in args]
+    if name == "hbm_scratch":
+        want = np.float32(2.0) * a[0]
+    elif name == "fori_dma":
+        want = np.zeros(a[0].shape[1:], np.float32)
+        for w in a[0]:
+            want = want + w
+    else:
+        want = a[0].astype(np.float64) @ a[1][:, :tprobe.PANEL_N].astype(
+            np.float64)
+    if probe.exact:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        err = np.abs(got.numpy().astype(np.float64) - want).max()
+        assert err <= tprobe.PANEL_REL_TOL * np.abs(want).max(), err
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(probe.kernel(*args), got)
+
+
+def test_varied_inputs_expose_a_misplaced_slice():
+    """What a constant tile hides: an output with two CTAs' row slices
+    swapped (hbm_scratch), a step dropped or repeated (fori_dma), or two
+    column slices swapped (int8_panel) differs from the plain version on
+    every varied input; on the tool's ones-tile the swap does not show."""
+    ones = tprobe.probe_inputs("cpu")["hbm_scratch"][0]
+    want = tprobe.hbm_scratch_plain(ones)
+    assert torch.equal(torch.cat([want[8:16], want[:8], want[16:]]), want)
+    steps = []
+    for name, label, args in VARIED:
+        probe = next(p for p in tprobe.PROBES if p.name == name)
+        want = probe.plain(*args)
+        if name == "hbm_scratch":
+            bad = torch.cat([want[8:16], want[:8], want[16:]])
+        elif name == "fori_dma":
+            w = args[0]
+            steps.append(w.shape[0])
+            bad = tprobe.fori_dma_plain(torch.cat([w, w[-1:]]))
+            if w.shape[0] > 1:
+                dropped = tprobe.fori_dma_plain(w[:-1])
+                assert not torch.equal(dropped, want), label
+        else:
+            bad = torch.cat([want[:, 32:64], want[:, :32], want[:, 64:]], 1)
+            w = args[1]
+            assert int(w.min()) == -128 and int(w.max()) == 127, label
+        assert not torch.equal(bad, want), label
+    assert tuple(steps) == tprobe.FORI_STEPS == (1, 2, 3, 4, 5, 9)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_wrapper_refuses_a_non_cuda_device(name):
     """Off the CPU the wrapper launches its kernel or raises: a tensor on
