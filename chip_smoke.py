@@ -28,7 +28,12 @@ result line:
                qkv, and with the silu prologue at their down products,
                against the plain fused products; decode attention with
                bf16 q over the predictor's f32 cache and in the stream
-               path's 4096-slot cache; the same calls of B, B8, B4 (with
+               path's 4096-slot cache; the predictor head slice's argmax
+               epilogue (B, B8, B4 at B = 1, 10, 17, 32; q = 1 with the
+               ptab gather, 15 without; tied columns, a NaN row, the bias
+               row) exactly equal to its plain version, and two launches
+               replayed twice in one CUDA graph (its tickets reset); the
+               same calls of B, B8, B4 (with
                and without the norm, with the silu prologue and the qk
                epilogue) and decode attention twice and in two CUDA-graph
                replays give bit-identical outputs; the predictor frame
@@ -55,7 +60,8 @@ result line:
   4. probes    the capability-probe tool (`python -m
                qwen3_tts_tpu_torch.tools.mosaic_probe --device cuda`) as a
                user runs it, every probe kernel launched; then each of the
-               eight kernels (csrc/probes.cu) against its plain version at
+               eight kernels (csrc/probes.cu; int8_panel's is kernel A,
+               csrc/qmatmul.cu) against its plain version at
                the TPU probe's shapes (equal, except the int8 panel's f32
                sums: max |d| <= 1e-5 x max |plain|), the TPU probe's own
                check, the edge indices, non-constant inputs
@@ -117,7 +123,7 @@ result line:
                kernels the talker step kernel and the predictor frame
                kernel once a frame and none of the chain's launches (no
                gemv, decode attention, Triton rms_norm, fused piece, KV
-               store or copy, argmax_gather); on the talker's chain the
+               store or copy, argmax epilogue); on the talker's chain the
                chains' (113 talker gemv, 28 decode attention, one
                rms_norm, two cache copies, and the predictor's chain past
                16 rows).
@@ -349,7 +355,9 @@ def cuda_ms(fn, reps=REPS, warmup=WARMUP) -> float:
 
 def graph_ms(fn, reps=REPS) -> float:
     """Device time of fn(): `reps` calls captured in one CUDA graph, the
-    graph replayed and timed with events, so host launch cost drops out."""
+    graph replayed and timed with events, so host launch cost drops out.
+    The capture runs on the warm-up's stream, so what a wrapper keeps per
+    stream (the argmax epilogue's workspace) is made before the capture."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -358,7 +366,7 @@ def graph_ms(fn, reps=REPS) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -415,9 +423,10 @@ class Record:
                  "qwen3_tts_tpu/ops/fused_talker.py:428"),
         "rms_norm": ("triton", "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
                      "qwen3_tts_tpu/ops/fused_talker.py:428"),
-        "argmax_gather": ("triton",
-                          "qwen3_tts_tpu_torch/ops/elementwise_triton.py",
-                          "qwen3_tts_tpu/ops/fused_predictor.py:610"),
+        # the argmax epilogue of the predictor's head slice (`argmax_row`
+        # and the ptab gather inside the TPU kernel), in B / B8 / B4
+        "argmax_gather_gemv": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cuh",
+                               "qwen3_tts_tpu/ops/fused_predictor.py:465"),
         "gemv_int8": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
                       "qwen3_tts_tpu/ops/fused_talker.py:428"),
         "gemv_int4": ("cuda", "qwen3_tts_tpu_torch/csrc/gemv.cu",
@@ -463,8 +472,10 @@ class Record:
         from qwen3_tts_tpu_torch.tools import mosaic_probe
         self.sources = dict(self.SOURCES)
         for p in mosaic_probe.PROBES:
+            # int8_panel launches kernel A (tools/mosaic_probe.py)
+            src = "qmatmul.cu" if p.name == "int8_panel" else "probes.cu"
             self.sources[PROBE + p.name] = (
-                "cuda", "qwen3_tts_tpu_torch/csrc/probes.cu",
+                "cuda", f"qwen3_tts_tpu_torch/csrc/{src}",
                 f"tools/mosaic_probe.py:{p.call}")
         self.err = {k: 0.0 for k in self.sources}
         self.ms = {}
@@ -672,30 +683,155 @@ def phase_kernels(rec: Record):
         rec.check("rms_norm", el.rms_norm(x, w.float(), 1e-6, torch.float32),
                   el.rms_norm_plain(x, w.float(), 1e-6, torch.float32),
                   f"H={H} f32", rtol=1e-4, atol=1e-4)
-    ptab = randn(16, 3584, 1024, dtype=torch.bfloat16)
-    logits = randn(3, 2048)
-    logits[0, 100] = logits[0, 900] = 50.0          # tie: lowest index wins
-    logits[1, 2047] = 60.0                         # only a bias row exists
-    for q in (1, 15):
-        outs = []
-        for fn in (el.argmax_gather, el.argmax_gather_plain):
-            codes = torch.zeros(3, 16, dtype=torch.int32, device=dev)
-            x = torch.zeros(3, 1024, device=dev)
-            fn(logits, codes, q, ptab, 2000, None if q == 15 else x)
-            outs.append((codes, x))
-        (ck, xk), (cp, xp) = outs
-        if not torch.equal(ck, cp) or not torch.equal(xk, xp):
-            fail(f"argmax_gather q={q} disagrees with its plain version")
-        if int(cp[0, q]) != 100 or int(cp[1, q]) != 2047:
-            fail("argmax_gather tie or bias-row case wrong")
-        log(f"  {'argmax_gather':16s} {'B=3 q=' + str(q) + ' ties + bias row':44s}"
-            f" exact ok")
+    argmax_checks(rec, randn)
     phase_kernels_quant(rec, randn)
     phase_kernels_norm(rec, randn)
     phase_kernels_fused(rec, randn)
     phase_kernels_frame(rec)
     phase_kernels_step(rec)
     torch.cuda.synchronize()
+
+
+def head_case(randn, kind, B):
+    """The predictor's head slice at full width for the argmax epilogue:
+    slice 1 (1024 x 2048) of a two-slice bf16 head, the final norm as
+    prologue; slice 1 holds two tied pairs of columns (u at 300 and 700,
+    -u at 1500 and 1800); x row b leans on u (b % 3 == 0), on -u (b % 3 ==
+    1) or on neither (random logits, bf16 ties), and row 1 holds an inf
+    (NaN logits: code CV). ptab [16, 3584, 1024] bf16, 1024 real rows.
+    Returns (kernel, plain, x, weight arguments, norm, ptab, real rows)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.ops import quant
+    H, CV = 1024, 2048
+    w = 0.02 * randn(H, 2 * CV)
+    u = 0.3 * randn(H)
+    for c, sign in ((300, 1), (700, 1), (1500, -1), (1800, -1)):
+        w[:, CV + c] = sign * u
+    lean = torch.tensor([(1.0, -1.0, 0.0)[b % 3] for b in range(B)],
+                        device=w.device)
+    x = randn(B, H) + 2.0 * lean[:, None] * u / u.norm() * H ** 0.5
+    if B > 1:
+        x[1, 0] = float("inf")
+    norm = ((1.0 + 0.1 * randn(H)).bfloat16(), 1e-6)
+    ptab = randn(16, 3584, H, dtype=torch.bfloat16)
+    if kind == "dense":
+        return G.gemv, G.gemv_plain, x, (w.bfloat16(),), norm, ptab, 1024
+    if kind == "int8":
+        q = quant.quantize(w)
+        return (G.gemv_int8, G.gemv_int8_plain, x, (q["q"], q["scale"]),
+                norm, ptab, 1024)
+    q = quant.quantize_int4(w)
+    return (G.gemv_int4, G.gemv_int4_plain, x, (q["q4"], q["m8"],
+                                                q["scale"]), norm, ptab, 1024)
+
+
+def argmax_checks(rec: Record, randn):
+    """The head slice's argmax epilogue (`argmax=`, one launch) against its
+    plain version at B = 1, 10, 17, 32, dense / int8 / int4 heads, q = 1
+    (the gather) and 15 (none): codes and gathered rows exactly
+    `argmax_gather_plain` on the launch's own logits; the logits within
+    one bf16 ulp (2^-7 of max |plain|) of the plain head slice's, NaN in
+    the same rows; codes and rows exactly the plain head slice's where its
+    logits decide (the rows leaning on a tied pair: the lower index, a
+    real or the bias row; the NaN row: CV, the bias row), and on the
+    random rows the plain code or one whose plain logit ties the plain
+    maximum within one bf16 ulp; then two launches replayed twice in one
+    CUDA graph, the second replay equal to the first (the tickets
+    reset). max_abs_err: the logits'."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    CV, dev = 2048, torch.device("cuda")
+    n = ties = 0
+    for kind in ("dense", "int8", "int4"):
+        for B in (1, 10, 17, 32):
+            fn, plain, x, wargs, norm, ptab, rows = head_case(randn, kind, B)
+            kw = dict(col0=CV, n=CV, epilogue=G.EPI_F32_ROUND_DT, norm=norm,
+                      dt=torch.bfloat16)
+            for q in (1, 15):
+                res = {}
+                for way in ("kernel", "plain"):
+                    codes = torch.zeros(B, 16, dtype=torch.int32, device=dev)
+                    xo = None if q == 15 else torch.zeros(B, 1024,
+                                                          device=dev)
+                    lg = torch.empty(B, CV, device=dev)
+                    (fn if way == "kernel" else plain)(
+                        x, *wargs, out=lg,
+                        argmax=(codes, q, ptab, rows, xo), **kw)
+                    res[way] = (codes, xo, lg)
+                codes, xo, lg = res["kernel"]
+                cp = torch.zeros_like(codes)
+                xp = None if xo is None else torch.zeros_like(xo)
+                el.argmax_gather_plain(lg, cp, q, ptab, rows, xp)
+                same = torch.equal(codes, cp) and (
+                    xo is None or torch.equal(xo, xp))
+                # the logits (NaN rows aside) within one bf16 ulp of the
+                # plain product's: a dropped scale or K partial fails here
+                plain_lg = res["plain"][2]
+                fin = torch.isfinite(plain_lg).all(-1)
+                if not (torch.isnan(lg[~fin]).all()
+                        and torch.isnan(plain_lg[~fin]).all()):
+                    fail(f"argmax epilogue {kind} B={B} q={q}: the NaN row's "
+                         "logits are not NaN in both versions")
+                rec.check("argmax_gather_gemv", lg[fin], plain_lg[fin],
+                          f"{kind} B={B} q={q} logits", rel=2 ** -7,
+                          quiet=True)
+                for b in range(B):
+                    got_b, want_b = int(codes[b, q]), int(res["plain"][0][b, q])
+                    want = CV if b == 1 and B > 1 else {0: 300, 1: 1500}.get(
+                        b % 3)
+                    if want is not None:
+                        same &= got_b == want_b == want
+                    elif got_b != want_b:
+                        # a random row: the plain code, or one whose plain
+                        # logit ties the plain maximum within one bf16 ulp
+                        ties += 1
+                        same &= bool(plain_lg[b, got_b] >= plain_lg[b, want_b]
+                                     - 2 ** -7 * plain_lg[b, want_b].abs())
+                        continue
+                    if xo is not None:
+                        same &= torch.equal(xo[b], res["plain"][1][b])
+                if not same:
+                    fail(f"argmax epilogue {kind} B={B} q={q} disagrees "
+                         "with its plain version")
+                n += 1
+    # two launches in one CUDA graph, replayed twice
+    fn, _, x, wargs, norm, ptab, rows = head_case(randn, "int4", 10)
+    kw = dict(col0=CV, n=CV, epilogue=G.EPI_F32_ROUND_DT, norm=norm,
+              dt=torch.bfloat16)
+    x0 = x.clone()
+    codes = torch.zeros(10, 16, dtype=torch.int32, device=dev)
+
+    def launches():
+        fn(x, *wargs, argmax=(codes, 3, ptab, rows, x), **kw)
+        fn(x, *wargs, argmax=(codes, 4, ptab, rows, None), **kw)
+
+    launches()
+    want = (codes.clone(), x.clone())
+    # the capture stream's workspace is made (and zeroed) by a launch on
+    # it before the capture, so no replay starts with a captured memset
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launches()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        launches()
+    for _ in range(2):
+        x.copy_(x0)
+        codes.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(codes, want[0]) and torch.equal(x, want[1])):
+            fail("argmax epilogue: a graph replay differs from the eager "
+                 "launches (tickets not reset)")
+    label = f"{n} cases B=1/10/17/32 dense/int8/int4 q=1/15"
+    log(f"  {'argmax_gather_gemv':16s} {label:44s} codes and rows exact "
+        f"(random rows: {ties} bf16 ties taken apart), logits max|d|="
+        f"{rec.err['argmax_gather_gemv']:.3e} (rel <= 2^-7) ok; two graph "
+        "replays ok")
 
 
 def bit_identical(fn) -> bool:
@@ -1099,17 +1235,25 @@ SMALL4 = dict(hidden=256, n_q_heads=2, n_kv_heads=2, head_dim=128,
 
 class LogitsRecorder:
     """An op set (`ops/chain.py`) that keeps the logits of each head slice
-    the frame's argmax reads, in order (code q's at q - 1)."""
+    the frame's argmax reads, in order (code q's at q - 1): a product with
+    the argmax epilogue stores its logits too."""
 
     def __init__(self, ops):
         self.ops, self.logits = ops, []
 
     def __getattr__(self, name):
-        return getattr(self.ops, name)
+        fn = getattr(self.ops, name)
+        if not name.startswith("gemv"):
+            return fn
 
-    def argmax_gather(self, logits, codes, qi, *rest):
-        self.logits.append(logits.float().clone())
-        return self.ops.argmax_gather(logits, codes, qi, *rest)
+        def call(x, *args, **kw):
+            if kw.get("argmax") is None:
+                return fn(x, *args, **kw)
+            import torch
+            lg = torch.empty(x.shape[0], kw["n"], device=x.device)
+            fn(x, *args, **dict(kw, out=lg))
+            self.logits.append(lg.clone())
+        return call
 
 
 def plain_tie(got, plains):
@@ -1155,7 +1299,9 @@ def phase_kernels_frame(rec: Record):
     int4 at the small int4 f32 width (hidden 256, 2/2 heads of 128, ffn
     256), B = 1, 2, 3, 16: codes equal on the card and to the CPU's, the
     residual after the last pass rtol/atol 1e-4 against the plain chain's;
-    at full width with peaked heads, code agreement >= 0.95 for dense bf16,
+    the tiny f32 config at B = 3 with a NaN head column: codes equal to
+    the plain version's (code 14 CV, pass 15 from the bias row); at full
+    width with peaked heads, code agreement >= 0.95 for dense bf16,
     int8 and int4 weights at B = 1, 2, 16 (bf16 sums in another order may
     flip a near tie); repeats bit-identical, at B = 2 also two CUDA-graph
     replays of the cooperative launch. max_abs_err: the largest |kernel -
@@ -1214,6 +1360,27 @@ def phase_kernels_frame(rec: Record):
             rec.check(name, res, ref,
                       f"{what} B={B} residual after the last pass",
                       rtol=1e-4, atol=1e-4)
+    # a NaN head column (slice 13, column 100) at the tiny f32 config: every
+    # row's code 14 is CV (JAX's argmax_row) and pass 15 takes the bias row;
+    # codes exact against the plain version on the card and on the CPU
+    CV = 2048
+    pp, _, ptab, rows, h, c0 = frame_case(tiny, "dense", 3, 63)
+    head = pp["head"].clone()
+    head[:, 13 * CV + 100] = float("nan")
+    pp = dict(pp, head=head)
+    got = fp.predictor_frame_kernel(pp, tiny, ptab, rows, h, c0)
+    want = fp.frame_codes_fused_plain(pp, tiny, ptab, rows, h, c0)
+    cpu = fp.frame_codes_fused_plain(_to(pp, "cpu"), tiny, ptab.cpu(), rows,
+                                     h.cpu(), c0.cpu())
+    codes_err(got, want)
+    same = torch.equal(got, want) and torch.equal(got.cpu(), cpu) and bool(
+        (got[:, 14] == CV).all() and (got[:, 15] != CV).all())
+    log(f"  {'predictor_frame':16s} {'tiny f32 B=3, a NaN head column':44s} "
+        f"codes {'equal' if same else 'DIFFER'} to the plain version on the "
+        "card and on the CPU, code 14 CV in every row")
+    if not same:
+        fail("predictor_frame: with a NaN head column the codes differ from "
+             "the plain version (CV, then the bias row)")
     for kind in ("dense", "int8", "int4"):
         for B in (1, 2, 16):
             pp, _, ptab, rows, h, c0 = frame_case(full, kind, B, 70 + B,
@@ -1516,8 +1683,11 @@ def phase_probes(rec: Record, card: str):
         lib = library.get(p.name)
         rec.library_ms[name] = None if lib is None else graph_ms(
             lambda: lib(*args))
-        # each input read once, the output written once
+        # each input read once, the output written once; the panel's
+        # function reads only the columns it multiplies, w[:, :PANEL_N]
         ins = [a for a in args if isinstance(a, torch.Tensor)]
+        if p.name == "int8_panel":
+            ins = [x8, w8[:, :mp.PANEL_N]]
         rec.bound[name] = bound(nbytes(*ins, p.kernel(*args)))
         log(f"  {name:22s} device: kernel {rec.ms[name]:.4f} ms, plain "
             f"{rec.plain_ms[name]:.4f} ms, library "
@@ -1970,12 +2140,12 @@ def fused_per_frame(cfg) -> dict:
     int8 predictor (the talker at B <= its ROUTE_MAX_B, the predictor at
     B <= its): the talker step kernel once and the predictor frame kernel
     once, and none of the chain's launches: no gemv, decode attention,
-    standalone rms_norm, fused piece, KV store or copy, or argmax_gather
+    standalone rms_norm, fused piece, KV store or copy, or argmax epilogue
     (`route_per_frame` for any other batch or weights)."""
     return {"talker_step": 1, "predictor_frame": 1, "gemv_all": 0,
             "decode_attention": 0, "rms_norm": 0, "rms_norm_gemv": 0,
             "qk_rope_gemv": 0, "silu_gemv": 0, "kv_store_gemv": 0,
-            "talker_kv_copy": 0, "argmax_gather": 0,
+            "talker_kv_copy": 0, "argmax_gather_gemv": 0,
             "talker_step_b17_32": 0, "predictor_frame_int4": 0}
 
 
@@ -1987,16 +2157,17 @@ def chain_per_frame(cfg, predictor_kernel: bool) -> dict:
     once a layer, the standalone rms_norm (the final norm) once and the two
     cache copies. The predictor: its frame kernel where `frame_route` takes
     it, else its chain too (16 passes of the layer stack with the KV
-    stores, 15 head slices with the norm prologue, 15 argmax_gather)."""
+    stores, 15 head slices with the norm prologue and the argmax epilogue;
+    no argmax launch of its own)."""
     Lt, Lp = cfg.talker.n_layers, cfg.predictor.n_layers
     n = {"talker_step": 0, "predictor_frame": 1, "gemv_all": 4 * Lt + 1,
          "decode_attention": Lt, "rms_norm": 1, "rms_norm_gemv": 2 * Lt,
          "qk_rope_gemv": Lt, "silu_gemv": Lt, "kv_store_gemv": 0,
-         "talker_kv_copy": 2, "argmax_gather": 0,
+         "talker_kv_copy": 2, "argmax_gather_gemv": 0,
          "talker_step_b17_32": 0, "predictor_frame_int4": 0}
     if not predictor_kernel:
         passes, heads = 16, 15
-        n.update(predictor_frame=0, argmax_gather=heads,
+        n.update(predictor_frame=0, argmax_gather_gemv=heads,
                  gemv_all=n["gemv_all"] + passes * 4 * Lp + heads,
                  decode_attention=Lt + passes * Lp,
                  rms_norm_gemv=n["rms_norm_gemv"] + passes * 2 * Lp + heads,
@@ -2637,7 +2808,8 @@ def frame_times(eng, models, label: str, card: str, g):
                 f"1.83 device ms, host 13.5-19.4 ms on {card}")
             gone = [k for k in per if any(
                 name in k for name in ("gemv_epilogue", "gemv4_partial",
-                                       "qk_norm_rope", "silu_mul"))]
+                                       "qk_norm_rope", "silu_mul",
+                                       "argmax_gather_kernel"))]
             if gone:
                 fail(f"{label}: removed kernels in the profile: {gone}")
     except (RuntimeError, AssertionError) as exc:
@@ -2879,10 +3051,6 @@ def kernel_times(rec: Record, card: str, g):
     # the Triton passes at the main path's shapes; no single PyTorch call
     x32, w = randn(1, 2048, dtype=torch.float32), randn(2048)
     w32 = w.float()
-    ptab = randn(16, 3584, 1024)
-    logits = randn(1, 2048, dtype=torch.float32)
-    codes = torch.zeros(1, 16, dtype=torch.int32, device=dev)
-    xo = torch.zeros(1, 1024, device=dev)
     cases += [
         # F.rms_norm computes the same function in f32, without the final
         # rounding to bf16
@@ -2891,12 +3059,44 @@ def kernel_times(rec: Record, card: str, g):
          lambda: el.rms_norm_plain(x32, w, 1e-6, torch.bfloat16),
          (lambda: F.rms_norm(x32, (2048,), w32, 1e-6))
          if hasattr(F, "rms_norm") else None,
-         nbytes(x32, w) + 2048 * 2, 4.0 * 2048, "f32", True),
-        ("argmax_gather", "B=1 2048 logits, ptab row 1024 bf16", 1,
-         lambda: el.argmax_gather(logits, codes, 3, ptab, 3072, xo),
-         lambda: el.argmax_gather_plain(logits, codes, 3, ptab, 3072, xo),
-         None, nbytes(logits) + 4 + 1024 * 2 + nbytes(xo), 2048.0, "f32",
-         True)]
+         nbytes(x32, w) + 2048 * 2, 4.0 * 2048, "f32", True)]
+
+    # the predictor head's 15 slices (1024 x 2048 each of the full-width
+    # head, 63 MB of bf16: past the L2) with the final norm as prologue and
+    # the argmax epilogue (code q + 1, the next pass's row gathered), one
+    # launch a slice; beside them the same 15 slices without the epilogue,
+    # so that the epilogue's cost reads as the difference
+    CV = 2048
+    head = randn(1024, 15 * CV, scale=0.02)
+    xh = randn(1, 1024, dtype=torch.float32)
+    norm = (randn(1024), 1e-6)
+    ptab = randn(16, 3584, 1024)
+    codes = torch.zeros(1, 16, dtype=torch.int32, device=dev)
+    xo = torch.zeros(1, 1024, device=dev)
+    lg = torch.empty(1, CV, device=dev)
+    kw = dict(n=CV, epilogue=G.EPI_F32_ROUND_DT, norm=norm,
+              dt=torch.bfloat16)
+
+    def slices(fn, argmax):
+        def call():
+            for qi in range(15):
+                fn(xh, head, col0=qi * CV, **kw,
+                   **(dict(argmax=(codes, qi + 1, ptab, 3072, xo))
+                      if argmax else dict(out=lg)))
+        return call
+
+    head_bytes = 1024 * CV * 2 + nbytes(xh, norm[0]) + 4 + 1024 * 2 \
+        + nbytes(xo)
+    cases += [
+        ("argmax_gather_gemv", "predictor head slice 1024x2048 + argmax + "
+         "ptab row, B=1 bf16, 15 slices", 15, slices(G.gemv, True),
+         slices(G.gemv_plain, True), None, 15 * head_bytes,
+         15 * 2.0 * 1024 * CV, "bf16", True),
+        ("gemv", "predictor head slice 1024x2048 alone (norm prologue, f32 "
+         "logits), B=1 bf16, 15 slices", 15, slices(G.gemv, False),
+         slices(G.gemv_plain, False), None,
+         15 * (1024 * CV * 2 + nbytes(xh, norm[0], lg)),
+         15 * 2.0 * 1024 * CV, "bf16", False)]
 
     time_cases(rec, card, cases)
     qmatmul_times(rec, card, g)

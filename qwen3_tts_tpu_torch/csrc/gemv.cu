@@ -26,7 +26,11 @@
 //     qwen3_tts_tpu/ops/fused_predictor.py:299-307, 359-379);
 //   * the silu prologue of the down product replaces the SwiGLU
 //     (qwen3_tts_tpu/ops/fused_talker.py:373-375,
-//     qwen3_tts_tpu/ops/fused_predictor.py:409-413).
+//     qwen3_tts_tpu/ops/fused_predictor.py:409-413);
+//   * the argmax epilogue of the predictor's head slice replaces
+//     `argmax_row` and the ptab row gather
+//     (qwen3_tts_tpu/ops/fused_predictor.py:465-469, 533-555): design in
+//     gemv.cuh.
 //
 // Bound: weight bytes. At M <= 32 each weight element is used M times, far
 //   below the ~295 FLOP/byte where Hopper's tensor cores become the limit,
@@ -59,6 +63,8 @@
 //     shared memory in rank order, applies the column scale and the
 //     epilogue, and stores. No workspace, no second launch, no atomics:
 //     every sum has a fixed order, so results do not depend on scheduling.
+//     (The argmax epilogue alone keeps a workspace of keys and tickets and
+//     joins keys by atomicMax, which is order-free: gemv.cuh.)
 //   int8 -> f32 is exact (|q| <= 127), so B8 is B's arithmetic with 1-byte
 //   weights.
 //
@@ -122,21 +128,26 @@
 // bf16), f32 with a prologue; accumulation is f32.
 //
 // Epilogues: 0 store T, 1 store f32, 2 store f32 rounded through T
-// (logits), 3 add into an f32 residual buffer, 4 qk (above).
+// (logits), 3 add into an f32 residual buffer, 4 qk (above), 5 argmax
+// (epilogue 2's logits, the greedy code and the next pass's ptab row;
+// after the norm prologue only, as the qk epilogue).
 
 #include "gemv.cuh"
 
 namespace {
 
-template <typename T, typename W, int kPro>
+template <typename T, typename W, int kPro, bool kAm>
 int launch(const void* x, const void* w, const float* scale, const void* ln,
            float eps, void* out, int M, int K, int N, int ldw, int col0,
-           int splits, int epi, const QkArgs& qk, cudaStream_t st) {
+           int splits, int epi, const QkArgs& qk, const ArgmaxArgs& am,
+           cudaStream_t st) {
   return by_rows<kMaxMT>(M, [&](auto mt) {
     return launch_cluster(
-        gemv_cluster<T, W, decltype(mt)::value, kPro>, mt, M, N, splits, st,
+        gemv_cluster<T, W, decltype(mt)::value, kPro, kAm>, mt, M, N, splits,
+        st,
         static_cast<const XT<T, kPro>*>(x), static_cast<const W*>(w), scale,
-        static_cast<const T*>(ln), eps, out, M, K, N, ldw, col0, epi, qk);
+        static_cast<const T*>(ln), eps, out, M, K, N, ldw, col0, epi, qk,
+        am);
   });
 }
 
@@ -156,28 +167,35 @@ extern "C" {
 
 // dtype (the model dtype T): 0 float32, 1 bfloat16. pro: 0 none (x in T),
 // 1 the rms norm (x the f32 residual, ln the norm weight [K] in T), 2 silu
-// (x the f32 gate/up [M, 2K]); ln null unless pro is 1. epi: 0-4; qk: a
-// QkArgs for epi 4, else null. splits: the K split, the cluster size,
-// 1..kMaxSplits (ops/gemv.py gemv_splits, gemv4_splits).
+// (x the f32 gate/up [M, 2K]); ln null unless pro is 1. epi: 0-5; qk: a
+// QkArgs for epi 4, else null; am: an ArgmaxArgs for epi 5, else null.
+// splits: the K split, the cluster size, 1..kMaxSplits (ops/gemv.py
+// gemv_splits, gemv4_splits).
 
 // B: W in T.
 int gemv_launch(const void* x, const void* w, const void* ln, void* out,
                 int M, int K, int N, int ldw, int col0, int splits,
                 int dtype, int epi, float eps, int pro, const void* qk,
-                void* stream) {
-  const QkArgs* qa = static_cast<const QkArgs*>(qk);
-  if (bad_args(M, K, N, col0, splits, pro, ln, epi, qa))
+                const void* am, void* stream) {
+  if (bad_args(M, K, N, col0, splits, pro, ln, epi,
+               static_cast<const QkArgs*>(qk),
+               static_cast<const ArgmaxArgs*>(am)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const QkArgs q = qk_or_none(qk);
+  const ArgmaxArgs a = am_or_none(am);
   return by_pro(pro, [&](auto p) {
     constexpr int kP = decltype(p)::value;
-    if (dtype == 0)
-      return launch<float, float, kP>(x, w, nullptr, ln, eps, out, M, K, N,
-                                      ldw, col0, splits, epi, q, st);
-    using BF = __nv_bfloat16;
-    return launch<BF, BF, kP>(x, w, nullptr, ln, eps, out, M, K, N, ldw,
-                              col0, splits, epi, q, st);
+    return by_am<kP>(epi, [&](auto am_on) {
+      constexpr bool kA = decltype(am_on)::value;
+      if (dtype == 0)
+        return launch<float, float, kP, kA>(x, w, nullptr, ln, eps, out, M,
+                                            K, N, ldw, col0, splits, epi, q,
+                                            a, st);
+      using BF = __nv_bfloat16;
+      return launch<BF, BF, kP, kA>(x, w, nullptr, ln, eps, out, M, K, N,
+                                    ldw, col0, splits, epi, q, a, st);
+    });
   });
 }
 

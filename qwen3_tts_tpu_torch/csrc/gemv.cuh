@@ -2,7 +2,30 @@
 // translation units (gemv.cu: B and the C entry points' common parts,
 // gemv_int8.cu: B8, gemv_int4.cu: B4), which nvcc compiles in parallel.
 // The design, the bound and what each piece replaces are described at the
-// top of gemv.cu.
+// top of gemv.cu; the argmax epilogue's below.
+//
+// The argmax epilogue (code 5) of the predictor's head slice.
+// Replaces: `argmax_row` and the ptab row gather inside the TPU predictor
+//   kernel (qwen3_tts_tpu/ops/fused_predictor.py::_kernel_body, :465-469
+//   and :533-555): code q = the greedy code of the f32 logit slice (the
+//   largest value, the lowest index on ties, CV for a row holding a NaN),
+//   then the next pass's input row ptab[q][sel(code)].
+// Bound: the epilogue adds a ptab row read and an f32 row write a batch
+//   row (6 KB at H = 1024 in bf16), nanoseconds at 3.35 TB/s beside the
+//   slice's 4 MB of weights; what it costs is latency, a dependent tail
+//   after the product: every block's logits must be in before one block
+//   knows a row's code, and only then can the row be gathered.
+// Design: no logit leaves the launch (they are stored only where a check
+//   asks, `out`). Each block turns the logits it finishes into 64-bit keys
+//   (`argmax_key`: a strict order, so max is order-free), reduces a warp's
+//   by shuffles, and joins them into its cluster rank 0's shared best a
+//   row by a cluster-scope atomicMax; the cluster barrier the finish ends
+//   with anyway orders them. Rank 0 alone then joins the device-wide key
+//   of each of its rows (atomicMax on the workspace) and takes a ticket for
+//   its row chunk behind a fence: one atomic a cluster, not a block. The
+//   chunk's last cluster reads and zeroes the keys, writes the codes,
+//   gathers the rows with 16-byte loads and zeroes its ticket: the
+//   workspace is zero between launches, so graph replays need no reset.
 
 #pragma once
 
@@ -34,6 +57,21 @@ struct QkArgs {
   float eps;
 };
 
+// The argmax epilogue's arguments (ops/gemv.py _ArgmaxArgs, field for
+// field): the codes [M, ncodes] int32 (column q receives the row's greedy
+// code); the table ptab[q] [R, H] in the model dtype T (already offset to
+// codebook q); x_out [M, H] f32 (the gathered row ptab[q][sel(code)]) or
+// null; the workspace: a 64-bit key a row and a ticket a row chunk, zero
+// between launches (each launch leaves them zero).
+struct ArgmaxArgs {
+  int* codes;
+  const void* ptab;
+  float* x_out;
+  unsigned long long* keys;
+  unsigned int* tickets;
+  int ncodes, q, rows0, R, H;
+};
+
 // Occupancy of B8's and B4's kernels (defined in their translation units,
 // read by gemv_blocks_per_sm in gemv.cu).
 int gemv_int8_blocks_per_sm(int dtype, int M, int pro);
@@ -57,7 +95,7 @@ constexpr int kGroup4 = 128;             // int4 k-group (quant.GROUP4)
 constexpr int kRows4 = kGroup4 / kRowGroups;      // a lane's rows a group
 constexpr int kMaxHd = 128;              // the qk epilogue's widest head
 constexpr int kProNone = 0, kProNorm = 1, kProSilu = 2;   // prologues
-constexpr int kEpiAdd = 3, kEpiQk = 4;
+constexpr int kEpiAdd = 3, kEpiQk = 4, kEpiArgmax = 5;
 
 // x's element type: the model dtype, or f32 with a prologue (the residual
 // for the norm, the gate/up product for silu)
@@ -293,6 +331,154 @@ __device__ __forceinline__ void qk_finish(float* part, float* scratch,
   }
 }
 
+// The argmax order as one 64-bit key, larger = better: NaN above every
+// number (a NaN enters with index N, so a row holding one gives code N, as
+// JAX's argmax_row: its max is NaN and no element is >= it), then the
+// larger value (-0 as +0: they compare equal), then the lower index. The
+// high word maps the float's bits to an unsigned order (negatives
+// flipped, positives above them); the low word is ~index. A strict total
+// order, so atomicMax gives the same winner in any order; 0 is no key.
+__device__ __forceinline__ unsigned long long argmax_key(float v, int n,
+                                                         int N) {
+  uint32_t o;
+  if (isnan(v)) {
+    o = 0xffffffffu;
+    n = N;
+  } else {
+    const uint32_t u = __float_as_uint(v == 0.f ? 0.f : v);
+    o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  }
+  return (static_cast<unsigned long long>(o) << 32) |
+         (0xffffffffu - static_cast<uint32_t>(n));
+}
+
+// The argmax epilogue's finish of one block (cluster rank `rank` of the
+// tile's K split; elements [b0, b1) of the tile, i = m * kBTileN + column):
+// each element's logit is the value epilogue 2 stores (times the column
+// scale, rounded through T; stored too where `out` is given), and its key
+// joins the block's best a row (`akey`, zeroed before the caller's cluster
+// barrier) by a shared atomicMax, a warp's keys reduced by shuffles first
+// (a warp's elements of one pass lie in one row: b0 is a multiple of the
+// block's share, at least 16, and rows are kBTileN = 128 wide).
+template <typename T>
+__device__ __forceinline__ void argmax_tile(
+    cg::cluster_group& cluster, float* part, int splits,
+    const float* __restrict__ scale, float* __restrict__ out, int N,
+    int col0, int tile, int m0, int b0, int b1, unsigned long long* akey) {
+  const int lane = threadIdx.x % 32;
+  for (int base = b0; base < b1; base += kBThreads) {
+    const int i = base + threadIdx.x;
+    const int m = i / kBTileN, n = tile * kBTileN + i % kBTileN;
+    unsigned long long key = 0;
+    if (i < b1 && n < N) {
+      float s = rank_sum(cluster, part, splits, i);
+      if (scale != nullptr) s *= scale[col0 + n];
+      const float v = round_t(s, (T*)nullptr);
+      if (out != nullptr) out[(int64_t)(m0 + m) * N + n] = v;
+      key = argmax_key(v, n, N);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      const unsigned long long k = __shfl_xor_sync(0xffffffffu, key, o);
+      key = k > key ? k : key;
+    }
+    if (lane == 0 && key != 0) atomicMax(akey + m, key);
+  }
+}
+
+// The argmax epilogue's last step, in rank 0 of each cluster, thread m <
+// mt holding the cluster's best key `key` of row m: each row's key joins
+// the row's in the workspace by atomicMax; the block takes a ticket for
+// its row chunk (grid y) behind a fence, one a cluster. The chunk's last
+// block reads the keys (and zeroes them), writes codes[m, q], gathers
+// ptab[q][sel(code)] into x_out's rows as f32 (sel: codes past the real
+// rows select the bias row R - 1; 16-byte loads where the rows allow),
+// and zeroes the ticket, so the next launch or graph replay starts clean.
+// x_out may be this launch's own input x (the predictor's residual):
+// every block of the chunk read those rows (the norm prologue's sums and
+// the staged pieces) before its cluster's last barrier, so before any
+// ticket, and no other chunk reads them.
+template <typename T, int kMT>
+__device__ __forceinline__ void argmax_finish(unsigned long long key,
+                                              int m0, int mt, int splits,
+                                              const ArgmaxArgs& am) {
+  __shared__ int acode[kMT];
+  __shared__ bool last;
+  if (threadIdx.x < mt && key != 0) {
+    atomicMax(am.keys + m0 + threadIdx.x, key);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(am.tickets + blockIdx.y, 1u) ==
+           gridDim.x / static_cast<unsigned>(splits) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();                        // see every cluster's keys
+  if (threadIdx.x < mt) {
+    const unsigned long long k = atomicExch(am.keys + m0 + threadIdx.x, 0ull);
+    const int code = static_cast<int>(0xffffffffu - static_cast<uint32_t>(k));
+    am.codes[(int64_t)(m0 + threadIdx.x) * am.ncodes + am.q] = code;
+    acode[threadIdx.x] = code < am.rows0 ? code : am.R - 1;   // codes >= 0
+  }
+  if (threadIdx.x == 0) atomicExch(am.tickets + blockIdx.y, 0u);
+  __syncthreads();
+  if (am.x_out == nullptr) return;
+  const T* tab = static_cast<const T*>(am.ptab);
+  const int H = am.H;
+  if (H % kVec == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(am.x_out) % 16 == 0) {
+    const int hv = H / kVec;
+    for (int i = threadIdx.x; i < mt * hv; i += kBThreads) {
+      const int m = i / hv, h = (i % hv) * kVec;
+      float v[kVec];
+      cvt8(ld_raw(tab + (int64_t)acode[m] * H + h), v);
+      float4* dst = reinterpret_cast<float4*>(
+          am.x_out + (int64_t)(m0 + m) * H + h);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < mt * H; i += kBThreads) {
+      const int m = i / H, h = i % H;
+      am.x_out[(int64_t)(m0 + m) * H + h] =
+          to_f32(tab[(int64_t)acode[m] * H + h]);
+    }
+  }
+}
+
+// The argmax epilogue (code 5), its own instantiations (kAm): every rank
+// finishes its share of the tile into its best key a row (`argmax_tile`)
+// and stores it into rank 0's shared memory; after the cluster barrier
+// (release / acquire) rank 0 holds every rank's and reduces them; then
+// `argmax_finish` in rank 0.
+template <typename T, int kMT>
+__device__ __forceinline__ void argmax_store(
+    cg::cluster_group& cluster, float* part, int splits, int rank,
+    const float* __restrict__ scale, float* __restrict__ out, int N,
+    int col0, int tile, int m0, int mt, int b0, int b1,
+    const ArgmaxArgs& am) {
+  __shared__ unsigned long long akey[kMT];              // the block's best
+  __shared__ unsigned long long ckey[kMaxSplits * kMT];  // rank 0: the ranks'
+  if (threadIdx.x < kMT) akey[threadIdx.x] = 0;
+  __syncthreads();
+  argmax_tile<T>(cluster, part, splits, scale, out, N, col0, tile, m0, b0,
+                 b1, akey);
+  __syncthreads();
+  if (threadIdx.x < kMT)
+    cluster.map_shared_rank(ckey, 0)[rank * kMT + threadIdx.x] =
+        akey[threadIdx.x];
+  cluster.sync();         // rank 0 holds the ranks' keys; no part is read
+  if (rank != 0) return;
+  unsigned long long key = 0;
+  if (threadIdx.x < kMT)
+    for (int q = 0; q < splits; ++q) {
+      const unsigned long long k = ckey[q * kMT + threadIdx.x];
+      key = k > key ? k : key;
+    }
+  argmax_finish<T, kMT>(key, m0, mt, splits, am);
+}
+
 // The tile's reduction and store, shared by B and B4. acc: a lane's sums
 // over its rows for its 8 columns c..c+7 of the tile. The two row groups of
 // a warp hold the same columns: add them, then the warps in warp order;
@@ -301,13 +487,18 @@ __device__ __forceinline__ void qk_finish(float* part, float* scratch,
 // (the qk epilogue: whole heads, `qk_finish`). The column scale and the
 // residual of the thread's first element (its only one at M <= 2) are
 // fetched before the cluster barrier. `smem` holds kBWarps * kMT * kBTileN
-// floats, `part` kMT * kBTileN. Only the norm's instantiations (kQk)
-// compile the qk epilogue: it always follows the ln1 prologue.
-template <typename T, int kMT, bool kQk>
+// floats, `part` kMT * kBTileN. Only the norm's instantiations (kNorm)
+// compile the qk and the argmax epilogues: the qk epilogue always follows
+// the ln1 prologue, the argmax the final norm (the predictor's head
+// slice). The argmax epilogue (code 5) is compiled into instantiations of
+// its own (kAm), so the other launches carry none of its code: there
+// `argmax_store` replaces the finish.
+template <typename T, int kMT, bool kNorm, bool kAm = false>
 __device__ __forceinline__ void cluster_store(
     float (&acc)[kMT][kVec], float* smem, float* part,
     const float* __restrict__ scale, void* __restrict__ out, int N,
-    int col0, int epi, int tile, int m0, int mt, const QkArgs& qk) {
+    int col0, int epi, int tile, int m0, int mt, const QkArgs& qk,
+    const ArgmaxArgs& am) {
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -334,7 +525,7 @@ __device__ __forceinline__ void cluster_store(
     part[i] = s;
   }
 
-  if constexpr (kQk) {
+  if constexpr (kNorm && !kAm) {
     if (epi == kEpiQk) {
       cluster.sync();             // every part is summed; smem is free
       qk_finish<T, kMT>(part, smem, scale, col0, tile, m0, mt, qk);
@@ -346,6 +537,13 @@ __device__ __forceinline__ void cluster_store(
   const int per = (total + splits - 1) / splits;
   const int i0 = rank * per + threadIdx.x;
   const int i1 = min(total, (rank + 1) * per);
+  if constexpr (kAm) {
+    cluster.sync();               // every part is summed
+    argmax_store<T, kMT>(cluster, part, splits, rank, scale,
+                         reinterpret_cast<float*>(out), N, col0, tile, m0,
+                         mt, rank * per, i1, am);
+    return;
+  }
   float sc0 = 1.f, res0 = 0.f;
   if (i0 < i1) {
     const int n = tile * kBTileN + i0 % kBTileN;
@@ -377,12 +575,12 @@ __device__ __forceinline__ void cluster_store(
 
 // B / B8: y[m0 + m, n] for one 128-column tile and row chunk, the K split
 // over the cluster (gemv.cu). scale == nullptr for dense weights.
-template <typename T, typename W, int kMT, int kPro>
+template <typename T, typename W, int kMT, int kPro, bool kAm = false>
 __global__ void __launch_bounds__(kBThreads)
 gemv_cluster(const XT<T, kPro>* __restrict__ x, const W* __restrict__ w,
              const float* __restrict__ scale, const T* __restrict__ ln,
              float eps, void* __restrict__ out, int M, int K, int N, int ldw,
-             int col0, int epi, QkArgs qk) {
+             int col0, int epi, QkArgs qk, ArgmaxArgs am) {
   constexpr int kU = kFlightBytes / (kVec * sizeof(W));   // rows per lane
   constexpr int kPiece = kXStage / kMT;                    // x rows a piece
   constexpr int kRed = kBWarps * kMT * kBTileN;
@@ -453,8 +651,9 @@ gemv_cluster(const XT<T, kPro>* __restrict__ x, const W* __restrict__ w,
       }
     }
   }
-  cluster_store<T, kMT, kPro == kProNorm>(acc, smem, part, scale, out, N,
-                                          col0, epi, tile, m0, mt, qk);
+  cluster_store<T, kMT, kPro == kProNorm, kAm>(acc, smem, part, scale, out,
+                                               N, col0, epi, tile, m0, mt,
+                                               qk, am);
 }
 
 // B4's batch: a lane's 8 rows of one packed group (8 bytes each: 8
@@ -548,13 +747,14 @@ __device__ __forceinline__ void group_dot(const Group4& g, const float* xs,
 
 // B4: as B, over packed groups (gemv.cu). While a lane multiplies one
 // group, the next one loads (more groups in flight measured no faster).
-template <typename T, int kMT, int kPro>
+template <typename T, int kMT, int kPro, bool kAm = false>
 __global__ void __launch_bounds__(kBThreads)
 gemv4_cluster(const XT<T, kPro>* __restrict__ x,
               const uint8_t* __restrict__ w, const int8_t* __restrict__ m8,
               const float* __restrict__ scale, const T* __restrict__ ln,
               float eps, void* __restrict__ out, int M, int K, int N,
-              int ldw, int ldm, int col0, int epi, QkArgs qk) {
+              int ldw, int ldm, int col0, int epi, QkArgs qk,
+              ArgmaxArgs am) {
   constexpr int kPiece = kXStage / (2 * kMT);   // packed rows a piece
   static_assert(kPiece % kGroup4 == 0, "a piece holds whole groups");
   constexpr int kRed = kBWarps * kMT * kBTileN;
@@ -616,8 +816,9 @@ gemv4_cluster(const XT<T, kPro>* __restrict__ x,
       }
     }
   }
-  cluster_store<T, kMT, kPro == kProNorm>(acc, smem, part, scale, out, N,
-                                          col0, epi, tile, m0, mt, qk);
+  cluster_store<T, kMT, kPro == kProNorm, kAm>(acc, smem, part, scale, out,
+                                               N, col0, epi, tile, m0, mt,
+                                               qk, am);
 }
 
 // x rows per block: the smallest of 1, 2, 4, 8 (B4: 1, 2, 4) that covers M,
@@ -640,6 +841,15 @@ int by_pro(int pro, F&& f) {
   if (pro == kProNorm) return f(std::integral_constant<int, kProNorm>{});
   if (pro == kProSilu) return f(std::integral_constant<int, kProSilu>{});
   return f(std::integral_constant<int, kProNone>{});
+}
+
+// the argmax epilogue as a template argument: its own instantiations, after
+// the norm prologue only (the others compile none of its code)
+template <int kPro, typename F>
+int by_am(int epi, F&& f) {
+  if constexpr (kPro == kProNorm)
+    if (epi == kEpiArgmax) return f(std::true_type{});
+  return f(std::false_type{});
 }
 
 // grid (column tiles * splits, x row chunks); one split needs no cluster,
@@ -677,13 +887,21 @@ int occupancy(Kernel kernel) {
 // them first): M, K, the split, the prologue and its norm weight, the
 // epilogue; the qk epilogue only after the norm prologue, over the whole
 // qkv width (nq + 2 nk) * hd from column 0, with hd a power of two in
-// [2, 128] (a 128-column tile holds whole heads).
+// [2, 128] (a 128-column tile holds whole heads); the argmax epilogue only
+// after the norm prologue, with its codes, table and workspace, q in
+// [0, ncodes) and the real rows within R.
 bool bad_args(int M, int K, int N, int col0, int splits, int pro,
-              const void* ln, int epi, const QkArgs* qk) {
+              const void* ln, int epi, const QkArgs* qk,
+              const ArgmaxArgs* am) {
   if (splits <= 0 || splits > kMaxSplits || M <= 0 || M > 32 || K <= 0 ||
       pro < kProNone || pro > kProSilu || (pro == kProNorm) != (ln != nullptr)
-      || epi < 0 || epi > kEpiQk)
+      || epi < 0 || epi > kEpiArgmax)
     return true;
+  if (epi == kEpiArgmax)
+    return pro != kProNorm || am == nullptr || am->codes == nullptr ||
+           am->ptab == nullptr || am->keys == nullptr ||
+           am->tickets == nullptr || am->q < 0 || am->q >= am->ncodes ||
+           am->rows0 < 0 || am->R < 1 || am->rows0 > am->R || am->H < 1;
   if (epi != kEpiQk) return false;
   if (pro != kProNorm || qk == nullptr || col0 != 0) return true;
   const int hd = qk->hd;
@@ -697,6 +915,10 @@ bool bad_args(int M, int K, int N, int col0, int splits, int pro,
 
 QkArgs qk_or_none(const void* qk) {
   return qk != nullptr ? *static_cast<const QkArgs*>(qk) : QkArgs{};
+}
+
+ArgmaxArgs am_or_none(const void* am) {
+  return am != nullptr ? *static_cast<const ArgmaxArgs*>(am) : ArgmaxArgs{};
 }
 
 }  // namespace

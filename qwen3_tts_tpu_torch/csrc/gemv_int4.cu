@@ -6,17 +6,18 @@
 
 namespace {
 
-template <typename T, int kPro>
+template <typename T, int kPro, bool kAm>
 int launch4(const void* x, const void* w, const void* m8, const float* scale,
             const void* ln, float eps, void* out, int M, int K, int N,
             int ldw, int ldm, int col0, int splits, int epi,
-            const QkArgs& qk, cudaStream_t st) {
+            const QkArgs& qk, const ArgmaxArgs& am, cudaStream_t st) {
   return by_rows<kMaxMT4>(M, [&](auto mt) {
     return launch_cluster(
-        gemv4_cluster<T, decltype(mt)::value, kPro>, mt, M, N, splits, st,
+        gemv4_cluster<T, decltype(mt)::value, kPro, kAm>, mt, M, N, splits,
+        st,
         static_cast<const XT<T, kPro>*>(x), static_cast<const uint8_t*>(w),
         static_cast<const int8_t*>(m8), scale, static_cast<const T*>(ln),
-        eps, out, M, K, N, ldw, ldm, col0, epi, qk);
+        eps, out, M, K, N, ldw, ldm, col0, epi, qk, am);
   });
 }
 
@@ -46,21 +47,27 @@ int gemv_int4_launch(const void* x, const void* q4, const void* m8,
                      const void* scale, const void* ln, void* out, int M,
                      int K, int N, int ldw, int ldm, int col0, int splits,
                      int dtype, int epi, float eps, int pro, const void* qk,
-                     void* stream) {
-  const QkArgs* qa = static_cast<const QkArgs*>(qk);
-  if (bad_args(M, K, N, col0, splits, pro, ln, epi, qa) ||
+                     const void* am, void* stream) {
+  if (bad_args(M, K, N, col0, splits, pro, ln, epi,
+               static_cast<const QkArgs*>(qk),
+               static_cast<const ArgmaxArgs*>(am)) ||
       K % (2 * kGroup4) || splits > K / (2 * kGroup4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const QkArgs a = qk_or_none(qk);
+  const ArgmaxArgs g = am_or_none(am);
   return by_pro(pro, [&](auto p) {
     constexpr int kP = decltype(p)::value;
-    if (dtype == 0)
-      return launch4<float, kP>(x, q4, m8, sc, ln, eps, out, M, K, N, ldw,
-                                ldm, col0, splits, epi, a, st);
-    return launch4<__nv_bfloat16, kP>(x, q4, m8, sc, ln, eps, out, M, K, N,
-                                      ldw, ldm, col0, splits, epi, a, st);
+    return by_am<kP>(epi, [&](auto am_on) {
+      constexpr bool kA = decltype(am_on)::value;
+      if (dtype == 0)
+        return launch4<float, kP, kA>(x, q4, m8, sc, ln, eps, out, M, K, N,
+                                      ldw, ldm, col0, splits, epi, a, g, st);
+      return launch4<__nv_bfloat16, kP, kA>(x, q4, m8, sc, ln, eps, out, M, K,
+                                            N, ldw, ldm, col0, splits, epi, a,
+                                            g, st);
+    });
   });
 }
 

@@ -5,16 +5,17 @@
 
 namespace {
 
-template <typename T, int kPro>
+template <typename T, int kPro, bool kAm>
 int launch8(const void* x, const void* q, const float* scale, const void* ln,
             float eps, void* out, int M, int K, int N, int ldw, int col0,
-            int splits, int epi, const QkArgs& qk, cudaStream_t st) {
+            int splits, int epi, const QkArgs& qk, const ArgmaxArgs& am,
+            cudaStream_t st) {
   return by_rows<kMaxMT>(M, [&](auto mt) {
     return launch_cluster(
-        gemv_cluster<T, int8_t, decltype(mt)::value, kPro>, mt, M, N, splits,
-        st, static_cast<const XT<T, kPro>*>(x), static_cast<const int8_t*>(q),
+        gemv_cluster<T, int8_t, decltype(mt)::value, kPro, kAm>, mt, M, N,
+        splits, st, static_cast<const XT<T, kPro>*>(x), static_cast<const int8_t*>(q),
         scale, static_cast<const T*>(ln), eps, out, M, K, N, ldw, col0, epi,
-        qk);
+        qk, am);
   });
 }
 
@@ -41,20 +42,27 @@ extern "C" {
 int gemv_int8_launch(const void* x, const void* q, const void* scale,
                      const void* ln, void* out, int M, int K, int N, int ldw,
                      int col0, int splits, int dtype, int epi, float eps,
-                     int pro, const void* qk, void* stream) {
-  const QkArgs* qa = static_cast<const QkArgs*>(qk);
-  if (bad_args(M, K, N, col0, splits, pro, ln, epi, qa))
+                     int pro, const void* qk, const void* am,
+                     void* stream) {
+  if (bad_args(M, K, N, col0, splits, pro, ln, epi,
+               static_cast<const QkArgs*>(qk),
+               static_cast<const ArgmaxArgs*>(am)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const QkArgs a = qk_or_none(qk);
+  const ArgmaxArgs g = am_or_none(am);
   return by_pro(pro, [&](auto p) {
     constexpr int kP = decltype(p)::value;
-    if (dtype == 0)
-      return launch8<float, kP>(x, q, sc, ln, eps, out, M, K, N, ldw, col0,
-                                splits, epi, a, st);
-    return launch8<__nv_bfloat16, kP>(x, q, sc, ln, eps, out, M, K, N, ldw,
-                                      col0, splits, epi, a, st);
+    return by_am<kP>(epi, [&](auto am_on) {
+      constexpr bool kA = decltype(am_on)::value;
+      if (dtype == 0)
+        return launch8<float, kP, kA>(x, q, sc, ln, eps, out, M, K, N, ldw,
+                                      col0, splits, epi, a, g, st);
+      return launch8<__nv_bfloat16, kP, kA>(x, q, sc, ln, eps, out, M, K, N,
+                                            ldw, col0, splits, epi, a, g,
+                                            st);
+    });
   });
 }
 

@@ -15,7 +15,8 @@
 //   sin rounded to T); the frame-local f32 KV cache, slot p stored before
 //   the pass's attention reads [0, p); silu(g) * u in f32, rounded once;
 //   logits in f32 rounded through T; argmax with the lowest index on ties
-//   (NaN above every number, as torch.argmax); the next pass's input row
+//   (code CV for a row holding a NaN, as JAX's argmax_row); the next pass's
+//   input row
 //   ptab[q][sel(code)], sel clamping negative codes to 0 and sending codes
 //   past the real rows to the bias row (qwen3_tts_tpu/ops/
 //   fused_predictor.py:651-659).
@@ -203,9 +204,10 @@ struct FrameArgs {
 };
 
 // ---------------------------------------------------------------- argmax
-// The argmax order: NaN above every number (the first NaN wins, as
-// torch.argmax), then the larger value, then the lower index. A strict
-// total order, so any reduction tree gives the same winner.
+// The argmax order: NaN above every number, then the larger value, then
+// the lower index. A strict total order, so any reduction tree gives the
+// same winner. A NaN logit enters as (NaN, CV), so a row holding one gives
+// code CV, as JAX's argmax_row (max NaN, no element >= it).
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   const bool n = isnan(v), bn = isnan(bv);
   if (n != bn) return n;
@@ -941,7 +943,8 @@ __device__ void product(const FrameArgs& a, const Smem<T, kMT>& sm,
           for (int j = 0; j < kUnit; ++j) {
             const float lv = sm.outv[(u * kMT + r) * kUnit + j];
             const int col = (d.u0 + ul + u) * kUnit + j;
-            if (better(lv, col, bv, bi)) { bv = lv; bi = col; }
+            const int k = isnan(lv) ? a.CV : col;
+            if (better(lv, k, bv, bi)) { bv = lv; bi = k; }
           }
         sm.bestv[b] = bv;
         sm.besti[b] = bi;

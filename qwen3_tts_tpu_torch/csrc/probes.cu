@@ -1,4 +1,4 @@
-// The eight capability probes: ports of the @probe kernels of
+// The capability probes: ports of the @probe kernels of
 // tools/mosaic_probe.py, which check the Mosaic primitives the fused TPU
 // kernels are built on. Each kernel here computes what its TPU probe
 // computes, through the Hopper primitive that plays the same role:
@@ -17,17 +17,22 @@
 //   onehot        (:158) one-hot x table as a direct, bounds-checked row load
 //   dyn_col_dma   (:180) a 2-D TMA tiled load at coordinates computed in the
 //                        kernel from a device-held index
-//   int8_panel    (:208) TMA loads of an int8 panel, int8 -> bf16 in
-//                        registers, mma.sync m16n8k16 bf16 -> f32
+//
+// The eighth, int8_panel (:208: TMA loads of an int8 panel, int8 -> bf16,
+// a bf16 dot into f32), computes kernel A's function (out = x @ w[:, :256],
+// bf16 x, int8 w, f32 out), so its wrapper (tools/mosaic_probe.py
+// int8_panel) launches kernel A itself (csrc/qmatmul.cu: a TMA ring along
+// K, ldmatrix.trans fragments of a 128-byte-swizzled tile, int8 -> bf16 in
+// registers, wgmma with A from registers, the K split summed in a
+// cluster), with unit column scales; it has no kernel here.
 //
 // Bound: none of them is a path of the system; each is one block (or a few)
 // at fixed small shapes, latency first: launch and dependent copies, not
 // bytes. hbm_scratch and fori_dma were redesigned for this card (their
-// copies spread over CTAs, or kept in flight by a ring); the other six are
-// right and simple, not fast. Every launch function returns
+// copies spread over CTAs, or kept in flight by a ring); the other five
+// here are right and simple, not fast. Every launch function returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -355,80 +360,6 @@ dyn_col_dma_kernel(const __grid_constant__ CUtensorMap map,
   for (int i = tid; i < rows * width; i += kThreads) out[i] = buf[i];
 }
 
-// -------------------------------------------------------- 12: int8_panel
-constexpr int kPM = 16, kPK = 512, kPN = 256, kPBoxK = 256;
-constexpr uint32_t kPanelBytes = kPK * kPN;                 // 128 KB int8
-constexpr uint32_t kXBytes = kPM * kPK * 2;                 // 16 KB bf16
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two int8 values -> a bf16 pair (exact: |q| <= 128), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(int8_t lo, int8_t hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(static_cast<float>(lo),
-                                           static_cast<float>(hi));
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_panel_kernel(const __grid_constant__ CUtensorMap wmap,
-                  const __nv_bfloat16* __restrict__ x,
-                  float* __restrict__ out) {
-  // panel [kPK][kPN] int8 (two TMA boxes along K), then x [kPM][kPK] bf16
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  int8_t* panel = reinterpret_cast<int8_t*>(align_128(dyn_smem));
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(panel + kPanelBytes);
-  __shared__ __align__(8) uint64_t bar;
-  const int tid = threadIdx.x;
-  if (tid == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&bar, kPanelBytes + kXBytes);
-    for (int kb = 0; kb < kPK / kPBoxK; ++kb)
-      tma_load_2d(panel + kb * kPBoxK * kPN, &wmap, 0, kb * kPBoxK, &bar);
-    bulk_g2s(xs, x, kXBytes, &bar);
-  }
-  mbar_wait(&bar, 0);
-
-  // warp w owns output columns [32w, 32w + 32): four 8-wide mma tiles
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  float acc[4][4] = {};
-  for (int kk = 0; kk < kPK; kk += 16) {
-    uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(&xs[g * kPK + kk + 2 * t]);
-    a[1] = *reinterpret_cast<const uint32_t*>(&xs[(g + 8) * kPK + kk + 2 * t]);
-    a[2] = *reinterpret_cast<const uint32_t*>(&xs[g * kPK + kk + 2 * t + 8]);
-    a[3] =
-        *reinterpret_cast<const uint32_t*>(&xs[(g + 8) * kPK + kk + 2 * t + 8]);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = warp * 32 + nt * 8 + g;
-      const int8_t* col = panel + n;
-      uint32_t b[2];
-      b[0] = pack_bf16(col[(kk + 2 * t) * kPN], col[(kk + 2 * t + 1) * kPN]);
-      b[1] = pack_bf16(col[(kk + 2 * t + 8) * kPN],
-                       col[(kk + 2 * t + 9) * kPN]);
-      mma_bf16(acc[nt], a, b);
-    }
-  }
-  // accumulator r: row g (+8 for r >= 2), column 2t + (r & 1) of the tile
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = g + (r >= 2 ? 8 : 0);
-      const int colo = warp * 32 + nt * 8 + 2 * t + (r & 1);
-      out[row * kPN + colo] = acc[nt][r];
-    }
-}
-
 // ------------------------------------------------------------ host side
 cudaError_t allow_smem(const void* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -525,23 +456,6 @@ int probe_dyn_col_dma_launch(const void* q, const void* w, void* out,
   dyn_col_dma_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<const int*>(q), static_cast<float*>(out), rows, cols,
       width, q_mul, q_add);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x bf16 [16, 512], w int8 [512, ldw] (ldw >= 256, a multiple of 16) ->
-// out f32 [16, 256] = x @ w[:, :256]
-int probe_int8_panel_launch(const void* x, const void* w, void* out, int ldw,
-                            void* stream) {
-  if (ldw < kPN || ldw % 16) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map;
-  cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, kPK,
-                             ldw, ldw, kPBoxK, kPN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = kPanelBytes + kXBytes + 128;
-  err = allow_smem(reinterpret_cast<const void*>(&int8_panel_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int8_panel_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,12 +43,14 @@ F = ctypes.c_float
 # without argtypes would be cut to 32 bits)
 SIGNATURES = {
     # csrc/gemv.cu, gemv_int8.cu, gemv_int4.cu: ..., eps, prologue code,
-    # the qk epilogue's arguments (a QkArgs, ops/gemv.py), stream
-    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P],
-    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P],
+    # the qk epilogue's arguments (a QkArgs, ops/gemv.py), the argmax
+    # epilogue's (an ArgmaxArgs), stream
+    "gemv_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P, P],
+    "gemv_int8_launch": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P, P,
+                         P],
     "gemv_blocks_per_sm": [I, I, I, I],
     "gemv_int4_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P,
-                         P],
+                         P, P],
     # csrc/qmatmul.cu: (map out, q, K, N, ldq); (x, map, scale, out, M, K,
     # N, bn, mt, splits, stages, stream)
     "qmatmul_map": [P, P, I, I, I],
@@ -71,7 +73,6 @@ SIGNATURES = {
     "probe_rot_launch": [P, P, LL, I, P],
     "probe_onehot_launch": [P, P, P, I, I, I, I, P],
     "probe_dyn_col_dma_launch": [P, P, P, I, I, I, I, I, P],
-    "probe_int8_panel_launch": [P, P, P, I, P],
 }
 
 

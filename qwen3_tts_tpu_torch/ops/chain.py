@@ -49,7 +49,6 @@ KERNELS = SimpleNamespace(
     qmatmul=quant.qmatmul_kernel,
     rms_norm=el.rms_norm,
     decode_attention=flash_decode.decode_attention_stacked,
-    argmax_gather=el.argmax_gather,
 )
 
 PLAIN = SimpleNamespace(
@@ -59,13 +58,12 @@ PLAIN = SimpleNamespace(
     qmatmul=quant.qmatmul_kernel_plain,
     rms_norm=el.rms_norm_plain,
     decode_attention=flash_decode.decode_attention_plain,
-    argmax_gather=el.argmax_gather_plain,
 )
 
 
 def matmul(ops, x: torch.Tensor, w: quant.Weight, **kw) -> torch.Tensor:
     """x @ w through the gemv variant of w's kind (keywords: col0, n,
-    epilogue, out, norm, act, qk, kv, dt)."""
+    epilogue, out, norm, act, qk, kv, argmax, dt)."""
     if quant.is_quantized4(w):
         return ops.gemv_int4(x, w["q4"], w["m8"], w["scale"], **kw)
     if quant.is_quantized(w):
@@ -123,7 +121,8 @@ def layer_pass(ops, lw, l: int, cfg, x_res: torch.Tensor, cos, sin,
 _GEMVS = (G.gemv, G.gemv_int8, G.gemv_int4)
 # fused counts of `launch_counts`: name -> the gemv wrappers' counter
 _FUSED = {"rms_norm_gemv": "norm_launches", "silu_gemv": "silu_launches",
-          "qk_rope_gemv": "qk_launches", "kv_store_gemv": "kv_launches"}
+          "qk_rope_gemv": "qk_launches", "kv_store_gemv": "kv_launches",
+          "argmax_gather_gemv": "argmax_launches"}
 
 
 def reset_launch_counts() -> None:
@@ -138,7 +137,8 @@ def launch_counts() -> dict:
     """Launches per kernel wrapper, and the gemv launches (counted in their
     gemv too) that ran the norm prologue (`rms_norm_gemv`), the silu
     prologue (`silu_gemv`), the qk epilogue (`qk_rope_gemv`) and, of these,
-    the KV store (`kv_store_gemv`)."""
+    the KV store (`kv_store_gemv`), and the argmax epilogue of the
+    predictor's head slice (`argmax_gather_gemv`)."""
     counts = {name: fn.launches for name, fn in vars(KERNELS).items()}
     for name, counter in _FUSED.items():
         counts[name] = sum(getattr(fn, counter) for fn in _GEMVS)

@@ -1,19 +1,18 @@
-"""Fused elementwise passes and row reductions of the talker step and the
-predictor frame, as Triton kernels (`ops/elementwise_triton.py`) with their
-plain PyTorch versions beside them.
+"""The fused elementwise pass of the talker step as a Triton kernel
+(`ops/elementwise_triton.py`) with its plain PyTorch version beside it, and
+the plain halves of the elementwise work that runs inside a gemv launch.
 
   rms_norm        x [M, H] (f32 or dt) -> dt; f32 math, one rounding. On
                   the main path only the talker's final norm (its output
                   is the step's hidden); every other norm of the chain is
                   the prologue of the gemv it feeds (`ops/gemv.py`), which
                   takes `rms_norm_plain` as its plain prologue
-  argmax_gather   the predictor's greedy code + next input row
 
-Each wrapper takes its plain version for a tensor on the CPU; on a CUDA
+The wrapper takes its plain version for a tensor on the CPU; on a CUDA
 tensor it launches its kernel (importing `triton` at the first launch) or
 raises.
 
-Two plain functions have no kernel of their own here: on the card their
+Three plain functions have no kernel of their own here: on the card their
 work runs inside a gemv launch (`csrc/gemv.cu`), and they are the plain
 halves of those fused products (`ops/gemv.py`):
 
@@ -23,6 +22,8 @@ halves of those fused products (`ops/gemv.py`):
   silu_mul_plain      gate/up [M, 2F] (f32 or dt) -> dt; f32 math, one
                       rounding: the down product's silu prologue (and the
                       prefill's SwiGLU, `models/decoder.py`)
+  argmax_gather_plain the predictor's greedy code and its next input row:
+                      the argmax epilogue of the head slice (`argmax=`)
 """
 
 from __future__ import annotations
@@ -131,32 +132,15 @@ def sel_rows(code, ptab_rows: int, rows: int):
 
 def argmax_gather_plain(logits, codes, q: int, ptab, ptab_rows: int,
                         x_out=None) -> None:
-    """codes[:, q] = argmax(logits) (lowest index on ties); then, when
-    x_out is given, x_out[b] = ptab[q][sel(code_b)]. In place."""
+    """codes[:, q] = the greedy code of logits [B, CV], in place: JAX's
+    `argmax_row` (`qwen3_tts_tpu/ops/fused_predictor.py:465-469`), the
+    largest value with the lowest index on ties, and CV for a row holding
+    any NaN (its max is NaN and no element is >= it). Then, when x_out is
+    given, x_out[b] = ptab[q][sel(code_b)]: a NaN row's code CV is past
+    the real rows, so it selects the bias row when ptab_rows <= CV."""
     code = torch.argmax(logits, dim=-1)
+    code = torch.where(torch.isnan(logits).any(dim=-1),
+                       torch.full_like(code, logits.shape[-1]), code)
     codes[:, q] = code.to(codes.dtype)
     if x_out is not None:
         x_out.copy_(ptab[q][sel_rows(code, ptab_rows, ptab.shape[1])])
-
-
-def argmax_gather(logits, codes, q: int, ptab, ptab_rows: int,
-                  x_out=None) -> None:
-    if logits.device.type == "cpu":
-        return argmax_gather_plain(logits, codes, q, ptab, ptab_rows, x_out)
-    B, CV = logits.shape
-    H = ptab.shape[2]
-    gather = x_out is not None
-    x_arg = x_out if gather else logits
-    _check_cuda("argmax_gather", logits, codes, ptab, x_arg)
-    if (logits.dtype != torch.float32 or CV & (CV - 1)
-            or codes.dim() != 2 or codes.shape[0] != B
-            or not 0 <= q < codes.shape[1]
-            or (gather and x_out.shape != (B, H))):
-        raise ValueError("argmax_gather: shapes or dtypes do not match")
-    _triton().argmax_gather_kernel[(B,)](
-        logits, codes, ptab, x_arg, q, ptab_rows, ptab.shape[1], H,
-        codes.shape[1], CV=CV, HB=_next_pow2(H), GATHER=gather, num_warps=4)
-    argmax_gather.launches += 1
-
-
-argmax_gather.launches = 0

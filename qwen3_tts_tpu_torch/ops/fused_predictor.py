@@ -19,12 +19,14 @@ batch alone (JAX's own split is `usable` against `predictor.frame_codes`,
 The chain, pass by pass:
 
   pass 0   x = h1024 (rounded to the model dtype) at position 0
-  pass 1   x = ptab[0][sel(code_0)] at position 1; head slice 0 (its
-           product with the final norm as prologue)
-  q=1..15  code_q = argmax of the f32 head slice [(q-1)*2048, q*2048)
-           (lowest index on ties) -> codes[:, q]; for q < 15 the same
-           kernel gathers x = ptab[q][sel(code_q)] for pass q+1 at position
-           q+1, then head slice q.
+  q=1..15  pass q (x = ptab[0][sel(code_0)] at position 1 for q = 1),
+           then head slice q - 1 (its product with the final norm as
+           prologue) with the argmax epilogue: code_q = the greedy code of
+           the f32 slice [(q-1)*2048, q*2048) (JAX's `argmax_row`: lowest
+           index on ties, 2048 for a row holding a NaN) -> codes[:, q];
+           for q < 15 the same launch gathers x = ptab[q][sel(code_q)],
+           the input of pass q + 1 at position q + 1 (`ops/gemv.py`,
+           `argmax=`).
 
 Each pass runs all layers for one token; the frame-local KV cache
 [L, B, nk, max_seq, hd] is f32 (holding values rounded to the model dtype,
@@ -109,7 +111,6 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
     q_buf = torch.empty(B, nq, hd, dtype=dt, device=dev)
     k_new = torch.empty(B, nk, hd, dtype=dt, device=dev)
     v_new = torch.empty(B, nk, hd, dtype=dt, device=dev)
-    logits = torch.empty(B, CV, dtype=torch.float32, device=dev)
     codes = torch.zeros(B, NB, dtype=torch.int32, device=dev)
     codes[:, 0] = code_0.to(torch.int32)
     x_res = h1024.to(dt).to(torch.float32, copy=True)
@@ -123,23 +124,18 @@ def _frame(ops, params: Dict[str, Any], cfg, ptab: torch.Tensor,
                              kv_len_t[p], valid_from,
                              kv=(k_cache[l, :, :, p], v_cache[l, :, :, p]))
 
-    def head_slice(qi: int) -> None:
-        # the final norm is the head slice's prologue, as in the TPU kernel
-        chain.matmul(ops, x_res, head, col0=qi * CV, n=CV,
-                     epilogue=EPI_F32_ROUND_DT, out=logits,
-                     norm=(params["final_norm"], cfg.rms_eps), dt=dt)
-
     stack_pass(0)
     x_res.copy_(ptab[0][sel_rows(code_0.long(), ptab_rows, ptab.shape[1])])
-    stack_pass(1)
-    head_slice(0)
     for qi in range(1, NB):
-        last = qi == NB - 1
-        ops.argmax_gather(logits, codes, qi, ptab, ptab_rows,
-                          None if last else x_res)
-        if not last:
-            stack_pass(qi + 1)
-            head_slice(qi)
+        stack_pass(qi)
+        # head slice qi - 1 with the final norm as its prologue, as in the
+        # TPU kernel, and the argmax epilogue: code qi, and (but after the
+        # last slice) the next pass's input row gathered into x_res
+        chain.matmul(ops, x_res, head, col0=(qi - 1) * CV, n=CV,
+                     epilogue=EPI_F32_ROUND_DT,
+                     norm=(params["final_norm"], cfg.rms_eps), dt=dt,
+                     argmax=(codes, qi, ptab, ptab_rows,
+                             None if qi == NB - 1 else x_res))
     if residual is not None:
         residual.copy_(x_res)
     return codes
@@ -171,10 +167,12 @@ MAX_B = 16
 # the route's, per weight kind: the largest B at which every end-to-end run
 # of a frame on the kernel beat every run on the chain (PERF.md's predictor
 # route table, tools/frame_measure.py route predictor); past it the runs
-# overlap (dense B = 12, both kinds at 16) or were not taken; all-int4
-# weights won every run at B = 1, 2, 4, 8, 9, 12 and 16 (their chain of B4
-# launches took 33-81 ms a frame on the host, the kernel 6-36)
-ROUTE_MAX_B = {"dense": 9, "int8": 12, "int4": 16}
+# overlap (both kinds at 16) or were not taken (dense B = 11; dense also
+# won every run at 12 and 13 in the measurement that moved its limit from
+# 9 to 10, and int8 from 12 to 13); all-int4 weights won every run at B =
+# 1, 2, 4, 8, 9, 12 and 16 (their chain of B4 launches took 33-81 ms a
+# frame on the host, the kernel 6-36)
+ROUTE_MAX_B = {"dense": 10, "int8": 13, "int4": 16}
 UNIT = 8            # columns of a work unit (csrc/predictor_frame.cu kUnit)
 MAX_MT4 = 4         # x rows a pass with int4 weights (kFMaxMT4, kSMaxMT4)
 GROUP4_ROWS = quant.GROUP4 // 2     # packed int4 rows of a group (kG4Rows)
@@ -445,9 +443,10 @@ def packed_weight(w: torch.Tensor, part: str = "values") -> torch.Tensor:
 
 
 def better(v: float, i: int, bv: float, bi: int) -> bool:
-    """The argmax order of the kernel: NaN above every number (the first
-    NaN wins, as torch.argmax), then the larger value, then the lower
-    index: a strict total order, so any reduction tree agrees."""
+    """The argmax order of the kernel: NaN above every number, then the
+    larger value, then the lower index: a strict total order, so any
+    reduction tree agrees. A NaN logit enters as (NaN, CV), so a row
+    holding one gives code CV, as JAX's `argmax_row`."""
     n, bn = v != v, bv != bv
     if n != bn:
         return n
@@ -473,16 +472,17 @@ def reduce_partials(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def block_partials(logits: torch.Tensor, nb: int):
     """Plain per-block partials of a head slice's logits [B, CV] under the
     head stage's plan: (vals, idx) [nb, B], each block's argmax over its
-    columns (the lowest index on ties)."""
-    B = logits.shape[0]
+    columns (the lowest index on ties; (NaN, CV) where they hold a NaN)."""
+    B, CV = logits.shape
     vals = torch.full((nb, B), float("-inf"))
     idx = torch.full((nb, B), 2 ** 31 - 1, dtype=torch.int64)
-    for blk, (lo, hi) in enumerate(split_units(logits.shape[1] // UNIT, nb)):
+    for blk, (lo, hi) in enumerate(split_units(CV // UNIT, nb)):
         if hi > lo:
             part = logits[:, lo * UNIT:hi * UNIT]
             k = torch.argmax(part, dim=-1)
+            nan = torch.isnan(part).any(dim=-1)
             vals[blk] = part.gather(1, k[:, None])[:, 0]
-            idx[blk] = k + lo * UNIT
+            idx[blk] = torch.where(nan, CV, k + lo * UNIT)
     return vals, idx
 
 

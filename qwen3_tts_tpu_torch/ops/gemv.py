@@ -41,12 +41,22 @@ its launch (each is optional, `dt` is then required):
   kv=(k_slot, v_slot) with `qk`: also store f32(k), f32(v) into two [M,
                       nk, hd] f32 views (the predictor's frame cache at
                       slot p, `k_cache[l, :, :, p]`; any strides with unit
-                      stride along hd).
+                      stride along hd);
+  argmax=(codes, q, ptab, ptab_rows, x_out)
+                      the argmax epilogue of the predictor's head slice,
+                      after the norm prologue, with EPI_F32_ROUND_DT and n
+                      a power of two (CV): codes[:, q] = each row's greedy
+                      code over the logits (JAX's `argmax_row`: the lowest
+                      index on ties, n for a row holding a NaN) and, with
+                      x_out [M, H] f32 (may be x itself), x_out[b] =
+                      ptab[q][sel(code_b)] (`argmax_gather_plain`); codes
+                      int32 [M, ncodes], ptab [ncodes', R, H] in dt; the
+                      logits are stored only into a given `out`.
 
 Without a prologue x is in dt (dt defaults to x.dtype). Each plain version
 composes the plain ops (`rms_norm_plain` or `silu_mul_plain`, the product,
-`qk_norm_rope_plain` and the slot copies), so the CPU path computes what the
-unfused chain computed, bit for bit.
+`qk_norm_rope_plain` and the slot copies, `argmax_gather_plain`), so the
+CPU path computes what the unfused chain computed, bit for bit.
 
 Column slices are packing-transparent: `col0` selects the same columns of
 q, q4, m8 and scale. Each wrapper checks its fusion arguments (raising
@@ -59,7 +69,10 @@ is a thread block cluster that reduces through distributed shared memory
 inside the same launch. Each wrapper counts its launches in `.launches`
 and, of those, the ones with the norm in `.norm_launches`, with silu in
 `.silu_launches`, with the qk epilogue in `.qk_launches` and, of these,
-with the KV store in `.kv_launches`.
+with the KV store in `.kv_launches`, and with the argmax epilogue in
+`.argmax_launches`. The argmax epilogue's workspace (a key a row, a ticket
+a row chunk; the kernel leaves both zero) is allocated once per device and
+stream (`_argmax_workspace`, which says how CUDA graphs must use it).
 """
 
 from __future__ import annotations
@@ -68,7 +81,8 @@ import ctypes
 
 import torch
 
-from .elementwise import qk_norm_rope_plain, rms_norm_plain, silu_mul_plain
+from .elementwise import (argmax_gather_plain, qk_norm_rope_plain,
+                          rms_norm_plain, silu_mul_plain)
 from .quant import GROUP4, panel_matmul4_plain
 
 EPI_STORE_DT = 0
@@ -76,6 +90,7 @@ EPI_F32 = 1
 EPI_F32_ROUND_DT = 2
 EPI_ADD_F32 = 3
 EPI_QK = 4              # the qk epilogue's code in csrc/gemv.cu (`qk=`)
+EPI_ARGMAX = 5          # the argmax epilogue's (`argmax=`)
 # prologue codes of csrc/gemv.cu
 PRO_NONE, PRO_NORM, PRO_SILU = 0, 1, 2
 
@@ -102,6 +117,13 @@ class _QkArgs(ctypes.Structure):
            ("eps", ctypes.c_float)]
 
 
+class _ArgmaxArgs(ctypes.Structure):
+    """`ArgmaxArgs` of csrc/gemv.cuh, field for field."""
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "codes", "ptab", "x_out", "keys", "tickets")] \
+        + [(f, ctypes.c_int) for f in ("ncodes", "q", "rows0", "R", "H")]
+
+
 def _qk_plain(y, qk, out, kv):
     """The plain qk epilogue of y [M, (nq + 2 nk) * hd] in dt: QK-norm and
     RoPE into (q, k, v), then the KV store."""
@@ -114,9 +136,15 @@ def _qk_plain(y, qk, out, kv):
 
 
 def _finish(acc: torch.Tensor, dt: torch.dtype, epilogue: int,
-            out, qk=None, kv=None):
+            out, qk=None, kv=None, argmax=None):
     if qk is not None:
         return _qk_plain(acc.to(dt), qk, out, kv)
+    if argmax is not None:
+        logits = acc.to(dt).float()
+        if out is not None:
+            out.copy_(logits)
+        argmax_gather_plain(logits, *argmax)
+        return out
     if epilogue == EPI_ADD_F32:
         if out is None:
             raise ValueError("EPI_ADD_F32 needs the residual buffer `out`")
@@ -162,34 +190,34 @@ def _prologue(x, norm, dt, act=None):
 
 def gemv_plain(x, w, *, col0: int = 0, n: int | None = None,
                epilogue: int = EPI_STORE_DT, out=None, norm=None, act=None,
-               qk=None, kv=None, dt=None):
+               qk=None, kv=None, argmax=None, dt=None):
     """Plain version of B: the product in f32, then the same epilogue."""
     x = _prologue(x, norm, _model_dtype(x, norm, dt, act), act)
     n = _cols(w, col0, n)
     acc = x.float() @ w[:, col0:col0 + n].float()
-    return _finish(acc, x.dtype, epilogue, out, qk, kv)
+    return _finish(acc, x.dtype, epilogue, out, qk, kv, argmax)
 
 
 def gemv_int8_plain(x, q, scale, *, col0: int = 0, n: int | None = None,
                     epilogue: int = EPI_STORE_DT, out=None, norm=None,
-                    act=None, qk=None, kv=None, dt=None):
+                    act=None, qk=None, kv=None, argmax=None, dt=None):
     """Plain version of B8: (x @ q) in f32, times the column scales."""
     x = _prologue(x, norm, _model_dtype(x, norm, dt, act), act)
     n = _cols(q, col0, n)
     acc = (x.float() @ q[:, col0:col0 + n].float()) * scale[col0:col0 + n]
-    return _finish(acc, x.dtype, epilogue, out, qk, kv)
+    return _finish(acc, x.dtype, epilogue, out, qk, kv, argmax)
 
 
 def gemv_int4_plain(x, q4, m8, scale, *, col0: int = 0,
                     n: int | None = None, epilogue: int = EPI_STORE_DT,
                     out=None, norm=None, act=None, qk=None, kv=None,
-                    dt=None):
+                    argmax=None, dt=None):
     """Plain version of B4: `panel_matmul4`'s order, times the scales."""
     x = _prologue(x, norm, _model_dtype(x, norm, dt, act), act)
     n = _cols(q4, col0, n)
     cols = slice(col0, col0 + n)
     acc = panel_matmul4_plain(x, q4[:, cols], m8[:, cols]) * scale[cols]
-    return _finish(acc, x.dtype, epilogue, out, qk, kv)
+    return _finish(acc, x.dtype, epilogue, out, qk, kv, argmax)
 
 
 def row_tile(M: int, most: int = 8) -> int:
@@ -298,11 +326,55 @@ def _check_qk(name, x, ncols, col0, n, epilogue, out, norm, qk, kv, dt):
     return out
 
 
+def _check_argmax(name, x, ncols, col0, n, epilogue, out, norm, act, qk,
+                  argmax, dt):
+    """Refuse an argmax epilogue the kernels do not take."""
+    if qk is not None or act is not None or norm is None \
+            or epilogue != EPI_F32_ROUND_DT:
+        raise ValueError(f"{name}: the argmax epilogue follows the norm "
+                         "prologue (norm=) with EPI_F32_ROUND_DT, and takes "
+                         "no silu prologue or qk epilogue")
+    codes, q, ptab, ptab_rows, x_out = argmax
+    n = ncols - col0 if n is None else n
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"{name}: the argmax epilogue takes a power-of-two "
+                         f"number of columns (the code vocabulary), got {n}")
+    dev, M = x.device, x.shape[0]
+    if codes.dtype != torch.int32 or codes.dim() != 2 \
+            or codes.shape[0] != M or not codes.is_contiguous() \
+            or codes.device != dev or not 0 <= q < codes.shape[1]:
+        raise ValueError(f"{name}: codes must be contiguous int32 [{M}, "
+                         f"ncodes] on {dev} with 0 <= q < ncodes, got "
+                         f"{codes.dtype} {tuple(codes.shape)}, q {q}")
+    if ptab.dtype != dt or ptab.dim() != 3 or not ptab.is_contiguous() \
+            or ptab.device != dev or not 0 <= q < ptab.shape[0] \
+            or not 0 <= ptab_rows <= ptab.shape[1]:
+        raise ValueError(f"{name}: ptab must be contiguous {dt} [tables, "
+                         f"R, H] on {dev} with q < tables and ptab_rows <= "
+                         f"R, got {ptab.dtype} {tuple(ptab.shape)}, q {q}, "
+                         f"ptab_rows {ptab_rows}")
+    H = ptab.shape[2]
+    if x_out is not None and (
+            x_out.dtype != torch.float32 or tuple(x_out.shape) != (M, H)
+            or not x_out.is_contiguous() or x_out.device != dev):
+        raise ValueError(f"{name}: x_out must be None or contiguous float32 "
+                         f"[{M}, {H}] on {dev}, got {x_out.dtype} "
+                         f"{tuple(x_out.shape)}")
+    if out is not None and (
+            out.dtype != torch.float32 or tuple(out.shape) != (M, n)
+            or not out.is_contiguous() or out.device != dev):
+        raise ValueError(f"{name}: out (the logits) must be None or "
+                         f"contiguous float32 [{M}, {n}] on {dev}")
+
+
 def _check_fusion(name, x, ncols, col0, n, epilogue, out, norm, act, qk, kv,
-                  dt):
+                  dt, argmax=None):
     """Refuse, on any device, a combination of prologue and epilogue that
     the kernels do not take; returns `out` (the qk epilogue's (q, k, v),
     allocated when None)."""
+    if argmax is not None:
+        _check_argmax(name, x, ncols, col0, n, epilogue, out, norm, act, qk,
+                      argmax, _model_dtype(x, norm, dt, act))
     if act not in (None, "silu"):
         raise ValueError(f"{name}: act {act!r}; only 'silu'")
     if act is not None and (norm is not None or qk is not None):
@@ -358,7 +430,7 @@ def _check(name, x, w, col0, n, epilogue, out, pro, ln_w, dt, *, align,
                              f"{tuple(ln_w.shape)}, expected contiguous "
                              f"{dt} ({K},) on {x.device}")
         ln = ln_w.data_ptr()
-    if epilogue == EPI_QK:
+    if epilogue == EPI_QK or epilogue == EPI_ARGMAX and out is None:
         return M, K, n, out, ln
     out_dtype = dt if epilogue == EPI_STORE_DT else torch.float32
     if out is None:
@@ -384,16 +456,48 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+_argmax_ws: dict = {}
+
+
+def _argmax_workspace(dev) -> torch.Tensor:
+    """The argmax epilogue's workspace on `dev` for the current stream:
+    MAX_M 64-bit keys (a row each), then MAX_M 32-bit tickets (a row chunk
+    each), zeroed once; every launch leaves them zero. It is kept for the
+    process's life, keyed by the raw stream handle.
+
+    Launches that share a workspace must not overlap, so, with CUDA graphs:
+    capture only after one eager argmax launch on the capture stream (the
+    workspace and its zeroing memset are then made outside the graph, not
+    in its private pool); the graph bakes in that stream's workspace, so
+    replay it on the capture stream, or anywhere no eager argmax launch on
+    the capture stream and no other replay of it can run at the same time."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _argmax_ws:
+        _argmax_ws[key] = torch.zeros(MAX_M + MAX_M // 2, dtype=torch.int64,
+                                      device=dev)
+    return _argmax_ws[key]
+
+
 class _Launch:
     """A launch's fusion codes and C arguments: the prologue code, the norm
-    weight and eps, the epilogue code and the qk epilogue's QkArgs."""
+    weight and eps, the epilogue code and the qk epilogue's QkArgs or the
+    argmax epilogue's ArgmaxArgs."""
 
-    def __init__(self, norm, act, qk, kv, epilogue, out):
+    def __init__(self, norm, act, qk, kv, epilogue, out, argmax=None,
+                 ws=None):
         self.pro = PRO_SILU if act is not None else \
             PRO_NONE if norm is None else PRO_NORM
         self.ln_w, self.eps = (None, 0.0) if norm is None else norm
-        self.epilogue = EPI_QK if qk is not None else epilogue
-        self.args = None
+        self.epilogue = EPI_QK if qk is not None else \
+            EPI_ARGMAX if argmax is not None else epilogue
+        self.args = self.am = None
+        if argmax is not None:
+            codes, q, ptab, ptab_rows, x_out = argmax
+            self.am = _ArgmaxArgs(
+                codes.data_ptr(), ptab[q].data_ptr(),
+                None if x_out is None else x_out.data_ptr(), ws.data_ptr(),
+                ws.data_ptr() + MAX_M * 8, codes.shape[1], q, ptab_rows,
+                ptab.shape[1], ptab.shape[2])
         if qk is not None:
             q_norm, k_norm, cos, sin, nq, nk, eps = qk
             q, k, v = out
@@ -412,10 +516,14 @@ class _Launch:
     def qk_ptr(self):
         return None if self.args is None else ctypes.addressof(self.args)
 
+    def am_ptr(self):
+        return None if self.am is None else ctypes.addressof(self.am)
+
     def count(self, fn) -> None:
         fn.launches += 1
         fn.norm_launches += self.pro == PRO_NORM
         fn.silu_launches += self.pro == PRO_SILU
+        fn.argmax_launches += self.am is not None
         if self.args is not None:
             fn.qk_launches += 1
             fn.kv_launches += bool(self.args.kc)
@@ -423,7 +531,7 @@ class _Launch:
 
 def gemv(x, w, *, col0: int = 0, n: int | None = None,
          epilogue: int = EPI_STORE_DT, out=None, norm=None, act=None,
-         qk=None, kv=None, dt=None):
+         qk=None, kv=None, argmax=None, dt=None):
     """B: y = x @ w[:, col0:col0+n] with a prologue and an epilogue (module
     docstring).
 
@@ -432,14 +540,16 @@ def gemv(x, w, *, col0: int = 0, n: int | None = None,
     weight is such a view).
     """
     out = _check_fusion("gemv", x, w.shape[1], col0, n, epilogue, out, norm,
-                        act, qk, kv, dt)
+                        act, qk, kv, dt, argmax)
     if x.device.type == "cpu":
         return gemv_plain(x, w, col0=col0, n=n, epilogue=epilogue, out=out,
-                          norm=norm, act=act, qk=qk, kv=kv, dt=dt)
+                          norm=norm, act=act, qk=qk, kv=kv, argmax=argmax,
+                          dt=dt)
     dt = _model_dtype(x, norm, dt, act)
     if w.dtype != dt:
         raise TypeError(f"gemv: w {w.dtype} must be the model dtype {dt}")
-    ln = _Launch(norm, act, qk, kv, epilogue, out)
+    ln = _Launch(norm, act, qk, kv, epilogue, out, argmax,
+                 None if argmax is None else _argmax_workspace(x.device))
     M, K, n, out, ln_ptr = _check("gemv", x, w, col0, n, ln.epilogue, out,
                                   ln.pro, ln.ln_w, dt, align=16)
     from ..kernels import build
@@ -447,7 +557,7 @@ def gemv(x, w, *, col0: int = 0, n: int | None = None,
         x.data_ptr(), w.data_ptr(), ln_ptr, _out_ptr(out), M, K, n,
         w.stride(0), col0, launch_splits(x, w, M, K, n, DENSE, dt, ln.pro),
         _DTYPES[dt], ln.epilogue, float(ln.eps), ln.pro, ln.qk_ptr(),
-        _stream(x))
+        ln.am_ptr(), _stream(x))
     build.check(err, "gemv")
     ln.count(gemv)
     return out
@@ -455,20 +565,21 @@ def gemv(x, w, *, col0: int = 0, n: int | None = None,
 
 def gemv_int8(x, q, scale, *, col0: int = 0, n: int | None = None,
               epilogue: int = EPI_STORE_DT, out=None, norm=None, act=None,
-              qk=None, kv=None, dt=None):
+              qk=None, kv=None, argmax=None, dt=None):
     """B8: y = (x @ q[:, col0:col0+n]) * scale[col0:col0+n], prologue and
     epilogue. q int8 [K, ldq], scale f32 [ldq]."""
     out = _check_fusion("gemv_int8", x, q.shape[1], col0, n, epilogue, out,
-                        norm, act, qk, kv, dt)
+                        norm, act, qk, kv, dt, argmax)
     if x.device.type == "cpu":
         return gemv_int8_plain(x, q, scale, col0=col0, n=n,
                                epilogue=epilogue, out=out, norm=norm,
-                               act=act, qk=qk, kv=kv, dt=dt)
+                               act=act, qk=qk, kv=kv, argmax=argmax, dt=dt)
     if q.dtype != torch.int8:
         raise TypeError(f"gemv_int8: q {q.dtype}, not int8")
     dt = _model_dtype(x, norm, dt, act)
     _check_scale("gemv_int8", scale, q)
-    ln = _Launch(norm, act, qk, kv, epilogue, out)
+    ln = _Launch(norm, act, qk, kv, epilogue, out, argmax,
+                 None if argmax is None else _argmax_workspace(x.device))
     M, K, n, out, ln_ptr = _check("gemv_int8", x, q, col0, n, ln.epilogue,
                                   out, ln.pro, ln.ln_w, dt, align=8)
     from ..kernels import build
@@ -476,7 +587,8 @@ def gemv_int8(x, q, scale, *, col0: int = 0, n: int | None = None,
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), ln_ptr, _out_ptr(out),
         M, K, n, q.stride(0), col0,
         launch_splits(x, q, M, K, n, INT8, dt, ln.pro), _DTYPES[dt],
-        ln.epilogue, float(ln.eps), ln.pro, ln.qk_ptr(), _stream(x))
+        ln.epilogue, float(ln.eps), ln.pro, ln.qk_ptr(), ln.am_ptr(),
+        _stream(x))
     build.check(err, "gemv_int8")
     ln.count(gemv_int8)
     return out
@@ -484,24 +596,25 @@ def gemv_int8(x, q, scale, *, col0: int = 0, n: int | None = None,
 
 def gemv_int4(x, q4, m8, scale, *, col0: int = 0, n: int | None = None,
               epilogue: int = EPI_STORE_DT, out=None, norm=None, act=None,
-              qk=None, kv=None, dt=None):
+              qk=None, kv=None, argmax=None, dt=None):
     """B4: y = panel_matmul4(x, q4, m8)[:, cols] * scale[cols], prologue
     and epilogue. q4 int8 [K//2, ldq] packed, m8 int8 [K//GROUP4, ldm],
     scale f32 [ldq]; K a multiple of 2 * GROUP4. Each rank of the K split
     takes whole packed groups (GROUP4 packed rows = two whole k-groups), so
     groups are never split."""
     out = _check_fusion("gemv_int4", x, q4.shape[1], col0, n, epilogue, out,
-                        norm, act, qk, kv, dt)
+                        norm, act, qk, kv, dt, argmax)
     if x.device.type == "cpu":
         return gemv_int4_plain(x, q4, m8, scale, col0=col0, n=n,
                                epilogue=epilogue, out=out, norm=norm,
-                               act=act, qk=qk, kv=kv, dt=dt)
+                               act=act, qk=qk, kv=kv, argmax=argmax, dt=dt)
     if q4.dtype != torch.int8 or m8.dtype != torch.int8:
         raise TypeError(f"gemv_int4: q4 {q4.dtype} / m8 {m8.dtype}, "
                         "not int8")
     dt = _model_dtype(x, norm, dt, act)
     _check_scale("gemv_int4", scale, q4)
-    ln = _Launch(norm, act, qk, kv, epilogue, out)
+    ln = _Launch(norm, act, qk, kv, epilogue, out, argmax,
+                 None if argmax is None else _argmax_workspace(x.device))
     M, K, n, out, ln_ptr = _check("gemv_int4", x, q4, col0, n, ln.epilogue,
                                   out, ln.pro, ln.ln_w, dt, align=8,
                                   packed=True)
@@ -518,7 +631,8 @@ def gemv_int4(x, q4, m8, scale, *, col0: int = 0, n: int | None = None,
         x.data_ptr(), q4.data_ptr(), m8.data_ptr(), scale.data_ptr(), ln_ptr,
         _out_ptr(out), M, K, n, q4.stride(0), m8.stride(0), col0,
         launch_splits(x, q4, M, K, n, INT4, dt, ln.pro), _DTYPES[dt],
-        ln.epilogue, float(ln.eps), ln.pro, ln.qk_ptr(), _stream(x))
+        ln.epilogue, float(ln.eps), ln.pro, ln.qk_ptr(), ln.am_ptr(),
+        _stream(x))
     build.check(err, "gemv_int4")
     ln.count(gemv_int4)
     return out
@@ -526,12 +640,13 @@ def gemv_int4(x, q4, m8, scale, *, col0: int = 0, n: int | None = None,
 
 def _out_ptr(out):
     """The output pointer of a launch: none for the qk epilogue, whose
-    outputs travel in its QkArgs."""
-    return None if isinstance(out, tuple) else out.data_ptr()
+    outputs travel in its QkArgs, or for an argmax epilogue that stores no
+    logits."""
+    return None if out is None or isinstance(out, tuple) else out.data_ptr()
 
 
 COUNTERS = ("launches", "norm_launches", "silu_launches", "qk_launches",
-            "kv_launches")
+            "kv_launches", "argmax_launches")
 for _fn in (gemv, gemv_int8, gemv_int4):
     for _c in COUNTERS:
         setattr(_fn, _c, 0)

@@ -14,6 +14,7 @@ come from here). Run from the repo's root (each mode imports its
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py frame-ab TAG
     python3 qwen3_tts_tpu_torch/tools/frame_measure.py step-ab TAG
     python3 -m qwen3_tts_tpu_torch.tools.frame_measure probes [PARENT_CU] [DEFS ...]
+    python3 qwen3_tts_tpu_torch/tools/frame_measure.py head-ab TAG [quick]
 
 Both persistent kernels carry a trace that is compiled in only for
 `trace` and `talker` (`kernels/build.py trace_build`, -DKERNEL_TRACE: a
@@ -120,17 +121,36 @@ probes [PARENT_CU] [DEFS ...]
         DEFS given (NAME=VALUE[,NAME=VALUE]: -D overrides of its
         geometry), all at once; each library loaded in turn in place of
         the port's. Two rounds, the libraries in turns (parent, this,
-        variants, then back): every probe held against its plain
-        version on the tool's inputs and `mosaic_probe.varied_inputs`,
-        then its device ms by CUDA-graph replay; beside them the PyTorch
-        calls of hbm_scratch (`torch.mul`), fori_dma (`torch.sum`) and
-        int8_panel (`torch._weight_int8pack_mm` on w[:, :256] transposed
-        once outside the timed call, bf16 out), and each kernel's loss to
-        its call (ms over the call's ms).
+        variants, then back): every probe whose kernel is in probes.cu
+        held against its plain version on the tool's inputs and
+        `mosaic_probe.varied_inputs`, then its device ms by CUDA-graph
+        replay; beside them the PyTorch calls of hbm_scratch (`torch.mul`)
+        and fori_dma (`torch.sum`), and each kernel's loss to its call (ms
+        over the call's ms). int8_panel launches kernel A, not a kernel of
+        probes.cu: `head-ab` times it.
+head-ab TAG [quick]
+        one tree's side of a parent-vs-change A/B of the predictor's head
+        slice and its greedy code, run from the tree's root like `ab`. (a)
+        The head slice (the final norm as its prologue, 1024 x 2048 of a
+        full-width head, f32 logits rounded through bf16) with the argmax
+        and the ptab gather, by CUDA-graph replay (the weights L2-warm), at
+        B = 1, 10, 16 and 32 with dense, int8 and int4 heads: in one launch
+        where the tree fuses them (`argmax=`), else the slice and the
+        standalone `argmax_gather` (also timed alone). (b) The predictor's
+        chain (`fused_predictor._frame` on the kernels) at full width,
+        dense at B = 10 and 16, int8 at 13 and 16, all three kinds at 24
+        and 32: device ms a frame by CUDA-graph replay, ms a frame of eager
+        calls (CUDA events) and CUDA kernels a frame (profiler). (c) Kernel
+        A (`quant.qmatmul_kernel`) at the int8_panel probe's shape (x bf16
+        [16, 512], w int8 [512, 512] sliced to 256 columns, unit scales)
+        beside the tree's `int8_panel` probe and
+        `torch._weight_int8pack_mm`, each held against the plain panel.
+        `quick` leaves out (b)'s eager ms. Run the trees in turns.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -919,20 +939,13 @@ def probe_times(parent, variants) -> None:
 
     dev = torch.device("cuda")
     inputs = mp.probe_inputs(dev, seed=1)
-    cases = [(p.name, "the tool's", inputs[p.name]) for p in mp.PROBES]
-    cases += list(mp.varied_inputs(dev, seed=2))
-    probes = {p.name: p for p in mp.PROBES}
-    x8, w8 = inputs["int8_panel"]
-    w8t = w8[:, :mp.PANEL_N].t().contiguous()
-    ones8 = torch.ones(mp.PANEL_N, dtype=torch.bfloat16, device=dev)
+    here = [p for p in mp.PROBES if p.name != "int8_panel"]
+    probes = {p.name: p for p in here}
+    cases = [(p.name, "the tool's", inputs[p.name]) for p in here]
+    cases += [case for case in mp.varied_inputs(dev, seed=2)
+              if case[0] in probes]
     calls = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
-             "fori_dma": lambda w: torch.sum(w, 0),
-             "int8_panel": lambda x, w: torch._weight_int8pack_mm(
-                 x, w8t, ones8)}
-    got = calls["int8_panel"](x8, w8).float()
-    want = mp.int8_panel_plain(x8, w8)
-    print(f"  torch._weight_int8pack_mm (bf16 out) against the plain panel: "
-          f"relative error {c.rel_err(got, want):.2e}", flush=True)
+             "fori_dma": lambda w: torch.sum(w, 0)}
     times = {}
     order = list(libs)
     try:
@@ -945,7 +958,7 @@ def probe_times(parent, variants) -> None:
                     if not ok:
                         raise RuntimeError(f"{tag} {name} ({label}): kernel "
                                            f"differs from plain, {err:g}")
-                for p in mp.PROBES:
+                for p in here:
                     args = inputs[p.name]
                     ms = c.graph_ms(lambda: p.kernel(*args))
                     times.setdefault((tag, p.name), []).append(ms)
@@ -962,7 +975,7 @@ def probe_times(parent, variants) -> None:
     print(f"  {len(cases)} cases held against plain for each library",
           flush=True)
     for tag in order:
-        for p in mp.PROBES:
+        for p in here:
             ms = times[(tag, p.name)]
             line = f"  {tag:24s} {p.name:12s} {min(ms):.5f}-{max(ms):.5f} ms"
             if p.name in calls:
@@ -970,6 +983,122 @@ def probe_times(parent, variants) -> None:
                 line += (f", call {min(ref):.5f}-{max(ref):.5f} ms, loss "
                          f"{sum(ms) / sum(ref) * len(ref) / len(ms):.2f}x")
             print(line + f" on {card}", flush=True)
+
+
+def head_ab(tag: str, quick: bool = False) -> None:
+    """One tree's side of an A/B of the head slice and its argmax (module
+    docstring, `head-ab`)."""
+    import torch
+    import chip_smoke as c
+    card = c.phase_device()
+    c.phase_build()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.kernels import build
+    from qwen3_tts_tpu_torch.ops import chain, quant
+    from qwen3_tts_tpu_torch.ops import elementwise as el
+    from qwen3_tts_tpu_torch.ops import fused_predictor as fp
+    from qwen3_tts_tpu_torch.ops import gemv as G
+    from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
+
+    cfg = EngineConfig().predictor
+    dt = getattr(torch, cfg.dtype)
+    CV = P.CODE_VOCAB
+    fused = not hasattr(el, "argmax_gather")
+    where = "in the head slice" if fused else "a launch of its own"
+    print(f"  {tag}: argmax {where}", flush=True)
+    # (a) the head slice and its greedy code
+    for kind in ("dense", "int8", "int4"):
+        pp, _, ptab, rows, h, _ = c.frame_case(cfg, kind, 32, 60)
+        norm = (pp["final_norm"], cfg.rms_eps)
+        for B in (1, 10, 16, 32):
+            x = h[:B].contiguous()
+            xo = torch.empty_like(x)
+            codes = torch.zeros(B, P.NUM_CODEBOOKS, dtype=torch.int32,
+                                device=x.device)
+            logits = torch.empty(B, CV, device=x.device)
+            kw = dict(col0=2 * CV, n=CV, epilogue=G.EPI_F32_ROUND_DT,
+                      norm=norm, dt=dt)
+
+            def head():
+                chain.matmul(chain.KERNELS, x, pp["head"], out=logits, **kw)
+
+            if fused:
+                def both():
+                    chain.matmul(chain.KERNELS, x, pp["head"],
+                                 argmax=(codes, 3, ptab, rows, xo), **kw)
+                times = {"slice+argmax (one launch)": both,
+                         "slice alone": head}
+            else:
+                def am():
+                    el.argmax_gather(logits, codes, 3, ptab, rows, xo)
+
+                def both():
+                    head()
+                    am()
+                times = {"slice+argmax (two launches)": both,
+                         "slice alone": head, "argmax_gather alone": am}
+            line = ", ".join(f"{k} {c.graph_ms(f):.5f}"
+                             for k, f in times.items())
+            print(f"  {tag} head {kind} B={B}: ms (graph replay) {line} "
+                  f"on {card}", flush=True)
+        del pp, ptab, h
+
+    # (b) the predictor's chain
+    def kernels_a_call(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+
+    for kind, batches in (("dense", (10, 16, 24, 32)),
+                          ("int8", (13, 16, 24, 32)),
+                          ("int4", (24, 32))):
+        for B in batches:
+            pp, _, ptab, rows, h, code0 = c.frame_case(cfg, kind, B, 90 + B)
+
+            def frame():
+                fp._frame(chain.KERNELS, pp, cfg, ptab, rows, h, code0)
+
+            frame()
+            chain.reset_launch_counts()
+            frame()
+            counts = chain.launch_counts()
+            n_cuda = kernels_a_call(frame)
+            ms = c.graph_ms(frame, reps=4)
+            eager = "not taken" if quick else \
+                f"{c.cuda_ms(frame, reps=4, warmup=1):.3f}"
+            print(f"  {tag} chain {kind} B={B}: {ms:.4f} device ms a frame "
+                  f"(graph replay), eager {eager} ms a frame (CUDA events), "
+                  f"{n_cuda} CUDA kernels a frame (profiler); wrappers "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})} "
+                  f"on {card}", flush=True)
+            del pp, ptab, h, code0
+
+    # (c) kernel A at the int8_panel probe's shape
+    x8, w8 = mp.probe_inputs(torch.device("cuda"), seed=1)["int8_panel"]
+    w8s = w8[:, :mp.PANEL_N]
+    ones = torch.ones(mp.PANEL_N, device=x8.device)
+    w8t = w8s.t().contiguous()
+    ones8 = torch.ones(mp.PANEL_N, dtype=torch.bfloat16, device=x8.device)
+    want = mp.int8_panel_plain(x8, w8)
+    calls = {"kernel A": lambda: quant.qmatmul_kernel(x8, w8s, ones),
+             "int8_panel": lambda: mp.int8_panel(x8, w8),
+             "torch._weight_int8pack_mm": lambda: torch._weight_int8pack_mm(
+                 x8, w8t, ones8)}
+    plan = quant.qmatmul_plan(16, 512, mp.PANEL_N,
+                              build.sm_count(x8.device))
+    for name, fn in calls.items():
+        err = c.rel_err(fn().float(), want)
+        print(f"  {tag} panel {name}: {c.graph_ms(fn):.5f} ms (graph "
+              f"replay), relative error {err:.2e} against the plain panel "
+              f"on {card}", flush=True)
+    print(f"  {tag} panel: kernel A's plan at M=16 K=512 N=256: {plan}",
+          flush=True)
 
 
 def main(argv) -> int:
@@ -1009,6 +1138,9 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "frame-ab":
         frame_ab(argv[1])
+        return 0
+    if len(argv) in (2, 3) and argv[0] == "head-ab":
+        head_ab(argv[1], argv[2:] == ["quick"])
         return 0
     if argv[:1] == ["probes"]:
         parent = [a for a in argv[1:] if a.endswith(".cu")]

@@ -25,8 +25,9 @@ written out in torch:
   10  onehot        :158 one-hot x table matmul    bounds-checked row load
   11  dyn_col_dma   :180 DMA at a dynamic column   2-D TMA tile at coordinates
                                                    computed in the kernel
-  12  int8_panel    :208 int8 panel DMA, bf16 dot  TMA int8 panel, int8 -> bf16
-                                                   in registers, mma.sync
+  12  int8_panel    :208 int8 panel DMA, bf16 dot  kernel A (csrc/qmatmul.cu):
+                                                   a TMA ring, int8 -> bf16 in
+                                                   registers, wgmma
 
 Modes: `kernel` and `plain`, the counterparts of the JAX tool's `compiled`
 and `interpret`. `--device cpu` runs `plain` only; `--device cuda` runs both
@@ -42,9 +43,11 @@ of the sums differs: max |kernel - plain| <= 1e-5 * max |plain|.
 
 These are not kernels of the synthesis path. hbm_scratch and fori_dma
 were redesigned for the H100 (their copies spread over CTAs, or kept in
-flight by a ring); the other six are right and simple, not fast. On a CPU
-tensor each wrapper runs its plain version; on a CUDA tensor it launches
-its kernel or raises.
+flight by a ring); int8_panel computes kernel A's function and launches
+kernel A, the port's Hopper design of it (each launch counted in
+`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); the other
+five are right and simple, not fast. On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -305,10 +308,15 @@ def int8_panel_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w[:, :PANEL_N].float()
 
 
+_unit_scales: Dict[torch.device, torch.Tensor] = {}
+
+
 def int8_panel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x bf16 [16, 512], w int8 [512, ldw] -> f32 [16, 256]: the int8
-    panel w[:, :256] by two TMA boxes, converted to bf16 in registers,
-    mma.sync bf16 -> f32."""
+    """x bf16 [16, 512], w int8 [512, ldw] -> f32 [16, 256]: kernel A
+    (`ops/quant.py qmatmul_kernel`, `csrc/qmatmul.cu`) on the column slice
+    w[:, :256] (row stride ldw) with unit column scales (x1.0 is exact):
+    its TMA ring streams the int8 panel, int8 -> bf16 in registers, wgmma
+    into f32."""
     if x.device.type == "cpu":
         return int8_panel_plain(x, w)
     _check("int8_panel x", x, torch.bfloat16, PANEL_X_SHAPE)
@@ -318,10 +326,12 @@ def int8_panel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             or w.shape[1] < PANEL_N or w.shape[1] % 16 or w.data_ptr() % 16:
         raise ValueError(f"int8_panel: w {tuple(w.shape)}, expected [512, "
                          "ldw >= 256], ldw a multiple of 16, 16-byte aligned")
-    out = torch.empty(PANEL_X_SHAPE[0], PANEL_N, dtype=torch.float32,
-                      device=x.device)
-    _launch("int8_panel", "probe_int8_panel_launch", x.device, x, w, out,
-            w.shape[1])
+    from ..ops import quant
+    ones = _unit_scales.get(x.device)
+    if ones is None:
+        ones = _unit_scales[x.device] = torch.ones(
+            PANEL_N, dtype=torch.float32, device=x.device)
+    out = quant.qmatmul_kernel(x, w[:, :PANEL_N], ones)
     int8_panel.launches += 1
     return out
 
@@ -395,8 +405,8 @@ PROBES: Tuple[Probe, ...] = (
     Probe("dyn_col_dma", "dyn_col_dma (2-D TMA box at a column computed "
           "from a device-held q)", 180, 190, dyn_col_dma, dyn_col_dma_plain,
           _check_col),
-    Probe("int8_panel", "int8_panel (TMA int8 panel, bf16 mma.sync, f32 "
-          "accumulation)", 208, 217, int8_panel, int8_panel_plain, _check_panel,
+    Probe("int8_panel", "int8_panel (kernel A: TMA int8 panel, bf16 "
+          "wgmma, f32 accumulation)", 208, 217, int8_panel, int8_panel_plain, _check_panel,
           exact=False),
 )
 

@@ -242,6 +242,75 @@ def test_silu_prologue_plain_matches_jax(kind, dt, M):
     np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
 
 
+# ------------------------------------------------------- argmax epilogue
+def _jax_argmax_row(lg):
+    """JAX's `argmax_row` (qwen3_tts_tpu/ops/fused_predictor.py:465-469)
+    of numpy logits [B, CV]: min(where(lg >= max, iota, CV))."""
+    lg = jnp.asarray(lg)
+    m = jnp.max(lg, axis=-1, keepdims=True)
+    iota = jax.lax.broadcasted_iota(jnp.int32, lg.shape, 1)
+    return np.asarray(jnp.min(jnp.where(lg >= m, iota, lg.shape[1]), axis=-1))
+
+
+def _argmax_inputs(kind, dt, seed=2):
+    """x [5, K] (row 3 holds an inf: its normed row, so its logits, are
+    NaN), a head of two ARGMAX_CV-wide slices whose second slice has two
+    tied pairs of boosted columns (u at 7 and 9, -u at 200 and 201, so a
+    row's code is mostly 7 or 200), ptab [16, 40, K] in dt, 30 real rows
+    (code 200 and the NaN row's CV select the bias row)."""
+    rng = np.random.default_rng(seed)
+    w = (0.05 * rng.standard_normal((K, 2 * ARGMAX_CV))).astype(np.float32)
+    u = (1.2 * rng.standard_normal(K)).astype(np.float32)
+    for c, sign in ((7, 1), (9, 1), (200, -1), (201, -1)):
+        w[:, ARGMAX_CV + c] = sign * u
+    x = (2.0 * rng.standard_normal((5, K))).astype(np.float32)
+    x[3, 0] = np.inf
+    ln = _exact((1.0 + 0.1 * rng.standard_normal(K)).astype(np.float32), dt)
+    ptab = torch.from_numpy(rng.standard_normal((16, 40, K)).astype(
+        np.float32)).to(dt)
+    return (torch.from_numpy(x), _weights(kind, w, dt),
+            (torch.from_numpy(ln).to(dt), EPS), ptab, 30)
+
+
+@pytest.mark.parametrize("kind,dt", KINDS)
+def test_argmax_epilogue_plain_equals_product_then_argmax_gather(kind, dt):
+    """The head slice with `argmax=`, through the plain function and the
+    wrapper's CPU branch, with x_out a buffer of its own or x itself:
+    the logits stored into `out` equal the plain product's, and codes and
+    the gathered rows equal `argmax_gather_plain` on them, bit for bit;
+    the codes are JAX's `argmax_row` of those logits (ties to the lowest
+    index, CV for the NaN row), and the gathered rows ptab[q][sel]."""
+    x, wargs, norm, ptab, rows = _argmax_inputs(kind, dt)
+    fn, plain = FNS[kind]
+    M, q = x.shape[0], 2
+    kw = dict(col0=ARGMAX_CV, n=ARGMAX_CV, epilogue=gemv.EPI_F32_ROUND_DT,
+              norm=norm, dt=dt)
+    logits = plain(x, *wargs, **kw)
+    codes_r = torch.zeros(M, 16, dtype=torch.int32)
+    xo_r = torch.empty(M, K)
+    el.argmax_gather_plain(logits, codes_r, q, ptab, rows, xo_r)
+    want = _jax_argmax_row(logits.numpy())
+    assert codes_r[:, q].tolist() == want.tolist()
+    assert want[3] == ARGMAX_CV and {7, 200} & set(want.tolist())
+    assert not {9, 201} & set(want.tolist())
+    sel = np.where(want < rows, want, ptab.shape[1] - 1)
+    assert torch.equal(xo_r, ptab[q][torch.from_numpy(sel)].float())
+    for f in (fn, plain):
+        for alias in (False, True):
+            xi = x.clone()
+            xo = xi if alias else torch.empty(M, K)
+            codes = torch.zeros(M, 16, dtype=torch.int32)
+            lg = torch.empty(M, ARGMAX_CV)
+            f(xi, *wargs, out=lg, argmax=(codes, q, ptab, rows, xo), **kw)
+            torch.testing.assert_close(lg, logits, rtol=0, atol=0,
+                                       equal_nan=True)
+            assert torch.equal(codes, codes_r) and torch.equal(xo, xo_r)
+    # the last slice gathers nothing
+    codes = torch.zeros(M, 16, dtype=torch.int32)
+    assert fn(x, *wargs, argmax=(codes, 15, ptab, rows, None), **kw) is None
+    assert torch.equal(codes[:, 15], codes_r[:, q])
+
+
 # ------------------------------------------------------------------ refusals
 def _refusal_case(kind, case):
     """Arguments of one refused call on CPU tensors (model dtype f32)."""
@@ -294,6 +363,71 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(kind, case):
     fn, _ = FNS[kind]
     with pytest.raises(ValueError):
         fn(x, *wargs, **kw)
+
+
+ARGMAX_CV = 256               # the argmax cases' code vocabulary
+
+
+def _argmax_refusal(kind, case):
+    """Arguments of one refused argmax epilogue on CPU tensors (model dtype
+    f32): a head of two ARGMAX_CV-wide slices, the second one taken."""
+    M, R = 2, 40
+    N = 2 * ARGMAX_CV
+    rng = np.random.default_rng(1)
+    w = (0.05 * rng.standard_normal((K, N))).astype(np.float32)
+    wargs = _weights(kind, w, torch.float32)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    codes = torch.zeros(M, 16, dtype=torch.int32)
+    ptab = torch.zeros(16, R, K)
+    am = [codes, 3, ptab, R - 1, torch.empty(M, K)]
+    kw = dict(col0=ARGMAX_CV, n=ARGMAX_CV, epilogue=gemv.EPI_F32_ROUND_DT,
+              norm=(torch.ones(K), EPS), dt=torch.float32)
+    if case == "epilogue":
+        kw.update(epilogue=gemv.EPI_F32)
+    elif case == "pow2":
+        kw.update(n=ARGMAX_CV - 8)
+    elif case == "no_norm":
+        kw.pop("norm")
+    elif case == "with_qk":
+        kw.update(qk=(torch.ones(16), torch.ones(16), torch.ones(M, 16),
+                      torch.ones(M, 16), 1, 1, EPS))
+    elif case == "codes_rows":
+        am[0] = torch.zeros(M + 1, 16, dtype=torch.int32)
+    elif case == "codes_dtype":
+        am[0] = torch.zeros(M, 16, dtype=torch.int64)
+    elif case == "q":
+        am[1] = 16
+    elif case == "ptab_dtype":
+        am[2] = ptab.bfloat16()
+    elif case == "ptab_rows":
+        am[3] = R + 1
+    elif case == "x_out_shape":
+        am[4] = torch.empty(M, K + 8)
+    elif case == "x_out_dtype":
+        am[4] = torch.empty(M, K, dtype=torch.bfloat16)
+    elif case == "logits_out":
+        kw.update(out=torch.empty(M, ARGMAX_CV + 8))
+    return x, wargs, dict(kw, argmax=tuple(am))
+
+
+ARGMAX_REFUSALS = ["epilogue", "pow2", "no_norm", "with_qk", "codes_rows",
+                   "codes_dtype", "q", "ptab_dtype", "ptab_rows",
+                   "x_out_shape", "x_out_dtype", "logits_out"]
+
+
+@pytest.mark.parametrize("case", ARGMAX_REFUSALS)
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
+def test_wrappers_refuse_an_argmax_the_kernels_do_not_take(kind, case):
+    """`_check_fusion` refuses the argmax epilogue with another epilogue,
+    without the norm, with the qk epilogue, over a non-power-of-two
+    width, and with codes, ptab, x_out or logits of the wrong shape or
+    type, on every device; the well-formed call passes."""
+    x, wargs, kw = _argmax_refusal(kind, case)
+    fn, _ = FNS[kind]
+    with pytest.raises(ValueError):
+        fn(x, *wargs, **kw)
+    x, wargs, kw = _argmax_refusal(kind, "none")
+    fn(x, *wargs, **kw)
 
 
 # ------------------------------------------------------------------ routing
@@ -434,9 +568,25 @@ def test_launch_codes_counters_and_qk_args():
     assert (ls.pro, ls.epilogue, ls.qk_ptr()) == (gemv.PRO_SILU,
                                                   gemv.EPI_ADD_F32, None)
     ls.count(fn)
-    assert vars(fn) == {"launches": 2, "norm_launches": 1,
+    codes = torch.zeros(M, 16, dtype=torch.int32)
+    ptab = torch.zeros(16, 40, K)
+    x_out = torch.empty(M, K)
+    ws = torch.zeros(gemv.MAX_M + gemv.MAX_M // 2, dtype=torch.int64)
+    la = gemv._Launch((torch.from_numpy(ln), EPS), None, None, None,
+                      gemv.EPI_F32_ROUND_DT, None,
+                      (codes, 3, ptab, 33, x_out), ws)
+    assert (la.pro, la.epilogue, la.qk_ptr()) == (gemv.PRO_NORM,
+                                                  gemv.EPI_ARGMAX, None)
+    a = la.am
+    assert (a.codes, a.ptab, a.x_out, a.keys, a.tickets) == (
+        codes.data_ptr(), ptab[3].data_ptr(), x_out.data_ptr(),
+        ws.data_ptr(), ws.data_ptr() + 8 * gemv.MAX_M)
+    assert (a.ncodes, a.q, a.rows0, a.R, a.H) == (16, 3, 33, 40, K)
+    assert la.am_ptr() == ctypes.addressof(a) and lq.am_ptr() is None
+    la.count(fn)
+    assert vars(fn) == {"launches": 3, "norm_launches": 2,
                         "silu_launches": 1, "qk_launches": 1,
-                        "kv_launches": 1}
+                        "kv_launches": 1, "argmax_launches": 1}
 
 
 def test_qk_args_match_the_c_struct():
@@ -449,10 +599,21 @@ def test_qk_args_match_the_c_struct():
     assert ctypes.sizeof(gemv._QkArgs) == 9 * 8 + 4 * 8 + 3 * 4 + 4
 
 
+def test_argmax_args_match_the_c_struct():
+    """ops/gemv.py _ArgmaxArgs lists csrc/gemv.cuh ArgmaxArgs's fields in
+    order, with the C sizes (5 pointers, 5 ints)."""
+    text = open(build.CSRC_DIR + "/gemv.cuh").read()
+    body = text[text.index("struct ArgmaxArgs {"):].split("};")[0]
+    names = re.findall(r"(\w+)\s*[,;]", body)
+    assert names == [f for f, _ in gemv._ArgmaxArgs._fields_]
+    assert ctypes.sizeof(gemv._ArgmaxArgs) == 5 * 8 + 5 * 4 + 4   # padded
+
+
 def test_launch_counts_name_the_fused_pieces():
     chain.reset_launch_counts()
     counts = chain.launch_counts()
-    fused = {"rms_norm_gemv", "qk_rope_gemv", "silu_gemv", "kv_store_gemv"}
+    fused = {"rms_norm_gemv", "qk_rope_gemv", "silu_gemv", "kv_store_gemv",
+             "argmax_gather_gemv"}
     assert fused <= set(counts)
-    assert not {"qk_norm_rope", "silu_mul"} & set(counts)
+    assert not {"qk_norm_rope", "silu_mul", "argmax_gather"} & set(counts)
     assert all(v == 0 for v in counts.values())

@@ -7,11 +7,13 @@ This file imports no JAX, so it runs on the card's machine:
 
 Tolerances: f32 rtol/atol 1e-4 (the kernels sum in another order than
 PyTorch); bf16 outputs within one bf16 ulp (relative 2^-7 of the row max).
-Codes and gathered rows: exact. Kernel A (qmatmul) outputs f32 from bf16
-inputs, exact products: f32 tolerances for both x dtypes. The eight
-capability probes (`csrc/probes.cu`): exact, except the int8 panel's f32
-sums (max |d| <= 1e-5 of the output's largest magnitude: exact products,
-another order of the sums).
+Codes and gathered rows: exact (the head slice's argmax epilogue against
+`argmax_gather_plain` on the launch's own logits, and against the plain
+head slice where the logits decide). Kernel A (qmatmul) outputs f32 from
+bf16 inputs, exact products: f32 tolerances for both x dtypes. The eight
+capability probes (`csrc/probes.cu`; int8_panel through kernel A): exact,
+except the int8 panel's f32 sums (max |d| <= 1e-5 of the output's largest
+magnitude: exact products, another order of the sums).
 """
 
 import dataclasses
@@ -440,21 +442,125 @@ def test_gemv_silu_prologue(dev, dtype, M, K, N):
                plain(gu, *wargs, out=res.clone(), **kw), dtype)
 
 
-def test_argmax_gather_exact(dev):
-    g = torch.Generator(device=dev).manual_seed(3)
-    ptab = _randn(g, 16, 3584, 1024, dtype=torch.bfloat16)
-    logits = _randn(g, 3, 2048)
-    logits[0, [100, 900]] = 50.0
-    logits[1, 2047] = 60.0
-    out = []
-    for fn in (el.argmax_gather, el.argmax_gather_plain):
-        codes = torch.zeros(3, 16, dtype=torch.int32, device=dev)
-        xo = torch.zeros(3, 1024, device=dev)
-        fn(logits, codes, 4, ptab, 2000, xo)
-        out.append((codes, xo))
-    assert torch.equal(out[0][0], out[1][0])
-    assert torch.equal(out[0][1], out[1][1])
-    assert out[0][0][:2, 4].tolist() == [100, 2047]
+def _head_case(dev, kind, B, seed):
+    """The predictor's head slice at full width: slice 1 (1024 x 2048) of a
+    two-slice head, bf16, the final norm as prologue. Slice 1 holds two
+    tied pairs of columns, u at 300 and 700 and -u at 1500 and 1800; x
+    row b leans on u (b % 3 == 0), on -u (b % 3 == 1) or on neither (the
+    argmax among 2048 random bf16 logits, ties included), and row 1 holds
+    an inf (its normed row, so its logits, are NaN: code CV). ptab [16,
+    3584, 1024] bf16 with 1024 real rows: codes 1500 and CV select the
+    bias row. Returns (kernel, plain, x, weight arguments, norm, ptab,
+    real rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, CV = 1024, 2048
+    w = _randn(g, H, 2 * CV, scale=0.02)
+    u = _randn(g, H, scale=0.3)
+    for c, sign in ((300, 1), (700, 1), (1500, -1), (1800, -1)):
+        w[:, CV + c] = sign * u
+    lean = torch.tensor([(1.0, -1.0, 0.0)[b % 3] for b in range(B)],
+                        device=dev)
+    x = _randn(g, B, H) + 2.0 * lean[:, None] * u / u.norm() * H ** 0.5
+    if B > 1:
+        x[1, 0] = float("inf")
+    norm = ((1.0 + 0.1 * _randn(g, H)).bfloat16(), 1e-6)
+    ptab = _randn(g, 16, 3584, H, dtype=torch.bfloat16)
+    if kind == "dense":
+        fns, wargs = (G.gemv, G.gemv_plain), (w.bfloat16(),)
+    elif kind == "int8":
+        q8 = quant.quantize(w)
+        fns, wargs = (G.gemv_int8, G.gemv_int8_plain), (q8["q"], q8["scale"])
+    else:
+        q4 = quant.quantize_int4(w)
+        fns, wargs = ((G.gemv_int4, G.gemv_int4_plain),
+                      (q4["q4"], q4["m8"], q4["scale"]))
+    return fns + (x, wargs, norm, ptab, 1024)
+
+
+@pytest.mark.parametrize("q", [1, 15])
+@pytest.mark.parametrize("B", [1, 10, 17, 32])
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
+def test_argmax_gather_exact(dev, kind, B, q):
+    """The argmax epilogue of the head slice (`argmax=`, one launch) on
+    `_head_case`: codes and the gathered rows (q = 1; none at q = 15)
+    equal `argmax_gather_plain` on the launch's own logits exactly, and
+    the plain head slice's exactly where its logits decide (the rows that
+    lean on a tied pair, and the NaN row); the logits are the plain
+    product's within one bf16 ulp; a launch without `out` gives the same
+    codes and rows."""
+    fn, plain, x, wargs, norm, ptab, rows = _head_case(dev, kind, B, 40 + B)
+    CV = 2048
+    kw = dict(col0=CV, n=CV, epilogue=G.EPI_F32_ROUND_DT, norm=norm,
+              dt=torch.bfloat16)
+
+    def run(f, out):
+        codes = torch.zeros(B, 16, dtype=torch.int32, device=dev)
+        xo = None if q == 15 else torch.zeros(B, 1024, device=dev)
+        f(x, *wargs, out=out, argmax=(codes, q, ptab, rows, xo), **kw)
+        return codes, xo
+
+    lg = torch.empty(B, CV, device=dev)
+    codes, xo = run(fn, lg)
+    codes_p, xo_p = run(lambda *a, out, argmax, **k: el.argmax_gather_plain(
+        lg, *argmax), None)
+    assert torch.equal(codes, codes_p)
+    assert xo is None or torch.equal(xo, xo_p)
+    codes_n, xo_n = run(fn, None)
+    assert torch.equal(codes_n, codes)
+    assert xo is None or torch.equal(xo_n, xo)
+    ref = plain(x, *wargs, **kw)
+    fin = torch.isfinite(ref).all(-1)
+    assert torch.isnan(lg[~fin]).all() and torch.isnan(ref[~fin]).all()
+    _close(lg[fin], ref[fin], torch.bfloat16)
+    codes_r, xo_r = run(plain, None)
+    want = {0: 300, 1: 1500}
+    for b in range(B):
+        w_b = CV if b == 1 and B > 1 else want.get(b % 3)
+        if w_b is not None:
+            assert int(codes[b, q]) == int(codes_r[b, q]) == w_b, b
+            if xo is not None:
+                assert torch.equal(xo[b], xo_r[b])
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
+def test_argmax_epilogue_tickets_reset_across_graph_replays(dev, kind):
+    """Two argmax launches (q = 3 with the gather into x itself, then q = 4
+    without) captured in one CUDA graph and replayed twice, the codes
+    zeroed and x renewed before each replay: each replay gives the eager
+    launches' codes and rows, so every launch left its tickets and keys
+    zero for the next."""
+    B, CV = 10, 2048
+    fn, _, x, wargs, norm, ptab, rows = _head_case(dev, kind, B, 7)
+    kw = dict(col0=CV, n=CV, epilogue=G.EPI_F32_ROUND_DT, norm=norm,
+              dt=torch.bfloat16)
+    x0 = x.clone()
+    codes = torch.zeros(B, 16, dtype=torch.int32, device=dev)
+
+    def launches():
+        fn(x, *wargs, argmax=(codes, 3, ptab, rows, x), **kw)
+        fn(x, *wargs, argmax=(codes, 4, ptab, rows, None), **kw)
+
+    launches()
+    want_codes, want_x = codes.clone(), x.clone()
+    x.copy_(x0)
+    codes.zero_()
+    # the capture stream's workspace is made (and zeroed) by a launch on
+    # it before the capture, so no replay starts with a captured memset
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launches()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        launches()
+    for _ in range(2):
+        x.copy_(x0)
+        codes.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want_codes)
+        assert torch.equal(x, want_x)
 
 
 def test_fused_steps_match_plain_tiny_f32(dev):
@@ -618,8 +724,9 @@ def _frame_case(dev, cfg, kind, B, seed, peak=False):
 def test_predictor_frame_tiny_f32_codes_equal_plain(dev, B):
     """The frame kernel at the tiny f32 config: codes equal to the plain
     version on the card and on the CPU; the routed entry launches it once
-    a frame where frame_route takes it (B <= 9 dense), and the kernel
-    itself takes every B <= MAX_B."""
+    a frame where frame_route takes it (B <= 10 dense), and the kernel
+    itself takes every B <= MAX_B. With a NaN head column the kernel gives
+    JAX's order (code CV, then the bias row), equal to plain."""
     cfg = tiny_engine_config().predictor
     pp, ptab, rows, h, code0 = _frame_case(dev, cfg, "dense", B, 21 + B)
     routed = fused_predictor.frame_route(pp, B) == fused_predictor.KERNEL
@@ -637,6 +744,23 @@ def test_predictor_frame_tiny_f32_codes_equal_plain(dev, B):
     cpu = fused_predictor.frame_codes_fused_plain(
         {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
              else v.cpu()) for k, v in pp.items()},
+        cfg, ptab.cpu(), rows, h.cpu(), code0.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    # a NaN head column (slice 13, column 100): every row's code 14 is CV
+    # (JAX's argmax_row), pass 15 takes the bias row; exact against plain
+    CV = 2048
+    head = pp["head"].clone()
+    head[:, 13 * CV + 100] = float("nan")
+    pn = dict(pp, head=head)
+    got = fused_predictor.predictor_frame_kernel(pn, cfg, ptab, rows, h,
+                                                 code0)
+    want = fused_predictor.frame_codes_fused_plain(pn, cfg, ptab, rows, h,
+                                                   code0)
+    assert (got[:, 14] == CV).all() and (got[:, 15] != CV).all()
+    assert torch.equal(got, want)
+    cpu = fused_predictor.frame_codes_fused_plain(
+        {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+             else v.cpu()) for k, v in pn.items()},
         cfg, ptab.cpu(), rows, h.cpu(), code0.cpu())
     assert torch.equal(got.cpu(), cpu)
 

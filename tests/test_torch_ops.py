@@ -8,6 +8,7 @@ The kernels themselves are held against these plain versions on the card
 by tests/test_torch_kernels.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -191,15 +192,37 @@ def test_qk_norm_rope_plain_matches_jax():
     _close(v, heads[:, 0, nq + nk:], atol=0)
 
 
+def _jax_argmax_row(lg):
+    """The greedy code of JAX's predictor kernel (`argmax_row`,
+    qwen3_tts_tpu/ops/fused_predictor.py:465-469) of numpy logits [B, CV]:
+    min(where(lg >= max, iota, CV))."""
+    lg = jnp.asarray(lg)
+    m = jnp.max(lg, axis=-1, keepdims=True)
+    iota = jax.lax.broadcasted_iota(jnp.int32, lg.shape, 1)
+    return np.asarray(jnp.min(jnp.where(lg >= m, iota, lg.shape[1]), axis=-1))
+
+
 def test_argmax_gather_plain_ties_and_bias_row():
-    B, CV, R, H = 3, 2048, 10, 8
-    logits = torch.zeros(B, CV)
-    logits[0, [5, 9]] = 2.0              # tie: the lowest index wins
-    logits[1, 7] = 1.0
-    logits[2, 2047] = 3.0                # past the real rows: bias row
+    """JAX's `argmax_row` order, NaN included: the lowest index on ties,
+    code CV for a row holding a NaN (JAX: max NaN, no element >= it), and
+    the gathered row ptab[q][sel(code)] with the bias row past the real
+    rows."""
+    B, CV, R, H = 6, 2048, 10, 8
+    logits = torch.from_numpy(_rng(4).integers(-3, 3, (B, CV)).astype(
+        np.float32))
+    logits[0, [5, 9]] = 4.0              # tie: the lowest index wins
+    logits[1, 7] = 4.0
+    logits[2, 2047] = 5.0                # past the real rows: bias row
+    logits[3, [1, 3]] = 6.0              # a tie, and a NaN in the row
+    logits[3, 900] = float("nan")
+    logits[4] = float("-inf")            # all -inf: index 0
+    logits[5, 2047] = float("nan")       # a NaN at the last column
     ptab = torch.arange(2 * R * H, dtype=torch.float32).reshape(2, R, H)
     codes = torch.zeros(B, 16, dtype=torch.int32)
     x = torch.empty(B, H)
-    el.argmax_gather(logits, codes, 1, ptab, R - 1, x)
-    assert codes[:, 1].tolist() == [5, 7, 2047]
-    assert torch.equal(x, ptab[1][torch.tensor([5, 7, R - 1])])
+    el.argmax_gather_plain(logits, codes, 1, ptab, R - 1, x)
+    want = _jax_argmax_row(logits.numpy())
+    assert want.tolist() == [5, 7, 2047, CV, 0, CV]
+    assert codes[:, 1].tolist() == want.tolist()
+    sel = np.where(want < R - 1, want, R - 1)
+    assert torch.equal(x, ptab[1][torch.from_numpy(sel)])

@@ -130,9 +130,10 @@ def test_kernel_sources_and_build_key():
             "talker_step.cu"} <= names
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # int8_panel launches kernel A (qmatmul_launch), not a probe kernel
     probes = {f"probe_{n}_launch" for n in (
         "hbm_scratch", "fori_dma", "argmax", "dyn_sublane", "rot", "onehot",
-        "dyn_col_dma", "int8_panel")}
+        "dyn_col_dma")}
     assert set(build.SIGNATURES) == {
         "gemv_launch", "gemv_int8_launch", "gemv_int4_launch",
         "gemv_blocks_per_sm", "qmatmul_map", "qmatmul_launch",

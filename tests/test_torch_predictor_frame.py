@@ -78,12 +78,12 @@ def _meta_params(cfg, kind):
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 9, 10, 12, 13, 16, 17])
 def test_route(config, kind, B, monkeypatch):
-    """Dense weights at B <= 9, int8 weights at B <= 12 and all-int4
+    """Dense weights at B <= 10, int8 weights at B <= 13 and all-int4
     weights at B <= ROUTE_MAX_B["int4"] go to the frame kernel (every
     end-to-end run on it beat every run on the chain there on the card);
     larger batches to the chain, and frame_codes_fused takes that
     route."""
-    assert fp.ROUTE_MAX_B == {"dense": 9, "int8": 12, "int4": 16}
+    assert fp.ROUTE_MAX_B == {"dense": 10, "int8": 13, "int4": 16}
     assert max(fp.ROUTE_MAX_B.values()) <= fp.MAX_B
     cfg = CONFIGS.get(config, SMALL4)
     params = _meta_params(cfg, kind)
@@ -105,8 +105,8 @@ def test_route_mixed_dense_int8_is_kernel_and_int4_in_a_mix_is_chain():
     params = _meta_params(SMALL4, "dense")
     mixed = dict(params, head=_meta_params(SMALL4, "int8")["head"])
     assert fp.frame_route(mixed, 4) == fp.KERNEL
-    assert fp.frame_route(mixed, 9) == fp.KERNEL
-    assert fp.frame_route(mixed, 10) == fp.CHAIN    # the dense limit
+    assert fp.frame_route(mixed, 10) == fp.KERNEL
+    assert fp.frame_route(mixed, 11) == fp.CHAIN    # the dense limit
     assert fp.frame_route(mixed, fp.MAX_B + 1) == fp.CHAIN
     for other in ("dense", "int8"):
         base = _meta_params(SMALL4, other)
@@ -359,7 +359,7 @@ def _crafted_logits(seed):
                           .astype(np.float32))
     lg[0, [7, 8, 900, 2047]] = 9.0              # tie: 7 wins
     lg[1, [1000, 15, 1500]] = 9.0               # tie across blocks: 15
-    lg[2, [3, 600]] = float("nan")              # first NaN wins
+    lg[2, [3, 600]] = float("nan")              # a NaN: code CV
     lg[2, 4] = 1e30
     lg[3] = float("-inf")                       # all -inf: index 0
     lg[4, 2047] = 50.0
@@ -369,11 +369,17 @@ def _crafted_logits(seed):
 @pytest.mark.parametrize("nb", [132, 114, 7, 1])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_partials_reduce_to_torch_argmax(nb, seed):
-    """Per-block (max, index) partials, reduced in any order, give
-    torch.argmax: the lowest index on ties, NaN first."""
+    """Per-block (max, index) partials, reduced in any order, give JAX's
+    `argmax_row` (qwen3_tts_tpu/ops/fused_predictor.py:465-469): the
+    lowest index on ties, code CV for a row holding a NaN."""
     lg = _crafted_logits(seed)
-    want = torch.argmax(lg, dim=-1)
-    assert want[:4].tolist() == [7, 15, 3, 0]
+    CV = protocol.CODE_VOCAB
+    jl = jnp.asarray(lg.numpy())
+    iota = jax.lax.broadcasted_iota(jnp.int32, jl.shape, 1)
+    want = torch.from_numpy(np.asarray(jnp.min(jnp.where(
+        jl >= jnp.max(jl, axis=-1, keepdims=True), iota, CV), axis=-1))
+        .astype(np.int64))
+    assert want[:4].tolist() == [7, 15, CV, 0]
     vals, idx = fp.block_partials(lg, nb)
     assert torch.equal(fp.reduce_partials(vals, idx), want)
     perm = torch.from_numpy(np.random.default_rng(seed).permutation(nb))
@@ -482,6 +488,36 @@ def test_int4_kernel_refuses_a_mix_and_partial_groups():
     with pytest.raises(ValueError, match="multiples of 256"):
         fp.predictor_frame_kernel(_meta_params(narrow, "int4"), narrow,
                                   ptab, rows, h, c0)
+
+
+def test_frame_codes_with_a_nan_match_jax_kernel():
+    """A NaN on the greedy path: column 100 of head slice 13 is NaN, so
+    every row's code 14 is CV (JAX's `argmax_row`) and pass 15 takes
+    ptab[14][sel(CV)]. The chain's plain version
+    (`_frame(chain.PLAIN, ...)`), the chain on the kernels' op set and the
+    routed `frame_codes_fused` (on the CPU: their plain versions) against
+    JAX's frame_codes_fused, the Pallas kernel in interpret mode: codes
+    exact."""
+    from qwen3_tts_tpu_torch.ops import chain
+    B, CV, slice_ = 3, protocol.CODE_VOCAB, 13
+    jp, ja, tp, ta, h1024, code0 = _frame_inputs("dense", B, 21)
+    head = np.array(jp["head"])
+    head[:, slice_ * CV + 100] = np.nan
+    jp = dict(jp, head=jnp.asarray(head))
+    tp = dict(tp, head=torch.from_numpy(head))
+    jptab, rows = jfused_predictor.make_ptab(ja, PC)
+    ref = np.asarray(jfused_predictor.frame_codes_fused(
+        jp, PC, jptab, rows, jnp.asarray(h1024), jnp.asarray(code0),
+        interpret=True))
+    nan = np.zeros(16, bool)
+    nan[slice_ + 1] = True
+    assert (ref[:, nan] == CV).all() and (ref[:, ~nan] != CV).all()
+    ptab, trows = fp.make_ptab(ta, PC)
+    h, c0 = torch.from_numpy(h1024), torch.from_numpy(code0)
+    for got in (fp._frame(chain.PLAIN, tp, PC, ptab, trows, h, c0),
+                fp._frame(chain.KERNELS, tp, PC, ptab, trows, h, c0),
+                fp.frame_codes_fused(tp, PC, ptab, trows, h, c0)):
+        np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_frame_codes_fused_chain_route_matches_jax():
