@@ -66,8 +66,10 @@ result line:
                sums: max |d| <= 1e-5 x max |plain|), the TPU probe's own
                check, the edge indices, non-constant inputs
                (`mosaic_probe.varied_inputs`: hbm_scratch on an arange and
-               normal draws, fori_dma at 1-5 and 9 steps, the int8 panel
-               at three row strides), and device times (CUDA graph replay)
+               normal draws, fori_dma at 1-5 and 9 steps, dyn_sublane at
+               six positions, dyn_col_dma at 1-256 rows on two widths, the
+               int8 panel at three row strides), and device times (CUDA
+               graph replay)
   5. agree     teacher-forced agreement at full width in bf16, kernels vs
                plain from the same state, with peaked heads: talker step
                argmax >= 0.93, predictor codes >= 0.95, for dense weights,
@@ -1629,7 +1631,7 @@ def phase_probes(rec: Record, card: str):
     edge = [("onehot", mp.onehot, mp.onehot_plain,
              (codes.contiguous(), inputs["onehot"][1]))]
     c, w = inputs["dyn_sublane"][0], inputs["dyn_col_dma"][1]
-    for v in (-40, -3, 0, 31, 40):
+    for v in (-40, -3, 0, 7, 31, 40):
         edge.append((f"dyn_sublane pos={v}", mp.dyn_sublane,
                      mp.dyn_sublane_plain,
                      (c, torch.tensor([v], dtype=torch.int32, device=dev))))
@@ -1657,9 +1659,12 @@ def phase_probes(rec: Record, card: str):
         + "; ".join(f"{n} {l}" for n, l, _ in varied) + ") agree")
 
     # the one PyTorch call of a probe's function, where there is one; none
-    # for dyn_sublane and dyn_col_dma (a start read on the device, clamped
-    # as lax.dynamic_slice clamps it) and rot (rotate-half negates one
-    # half). int8_panel's is torch._weight_int8pack_mm on the panel
+    # for dyn_col_dma (a start read on the device, clamped as
+    # lax.dynamic_slice clamps it) and rot (rotate-half negates one half).
+    # dyn_sublane's and onehot's index_select take the index as it is, no
+    # clamp (the same on these in-range inputs); dyn_sublane's gives the 8
+    # copies as 8 gathers of row pos. int8_panel's is
+    # torch._weight_int8pack_mm on the panel
     # transposed to [256, 512] once, outside the timed call, with unit
     # scales (as kernel A's yardstick); it returns bf16, not f32
     x8, w8 = inputs["int8_panel"]
@@ -1668,6 +1673,8 @@ def phase_probes(rec: Record, card: str):
     library = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
                "fori_dma": lambda w: torch.sum(w, 0),
                "argmax": lambda x: torch.argmax(x, -1),
+               "dyn_sublane": lambda c, pos: torch.index_select(
+                   c, 0, pos.expand(mp.SUBLANE_COPIES)),
                "onehot": lambda codes, tab: torch.index_select(
                    tab, 0, codes[:, 0]),
                "int8_panel": lambda x, w: torch._weight_int8pack_mm(
@@ -1683,11 +1690,21 @@ def phase_probes(rec: Record, card: str):
         lib = library.get(p.name)
         rec.library_ms[name] = None if lib is None else graph_ms(
             lambda: lib(*args))
-        # each input read once, the output written once; the panel's
-        # function reads only the columns it multiplies, w[:, :PANEL_N]
+        # each input read once, the output written once, counting only
+        # what the function reads: the panel's columns it multiplies,
+        # w[:, :PANEL_N]; dyn_sublane's index and row pos of c;
+        # dyn_col_dma's q and the column slice w[:, c0:c0 + 256]
         ins = [a for a in args if isinstance(a, torch.Tensor)]
         if p.name == "int8_panel":
             ins = [x8, w8[:, :mp.PANEL_N]]
+        elif p.name == "dyn_sublane":
+            c, pos = args
+            ins = [pos, c[int(mp.dynamic_start(pos, c.shape[0], 1))]]
+        elif p.name == "dyn_col_dma":
+            q, w = args
+            c0 = int(mp.dynamic_start(q.long() * mp.COL_MUL + mp.COL_ADD,
+                                      w.shape[1], mp.COL_WIDTH))
+            ins = [q, w[:, c0:c0 + mp.COL_WIDTH]]
         rec.bound[name] = bound(nbytes(*ins, p.kernel(*args)))
         log(f"  {name:22s} device: kernel {rec.ms[name]:.4f} ms, plain "
             f"{rec.plain_ms[name]:.4f} ms, library "

@@ -11,12 +11,14 @@
 //                        buffers, one mbarrier a stage re-armed each use
 //                        (phase parity)
 //   argmax        (:93)  per-row (value, index) warp/block reduction
-//   dyn_sublane   (:115) a device-held index read in the kernel, a 128 KB
-//                        dynamic shared buffer indexed by it
+//   dyn_sublane   (:115) a device-held index read in the kernel while a
+//                        bulk copy stages the table beside it, a 128 KB
+//                        dynamic shared scratch indexed by it
 //   rot           (:139) rotate-half as an elementwise lane map
 //   onehot        (:158) one-hot x table as a direct, bounds-checked row load
 //   dyn_col_dma   (:180) a 2-D TMA tiled load at coordinates computed in the
-//                        kernel from a device-held index
+//                        kernel from a device-held index, a bulk store of
+//                        it; the rows dealt to CTAs
 //
 // The eighth, int8_panel (:208: TMA loads of an int8 panel, int8 -> bf16,
 // a bf16 dot into f32), computes kernel A's function (out = x @ w[:, :256],
@@ -28,10 +30,11 @@
 //
 // Bound: none of them is a path of the system; each is one block (or a few)
 // at fixed small shapes, latency first: launch and dependent copies, not
-// bytes. hbm_scratch and fori_dma were redesigned for this card (their
-// copies spread over CTAs, or kept in flight by a ring); the other five
-// here are right and simple, not fast. Every launch function returns
-// cudaGetLastError().
+// bytes. hbm_scratch, fori_dma, dyn_sublane and dyn_col_dma were
+// redesigned for this card (copies spread over CTAs, kept in flight by a
+// ring, or issued before the index they wait on is read); argmax, rot and
+// onehot keep their first, simple design, not yet made fast. Every launch
+// function returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,13 +125,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
-}
-
-// the dynamic shared buffer rounded up to 128 bytes (TMA destinations);
-// the launch asks for 128 bytes more than it uses
-__device__ __forceinline__ unsigned char* align_128(unsigned char* p) {
-  uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  return reinterpret_cast<unsigned char*>((a + 127) & ~uintptr_t(127));
 }
 
 // a start index as lax.dynamic_slice takes it: a negative start counts
@@ -288,32 +284,48 @@ argmax_kernel(const float* __restrict__ x, int* __restrict__ out, int cols,
 }
 
 // ------------------------------------------------------- 8: dyn_sublane
+// The TPU probe keeps the table c in VMEM and writes row pos of it into
+// row pos of an [8, 32, 128] scratch. Here thread 0 stages the whole 16 KB
+// table in shared memory with one bulk copy on an mbarrier at entry, while
+// warp 1 reads pos and clamps it, so the row's address no longer waits on
+// pos before data moves: one global round trip, not two. The scratch keeps
+// the probe's layout and is not cleared (only row p is read back). Warp s
+// writes copy s, a float4 a lane; the read-back takes another thread
+// mapping (copies and lanes reversed) and stores out as float4.
 constexpr int kSubRows = 32, kSubLanes = 128, kSubCopies = 8;
-constexpr int kSubBufBytes = kSubCopies * kSubRows * kSubLanes * 4;  // 128 KB
+constexpr int kSubRow4 = kSubLanes / 4;                        // float4s a row
+constexpr uint32_t kSubTabBytes = kSubRows * kSubLanes * 4;    // 16 KB
+constexpr int kSubBufBytes = kSubCopies * kSubTabBytes;        // 128 KB
+constexpr int kSubThreads = kSubCopies * 32;                   // a warp a copy
+static_assert(kSubThreads == kSubCopies * kSubRow4, "a float4 a thread out");
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSubThreads)
 dyn_sublane_kernel(const float* __restrict__ c, const int* __restrict__ pos,
                    float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  float* buf = reinterpret_cast<float*>(dyn_smem);   // [8][32][128]
-  const int tid = threadIdx.x;
-  // the index comes from device memory: no host round trip
-  const int p = dynamic_start(pos[0], kSubRows, 1);
-  for (int i = tid; i < kSubCopies * kSubRows * kSubLanes; i += kThreads)
-    buf[i] = 0.f;
-  __syncthreads();
-  constexpr int n = kSubCopies * kSubLanes;
-  for (int i = tid; i < n; i += kThreads) {
-    int s = i / kSubLanes, l = i % kSubLanes;
-    buf[(s * kSubRows + p) * kSubLanes + l] = c[p * kSubLanes + l];
+  float4* buf = reinterpret_cast<float4*>(dyn_smem);   // [8][32][32] float4
+  __shared__ __align__(128) float4 tab[kSubRows * kSubRow4];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int sp;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {                       // the table -> shared, not waiting on pos
+    mbar_init(&bar, 1);
+    mbar_expect_tx(&bar, kSubTabBytes);
+    bulk_g2s(tab, c, kSubTabBytes, &bar);
+  } else if (tid == 32) {               // the index, from device memory
+    sp = dynamic_start(pos[0], kSubRows, 1);
   }
+  __syncthreads();
+  const int p = sp;
+  mbar_wait(&bar, 0);
+  buf[(warp * kSubRows + p) * kSubRow4 + lane] =
+      tab[p * kSubRow4 + lane];
   __syncthreads();
   // read back through another thread mapping than the write
-  for (int i = tid; i < n; i += kThreads) {
-    int j = n - 1 - i;
-    int s = j / kSubLanes, l = j % kSubLanes;
-    out[j] = buf[(s * kSubRows + p) * kSubLanes + l];
-  }
+  const int j = kSubThreads - 1 - tid;
+  const int s = j / kSubRow4, l = j % kSubRow4;
+  reinterpret_cast<float4*>(out)[j] =
+      buf[(s * kSubRows + p) * kSubRow4 + l];
 }
 
 // --------------------------------------------------------------- 9: rot
@@ -340,31 +352,70 @@ __global__ void onehot_kernel(const int* __restrict__ codes,
 }
 
 // ------------------------------------------------------- 11: dyn_col_dma
-__global__ void __launch_bounds__(kThreads)
+// out[rows, width] = w[:, c0:c0 + width], c0 computed in the kernel from a
+// device-held q. The rows are dealt to CTAs of one thread, kColRows a CTA,
+// and the thread never touches the data: it prefetches the tensor map's
+// descriptor (it overlaps the read of q), reads q, loads its slice as one
+// 2-D TMA box [kColRows, width] at (c0, r0) onto an mbarrier, then writes
+// the slice's valid rows (out's rows r0.. are contiguous) with one bulk
+// store from shared memory. TMA fills the box's rows past `rows` with zeros; the
+// store leaves them out. Only async-proxy accesses touch the buffer, so no
+// proxy fence; the store's source read is awaited before the CTA exits.
+// Bound: two dependent round trips (q, then the box) and the store, not
+// bytes. COL_ROWS (-D, as SCRATCH_CTAS) sets the rows a CTA: at the
+// probe's 128 rows, 32 CTAs of 4 rows, 64 of 2 and 16 of 8 measured
+// within ~3% of each other (4 the fastest in two of three runs), 128 of 1
+// ~6% slower, 8 of 16 ~10% and 4 of 32 ~27% (H100, CUDA-graph replay;
+// tools/frame_measure.py probes with -DCOL_ROWS=N).
+#ifndef COL_ROWS
+#define COL_ROWS 4
+#endif
+constexpr int kColRows = COL_ROWS;
+constexpr int kColMaxWidth = 256;                // one TMA box's limit
+static_assert(kColRows >= 1 && kColRows <= 256, "a TMA box's rows");
+static_assert(kColRows * kColMaxWidth * 4 <= 48 * 1024, "static shared");
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+__global__ void __launch_bounds__(1)
 dyn_col_dma_kernel(const __grid_constant__ CUtensorMap map,
                    const int* __restrict__ q, float* __restrict__ out,
                    int rows, int cols, int width, int q_mul, int q_add) {
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  float* buf = reinterpret_cast<float*>(align_128(dyn_smem));  // [rows][width]
+  __shared__ __align__(128) float buf[kColRows * kColMaxWidth];
   __shared__ __align__(8) uint64_t bar;
-  const int tid = threadIdx.x;
+  prefetch_tensormap(&map);
+  mbar_init(&bar, 1);
+  const int r0 = blockIdx.x * kColRows;
+  const int valid = min(kColRows, rows - r0);
   // column offset from the device-held q
   const int col0 = dynamic_start(q[0] * q_mul + q_add, cols, width);
-  if (tid == 0) mbar_init(&bar, 1);
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&bar, static_cast<uint32_t>(rows * width * 4));
-    tma_load_2d(buf, &map, col0, 0, &bar);
-  }
+  const uint32_t row_bytes = static_cast<uint32_t>(width) * 4;
+  mbar_expect_tx(&bar, kColRows * row_bytes);      // the whole box, fill too
+  tma_load_2d(buf, &map, col0, r0, &bar);
   mbar_wait(&bar, 0);
-  for (int i = tid; i < rows * width; i += kThreads) out[i] = buf[i];
+  bulk_s2g(out + (int64_t)r0 * width, buf, valid * row_bytes);
+  bulk_wait_read();
 }
 
 // ------------------------------------------------------------ host side
-cudaError_t allow_smem(const void* kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+constexpr int kMaxDevices = 64;
+
+// cudaFuncSetAttribute once a device and process, not once a launch (a
+// host call of its own); a device past kMaxDevices asks each launch
+cudaError_t allow_smem_once(const void* kernel, int bytes,
+                            bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace
@@ -401,12 +452,16 @@ int probe_argmax_launch(const void* x, void* out, int rows, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
-// c f32 [32, 128], pos int32 [1] (device) -> out f32 [8, 128]
+// c f32 [32, 128] (16-byte aligned), pos int32 [1] (device) -> out f32
+// [8, 128]
 int probe_dyn_sublane_launch(const void* c, const void* pos, void* out,
                              void* stream) {
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(&dyn_sublane_kernel), kSubBufBytes);
+  static bool allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(
+      reinterpret_cast<const void*>(&dyn_sublane_kernel), kSubBufBytes,
+      allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dyn_sublane_kernel<<<1, kThreads, kSubBufBytes,
+  dyn_sublane_kernel<<<1, kSubThreads, kSubBufBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(c), static_cast<const int*>(pos),
       static_cast<float*>(out));
@@ -438,22 +493,21 @@ int probe_onehot_launch(const void* codes, const void* tab, void* out,
 }
 
 // q int32 [1] (device), w f32 [rows, cols] -> out f32 [rows, width] =
-// w[:, c0:c0 + width], c0 = clamp(q * q_mul + q_add); rows, width <= 256
-// (one TMA box), 16-byte aligned rows
+// w[:, c0:c0 + width], c0 = clamp(q * q_mul + q_add); rows <= 256, width
+// <= 256 (one TMA box's width), 16-byte aligned rows; ceil(rows /
+// kColRows) CTAs
 int probe_dyn_col_dma_launch(const void* q, const void* w, void* out,
                              int rows, int cols, int width, int q_mul,
                              int q_add, void* stream) {
-  if (rows < 1 || rows > 256 || width < 4 || width > 256 || width % 4 ||
-      cols < width || cols % 4)
+  if (rows < 1 || rows > 256 || width < 4 || width > kColMaxWidth ||
+      width % 4 || cols < width || cols % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map;
   cudaError_t err = make_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, rows,
-                             cols, cols * 4LL, rows, width);
+                             cols, cols * 4LL, kColRows, width);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = rows * width * 4 + 128;
-  err = allow_smem(reinterpret_cast<const void*>(&dyn_col_dma_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dyn_col_dma_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dyn_col_dma_kernel<<<(rows + kColRows - 1) / kColRows, 1, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<const int*>(q), static_cast<float*>(out), rows, cols,
       width, q_mul, q_add);
   return static_cast<int>(cudaGetLastError());

@@ -120,14 +120,19 @@ probes [PARENT_CU] [DEFS ...]
         (PARENT_CU, a path ending in .cu) and this source with each
         DEFS given (NAME=VALUE[,NAME=VALUE]: -D overrides of its
         geometry), all at once; each library loaded in turn in place of
-        the port's. Two rounds, the libraries in turns (parent, this,
+        the port's. Five rounds, the libraries in turns (parent, this,
         variants, then back): every probe whose kernel is in probes.cu
         held against its plain version on the tool's inputs and
         `mosaic_probe.varied_inputs`, then its device ms by CUDA-graph
-        replay; beside them the PyTorch calls of hbm_scratch (`torch.mul`)
-        and fori_dma (`torch.sum`), and each kernel's loss to its call (ms
-        over the call's ms). int8_panel launches kernel A, not a kernel of
-        probes.cu: `head-ab` times it.
+        replay; beside them the PyTorch calls of hbm_scratch (`torch.mul`),
+        fori_dma (`torch.sum`) and dyn_sublane (`torch.index_select`);
+        per library and probe the median and range of the five, and each
+        kernel's loss to its call (median over the call's median).
+        A parent's dyn_col_dma is held only at rows <= 224: the one-CTA
+        design staged all rows in one block's shared memory, which cannot
+        take 256.
+        int8_panel launches kernel A, not a kernel of probes.cu: `head-ab`
+        times it.
 head-ab TAG [quick]
         one tree's side of a parent-vs-change A/B of the predictor's head
         slice and its greedy code, run from the tree's root like `ab`. (a)
@@ -902,6 +907,7 @@ def probe_times(parent, variants) -> None:
     """The probe kernels' designs side by side (module docstring,
     `probes`)."""
     import ctypes
+    import statistics
     import subprocess
     import torch
     import chip_smoke as c
@@ -944,15 +950,25 @@ def probe_times(parent, variants) -> None:
     cases = [(p.name, "the tool's", inputs[p.name]) for p in here]
     cases += [case for case in mp.varied_inputs(dev, seed=2)
               if case[0] in probes]
+
+    def held(tag, name, args):
+        # the one-CTA parent refuses rows past its shared memory, and the
+        # refusal would stay as its runtime's last error: not launched
+        return not (tag == "parent" and name == "dyn_col_dma"
+                    and args[1].shape[0] > 224)
     calls = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
-             "fori_dma": lambda w: torch.sum(w, 0)}
+             "fori_dma": lambda w: torch.sum(w, 0),
+             "dyn_sublane": lambda c, pos: torch.index_select(
+                 c, 0, pos.expand(mp.SUBLANE_COPIES))}
     times = {}
     order = list(libs)
     try:
-        for rnd in range(2):
-            for tag in order + order[::-1]:
+        for rnd in range(5):
+            for tag in order if rnd % 2 == 0 else order[::-1]:
                 build._lib = libs[tag]
                 for name, label, args in cases:
+                    if not held(tag, name, args):
+                        continue
                     p = probes[name]
                     ok, err = mp.agree(p, p.kernel(*args), p.plain(*args))
                     if not ok:
@@ -974,14 +990,17 @@ def probe_times(parent, variants) -> None:
         build._lib = None
     print(f"  {len(cases)} cases held against plain for each library",
           flush=True)
+    med = {k: statistics.median(v) for k, v in times.items()}
     for tag in order:
         for p in here:
             ms = times[(tag, p.name)]
-            line = f"  {tag:24s} {p.name:12s} {min(ms):.5f}-{max(ms):.5f} ms"
+            line = (f"  {tag:24s} {p.name:12s} median {med[(tag, p.name)]:.5f}"
+                    f" ({min(ms):.5f}-{max(ms):.5f}) ms")
             if p.name in calls:
                 ref = times[("call", p.name)]
-                line += (f", call {min(ref):.5f}-{max(ref):.5f} ms, loss "
-                         f"{sum(ms) / sum(ref) * len(ref) / len(ms):.2f}x")
+                line += (f", call {med[('call', p.name)]:.5f} ({min(ref):.5f}-"
+                         f"{max(ref):.5f}) ms, loss "
+                         f"{med[(tag, p.name)] / med[('call', p.name)]:.2f}x")
             print(line + f" on {card}", flush=True)
 
 

@@ -19,12 +19,14 @@ written out in torch:
                          loop                      4 stages, an mbarrier each
                                                    re-armed on phase parity
   7   argmax        :93  max + iota-min            (value, index) reduction
-  8   dyn_sublane   :115 SMEM index, dynamic row   device-held index, 128 KB
-                                                   dynamic shared memory
+  8   dyn_sublane   :115 SMEM index, dynamic row   device-held index read while
+                                                   a bulk copy stages the table,
+                                                   128 KB dynamic shared scratch
   9   rot           :139 rotate-half concat        lane map
   10  onehot        :158 one-hot x table matmul    bounds-checked row load
   11  dyn_col_dma   :180 DMA at a dynamic column   2-D TMA tile at coordinates
-                                                   computed in the kernel
+                                                   computed in the kernel, bulk
+                                                   store; 4 rows a CTA
   12  int8_panel    :208 int8 panel DMA, bf16 dot  kernel A (csrc/qmatmul.cu):
                                                    a TMA ring, int8 -> bf16 in
                                                    registers, wgmma
@@ -41,13 +43,14 @@ picks an index, so they must be equal. Probe 12: every int8 value is exact
 in bf16 and every bf16 x int8 product is exact in f32, so only the order
 of the sums differs: max |kernel - plain| <= 1e-5 * max |plain|.
 
-These are not kernels of the synthesis path. hbm_scratch and fori_dma
-were redesigned for the H100 (their copies spread over CTAs, or kept in
-flight by a ring); int8_panel computes kernel A's function and launches
+These are not kernels of the synthesis path. hbm_scratch, fori_dma,
+dyn_sublane and dyn_col_dma were redesigned for the H100 (copies spread
+over CTAs, kept in flight by a ring, or issued before the device-held
+index is read); int8_panel computes kernel A's function and launches
 kernel A, the port's Hopper design of it (each launch counted in
-`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); the other
-five are right and simple, not fast. On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches its kernel or raises.
+`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); argmax, rot
+and onehot keep their first, simple design. On a CPU tensor each wrapper
+runs its plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -204,11 +207,13 @@ def dyn_sublane_plain(c: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def dyn_sublane(c: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """c f32 [32, 128], pos int32 [1] on the device -> [8, 128]: the
-    kernel reads pos itself (no host sync) and indexes a 128 KB dynamic
-    shared buffer with it."""
+    kernel stages c in shared memory by one bulk copy while it reads pos
+    itself (no host sync), and indexes a 128 KB dynamic shared scratch
+    with it."""
     if c.device.type == "cpu":
         return dyn_sublane_plain(c, pos)
     _check("dyn_sublane", c, torch.float32, SUBLANE_SHAPE)
+    _aligned("dyn_sublane", c)
     _check("dyn_sublane pos", pos, torch.int32, (1,), c.device)
     out = torch.empty(SUBLANE_COPIES, SUBLANE_SHAPE[1], dtype=torch.float32,
                       device=c.device)
@@ -280,7 +285,8 @@ def dyn_col_dma_plain(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def dyn_col_dma(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """q int32 [1] on the device, w f32 [rows <= 256, cols] -> [rows, 256]:
-    one 2-D TMA box, its column computed in the kernel from q."""
+    a few rows a CTA (csrc/probes.cu, -DCOL_ROWS), each slice one 2-D TMA
+    box at a column computed in the kernel from q and one bulk store."""
     if w.device.type == "cpu":
         return dyn_col_dma_plain(q, w)
     _check("dyn_col_dma w", w, torch.float32)
@@ -395,16 +401,16 @@ PROBES: Tuple[Probe, ...] = (
           "phase parity)", 65, 77, fori_dma, fori_dma_plain, _check_fori),
     Probe("argmax", "argmax (per-row (value, index) reduction -> [B, 128] "
           "int32)", 93, 103, argmax, argmax_plain, _check_argmax),
-    Probe("dyn_sublane", "dyn_sublane (device-held row index, 128 KB "
-          "dynamic shared buffer)", 115, 124, dyn_sublane, dyn_sublane_plain,
-          _check_sublane),
+    Probe("dyn_sublane", "dyn_sublane (device-held row index, the table "
+          "staged by a bulk copy, 128 KB dynamic shared scratch)", 115, 124,
+          dyn_sublane, dyn_sublane_plain, _check_sublane),
     Probe("rot", "rot (rotate-half lane map)", 139, 146, rot, rot_plain,
           _check_rot),
     Probe("onehot", "onehot (one-hot x table as a bounds-checked row load)",
           158, 169, onehot, onehot_plain, _check_onehot),
-    Probe("dyn_col_dma", "dyn_col_dma (2-D TMA box at a column computed "
-          "from a device-held q)", 180, 190, dyn_col_dma, dyn_col_dma_plain,
-          _check_col),
+    Probe("dyn_col_dma", "dyn_col_dma (2-D TMA boxes at a column computed "
+          "from a device-held q, bulk stores, rows over CTAs)", 180, 190,
+          dyn_col_dma, dyn_col_dma_plain, _check_col),
     Probe("int8_panel", "int8_panel (kernel A: TMA int8 panel, bf16 "
           "wgmma, f32 accumulation)", 208, 217, int8_panel, int8_panel_plain, _check_panel,
           exact=False),
@@ -441,14 +447,24 @@ def probe_inputs(device, seed: int = 0) -> Dict[str, tuple]:
 
 
 FORI_STEPS = (1, 2, 3, 4, 5, 9)
+SUBLANE_POS = (-40, -3, 0, 7, 31, 40)
+# dyn_col_dma's rows: one row, a partial, whole or only slice of the 2, 4,
+# 8, 16 and 32 rows a CTA that csrc/probes.cu's -DCOL_ROWS may set, the
+# most rows; each on a wide and a narrow w, at the device-held q of COL_Q
+COL_ROW_CASES = (1, 4, 7, 8, 16, 32, 100, 128, 256)
+COL_COLS = (2048, 260)
+COL_Q = (-9, 0, 3, 5)
 
 
 def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
     """(probe name, label, inputs) of the cases a constant or fixed input
     would not tell apart: hbm_scratch on an arange and on normal draws (a
     CTA that copied another slice would still give 2.0 on ones), fori_dma
-    on normal draws at each of FORI_STEPS steps, int8_panel on draws from
-    `seed` over the whole int8 range with three row strides (ldw 256, 400,
+    on normal draws at each of FORI_STEPS steps, dyn_sublane on a normal
+    table at each of SUBLANE_POS, dyn_col_dma on normal draws at each of
+    COL_ROW_CASES x COL_COLS (a slice dealt to the wrong CTA, or a partial
+    last slice stored whole, would show), int8_panel on draws from `seed`
+    over the whole int8 range with three row strides (ldw 256, 400,
     512)."""
     rng = np.random.default_rng(seed)
 
@@ -462,6 +478,15 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
                  SCRATCH_SHAPE, np.float32)),))]
     cases += [("fori_dma", f"steps={n}, normal", (t(rng.standard_normal(
         (n, 8, 128), np.float32)),)) for n in FORI_STEPS]
+    cases += [("dyn_sublane", f"pos={v}, normal", (t(rng.standard_normal(
+        SUBLANE_SHAPE, np.float32)), t(np.array([v], np.int32))))
+        for v in SUBLANE_POS]
+    for i, rows in enumerate(COL_ROW_CASES):
+        for j, cols in enumerate(COL_COLS):
+            q = COL_Q[(i + j) % len(COL_Q)]
+            w = rng.standard_normal((rows, cols), np.float32)
+            cases.append(("dyn_col_dma", f"rows={rows} cols={cols} q={q}, "
+                          "normal", (t(np.array([q], np.int32)), t(w))))
     for ldw in (PANEL_N, 400, 512):
         cases.append(("int8_panel", f"ldw={ldw}, seed {seed}", (
             t(rng.standard_normal(PANEL_X_SHAPE, np.float32)).bfloat16(),

@@ -648,7 +648,8 @@ def test_probe_kernel_matches_plain(dev, name):
             assert ok, (label, err)
 
 
-@pytest.mark.parametrize("name", ["hbm_scratch", "fori_dma", "int8_panel"])
+@pytest.mark.parametrize("name", ["hbm_scratch", "fori_dma", "dyn_sublane",
+                                  "int8_panel"])
 def test_probe_bulk_copy_refuses_misaligned_data(dev, name):
     """The bulk copies read 16-byte aligned addresses: a view 4 bytes off
     is refused before any launch."""
@@ -666,7 +667,10 @@ def test_probe_bulk_copy_refuses_misaligned_data(dev, name):
 
 def test_probe_kernels_edge_indices(dev):
     """Out-of-table codes give zero rows; device-held indices outside the
-    range are taken as lax.dynamic_slice takes them."""
+    range are taken as lax.dynamic_slice takes them, on normal draws (a row
+    or slice read from the wrong place shows); dyn_col_dma at row counts
+    that leave the last slice of 4 rows (csrc/probes.cu's COL_ROWS)
+    partial, whole or the only one, on a wide and a narrow w."""
     tab = torch.randn(256, 128, device=dev)
     codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
                          dtype=torch.int32, device=dev).expand(8, 128)
@@ -674,7 +678,7 @@ def test_probe_kernels_edge_indices(dev):
     assert torch.equal(mosaic_probe.onehot(codes, tab),
                        mosaic_probe.onehot_plain(codes, tab))
     c = torch.randn(32, 128, device=dev)
-    for pos in (-40, -3, 0, 31, 40):
+    for pos in (-40, -3, 0, 7, 31, 40):
         p = torch.tensor([pos], dtype=torch.int32, device=dev)
         assert torch.equal(mosaic_probe.dyn_sublane(c, p),
                            mosaic_probe.dyn_sublane_plain(c, p)), pos
@@ -683,6 +687,14 @@ def test_probe_kernels_edge_indices(dev):
         qt = torch.tensor([q], dtype=torch.int32, device=dev)
         assert torch.equal(mosaic_probe.dyn_col_dma(qt, w),
                            mosaic_probe.dyn_col_dma_plain(qt, w)), q
+    for rows in (1, 7, 4, 100, 128, 256):
+        for cols in (2048, 260):
+            w = torch.randn(rows, cols, device=dev)
+            for q in (-9, 0, 3, 5):
+                qt = torch.tensor([q], dtype=torch.int32, device=dev)
+                assert torch.equal(mosaic_probe.dyn_col_dma(qt, w),
+                                   mosaic_probe.dyn_col_dma_plain(qt, w)), (
+                    rows, cols, q)
 
 
 # ------------------------------------------------- the predictor frame kernel

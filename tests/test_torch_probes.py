@@ -140,9 +140,10 @@ def test_onehot_out_of_range_codes_give_zero_rows():
     assert not want[[1, 2, 4, 6]].any()
 
 
-@pytest.mark.parametrize("pos", [-40, -3, 0, 31, 40])
+@pytest.mark.parametrize("pos", [-40, -3, 0, 7, 31, 40])
 def test_dyn_sublane_clamps_like_dynamic_slice(pos):
-    c = jnp.arange(32 * 128, dtype=jnp.float32).reshape(32, 128)
+    c = jnp.asarray(np.random.default_rng(pos + 40).standard_normal(
+        (32, 128), np.float32))
     want = jax.lax.dynamic_slice_in_dim(c, pos, 1, 0)
     got = tprobe.dyn_sublane_plain(_torch(c),
                                    torch.tensor([pos], dtype=torch.int32))
@@ -151,8 +152,14 @@ def test_dyn_sublane_clamps_like_dynamic_slice(pos):
 
 
 @pytest.mark.parametrize("q", [-9, -1, 0, 3, 5])
-def test_dyn_col_dma_clamps_like_dynamic_slice(q):
-    w = jnp.arange(128 * 2048, dtype=jnp.float32).reshape(128, 2048)
+@pytest.mark.parametrize("rows,cols", [(128, 2048)] + [
+    (r, c) for r in (1, 7, 4, 100, 256) for c in (2048, 260)])
+def test_dyn_col_dma_clamps_like_dynamic_slice(q, rows, cols):
+    """The clamped column slice at row counts that fill the kernel's
+    slices of a few rows (4 by default) partly, wholly or once, on a wide
+    and a narrow w (normal draws; the TPU probe's [128, 2048] first)."""
+    w = jnp.asarray(np.random.default_rng(rows + cols).standard_normal(
+        (rows, cols), np.float32))
     want = jax.lax.dynamic_slice_in_dim(w, q * 512 + 256, 256, 1)
     got = tprobe.dyn_col_dma_plain(torch.tensor([q], dtype=torch.int32),
                                    _torch(w))
@@ -166,8 +173,9 @@ VARIED = tprobe.varied_inputs("cpu", seed=5)
 def test_plain_on_varied_inputs_matches_numpy(case):
     """The plain versions on the non-constant inputs the card checks use,
     against numpy: 2x exactly, the sum in the kernel's order (o = 0;
-    o += w[i]) exactly, and the panel within PANEL_REL_TOL of an f64
-    product (exact products; the sums' order differs)."""
+    o += w[i]) exactly, the clamped row and column slices exactly, and the
+    panel within PANEL_REL_TOL of an f64 product (exact products; the
+    sums' order differs)."""
     name, _, args = case
     probe = next(p for p in tprobe.PROBES if p.name == name)
     got = probe.plain(*args)
@@ -178,6 +186,15 @@ def test_plain_on_varied_inputs_matches_numpy(case):
         want = np.zeros(a[0].shape[1:], np.float32)
         for w in a[0]:
             want = want + w
+    elif name == "dyn_sublane":
+        p = int(args[1][0])
+        p = min(max(p + 32 if p < 0 else p, 0), 31)
+        want = np.broadcast_to(a[0][p], (8, 128))
+    elif name == "dyn_col_dma":
+        c0 = int(args[0][0]) * 512 + 256
+        cols = a[1].shape[1]
+        c0 = min(max(c0 + cols if c0 < 0 else c0, 0), cols - 256)
+        want = a[1][:, c0:c0 + 256]
     else:
         want = a[0].astype(np.float64) @ a[1][:, :tprobe.PANEL_N].astype(
             np.float64)
@@ -193,9 +210,11 @@ def test_plain_on_varied_inputs_matches_numpy(case):
 
 def test_varied_inputs_expose_a_misplaced_slice():
     """What a constant tile hides: an output with two CTAs' row slices
-    swapped (hbm_scratch), a step dropped or repeated (fori_dma), or two
-    column slices swapped (int8_panel) differs from the plain version on
-    every varied input; on the tool's ones-tile the swap does not show."""
+    swapped (hbm_scratch, dyn_col_dma; two rows where there is one slice),
+    a step dropped or repeated (fori_dma), another row (dyn_sublane) or
+    column offset (dyn_col_dma), or two column slices swapped (int8_panel)
+    differs from the plain version on every varied input; on the tool's
+    ones-tile the swap does not show."""
     ones = tprobe.probe_inputs("cpu")["hbm_scratch"][0]
     want = tprobe.hbm_scratch_plain(ones)
     assert torch.equal(torch.cat([want[8:16], want[:8], want[16:]]), want)
@@ -212,6 +231,23 @@ def test_varied_inputs_expose_a_misplaced_slice():
             if w.shape[0] > 1:
                 dropped = tprobe.fori_dma_plain(w[:-1])
                 assert not torch.equal(dropped, want), label
+        elif name == "dyn_sublane":
+            c, pos = args
+            p = int(tprobe.dynamic_start(pos, c.shape[0], 1))
+            bad = tprobe.dyn_sublane_plain(c, pos.new_tensor(
+                [p + 1 if p < c.shape[0] - 1 else p - 1]))
+        elif name == "dyn_col_dma":
+            q, w = args
+            n = max(1, w.shape[0] // 2)
+            if w.shape[0] > 1:
+                swapped = torch.cat([want[n:2 * n], want[:n], want[2 * n:]])
+                assert not torch.equal(swapped, want), label
+            # the slice at a neighbouring column offset
+            c0 = int(tprobe.dynamic_start(q.long() * tprobe.COL_MUL
+                                          + tprobe.COL_ADD, w.shape[1],
+                                          tprobe.COL_WIDTH))
+            c1 = c0 - 4 if c0 >= 4 else c0 + 4
+            bad = w[:, c1:c1 + tprobe.COL_WIDTH]
         else:
             bad = torch.cat([want[:, 32:64], want[:, :32], want[:, 64:]], 1)
             w = args[1]
