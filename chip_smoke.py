@@ -68,8 +68,10 @@ result line:
                (`mosaic_probe.varied_inputs`: hbm_scratch on an arange and
                normal draws, fori_dma at 1-5 and 9 steps, dyn_sublane at
                six positions, dyn_col_dma at 1-256 rows on two widths, the
-               int8 panel at three row strides), and device times (CUDA
-               graph replay)
+               int8 panel at three row strides, argmax on edge rows (NaN,
+               ties, -0 / +0, rows off 16 bytes, cols % 4 != 0), rot with
+               +-0 / +-inf / NaN at d = 2-256, bit for bit), and device
+               times (CUDA graph replay)
   5. agree     teacher-forced agreement at full width in bf16, kernels vs
                plain from the same state, with peaked heads: talker step
                argmax >= 0.93, predictor codes >= 0.95, for dense weights,
@@ -1586,6 +1588,7 @@ def phase_kernels_step(rec: Record):
 def phase_probes(rec: Record, card: str):
     """The probe tool's path and its eight kernels against their plain
     versions."""
+    import numpy as np
     import torch
     from qwen3_tts_tpu_torch.tools import mosaic_probe as mp
 
@@ -1628,25 +1631,44 @@ def phase_probes(rec: Record, card: str):
     # starts taken as lax.dynamic_slice takes them
     codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
                          dtype=torch.int32, device=dev).expand(8, 128)
-    edge = [("onehot", mp.onehot, mp.onehot_plain,
-             (codes.contiguous(), inputs["onehot"][1]))]
+    edge = [("onehot", "onehot", (codes.contiguous(), inputs["onehot"][1]))]
     c, w = inputs["dyn_sublane"][0], inputs["dyn_col_dma"][1]
     for v in (-40, -3, 0, 7, 31, 40):
-        edge.append((f"dyn_sublane pos={v}", mp.dyn_sublane,
-                     mp.dyn_sublane_plain,
+        edge.append((f"dyn_sublane pos={v}", "dyn_sublane",
                      (c, torch.tensor([v], dtype=torch.int32, device=dev))))
     for v in (-9, -1, 0, 3, 5):
-        edge.append((f"dyn_col_dma q={v}", mp.dyn_col_dma,
-                     mp.dyn_col_dma_plain,
+        edge.append((f"dyn_col_dma q={v}", "dyn_col_dma",
                      (torch.tensor([v], dtype=torch.int32, device=dev), w)))
-    for label, fn, plain, args in edge:
-        if not torch.equal(fn(*args), plain(*args)):
-            fail(f"probe {label}: kernel differs from its plain version")
-    log(f"  edge indices: {len(edge)} cases (one-hot codes outside [0, 256), "
-        "clamped device-held starts) equal")
+    # argmax: NaN rows (JAX's cols), ties, -0 / +0; rows 16-byte aligned
+    # (float4 loads) or not (scalar loads: 4 bytes off, cols % 4 != 0).
+    # rot: +-0, +-inf and NaN, bit for bit, at float4 / float2 / float
+    # vectors (aligned, 8 and 4 bytes off) and d = 2, 6, 130
+    x = inputs["argmax"][0].clone()
+    x[3, 1000], x[5, 7] = float("nan"), float(mp.NEG_NAN)
+    edge.append(("argmax NaN rows [8, 2048]", "argmax", (x,)))
+    rng = np.random.default_rng(11)
+    for rows, cols, off in ((33, 2048, 0), (33, 2048, 1), (8, 2047, 0)):
+        edge.append((f"argmax edge rows [{rows}, {cols}] offset {off}",
+                     "argmax", (mp.shifted(mp.argmax_rows(rows, cols, rng),
+                                           off, dev),)))
+    for shape, off in (((8, 16, 128), 0), ((8, 16, 128), 2),
+                       ((8, 16, 128), 1), ((4, 2), 0), ((4, 6), 0),
+                       ((4, 130), 0)):
+        edge.append((f"rot {list(shape)} offset {off}", "rot",
+                     (mp.shifted(mp.rot_values(shape, rng), off, dev),)))
+    probes = {p.name: p for p in mp.PROBES}
+    for label, name, args in edge:
+        ok, err = mp.agree(probes[name], probes[name].kernel(*args),
+                           probes[name].plain(*args))
+        rec.err[PROBE + name] = max(rec.err[PROBE + name], err)
+        if not ok:
+            fail(f"probe {label}: kernel differs from its plain version, "
+                 f"max|d| {err:g}")
+    log(f"  edge cases: {len(edge)} (one-hot codes outside [0, 256), "
+        "clamped device-held starts, argmax NaN rows and ties, rows off "
+        "16 bytes, rot's +-0 / +-inf / NaN by its bits) equal")
     # non-constant inputs: a CTA that copied another slice of a constant
     # tile would still agree; fori_dma at ring-sized and longer loops
-    probes = {p.name: p for p in mp.PROBES}
     varied = mp.varied_inputs(dev, seed=3)
     for name, label, args in varied:
         p = probes[name]

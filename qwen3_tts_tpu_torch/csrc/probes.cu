@@ -10,11 +10,16 @@
 //   fori_dma      (:65)  a loop of bulk copies through a ring of stage
 //                        buffers, one mbarrier a stage re-armed each use
 //                        (phase parity)
-//   argmax        (:93)  per-row (value, index) warp/block reduction
+//   argmax        (:93)  the loads in flight before the first compare, a
+//                        32-bit order a value (NaN above +inf, -0 as +0),
+//                        one 64-bit key a thread (~index below), a max of
+//                        keys by warp shuffles; JAX's `cols` on a NaN row
 //   dyn_sublane   (:115) a device-held index read in the kernel while a
 //                        bulk copy stages the table beside it, a 128 KB
 //                        dynamic shared scratch indexed by it
-//   rot           (:139) rotate-half as an elementwise lane map
+//   rot           (:139) rotate-half as a lane map of float4 / float2 /
+//                        float vectors over a 2-D grid, the sign bit
+//                        flipped, no division an element
 //   onehot        (:158) one-hot x table as a direct, bounds-checked row load
 //   dyn_col_dma   (:180) a 2-D TMA tiled load at coordinates computed in the
 //                        kernel from a device-held index, a bulk store of
@@ -30,13 +35,17 @@
 //
 // Bound: none of them is a path of the system; each is one block (or a few)
 // at fixed small shapes, latency first: launch and dependent copies, not
-// bytes. hbm_scratch, fori_dma, dyn_sublane and dyn_col_dma were
-// redesigned for this card (copies spread over CTAs, kept in flight by a
-// ring, or issued before the index they wait on is read); argmax, rot and
-// onehot keep their first, simple design, not yet made fast. Every launch
-// function returns cudaGetLastError().
+// bytes. hbm_scratch, fori_dma, dyn_sublane, dyn_col_dma, argmax and rot
+// were redesigned for this card (copies spread over CTAs, kept in flight
+// by a ring, issued before the index they wait on is read, or all of a
+// thread's loads issued before its first compare or store); onehot keeps
+// its first, simple design, not yet made fast. The geometry macros
+// (SCRATCH_CTAS, FORI_STAGES, ARGMAX_THREADS, ROT_ITEMS, COL_ROWS) are
+// each the one place that sets its number. Every launch function returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tensor_map.cuh"
@@ -133,8 +142,6 @@ __device__ __forceinline__ int dynamic_start(int start, int dim, int size) {
   if (start < 0) start += dim;
   return min(max(start, 0), dim - size);
 }
-
-constexpr int kThreads = 256;
 
 // ------------------------------------------------------- 5: hbm_scratch
 // The tile's 64 rows are dealt to kScratchCtas CTAs, a slice of rows each.
@@ -248,39 +255,165 @@ fori_dma_kernel(const float* __restrict__ w, float* __restrict__ out,
 }
 
 // ------------------------------------------------------------ 7: argmax
-struct Best {
-  float v;
-  int i;
-};
+// The TPU probe's result: the lowest index among each row's maxima, `cols`
+// for a row that holds a NaN (jnp.max carries it and x >= NaN never
+// holds), broadcast over `lanes`. A row's result is the largest of one
+// 64-bit key a thread, a larger key winning: the high word is the order of
+// the thread's largest value mapped to unsigned (order_of: -0 folded into
+// +0, which the TPU formula's >= does not tell apart; any NaN above +inf,
+// and then kNanMark), the low word ~index of its first occurrence, so
+// equal values go to the lower index.
+//
+// A CTA a row, ARGMAX_THREADS threads (-D, the one place that sets them).
+// Each thread issues a batch of loads before its first compare: its share
+// of the probe's 2048-column row (kArgVec float4 through the read-only
+// path where the row starts 16-byte aligned and cols % 4 == 0, 4 kArgVec
+// scalars otherwise), so at the probe's shape one batch covers the row.
+// Then, in registers, each value's order (no predicate but the NaN
+// select), their max and the first index holding it. The keys reduce by
+// xor shuffles in each warp, one shared slot a warp, one __syncthreads,
+// and warp 0 reduces the slots by shuffles and writes the row's lanes
+// (16-byte stores where lanes % 4 == 0). Bound: one launch, one dependent
+// read of the row and the dependent steps of the reduction, not bytes (8
+// rows of 8 KiB). At the probe's [8, 2048], 256 threads measured 0.0019-
+// 0.0020 ms, 512 and 128 2-4% slower, 64 ~20% and 32 ~2x (one thread's
+// 64 values in a chain); a running 64-bit key an element, unrolled for 16
+// float4s whatever the work, 0.0026 at 128 threads, and redux.sync in
+// place of the shuffles no faster (H100, CUDA-graph replay;
+// tools/frame_measure.py probes with -DARGMAX_THREADS=N).
+#ifndef ARGMAX_THREADS
+#define ARGMAX_THREADS 256
+#endif
+constexpr int kArgThreads = ARGMAX_THREADS;
+constexpr int kArgWarps = kArgThreads / 32;
+static_assert(kArgThreads % 32 == 0 && kArgThreads <= 1024 &&
+                  (kArgWarps & (kArgWarps - 1)) == 0,
+              "a power of two of whole warps");
+// a batch: each thread's share of a 2048-column row (the probe's), so
+// that no unrolled load or compare is issued without work at that shape
+constexpr int kArgVec = 2048 / 4 / kArgThreads > 0 ? 2048 / 4 / kArgThreads
+                                                    : 1;
+constexpr int kArgScalar = 4 * kArgVec;
+constexpr uint32_t kNanMark = 0xffffffffu;
 
-// a wins over b: larger value, or the same value at a lower index
-__device__ __forceinline__ Best better(Best a, Best b) {
-  return (b.v > a.v || (b.v == a.v && b.i < a.i)) ? b : a;
+// x's order as a signed int: -|x| for a negative x, |x| otherwise, so -0
+// and +0 are both 0; a NaN of either sign above +inf
+__device__ __forceinline__ int order_of(float x) {
+  const uint32_t b = __float_as_uint(x);
+  const int a = static_cast<int>(b & 0x7fffffffu);
+  const int m = static_cast<int>(b) >> 31;
+  return a > 0x7f800000 ? a : (a ^ m) - m;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned long long key_max(unsigned long long a,
+                                                      unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// a batch of N values at increasing indices i[e] (ok[e]: in the row):
+// their largest order and its first index, folded into (best, at); a tie
+// with an earlier batch keeps the earlier, lower index
+template <int N>
+__device__ __forceinline__ void fold(const float (&v)[N], const int (&i)[N],
+                                     const bool (&ok)[N], int& best,
+                                     int& at) {
+  int ord[N];
+  int m = INT_MIN;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    ord[e] = ok[e] ? order_of(v[e]) : INT_MIN;
+    m = max(m, ord[e]);
+  }
+  int first = INT_MAX;
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    first = min(first, ord[e] == m ? i[e] : INT_MAX);
+  if (m > best) {
+    best = m;
+    at = first;
+  }
+}
+
+template <bool kVecIn, bool kVecOut>
+__global__ void __launch_bounds__(kArgThreads)
 argmax_kernel(const float* __restrict__ x, int* __restrict__ out, int cols,
               int lanes) {
-  __shared__ Best warp_best[kThreads / 32];
-  const int row = blockIdx.x, tid = threadIdx.x;
-  const float* xr = x + (int64_t)row * cols;
-  Best b{__int_as_float(0xff800000), cols};   // -inf
-  for (int c = tid; c < cols; c += kThreads) b = better(b, Best{xr[c], c});
+  const int tid = threadIdx.x, lane = tid % 32;
+  const float* xr = x + static_cast<int64_t>(blockIdx.x) * cols;
+  int best = INT_MIN, at = cols;        // below every value's order
+  if (kVecIn) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const int n4 = cols / 4;
+    for (int c0 = tid; c0 < n4; c0 += kArgVec * kArgThreads) {
+      float4 w[kArgVec];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Best o{__shfl_down_sync(0xffffffffu, b.v, off),
-           __shfl_down_sync(0xffffffffu, b.i, off)};
-    b = better(b, o);
+      for (int k = 0; k < kArgVec; ++k) {
+        const int c = c0 + k * kArgThreads;
+        w[k] = c < n4 ? __ldg(x4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float v[4 * kArgVec];
+      int i[4 * kArgVec];
+      bool ok[4 * kArgVec];
+#pragma unroll
+      for (int k = 0; k < kArgVec; ++k) {
+        const int c = c0 + k * kArgThreads;
+        v[4 * k] = w[k].x;
+        v[4 * k + 1] = w[k].y;
+        v[4 * k + 2] = w[k].z;
+        v[4 * k + 3] = w[k].w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          i[4 * k + e] = 4 * c + e;
+          ok[4 * k + e] = c < n4;
+        }
+      }
+      fold(v, i, ok, best, at);
+    }
+  } else {
+    for (int64_t c0 = tid; c0 < cols; c0 += kArgScalar * kArgThreads) {
+      float v[kArgScalar];
+      int i[kArgScalar];
+      bool ok[kArgScalar];
+#pragma unroll
+      for (int k = 0; k < kArgScalar; ++k) {
+        const int64_t c = c0 + k * kArgThreads;
+        ok[k] = c < cols;
+        i[k] = static_cast<int>(c);
+        v[k] = ok[k] ? __ldg(xr + c) : 0.f;
+      }
+      fold(v, i, ok, best, at);
+    }
   }
-  if (tid % 32 == 0) warp_best[tid / 32] = b;
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) b = better(b, warp_best[w]);
-    warp_best[0] = b;
+  const uint32_t hi = best > 0x7f800000
+                          ? kNanMark
+                          : static_cast<uint32_t>(best) ^ 0x80000000u;
+  unsigned long long key = (static_cast<unsigned long long>(hi) << 32) |
+                           static_cast<uint32_t>(~at);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    key = key_max(key, __shfl_xor_sync(0xffffffffu, key, off));
+  if constexpr (kArgWarps > 1) {
+    __shared__ unsigned long long slot[kArgWarps];
+    if (lane == 0) slot[tid / 32] = key;
+    __syncthreads();
+    if (tid >= 32) return;
+    key = lane < kArgWarps ? slot[lane] : 0ull;
+#pragma unroll
+    for (int off = kArgWarps / 2; off > 0; off >>= 1)
+      key = key_max(key, __shfl_xor_sync(0xffffffffu, key, off));
+    key = __shfl_sync(0xffffffffu, key, 0);
   }
-  __syncthreads();
-  const int idx = warp_best[0].i;
-  for (int l = tid; l < lanes; l += kThreads) out[(int64_t)row * lanes + l] = idx;
+  const int idx = static_cast<uint32_t>(key >> 32) == kNanMark
+                      ? cols
+                      : static_cast<int>(~static_cast<uint32_t>(key));
+  int* orow = out + static_cast<int64_t>(blockIdx.x) * lanes;
+  if (kVecOut) {
+    const int4 q = make_int4(idx, idx, idx, idx);
+    for (int l = lane; l < lanes / 4; l += 32)
+      reinterpret_cast<int4*>(orow)[l] = q;
+  } else {
+    for (int l = lane; l < lanes; l += 32) orow[l] = idx;
+  }
 }
 
 // ------------------------------------------------------- 8: dyn_sublane
@@ -329,13 +462,81 @@ dyn_sublane_kernel(const float* __restrict__ c, const int* __restrict__ pos,
 }
 
 // --------------------------------------------------------------- 9: rot
-__global__ void rot_kernel(const float* __restrict__ x, float* __restrict__ out,
-                           int64_t n, int d) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int h = d / 2;
-  const int l = static_cast<int>(i % d);
-  out[i] = l < h ? -x[i + h] : x[i - h];
+// out[..., :h] = -x[..., h:], out[..., h:] = x[..., :h] (h = d / 2), as a
+// lane map of vectors of V floats: the host picks the widest V of 4, 2, 1
+// that divides h and fits both pointers' alignment, so no vector straddles
+// the halves. A 2-D grid: x over a row's d / V vectors (blocks of up to
+// kRotThreads threads, the rest of the block over rows), y over groups of
+// rows; vector j of a row reads vector j + h / V or j - h / V of the same
+// row, so an element costs no division or modulo. Each thread handles
+// ROT_ITEMS (-D, the one place that sets it) rows of its column: it issues
+// their loads (ld.global.nc) before its stores. The negation flips the
+// sign bit of every value (-0, +-inf and NaN included), as jnp's -x does
+// on the CPU; the compiler's float negation (torch.neg on the card) would
+// give the canonical NaN 0x7fffffff for a NaN.
+// Bound: one launch and a dependent read, not bytes (64 KiB each way at
+// the probe's [8, 16, 128]). There 1 row a thread (32 CTAs) measured
+// 0.0015-0.00155 ms, 2 rows ~3% and 4 ~7% slower (H100, CUDA-graph
+// replay; tools/frame_measure.py probes with -DROT_ITEMS=N).
+#ifndef ROT_ITEMS
+#define ROT_ITEMS 1
+#endif
+constexpr int kRotItems = ROT_ITEMS;
+constexpr int kRotThreads = 128;
+static_assert(kRotItems >= 1, "rows a thread");
+
+template <int V>
+struct RotVec;
+template <>
+struct RotVec<1> {
+  using T = float;
+  static __device__ __forceinline__ T flip(T v) {
+    return __uint_as_float(__float_as_uint(v) ^ 0x80000000u);
+  }
+};
+template <>
+struct RotVec<2> {
+  using T = float2;
+  static __device__ __forceinline__ T flip(T v) {
+    return make_float2(RotVec<1>::flip(v.x), RotVec<1>::flip(v.y));
+  }
+};
+template <>
+struct RotVec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T flip(T v) {
+    return make_float4(RotVec<1>::flip(v.x), RotVec<1>::flip(v.y),
+                       RotVec<1>::flip(v.z), RotVec<1>::flip(v.w));
+  }
+};
+
+template <int V>
+__global__ void __launch_bounds__(kRotThreads)
+rot_kernel(const float* __restrict__ x, float* __restrict__ out,
+           int64_t rows, int hv) {
+  using T = typename RotVec<V>::T;
+  const T* xv = reinterpret_cast<const T*>(x);
+  T* ov = reinterpret_cast<T*>(out);
+  const int dv = 2 * hv;                                  // vectors a row
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;    // this column
+  if (j >= dv) return;
+  const bool neg = j < hv;
+  const int src = neg ? j + hv : j - hv;
+  const int64_t group = static_cast<int64_t>(blockDim.y) * kRotItems;
+  for (int64_t r0 = blockIdx.y * group + threadIdx.y; r0 < rows;
+       r0 += gridDim.y * group) {
+    T v[kRotItems];
+#pragma unroll
+    for (int k = 0; k < kRotItems; ++k) {
+      const int64_t r = r0 + static_cast<int64_t>(k) * blockDim.y;
+      if (r < rows) v[k] = __ldg(xv + r * dv + src);
+    }
+#pragma unroll
+    for (int k = 0; k < kRotItems; ++k) {
+      const int64_t r = r0 + static_cast<int64_t>(k) * blockDim.y;
+      if (r < rows) ov[r * dv + j] = neg ? RotVec<V>::flip(v[k]) : v[k];
+    }
+  }
 }
 
 // ------------------------------------------------------------ 10: onehot
@@ -442,12 +643,20 @@ int probe_fori_dma_launch(const void* w, void* out, int steps, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// x f32 [rows, cols] -> out int32 [rows, lanes]
+// x f32 [rows, cols] -> out int32 [rows, lanes]; any contiguous x: rows
+// that start 16-byte aligned with cols % 4 == 0 take float4 loads, others
+// scalar ones
 int probe_argmax_launch(const void* x, void* out, int rows, int cols,
                         int lanes, void* stream) {
   if (rows < 1 || cols < 1 || lanes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  argmax_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool vin = cols % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vout =
+      lanes % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  void (*kernel)(const float*, int*, int, int) =
+      vin ? (vout ? argmax_kernel<true, true> : argmax_kernel<true, false>)
+          : (vout ? argmax_kernel<false, true> : argmax_kernel<false, false>);
+  kernel<<<rows, kArgThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<int*>(out), cols, lanes);
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,14 +677,36 @@ int probe_dyn_sublane_launch(const void* c, const void* pos, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out f32 [n / d, d], d even
+// x, out f32 [n / d, d], d even; vectors of 4, 2 or 1 floats, the widest
+// that divides d / 2 and both pointers' alignment
 int probe_rot_launch(const void* x, void* out, long long n, int d,
                      void* stream) {
   if (n < 1 || d < 2 || d % 2 || n % d)
     return static_cast<int>(cudaErrorInvalidValue);
-  rot_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n, d);
+  const int h = d / 2;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x) |
+                       reinterpret_cast<uintptr_t>(out);
+  const int vec = h % 4 == 0 && at % 16 == 0 ? 4
+                  : h % 2 == 0 && at % 8 == 0 ? 2
+                                              : 1;
+  const int dv = d / vec;
+  const long long rows = n / d;
+  const int tx = dv < kRotThreads ? dv : kRotThreads;
+  const int ty = kRotThreads / tx;
+  const long long group = static_cast<long long>(ty) * kRotItems;
+  const long long groups = (rows + group - 1) / group;
+  const dim3 grid((dv + tx - 1) / tx,
+                  static_cast<unsigned>(groups < 65535 ? groups : 65535));
+  const dim3 block(tx, ty);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (vec == 4)
+    rot_kernel<4><<<grid, block, 0, s>>>(xf, of, rows, h / 4);
+  else if (vec == 2)
+    rot_kernel<2><<<grid, block, 0, s>>>(xf, of, rows, h / 2);
+  else
+    rot_kernel<1><<<grid, block, 0, s>>>(xf, of, rows, h);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -125,12 +125,16 @@ probes [PARENT_CU] [DEFS ...]
         held against its plain version on the tool's inputs and
         `mosaic_probe.varied_inputs`, then its device ms by CUDA-graph
         replay; beside them the PyTorch calls of hbm_scratch (`torch.mul`),
-        fori_dma (`torch.sum`) and dyn_sublane (`torch.index_select`);
-        per library and probe the median and range of the five, and each
-        kernel's loss to its call (median over the call's median).
+        fori_dma (`torch.sum`), argmax (`torch.argmax`) and dyn_sublane
+        (`torch.index_select`); per library and probe the median and range
+        of the five, and each kernel's loss to its call (median over the
+        call's median).
         A parent's dyn_col_dma is held only at rows <= 224: the one-CTA
         design staged all rows in one block's shared memory, which cannot
-        take 256.
+        take 256. A parent's argmax and rot are not held on inputs with a
+        NaN: the one-block argmax passed over a NaN, and its rot negated
+        through the compiler's float negation (the canonical NaN on the
+        card); whether each agrees there is printed once.
         int8_panel launches kernel A, not a kernel of probes.cu: `head-ab`
         times it.
 head-ab TAG [quick]
@@ -951,13 +955,31 @@ def probe_times(parent, variants) -> None:
     cases += [case for case in mp.varied_inputs(dev, seed=2)
               if case[0] in probes]
 
+    def has_nan(args):
+        return any(a.is_floating_point() and bool(a.isnan().any())
+                   for a in args)
+
     def held(tag, name, args):
         # the one-CTA parent refuses rows past its shared memory, and the
         # refusal would stay as its runtime's last error: not launched
-        return not (tag == "parent" and name == "dyn_col_dma"
-                    and args[1].shape[0] > 224)
+        if tag != "parent":
+            return True
+        if name == "dyn_col_dma":
+            return args[1].shape[0] <= 224
+        return not (name in ("argmax", "rot") and has_nan(args))
+    if parent:
+        build._lib = libs["parent"]
+        for name, label, args in cases:
+            if name in ("argmax", "rot") and has_nan(args):
+                ok, err = mp.agree(probes[name], probes[name].kernel(*args),
+                                   probes[name].plain(*args))
+                print(f"  parent {name} ({label}), inputs with a NaN: "
+                      f"{'agrees' if ok else 'differs'} with plain "
+                      f"(max|d| {err:g})", flush=True)
+        build._lib = None
     calls = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
              "fori_dma": lambda w: torch.sum(w, 0),
+             "argmax": lambda x: torch.argmax(x, -1),
              "dyn_sublane": lambda c, pos: torch.index_select(
                  c, 0, pos.expand(mp.SUBLANE_COPIES))}
     times = {}

@@ -18,11 +18,17 @@ written out in torch:
   6   fori_dma      :65  DMA of w[i] in a fori     bulk copies through a ring of
                          loop                      4 stages, an mbarrier each
                                                    re-armed on phase parity
-  7   argmax        :93  max + iota-min            (value, index) reduction
+  7   argmax        :93  max + iota-min            the loads issued before
+                                                   the first compare, one
+                                                   64-bit order key a thread,
+                                                   a max by warp shuffles;
+                                                   256 threads a row
   8   dyn_sublane   :115 SMEM index, dynamic row   device-held index read while
                                                    a bulk copy stages the table,
                                                    128 KB dynamic shared scratch
-  9   rot           :139 rotate-half concat        lane map
+  9   rot           :139 rotate-half concat        lane map of 4 / 2 / 1-float
+                                                   vectors, 2-D grid, sign bit
+                                                   flipped; a row a thread
   10  onehot        :158 one-hot x table matmul    bounds-checked row load
   11  dyn_col_dma   :180 DMA at a dynamic column   2-D TMA tile at coordinates
                                                    computed in the kernel, bulk
@@ -38,19 +44,22 @@ fails where there is no card: it never quietly runs plain. Each probe and
 mode prints one line `[mode] name: OK|FAIL - ...`. Divergence from the JAX
 tool: the exit code is 1 if any line says FAIL.
 
-Kernel against plain: probes 5, 6, 8, 9, 10 and 11 move data and probe 7
-picks an index, so they must be equal. Probe 12: every int8 value is exact
-in bf16 and every bf16 x int8 product is exact in f32, so only the order
-of the sums differs: max |kernel - plain| <= 1e-5 * max |plain|.
+Kernel against plain: probes 5, 6, 8, 10 and 11 move data and probe 7
+picks an index, so they must be equal; probe 9 must be equal bit for bit
+(its NaN included, which `torch.equal` counts unequal to itself). Probe
+12: every int8 value is exact in bf16 and every bf16 x int8 product is
+exact in f32, so only the order of the sums differs: max |kernel - plain|
+<= 1e-5 * max |plain|.
 
 These are not kernels of the synthesis path. hbm_scratch, fori_dma,
-dyn_sublane and dyn_col_dma were redesigned for the H100 (copies spread
-over CTAs, kept in flight by a ring, or issued before the device-held
-index is read); int8_panel computes kernel A's function and launches
-kernel A, the port's Hopper design of it (each launch counted in
-`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); argmax, rot
-and onehot keep their first, simple design. On a CPU tensor each wrapper
-runs its plain version; on a CUDA tensor it launches its kernel or raises.
+dyn_sublane, dyn_col_dma, argmax and rot were redesigned for the H100
+(copies spread over CTAs, kept in flight by a ring, issued before the
+device-held index is read, or all of a thread's loads issued before its
+first compare or store); int8_panel computes kernel A's function and
+launches kernel A, the port's Hopper design of it (each launch counted in
+`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); onehot
+keeps its first, simple design. On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -166,7 +175,9 @@ LANES = 128
 
 def argmax_plain(x: torch.Tensor) -> torch.Tensor:
     """The TPU probe's formula: the lowest index among each row's maxima,
-    broadcast over 128 lanes (int32). Inputs are finite."""
+    broadcast over 128 lanes (int32). A row that holds a NaN gives cols
+    (the maximum is NaN and x >= NaN never holds), not torch.argmax's
+    index of the NaN; -0 and +0 are equal maxima, the lower index wins."""
     m = x.max(dim=-1, keepdim=True).values
     iota = torch.arange(x.shape[1], device=x.device).expand_as(x)
     idx = torch.where(x >= m, iota, torch.full_like(iota, x.shape[1]))
@@ -175,8 +186,11 @@ def argmax_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def argmax(x: torch.Tensor) -> torch.Tensor:
-    """x f32 [rows, cols] -> int32 [rows, 128]: per-row argmax, ties to
-    the lower index."""
+    """x f32 [rows, cols] (any contiguous view) -> int32 [rows, 128]: the
+    per-row argmax of `argmax_plain` (ties to the lower index, cols on a
+    row with a NaN) as a max of one 64-bit order key a thread; float4
+    loads where the rows start 16-byte aligned and cols % 4 == 0, scalar
+    loads otherwise."""
     if x.device.type == "cpu":
         return argmax_plain(x)
     _check("argmax", x, torch.float32)
@@ -223,14 +237,25 @@ def dyn_sublane(c: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- 9: rot
+SIGN_BIT = -2 ** 31          # 0x80000000 as an int32
+
+
 def rot_plain(x: torch.Tensor) -> torch.Tensor:
-    """Rotate-half: concat(-x[..., h:], x[..., :h])."""
+    """Rotate-half of f32 x: concat(-x[..., h:], x[..., :h]), the negation
+    a flip of the sign bit of every value, NaN included, as jnp's and
+    torch's `-x` do on the CPU. On the card torch's `-x` gives the
+    canonical NaN 0x7fffffff for every NaN (and is the flip on every other
+    value), so the plain version flips the bit itself and is the same on
+    both devices."""
     h = x.shape[-1] // 2
-    return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+    neg = (x[..., h:].view(torch.int32) ^ SIGN_BIT).view(torch.float32)
+    return torch.cat([neg, x[..., :h]], dim=-1)
 
 
 def rot(x: torch.Tensor) -> torch.Tensor:
-    """x f32 [..., d] (d even) -> rotate-half, as an elementwise lane map."""
+    """x f32 [..., d] (d even; any contiguous view) -> rotate-half, as a
+    lane map of the widest vectors (4, 2 or 1 floats) that divide d / 2
+    and the pointers' alignment, the sign bit flipped."""
     if x.device.type == "cpu":
         return rot_plain(x)
     _check("rot", x, torch.float32)
@@ -353,6 +378,7 @@ class Probe:
     plain: Callable
     check: Callable           # (out, *inputs): the JAX probe's assertion
     exact: bool = True        # kernel vs plain: equal, else PANEL_REL_TOL
+    bitwise: bool = False     # equal bit for bit (NaN and -0 included)
 
 
 def _check_hbm(out, x):
@@ -399,13 +425,15 @@ PROBES: Tuple[Probe, ...] = (
           hbm_scratch_plain, _check_hbm),
     Probe("fori_dma", "fori_dma (bulk copy of w[i] per loop step, mbarrier "
           "phase parity)", 65, 77, fori_dma, fori_dma_plain, _check_fori),
-    Probe("argmax", "argmax (per-row (value, index) reduction -> [B, 128] "
-          "int32)", 93, 103, argmax, argmax_plain, _check_argmax),
+    Probe("argmax", "argmax (one 64-bit order key a thread, a max by warp "
+          "shuffles -> [B, 128] int32)", 93, 103, argmax, argmax_plain,
+          _check_argmax),
     Probe("dyn_sublane", "dyn_sublane (device-held row index, the table "
           "staged by a bulk copy, 128 KB dynamic shared scratch)", 115, 124,
           dyn_sublane, dyn_sublane_plain, _check_sublane),
-    Probe("rot", "rot (rotate-half lane map)", 139, 146, rot, rot_plain,
-          _check_rot),
+    Probe("rot", "rot (rotate-half as a lane map of float4 vectors, sign "
+          "bit flipped)", 139, 146, rot, rot_plain, _check_rot,
+          bitwise=True),
     Probe("onehot", "onehot (one-hot x table as a bounds-checked row load)",
           158, 169, onehot, onehot_plain, _check_onehot),
     Probe("dyn_col_dma", "dyn_col_dma (2-D TMA boxes at a column computed "
@@ -454,6 +482,83 @@ SUBLANE_POS = (-40, -3, 0, 7, 31, 40)
 COL_ROW_CASES = (1, 4, 7, 8, 16, 32, 100, 128, 256)
 COL_COLS = (2048, 260)
 COL_Q = (-9, 0, 3, 5)
+# argmax's edge rows (`argmax_row`), and its varied cases as (rows, cols,
+# offset): offset floats into a flat buffer, so a row start that is not
+# 16-byte aligned, and cols % 4 != 0, take the kernel's scalar loads
+ARGMAX_KINDS = ("normal", "tie", "all equal", "all -inf", "+inf twice",
+                "nan", "-nan", "-0 before +0", "+0 before -0", "max at 0",
+                "max at end")
+ARGMAX_CASES = ((33, 2048, 0), (33, 2048, 1), (33, 2047, 0), (33, 100, 0),
+                (33, 100, 2), (12, 3, 0), (11, 1, 0), (16, 4096, 0))
+# rot's varied cases as (shape, offset): vectors of 4 floats (d / 2 % 4 ==
+# 0, aligned), of 2 (d = 12; or 8-byte aligned) and of 1 (d = 2, 6, 130; or
+# 4 bytes off), 1-D to 4-D
+ROT_CASES = (((8, 16, 128), 0), ((2,), 0), ((5, 6), 0), ((2, 3, 130), 0),
+             ((2, 3, 4, 8), 0), ((7, 12), 0), ((4, 256), 0), ((64,), 0),
+             ((33, 128), 1), ((33, 128), 2))
+NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+ROT_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, NEG_NAN],
+                        np.float32)
+
+
+def argmax_row(kind: str, cols: int, rng) -> np.ndarray:
+    """One f32 row of an ARGMAX_KINDS kind, from normal draws: the maximum
+    copied to three columns far apart (other warps and 256-column chunks
+    at 2048 columns), a constant row, all -inf, +inf at two columns, a NaN
+    of either sign beside a +inf, -0 and +0 as the maximum of negatives in
+    either order, the maximum at the first or the last column."""
+    x = rng.standard_normal(cols, np.float32)
+    top = x.max() + np.float32(1)
+    if kind == "tie":
+        x[[cols // 7, min(cols - 1, cols // 2 + 1), max(0, cols - 3)]] = top
+    elif kind == "all equal":
+        x[:] = 0.25
+    elif kind == "all -inf":
+        x[:] = -np.inf
+    elif kind == "+inf twice":
+        x[[cols // 3, (2 * cols) // 3]] = np.inf
+    elif kind in ("nan", "-nan"):
+        x[0 if kind == "-nan" else cols - 1] = np.inf
+        x[(3 * cols) // 4 if kind == "-nan" else cols // 2] = (
+            NEG_NAN if kind == "-nan" else np.nan)
+    elif kind in ("-0 before +0", "+0 before -0"):
+        first = np.float32(-0.0 if kind.startswith("-") else 0.0)
+        x = -np.abs(x) - np.float32(1)
+        x[cols - 1] = -first
+        x[cols // 4] = first
+    elif kind == "max at 0":
+        x[0] = top
+    elif kind == "max at end":
+        x[cols - 1] = top
+    else:
+        assert kind == "normal", kind
+    return x
+
+
+def argmax_rows(rows: int, cols: int, rng) -> np.ndarray:
+    """[rows, cols] f32, row i of kind ARGMAX_KINDS[i % 11]."""
+    return np.stack([argmax_row(ARGMAX_KINDS[i % len(ARGMAX_KINDS)], cols,
+                                rng) for i in range(rows)])
+
+
+def rot_values(shape, rng) -> np.ndarray:
+    """Normal draws with ROT_SPECIALS (+-0, +-inf, NaN of either sign) at
+    up to 18 random places."""
+    x = rng.standard_normal(shape, np.float32)
+    flat = x.reshape(-1)
+    idx = rng.permutation(flat.size)[:3 * ROT_SPECIALS.size]
+    flat[idx] = np.resize(ROT_SPECIALS, idx.size)
+    return x
+
+
+def shifted(a: np.ndarray, floats: int, device) -> torch.Tensor:
+    """A contiguous f32 copy of `a` that starts `floats` elements into a
+    flat buffer, so 4 * floats bytes past the allocation's alignment (at
+    least 16 bytes on the CPU and the card)."""
+    flat = torch.zeros(a.size + floats, dtype=torch.float32, device=device)
+    view = flat[floats:].view(a.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return view
 
 
 def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
@@ -465,7 +570,9 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
     COL_ROW_CASES x COL_COLS (a slice dealt to the wrong CTA, or a partial
     last slice stored whole, would show), int8_panel on draws from `seed`
     over the whole int8 range with three row strides (ldw 256, 400,
-    512)."""
+    512), argmax on the edge rows of `argmax_rows` at each of ARGMAX_CASES
+    (ties, NaN rows, -0 / +0, cols % 4 != 0, rows that start off 16
+    bytes), rot on `rot_values` at each of ROT_CASES."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -487,6 +594,13 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
             w = rng.standard_normal((rows, cols), np.float32)
             cases.append(("dyn_col_dma", f"rows={rows} cols={cols} q={q}, "
                           "normal", (t(np.array([q], np.int32)), t(w))))
+    for rows, cols, off in ARGMAX_CASES:
+        cases.append(("argmax", f"rows={rows} cols={cols} offset={off}, "
+                      "edge rows", (shifted(argmax_rows(rows, cols, rng), off,
+                                            device),)))
+    for shape, off in ROT_CASES:
+        cases.append(("rot", f"shape={shape} offset={off}, +-0 +-inf NaN",
+                      (shifted(rot_values(shape, rng), off, device),)))
     for ldw in (PANEL_N, 400, 512):
         cases.append(("int8_panel", f"ldw={ldw}, seed {seed}", (
             t(rng.standard_normal(PANEL_X_SHAPE, np.float32)).bfloat16(),
@@ -497,11 +611,16 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
 
 def agree(probe: Probe, got: torch.Tensor, want: torch.Tensor
           ) -> Tuple[bool, float]:
-    """Kernel against plain at the module's tolerances; returns (ok,
-    max |got - want|)."""
+    """Kernel against plain at the module's tolerances (rot by its bits);
+    returns (ok, max |got - want|, 0 where the bits agree)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return False, float("inf")
-    err = float((got.double() - want.double()).abs().max())
+    diff = (got.double() - want.double()).abs()
+    if probe.bitwise:
+        same = got.view(torch.int32) == want.view(torch.int32)
+        return bool(same.all()), float(
+            diff.masked_fill(same, 0.0).nan_to_num(nan=float("inf")).max())
+    err = float(diff.max())
     if probe.exact:
         return bool(torch.equal(got, want)), err
     bound = PANEL_REL_TOL * float(want.abs().max())

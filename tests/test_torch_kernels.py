@@ -11,9 +11,10 @@ Codes and gathered rows: exact (the head slice's argmax epilogue against
 `argmax_gather_plain` on the launch's own logits, and against the plain
 head slice where the logits decide). Kernel A (qmatmul) outputs f32 from
 bf16 inputs, exact products: f32 tolerances for both x dtypes. The eight
-capability probes (`csrc/probes.cu`; int8_panel through kernel A): exact,
-except the int8 panel's f32 sums (max |d| <= 1e-5 of the output's largest
-magnitude: exact products, another order of the sums).
+capability probes (`csrc/probes.cu`; int8_panel through kernel A): exact
+(rot bit for bit, its NaN included), except the int8 panel's f32 sums
+(max |d| <= 1e-5 of the output's largest magnitude: exact products,
+another order of the sums).
 """
 
 import dataclasses
@@ -633,7 +634,8 @@ def test_probe_kernel_matches_plain(dev, name):
     shapes, and the TPU probe's own check; then on the non-constant inputs
     of `varied_inputs` (hbm_scratch on an arange and normal draws, fori_dma
     at 1-5 and 9 steps, the int8 panel on a second seed at three row
-    strides)."""
+    strides, argmax on NaN rows, ties and -0 / +0 with rows off 16 bytes
+    and cols % 4 != 0, rot with +-0 / +-inf / NaN at d = 2-256)."""
     probe = next(p for p in mosaic_probe.PROBES if p.name == name)
     args = mosaic_probe.probe_inputs(dev)[name]
     got = probe.kernel(*args)
@@ -695,6 +697,17 @@ def test_probe_kernels_edge_indices(dev):
                 assert torch.equal(mosaic_probe.dyn_col_dma(qt, w),
                                    mosaic_probe.dyn_col_dma_plain(qt, w)), (
                     rows, cols, q)
+
+
+def test_probe_rot_and_argmax_past_one_grid(dev):
+    """rot past 65535 groups of rows (the grid's y limit, so the kernel's
+    groups loop), bit for bit; argmax over 70000 rows of 130 columns (a
+    CTA a row, scalar loads)."""
+    x = torch.randn(65535 * 256 + 1001, 2, device=dev)
+    assert torch.equal(mosaic_probe.rot(x).view(torch.int32),
+                       mosaic_probe.rot_plain(x).view(torch.int32))
+    x = torch.randn(70000, 130, device=dev)
+    assert torch.equal(mosaic_probe.argmax(x), mosaic_probe.argmax_plain(x))
 
 
 # ------------------------------------------------- the predictor frame kernel

@@ -166,6 +166,69 @@ def test_dyn_col_dma_clamps_like_dynamic_slice(q, rows, cols):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _tpu_argmax(x):
+    """The TPU probe's kernel body (tools/mosaic_probe.py p_argmax) in
+    jnp: max, broadcasted_iota, min(where(x >= m, iota, cols))."""
+    m = jnp.max(x, axis=-1, keepdims=True)
+    iota = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
+    return jnp.min(jnp.where(x >= m, iota, x.shape[1]), axis=-1,
+                   keepdims=True)
+
+
+# the index each edge kind gives at `cols` columns (argmax_row's layout);
+# "normal" has none fixed
+ARGMAX_EXPECT = {"tie": lambda n: n // 7, "all equal": lambda n: 0,
+                 "all -inf": lambda n: 0, "+inf twice": lambda n: n // 3,
+                 "nan": lambda n: n, "-nan": lambda n: n,
+                 "-0 before +0": lambda n: n // 4,
+                 "+0 before -0": lambda n: n // 4,
+                 "max at 0": lambda n: 0, "max at end": lambda n: n - 1}
+
+
+@pytest.mark.parametrize("rows", [1, 8, 33])
+@pytest.mark.parametrize("cols", [1, 3, 100, 2047, 2048, 4096])
+@pytest.mark.parametrize("kind", tprobe.ARGMAX_KINDS)
+def test_argmax_plain_matches_the_tpu_formula_on_edge_rows(kind, cols, rows):
+    """argmax_plain against the TPU probe's formula in jnp, exactly, on
+    rows of each edge kind: ties across warps and 256-column chunks, an
+    all-equal and an all -inf row, +inf twice, a NaN of either sign (cols,
+    not torch.argmax's index), -0 and +0 as the maximum in either order,
+    the maximum first or last."""
+    rng = np.random.default_rng(
+        1000 * tprobe.ARGMAX_KINDS.index(kind) + cols + rows)
+    x = np.stack([tprobe.argmax_row(kind, cols, rng) for _ in range(rows)])
+    want = np.asarray(_tpu_argmax(jnp.asarray(x)))
+    got = tprobe.argmax_plain(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (rows, 128)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.broadcast_to(want, (rows, 128)))
+    if kind in ARGMAX_EXPECT:
+        assert (want == ARGMAX_EXPECT[kind](cols)).all(), want[:, 0]
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(tprobe.argmax(torch.from_numpy(x)), got)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [2, 6, 8, 64, 128, 130, 256])
+def test_rot_plain_matches_jnp_bit_for_bit(d, ndim):
+    """rot_plain against jnp.concatenate([-x[..., h:], x[..., :h]], -1),
+    bit for bit, on normal draws with +-0, +-inf and NaN of either sign
+    among them (the TPU probe's [8, 16, 128] at d = 128, 3-D)."""
+    lead = {1: (), 2: (5,), 3: (8, 16) if d == 128 else (3, 4),
+            4: (2, 3, 2)}[ndim]
+    x = tprobe.rot_values(lead + (d,), np.random.default_rng(10 * d + ndim))
+    h = d // 2
+    xj = jnp.asarray(x)
+    want = np.asarray(jnp.concatenate([-xj[..., h:], xj[..., :h]], axis=-1))
+    for fn in (tprobe.rot_plain, tprobe.rot):
+        got = fn(torch.from_numpy(x)).numpy()
+        assert got.dtype == np.float32 and got.shape == x.shape
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    if x.size >= tprobe.ROT_SPECIALS.size:
+        assert np.isnan(x).any() and np.signbit(x[np.isnan(x)]).any()
+
+
 VARIED = tprobe.varied_inputs("cpu", seed=5)
 
 
@@ -173,9 +236,10 @@ VARIED = tprobe.varied_inputs("cpu", seed=5)
 def test_plain_on_varied_inputs_matches_numpy(case):
     """The plain versions on the non-constant inputs the card checks use,
     against numpy: 2x exactly, the sum in the kernel's order (o = 0;
-    o += w[i]) exactly, the clamped row and column slices exactly, and the
-    panel within PANEL_REL_TOL of an f64 product (exact products; the
-    sums' order differs)."""
+    o += w[i]) exactly, the clamped row and column slices exactly, the
+    argmax as each row's first maximum (cols where it holds a NaN)
+    exactly, rotate-half bit for bit, and the panel within PANEL_REL_TOL
+    of an f64 product (exact products; the sums' order differs)."""
     name, _, args = case
     probe = next(p for p in tprobe.PROBES if p.name == name)
     got = probe.plain(*args)
@@ -195,26 +259,48 @@ def test_plain_on_varied_inputs_matches_numpy(case):
         cols = a[1].shape[1]
         c0 = min(max(c0 + cols if c0 < 0 else c0, 0), cols - 256)
         want = a[1][:, c0:c0 + 256]
+    elif name == "argmax":
+        cols = a[0].shape[1]
+        idx = [cols if np.isnan(r).any() else int(np.flatnonzero(
+            r == r.max())[0]) for r in a[0]]
+        want = np.broadcast_to(np.array(idx, np.int32)[:, None],
+                               (len(idx), 128))
+    elif name == "rot":
+        h = a[0].shape[-1] // 2
+        want = np.concatenate([-a[0][..., h:], a[0][..., :h]], -1)
     else:
+        assert name == "int8_panel", name
         want = a[0].astype(np.float64) @ a[1][:, :tprobe.PANEL_N].astype(
             np.float64)
-    if probe.exact:
+    if probe.bitwise:
         assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+    elif probe.exact:
+        assert got.dtype == (torch.int32 if name == "argmax"
+                             else torch.float32)
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         err = np.abs(got.numpy().astype(np.float64) - want).max()
         assert err <= tprobe.PANEL_REL_TOL * np.abs(want).max(), err
     # the wrapper takes the plain version for a CPU tensor
-    assert torch.equal(probe.kernel(*args), got)
+    out = probe.kernel(*args)
+    if probe.bitwise:
+        assert torch.equal(out.view(torch.int32), got.view(torch.int32))
+    else:
+        assert torch.equal(out, got)
 
 
 def test_varied_inputs_expose_a_misplaced_slice():
     """What a constant tile hides: an output with two CTAs' row slices
     swapped (hbm_scratch, dyn_col_dma; two rows where there is one slice),
     a step dropped or repeated (fori_dma), another row (dyn_sublane) or
-    column offset (dyn_col_dma), or two column slices swapped (int8_panel)
-    differs from the plain version on every varied input; on the tool's
-    ones-tile the swap does not show."""
+    column offset (dyn_col_dma), two column slices swapped (int8_panel),
+    torch.argmax's index on a NaN row, a tie's highest index or the
+    largest value past a NaN (argmax, beyond one column), or the halves
+    swapped without the negation (rot, by its bits) differs from the
+    plain version on every varied input; on the tool's ones-tile the swap
+    does not show."""
     ones = tprobe.probe_inputs("cpu")["hbm_scratch"][0]
     want = tprobe.hbm_scratch_plain(ones)
     assert torch.equal(torch.cat([want[8:16], want[:8], want[16:]]), want)
@@ -248,6 +334,31 @@ def test_varied_inputs_expose_a_misplaced_slice():
                                           tprobe.COL_WIDTH))
             c1 = c0 - 4 if c0 >= 4 else c0 + 4
             bad = w[:, c1:c1 + tprobe.COL_WIDTH]
+        elif name == "argmax":
+            x = args[0].numpy()
+            cols = x.shape[1]
+
+            def rows_out(idx):
+                return torch.tensor(idx, dtype=torch.int32)[:, None].expand(
+                    -1, 128)
+            if cols > 1:
+                # a tie's highest index; a NaN passed over
+                last = [cols if np.isnan(r).any() else int(np.flatnonzero(
+                    r == r.max())[-1]) for r in x]
+                fin = [r[~np.isnan(r)] for r in x]
+                past = [int(np.flatnonzero(r == f.max())[0]) if f.size
+                        else cols for r, f in zip(x, fin)]
+                assert not torch.equal(rows_out(last), want), label
+                assert not torch.equal(rows_out(past), want), label
+            bad = torch.argmax(args[0], -1).to(torch.int32)[:, None].expand(
+                -1, 128)
+        elif name == "rot":
+            x = args[0]
+            h = x.shape[-1] // 2
+            bad = torch.cat([x[..., h:], x[..., :h]], -1)
+            assert not torch.equal(bad.view(torch.int32),
+                                   want.view(torch.int32)), label
+            continue
         else:
             bad = torch.cat([want[:, 32:64], want[:, :32], want[:, 64:]], 1)
             w = args[1]
