@@ -1616,8 +1616,9 @@ def phase_probes(rec: Record, card: str):
         ok, err = mp.agree(p, got, want)
         name = PROBE + p.name
         rec.err[name] = err
-        tol = "equal" if p.exact \
-            else f"<= {mp.PANEL_REL_TOL:g} x max|plain|, exact products"
+        tol = ("equal as values, NaN = NaN, -0 = +0" if p.values
+               else "equal" if p.exact
+               else f"<= {mp.PANEL_REL_TOL:g} x max|plain|, exact products")
         log(f"  {name:22s} {str(tuple(got.shape)):12s} max|d|={err:.3e} "
             f"({tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1628,10 +1629,11 @@ def phase_probes(rec: Record, card: str):
             fail(f"{name}: the TPU probe's own check failed: {e}")
 
     # indices outside the range: zero rows for one-hot codes, device-held
-    # starts taken as lax.dynamic_slice takes them
-    codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
-                         dtype=torch.int32, device=dev).expand(8, 128)
-    edge = [("onehot", "onehot", (codes.contiguous(), inputs["onehot"][1]))]
+    # starts taken as lax.dynamic_slice takes them. onehot on tables with
+    # an inf or a NaN: NaN columns where the one-hot product multiplies
+    # one by 0, a chosen inf kept, a chosen NaN (mp.onehot_edges)
+    edge = [(f"onehot {label}", "onehot", args)
+            for label, args in mp.onehot_edges(dev, seed=12)]
     c, w = inputs["dyn_sublane"][0], inputs["dyn_col_dma"][1]
     for v in (-40, -3, 0, 7, 31, 40):
         edge.append((f"dyn_sublane pos={v}", "dyn_sublane",
@@ -1657,53 +1659,71 @@ def phase_probes(rec: Record, card: str):
         edge.append((f"rot {list(shape)} offset {off}", "rot",
                      (mp.shifted(mp.rot_values(shape, rng), off, dev),)))
     probes = {p.name: p for p in mp.PROBES}
+    secs = dict.fromkeys(probes, 0.0)     # each probe's edge and varied cases
+    t_cases = time.time()
     for label, name, args in edge:
+        t0 = time.time()
         ok, err = mp.agree(probes[name], probes[name].kernel(*args),
                            probes[name].plain(*args))
+        secs[name] += time.time() - t0
         rec.err[PROBE + name] = max(rec.err[PROBE + name], err)
         if not ok:
             fail(f"probe {label}: kernel differs from its plain version, "
                  f"max|d| {err:g}")
-    log(f"  edge cases: {len(edge)} (one-hot codes outside [0, 256), "
-        "clamped device-held starts, argmax NaN rows and ties, rows off "
-        "16 bytes, rot's +-0 / +-inf / NaN by its bits) equal")
+    log(f"  edge cases: {len(edge)} (one-hot codes outside [0, 256) and "
+        "tables with +-inf / NaN / -0 as values, clamped device-held "
+        "starts, argmax NaN rows and ties, rows off 16 bytes, rot's +-0 / "
+        "+-inf / NaN by its bits) equal")
     # non-constant inputs: a CTA that copied another slice of a constant
     # tile would still agree; fori_dma at ring-sized and longer loops
     varied = mp.varied_inputs(dev, seed=3)
     for name, label, args in varied:
         p = probes[name]
+        t0 = time.time()
         ok, err = mp.agree(p, p.kernel(*args), p.plain(*args))
+        secs[name] += time.time() - t0
         rec.err[PROBE + name] = max(rec.err[PROBE + name], err)
         if not ok:
             fail(f"probe {name} ({label}): kernel differs from its plain "
                  f"version, max|d| {err:g}")
     log(f"  varied inputs: {len(varied)} cases ("
         + "; ".join(f"{n} {l}" for n, l, _ in varied) + ") agree")
+    log(f"  edge and varied cases took {time.time() - t_cases:.1f} s ("
+        + ", ".join(f"{n} {t:.1f} s" for n, t in secs.items()) + ")")
 
     # the one PyTorch call of a probe's function, where there is one; none
     # for dyn_col_dma (a start read on the device, clamped as
     # lax.dynamic_slice clamps it) and rot (rotate-half negates one half).
-    # dyn_sublane's and onehot's index_select take the index as it is, no
-    # clamp (the same on these in-range inputs); dyn_sublane's gives the 8
-    # copies as 8 gathers of row pos. int8_panel's is
+    # dyn_sublane's index_select takes the index as it is, no clamp (the
+    # same on these in-range inputs), and gives the 8 copies as 8 gathers
+    # of row pos. onehot's is torch.mm(oh, tab), the product itself, with
+    # the one-hot matrix built once, outside the timed call;
+    # torch.index_select(tab, 0, codes[:, 0]) is timed beside it, not the
+    # same function (no zero rows, no NaN columns). int8_panel's is
     # torch._weight_int8pack_mm on the panel
     # transposed to [256, 512] once, outside the timed call, with unit
     # scales (as kernel A's yardstick); it returns bf16, not f32
     x8, w8 = inputs["int8_panel"]
     w8t = w8[:, :mp.PANEL_N].t().contiguous()
     ones8 = torch.ones(mp.PANEL_N, dtype=torch.bfloat16, device=dev)
+    codes, tab = inputs["onehot"]
+    oh = (torch.arange(tab.shape[0], device=dev)[None]
+          == codes[:, :1].long()).float()
     library = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
                "fori_dma": lambda w: torch.sum(w, 0),
                "argmax": lambda x: torch.argmax(x, -1),
                "dyn_sublane": lambda c, pos: torch.index_select(
                    c, 0, pos.expand(mp.SUBLANE_COPIES)),
-               "onehot": lambda codes, tab: torch.index_select(
-                   tab, 0, codes[:, 0]),
+               "onehot": lambda codes, tab: torch.mm(oh, tab),
                "int8_panel": lambda x, w: torch._weight_int8pack_mm(
                    x, w8t, ones8)}
     log(f"  torch._weight_int8pack_mm (bf16 out) against the plain panel: "
         f"relative error "
         f"{rel_err(library['int8_panel'](x8, w8), mp.int8_panel_plain(x8, w8)):.2e}")
+    log(f"  probe_onehot library call torch.index_select(tab, 0, codes[:, 0]"
+        f") (not the same function: no zero rows, no NaN columns): "
+        f"{graph_ms(lambda: torch.index_select(tab, 0, codes[:, 0])):.5f} "
+        f"ms on {card}")
     for p in mp.PROBES:
         args = inputs[p.name]
         name = PROBE + p.name
@@ -1715,9 +1735,13 @@ def phase_probes(rec: Record, card: str):
         # each input read once, the output written once, counting only
         # what the function reads: the panel's columns it multiplies,
         # w[:, :PANEL_N]; dyn_sublane's index and row pos of c;
-        # dyn_col_dma's q and the column slice w[:, c0:c0 + 256]
+        # dyn_col_dma's q and the column slice w[:, c0:c0 + 256];
+        # onehot's column 0 of codes and the whole table: any entry can
+        # make its column NaN (0 * inf, 0 * NaN in the one-hot product)
         ins = [a for a in args if isinstance(a, torch.Tensor)]
-        if p.name == "int8_panel":
+        if p.name == "onehot":
+            ins = [args[0][:, 0], args[1]]
+        elif p.name == "int8_panel":
             ins = [x8, w8[:, :mp.PANEL_N]]
         elif p.name == "dyn_sublane":
             c, pos = args
@@ -5701,8 +5725,11 @@ def main() -> int:
     import torch
     phase_build()
     rec = Record()
-    phase_kernels(rec)
-    phase_probes(rec, card)
+    for name, run in (("kernels", lambda: phase_kernels(rec)),
+                      ("probes", lambda: phase_probes(rec, card))):
+        t0 = time.time()
+        run()
+        log(f"  phase {name} took {time.time() - t0:.1f} s")
 
     from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
     t0 = time.time()

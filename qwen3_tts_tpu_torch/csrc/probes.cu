@@ -20,7 +20,11 @@
 //   rot           (:139) rotate-half as a lane map of float4 / float2 /
 //                        float vectors over a 2-D grid, the sign bit
 //                        flipped, no division an element
-//   onehot        (:158) one-hot x table as a direct, bounds-checked row load
+//   onehot        (:158) one-hot x table as JAX computes it, NaN columns
+//                        included: a scan of the whole table for non-
+//                        finite entries in blocks of 8 columns, a CTA
+//                        each, the chosen entries loaded behind the
+//                        scan's first batch
 //   dyn_col_dma   (:180) a 2-D TMA tiled load at coordinates computed in the
 //                        kernel from a device-held index, a bulk store of
 //                        it; the rows dealt to CTAs
@@ -35,14 +39,12 @@
 //
 // Bound: none of them is a path of the system; each is one block (or a few)
 // at fixed small shapes, latency first: launch and dependent copies, not
-// bytes. hbm_scratch, fori_dma, dyn_sublane, dyn_col_dma, argmax and rot
-// were redesigned for this card (copies spread over CTAs, kept in flight
-// by a ring, issued before the index they wait on is read, or all of a
-// thread's loads issued before its first compare or store); onehot keeps
-// its first, simple design, not yet made fast. The geometry macros
-// (SCRATCH_CTAS, FORI_STAGES, ARGMAX_THREADS, ROT_ITEMS, COL_ROWS) are
-// each the one place that sets its number. Every launch function returns
-// cudaGetLastError().
+// bytes. Each was redesigned for this card: copies spread over CTAs, kept
+// in flight by a ring, issued before the index they wait on is read, or
+// all of a thread's loads issued before its first compare, test or store.
+// The geometry macros (SCRATCH_CTAS, FORI_STAGES, ARGMAX_THREADS,
+// ROT_ITEMS, ONEHOT_COLS, COL_ROWS) are each the one place that sets its
+// number. Every launch function returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -540,16 +542,116 @@ rot_kernel(const float* __restrict__ x, float* __restrict__ out,
 }
 
 // ------------------------------------------------------------ 10: onehot
-__global__ void onehot_kernel(const int* __restrict__ codes,
-                              const float* __restrict__ tab,
-                              float* __restrict__ out, int ld_codes, int vocab,
-                              int d) {
-  const int row = blockIdx.x;
-  const int code = codes[(int64_t)row * ld_codes];
-  // one-hot semantics: a code outside the table matches no row -> zeros
-  const bool hit = code >= 0 && code < vocab;
-  for (int j = threadIdx.x; j < d; j += blockDim.x)
-    out[(int64_t)row * d + j] = hit ? tab[(int64_t)code * d + j] : 0.f;
+// The TPU probe computes jnp.dot(one_hot(codes[:, 0]), tab): a sum over
+// every row of the table, in which 0 * inf and 0 * NaN are NaN. With c =
+// codes[r, 0], hit = 0 <= c < vocab and n_j the non-finite entries
+// (exponent bits all ones) of column j, out[r, j] is NaN where hit and
+// tab[c, j] is NaN, else NaN where n_j - (hit && tab[c, j] non-finite) >
+// 0, else tab[c, j] where hit, else 0: the same value as JAX's, not its
+// NaN payload or the sign of a zero sum.
+//
+// So the function reads the whole table. The grid is ceil(d / ONEHOT_COLS)
+// column blocks, one CTA of kOneWarps warps each. A warp reads 32 / C rows
+// of a block of C = ONEHOT_COLS columns at once (C a divisor of 32: C * 4
+// bytes of each row, whole 32-byte sectors from C = 8); the warps and lane
+// rows of the CTA stride over the vocab, and over the output rows. A
+// thread reads the code of its first output row, issues the first batch
+// of the table (kOneBatch rows: the whole table at the probe's vocab, at
+// most 32 loads), and only then the load of tab[c, j] for its column,
+// which waits on the code: no load that can go waits for one that cannot.
+// Every address is clamped into the table and each load's validity is a
+// mask of its test, so a batch is one straight run of loads. Each
+// column's non-finite entries are counted in a register, summed over a
+// warp's lane rows by shuffles and over the warps through shared memory;
+// a thread then writes its output rows by the rule above. Scalar loads, so
+// any contiguous table, aligned or not.
+// Bound: one launch, the table's read and the dependent code -> entry
+// loads, not bytes (the table, 8 codes and the output: 132 KiB at the
+// probe's [8, 128] codes and [256, 128] table, 4.0e-05 ms at 3.35 TB/s).
+// There 8 columns (16 CTAs of 512 threads, 8 KiB of the table and 4 loads
+// a thread) measured fastest, 0.00202 ms: wider blocks leave fewer CTAs to
+// share the scan, and with 8 KiB a CTA nothing is left for a cluster that
+// splits the vocab to save that pays for its launch and barriers (H100,
+// CUDA-graph replay; tools/frame_measure.py probes with -DONEHOT_COLS=N;
+// the variants, cluster splits included, in PERF.md section 6).
+#ifndef ONEHOT_COLS
+#define ONEHOT_COLS 8
+#endif
+constexpr int kOneCols = ONEHOT_COLS;
+static_assert(kOneCols >= 1 && 32 % kOneCols == 0, "a divisor of 32 lanes");
+constexpr int kOneVocab = 256;                     // the probe's table rows
+constexpr int kOneWarps = 16;
+constexpr int kOneThreads = 32 * kOneWarps;
+constexpr int kOneLaneRows = 32 / kOneCols;        // rows of a warp
+constexpr int kOneRows = kOneWarps * kOneLaneRows; // rows of a CTA
+// a batch: a thread's share of the probe's table, at most 32 loads
+constexpr int kOneShare = kOneVocab / kOneRows > 0 ? kOneVocab / kOneRows : 1;
+constexpr int kOneBatch = kOneShare < 32 ? kOneShare : 32;
+
+__device__ __forceinline__ bool non_finite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
+
+// out[r, j] from e = tab[c, j] (0 for a miss) and the column's count n
+__device__ __forceinline__ float onehot_value(float e, bool hit, int n) {
+  const int others = n - (hit && non_finite(e) ? 1 : 0);
+  return isnan(e) ? e : others > 0 ? __int_as_float(0x7fffffff) : e;
+}
+
+// tab[r, j], r and j clamped into the table
+__device__ __forceinline__ float onehot_load(const float* __restrict__ tab,
+                                             int r, int vocab, int j, int d) {
+  return __ldg(tab + static_cast<int64_t>(min(r, vocab - 1)) * d +
+               min(j, d - 1));
+}
+
+__global__ void __launch_bounds__(kOneThreads)
+onehot_kernel(const int* __restrict__ codes, const float* __restrict__ tab,
+              float* __restrict__ out, int rows, int ld_codes, int vocab,
+              int d) {
+  __shared__ int slot[kOneWarps * kOneCols];       // the column counts a warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = lane % kOneCols, sub = lane / kOneCols;
+  const int j = blockIdx.x * kOneCols + col;
+  const int first = warp * kOneLaneRows + sub;     // table and output row
+  int c = first < rows ? __ldg(codes + static_cast<int64_t>(first) * ld_codes)
+                       : -1;
+  float v[kOneBatch];
+  int r0 = first;
+#pragma unroll
+  for (int i = 0; i < kOneBatch; ++i)
+    v[i] = onehot_load(tab, r0 + i * kOneRows, vocab, j, d);
+  bool hit = c >= 0 && c < vocab;
+  float e = onehot_load(tab, hit ? c : 0, vocab, j, d);
+  int n = 0;
+  while (true) {
+#pragma unroll
+    for (int i = 0; i < kOneBatch; ++i)
+      n += r0 + i * kOneRows < vocab && j < d && non_finite(v[i]);
+    r0 += kOneBatch * kOneRows;
+    if (r0 >= vocab) break;
+#pragma unroll
+    for (int i = 0; i < kOneBatch; ++i)
+      v[i] = onehot_load(tab, r0 + i * kOneRows, vocab, j, d);
+  }
+#pragma unroll
+  for (int off = kOneCols; off < 32; off *= 2)
+    n += __shfl_xor_sync(0xffffffffu, n, off);
+  if (sub == 0) slot[warp * kOneCols + col] = n;
+  __syncthreads();
+  if (first >= rows || j >= d) return;
+  int tot = 0;
+#pragma unroll
+  for (int w = 0; w < kOneWarps; ++w) tot += slot[w * kOneCols + col];
+  for (int r = first; r < rows; r += kOneRows) {
+    if (r != first) {
+      c = __ldg(codes + static_cast<int64_t>(r) * ld_codes);
+      hit = c >= 0 && c < vocab;
+      e = onehot_load(tab, hit ? c : 0, vocab, j, d);
+    }
+    out[static_cast<int64_t>(r) * d + j] =
+        onehot_value(hit ? e : 0.f, hit, tot);
+  }
 }
 
 // ------------------------------------------------------- 11: dyn_col_dma
@@ -711,15 +813,19 @@ int probe_rot_launch(const void* x, void* out, long long n, int d,
 }
 
 // codes int32 [rows, ld_codes] (column 0 used), tab f32 [vocab, d] ->
-// out f32 [rows, d]
+// out f32 [rows, d]; any contiguous codes and table (scalar loads).
+// ceil(d / kOneCols) CTAs
 int probe_onehot_launch(const void* codes, const void* tab, void* out,
                         int rows, int ld_codes, int vocab, int d,
                         void* stream) {
   if (rows < 1 || ld_codes < 1 || vocab < 1 || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  onehot_kernel<<<rows, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks =
+      static_cast<unsigned>((d + kOneCols - 1LL) / kOneCols);
+  onehot_kernel<<<blocks, kOneThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(codes), static_cast<const float*>(tab),
-      static_cast<float*>(out), ld_codes, vocab, d);
+      static_cast<float*>(out), rows, ld_codes, vocab, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -125,16 +125,22 @@ probes [PARENT_CU] [DEFS ...]
         held against its plain version on the tool's inputs and
         `mosaic_probe.varied_inputs`, then its device ms by CUDA-graph
         replay; beside them the PyTorch calls of hbm_scratch (`torch.mul`),
-        fori_dma (`torch.sum`), argmax (`torch.argmax`) and dyn_sublane
-        (`torch.index_select`); per library and probe the median and range
-        of the five, and each kernel's loss to its call (median over the
-        call's median).
+        fori_dma (`torch.sum`), argmax (`torch.argmax`), dyn_sublane
+        (`torch.index_select`) and onehot (`torch.mm` of the one-hot
+        matrix, built outside the timed call, and the table; and
+        `torch.index_select` of the chosen rows, not the same function:
+        no zero rows, no NaN columns); per library and probe the median
+        and range of the five, and each kernel's loss to its call (median
+        over the call's median).
         A parent's dyn_col_dma is held only at rows <= 224: the one-CTA
         design staged all rows in one block's shared memory, which cannot
         take 256. A parent's argmax and rot are not held on inputs with a
         NaN: the one-block argmax passed over a NaN, and its rot negated
         through the compiler's float negation (the canonical NaN on the
-        card); whether each agrees there is printed once.
+        card); nor a parent's onehot on a table with an inf or a NaN: the
+        row load never read the other rows, whose non-finite entries make
+        their columns NaN in the product. Whether each agrees there is
+        printed once.
         int8_panel launches kernel A, not a kernel of probes.cu: `head-ab`
         times it.
 head-ab TAG [quick]
@@ -955,9 +961,11 @@ def probe_times(parent, variants) -> None:
     cases += [case for case in mp.varied_inputs(dev, seed=2)
               if case[0] in probes]
 
-    def has_nan(args):
-        return any(a.is_floating_point() and bool(a.isnan().any())
-                   for a in args)
+    def parent_differs(name, args):
+        # argmax and rot differ on a NaN, onehot on an inf or a NaN
+        bad = (lambda a: ~a.isfinite()) if name == "onehot" else torch.isnan
+        return name in ("argmax", "rot", "onehot") and any(
+            a.is_floating_point() and bool(bad(a).any()) for a in args)
 
     def held(tag, name, args):
         # the one-CTA parent refuses rows past its shared memory, and the
@@ -966,22 +974,32 @@ def probe_times(parent, variants) -> None:
             return True
         if name == "dyn_col_dma":
             return args[1].shape[0] <= 224
-        return not (name in ("argmax", "rot") and has_nan(args))
+        return not parent_differs(name, args)
     if parent:
         build._lib = libs["parent"]
         for name, label, args in cases:
-            if name in ("argmax", "rot") and has_nan(args):
+            if parent_differs(name, args):
                 ok, err = mp.agree(probes[name], probes[name].kernel(*args),
                                    probes[name].plain(*args))
-                print(f"  parent {name} ({label}), inputs with a NaN: "
+                print(f"  parent {name} ({label}), inputs with a NaN"
+                      f"{' or an inf' if name == 'onehot' else ''}: "
                       f"{'agrees' if ok else 'differs'} with plain "
                       f"(max|d| {err:g})", flush=True)
         build._lib = None
+    codes, tab = inputs["onehot"]
+    oh = (torch.arange(tab.shape[0], device=dev)[None]
+          == codes[:, :1].long()).float()
     calls = {"hbm_scratch": lambda x: torch.mul(x, 2.0),
              "fori_dma": lambda w: torch.sum(w, 0),
              "argmax": lambda x: torch.argmax(x, -1),
              "dyn_sublane": lambda c, pos: torch.index_select(
-                 c, 0, pos.expand(mp.SUBLANE_COPIES))}
+                 c, 0, pos.expand(mp.SUBLANE_COPIES)),
+             "onehot": lambda codes, tab: torch.mm(oh, tab)}
+    # name -> (probe whose inputs it takes, fn); past the calls, one timed
+    # beside its probe that is not the same function
+    timed = {name: (name, fn) for name, fn in calls.items()}
+    timed["onehot index_select"] = ("onehot", lambda codes, tab:
+                                    torch.index_select(tab, 0, codes[:, 0]))
     times = {}
     order = list(libs)
     try:
@@ -1002,8 +1020,8 @@ def probe_times(parent, variants) -> None:
                     times.setdefault((tag, p.name), []).append(ms)
                     print(f"  round {rnd} {tag:24s} {p.name:12s} {ms:.5f} ms "
                           f"(graph replay) on {card}", flush=True)
-            for name, fn in calls.items():
-                args = inputs[name]
+            for name, (probe, fn) in timed.items():
+                args = inputs[probe]
                 ms = c.graph_ms(lambda: fn(*args))
                 times.setdefault(("call", name), []).append(ms)
                 print(f"  round {rnd} {'PyTorch call':24s} {name:12s} "
@@ -1024,6 +1042,12 @@ def probe_times(parent, variants) -> None:
                          f"{max(ref):.5f}) ms, loss "
                          f"{med[(tag, p.name)] / med[('call', p.name)]:.2f}x")
             print(line + f" on {card}", flush=True)
+    for name in timed:
+        if name not in calls:
+            ref = times[("call", name)]
+            print(f"  {'PyTorch call':24s} {name} median "
+                  f"{med[('call', name)]:.5f} ({min(ref):.5f}-{max(ref):.5f})"
+                  f" ms on {card}", flush=True)
 
 
 def head_ab(tag: str, quick: bool = False) -> None:

@@ -29,7 +29,11 @@ written out in torch:
   9   rot           :139 rotate-half concat        lane map of 4 / 2 / 1-float
                                                    vectors, 2-D grid, sign bit
                                                    flipped; a row a thread
-  10  onehot        :158 one-hot x table matmul    bounds-checked row load
+  10  onehot        :158 one-hot x table matmul    the table's non-finite
+                                                   entries counted in column
+                                                   blocks of 8 (16 CTAs), the
+                                                   chosen entries loaded
+                                                   behind the scan's loads
   11  dyn_col_dma   :180 DMA at a dynamic column   2-D TMA tile at coordinates
                                                    computed in the kernel, bulk
                                                    store; 4 rows a CTA
@@ -44,21 +48,23 @@ fails where there is no card: it never quietly runs plain. Each probe and
 mode prints one line `[mode] name: OK|FAIL - ...`. Divergence from the JAX
 tool: the exit code is 1 if any line says FAIL.
 
-Kernel against plain: probes 5, 6, 8, 10 and 11 move data and probe 7
+Kernel against plain: probes 5, 6, 8 and 11 move data and probe 7
 picks an index, so they must be equal; probe 9 must be equal bit for bit
-(its NaN included, which `torch.equal` counts unequal to itself). Probe
+(its NaN included, which `torch.equal` counts unequal to itself); probe
+10 must be equal as values, NaN equal to NaN and -0 equal to +0 (a NaN's
+payload and the sign of a zero sum are not the product's). Probe
 12: every int8 value is exact in bf16 and every bf16 x int8 product is
 exact in f32, so only the order of the sums differs: max |kernel - plain|
 <= 1e-5 * max |plain|.
 
 These are not kernels of the synthesis path. hbm_scratch, fori_dma,
-dyn_sublane, dyn_col_dma, argmax and rot were redesigned for the H100
-(copies spread over CTAs, kept in flight by a ring, issued before the
-device-held index is read, or all of a thread's loads issued before its
-first compare or store); int8_panel computes kernel A's function and
-launches kernel A, the port's Hopper design of it (each launch counted in
-`int8_panel.launches` and in `quant.qmatmul_kernel.launches`); onehot
-keeps its first, simple design. On a CPU tensor each wrapper runs its
+dyn_sublane, dyn_col_dma, argmax, rot and onehot were redesigned for the
+H100 (copies spread over CTAs, kept in flight by a ring, issued before
+the device-held index is read, or all of a thread's loads issued before
+its first compare, test or store); int8_panel computes kernel A's
+function and launches kernel A, the port's Hopper design of it (each
+launch counted in `int8_panel.launches` and in
+`quant.qmatmul_kernel.launches`). On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
@@ -271,15 +277,21 @@ def rot(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- 10: onehot
 def onehot_plain(codes: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """The TPU probe's formula: one_hot(codes[:, 0]) @ tab. A code outside
-    [0, vocab) matches no row and gives a zero row."""
+    [0, vocab) matches no row and gives a zero row. The product sums over
+    every row of the table, and 0 * inf and 0 * NaN are NaN: a column that
+    holds a non-finite entry in a row other than the chosen one is NaN."""
     iota = torch.arange(tab.shape[0], device=tab.device)
     oh = (iota[None] == codes[:, :1].long()).to(tab.dtype)
     return oh @ tab
 
 
 def onehot(codes: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """codes int32 [rows, c] (column 0 used), tab f32 [vocab, d] ->
-    [rows, d]: a direct row load, zeros for a code outside the table."""
+    """codes int32 [rows, c] (column 0 used), tab f32 [vocab, d] (any
+    contiguous views) -> [rows, d], `onehot_plain`'s values: the chosen
+    entries (zeros for a code outside the table), NaN in the columns whose
+    non-finite entries the product would multiply by 0. One launch of a
+    CTA a column block (csrc/probes.cu, -DONEHOT_COLS, 8 by default), each
+    scanning the whole table for non-finite entries in its columns."""
     if codes.device.type == "cpu":
         return onehot_plain(codes, tab)
     _check("onehot codes", codes, torch.int32)
@@ -379,6 +391,7 @@ class Probe:
     check: Callable           # (out, *inputs): the JAX probe's assertion
     exact: bool = True        # kernel vs plain: equal, else PANEL_REL_TOL
     bitwise: bool = False     # equal bit for bit (NaN and -0 included)
+    values: bool = False      # equal as values: NaN = NaN, -0 = +0
 
 
 def _check_hbm(out, x):
@@ -434,8 +447,9 @@ PROBES: Tuple[Probe, ...] = (
     Probe("rot", "rot (rotate-half as a lane map of float4 vectors, sign "
           "bit flipped)", 139, 146, rot, rot_plain, _check_rot,
           bitwise=True),
-    Probe("onehot", "onehot (one-hot x table as a bounds-checked row load)",
-          158, 169, onehot, onehot_plain, _check_onehot),
+    Probe("onehot", "onehot (one-hot x table: the chosen entries, NaN "
+          "columns from a scan of the table in column blocks)", 158, 169,
+          onehot, onehot_plain, _check_onehot, values=True),
     Probe("dyn_col_dma", "dyn_col_dma (2-D TMA boxes at a column computed "
           "from a device-held q, bulk stores, rows over CTAs)", 180, 190,
           dyn_col_dma, dyn_col_dma_plain, _check_col),
@@ -499,6 +513,18 @@ ROT_CASES = (((8, 16, 128), 0), ((2,), 0), ((5, 6), 0), ((2, 3, 130), 0),
 NEG_NAN = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
 ROT_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, NEG_NAN],
                         np.float32)
+# onehot's tables (`onehot_table`): normal draws, or one of +-inf and
+# NaN of either sign in a chosen row or in a row no code chooses, +inf and
+# -inf in one column, -0 entries; and its varied cases as (rows, vocab, d),
+# each with a codes row stride of 1 or 128 and a table 0 or 4 bytes off
+ONEHOT_VALUES = {"inf": np.float32(np.inf), "-inf": np.float32(-np.inf),
+                 "nan": np.float32(np.nan), "-nan": NEG_NAN}
+ONEHOT_KINDS = ("finite",) + tuple(
+    f"{v} in {where}" for where in ("a chosen row", "another row")
+    for v in ONEHOT_VALUES) + ("inf and -inf in a column", "-0")
+ONEHOT_CASES = tuple((rows, vocab, d) for rows in (1, 8, 33)
+                     for vocab in (1, 256, 1000)
+                     for d in (1, 32, 100, 128, 260))
 
 
 def argmax_row(kind: str, cols: int, rng) -> np.ndarray:
@@ -551,6 +577,64 @@ def rot_values(shape, rng) -> np.ndarray:
     return x
 
 
+def onehot_codes(rows: int, ld: int, vocab: int, rng) -> np.ndarray:
+    """int32 [rows, ld]: column 0 a code in the table in row 0, -1 in row
+    1, vocab in row 2, draws from [-2, vocab + 2) below; in the other
+    columns, draws that the function must not read."""
+    codes = rng.integers(-2, vocab + 2, (rows, ld)).astype(np.int32)
+    codes[0, 0] = rng.integers(vocab)
+    codes[1:3, 0] = np.array([-1, vocab], np.int32)[:rows - 1]
+    return codes
+
+
+def onehot_table(kind: str, codes: np.ndarray, vocab: int, d: int,
+                 rng) -> np.ndarray:
+    """f32 [vocab, d] normal draws with the entries of an ONEHOT_KINDS
+    kind at column d // 3: in row codes[0, 0] (chosen), in a row no code
+    chooses (another; the chosen row where every row is chosen), +inf in
+    the chosen row and -inf in another, or -0 in both (the other at the
+    next column)."""
+    tab = rng.standard_normal((vocab, d), np.float32)
+    chosen = int(codes[0, 0])
+    free = np.setdiff1d(np.arange(vocab), codes[:, 0])
+    other = int(rng.choice(free)) if free.size else chosen
+    j = d // 3
+    if kind == "inf and -inf in a column":
+        tab[chosen, j], tab[other, j] = np.inf, -np.inf
+    elif kind == "-0":
+        tab[chosen, j] = tab[other, (j + 1) % d] = np.float32(-0.0)
+    elif kind != "finite":
+        value, where = kind.split(" in ")
+        tab[chosen if where == "a chosen row" else other, j] = (
+            ONEHOT_VALUES[value])
+    return tab
+
+
+def onehot_edges(device, seed: int) -> Tuple[Tuple[str, tuple], ...]:
+    """(label, (codes, tab)) at the probe's shape, codes [8, 128] and a
+    normal table [256, 128]: codes outside [0, 256); the same table with
+    +inf at (100, 5), NaN at (200, 7) and -inf at (3, 9), rows 0-2 and 4
+    choosing 3, 100, -1 and 300 (NaN in columns 5 and 7 of row 0, -inf in
+    its column 9, the chosen +inf kept in row 1, NaN in row 2's columns 5,
+    7 and 9); then `onehot_codes` and an `onehot_table` of each
+    ONEHOT_KINDS kind."""
+    rng = np.random.default_rng(seed)
+    tab = rng.standard_normal((256, 128), np.float32)
+    codes = np.broadcast_to(np.array([[3], [-1], [256], [255], [1000], [0],
+                                      [-7], [4]], np.int32), (8, 128)).copy()
+    bad, odd = tab.copy(), codes.copy()
+    bad[100, 5], bad[200, 7], bad[3, 9] = np.inf, np.nan, -np.inf
+    odd[[1, 2, 4], 0] = 100, -1, 300
+    cases = [("codes outside the table", codes, tab),
+             ("inf / NaN / -inf table", odd, bad)]
+    for kind in ONEHOT_KINDS:
+        c = onehot_codes(8, 128, 256, rng)
+        cases.append((kind, c, onehot_table(kind, c, 256, 128, rng)))
+    return tuple((label, (torch.from_numpy(c).to(device),
+                          torch.from_numpy(t).to(device)))
+                 for label, c, t in cases)
+
+
 def shifted(a: np.ndarray, floats: int, device) -> torch.Tensor:
     """A contiguous f32 copy of `a` that starts `floats` elements into a
     flat buffer, so 4 * floats bytes past the allocation's alignment (at
@@ -572,7 +656,10 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
     over the whole int8 range with three row strides (ldw 256, 400,
     512), argmax on the edge rows of `argmax_rows` at each of ARGMAX_CASES
     (ties, NaN rows, -0 / +0, cols % 4 != 0, rows that start off 16
-    bytes), rot on `rot_values` at each of ROT_CASES."""
+    bytes), rot on `rot_values` at each of ROT_CASES, onehot on
+    `onehot_codes` and an `onehot_table` of each kind in turn at each of
+    ONEHOT_CASES (a code row stride of 1 or 128, a table 0 or 4 bytes
+    off)."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -601,6 +688,14 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
     for shape, off in ROT_CASES:
         cases.append(("rot", f"shape={shape} offset={off}, +-0 +-inf NaN",
                       (shifted(rot_values(shape, rng), off, device),)))
+    for i, (rows, vocab, d) in enumerate(ONEHOT_CASES):
+        ld, off = (1, 128)[i % 2], (i // 2) % 2
+        kind = ONEHOT_KINDS[i % len(ONEHOT_KINDS)]
+        codes = onehot_codes(rows, ld, vocab, rng)
+        cases.append(("onehot", f"rows={rows} ld={ld} vocab={vocab} d={d} "
+                      f"offset={off}, {kind}", (t(codes), shifted(
+                          onehot_table(kind, codes, vocab, d, rng), off,
+                          device))))
     for ldw in (PANEL_N, 400, 512):
         cases.append(("int8_panel", f"ldw={ldw}, seed {seed}", (
             t(rng.standard_normal(PANEL_X_SHAPE, np.float32)).bfloat16(),
@@ -611,8 +706,9 @@ def varied_inputs(device, seed: int = 0) -> Tuple[Tuple[str, str, tuple], ...]:
 
 def agree(probe: Probe, got: torch.Tensor, want: torch.Tensor
           ) -> Tuple[bool, float]:
-    """Kernel against plain at the module's tolerances (rot by its bits);
-    returns (ok, max |got - want|, 0 where the bits agree)."""
+    """Kernel against plain at the module's tolerances (rot by its bits,
+    onehot as values); returns (ok, max |got - want|, 0 where the bits or
+    the values agree, inf where only one is NaN)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return False, float("inf")
     diff = (got.double() - want.double()).abs()
@@ -620,6 +716,13 @@ def agree(probe: Probe, got: torch.Tensor, want: torch.Tensor
         same = got.view(torch.int32) == want.view(torch.int32)
         return bool(same.all()), float(
             diff.masked_fill(same, 0.0).nan_to_num(nan=float("inf")).max())
+    if probe.values:
+        nan = got.isnan()
+        same = (got == want) | (nan & want.isnan())
+        ok = torch.equal(nan, want.isnan()) and torch.equal(got[~nan],
+                                                           want[~nan])
+        return ok, float(diff.masked_fill(same, 0.0).nan_to_num(
+            nan=float("inf")).max())
     err = float(diff.max())
     if probe.exact:
         return bool(torch.equal(got, want)), err

@@ -635,7 +635,9 @@ def test_probe_kernel_matches_plain(dev, name):
     of `varied_inputs` (hbm_scratch on an arange and normal draws, fori_dma
     at 1-5 and 9 steps, the int8 panel on a second seed at three row
     strides, argmax on NaN rows, ties and -0 / +0 with rows off 16 bytes
-    and cols % 4 != 0, rot with +-0 / +-inf / NaN at d = 2-256)."""
+    and cols % 4 != 0, rot with +-0 / +-inf / NaN at d = 2-256, onehot
+    at 1-33 rows, vocab 1-1000, d 1-260 on tables with +-inf, NaN or -0,
+    codes outside the table, unaligned tables)."""
     probe = next(p for p in mosaic_probe.PROBES if p.name == name)
     args = mosaic_probe.probe_inputs(dev)[name]
     got = probe.kernel(*args)
@@ -668,17 +670,29 @@ def test_probe_bulk_copy_refuses_misaligned_data(dev, name):
 
 
 def test_probe_kernels_edge_indices(dev):
-    """Out-of-table codes give zero rows; device-held indices outside the
-    range are taken as lax.dynamic_slice takes them, on normal draws (a row
-    or slice read from the wrong place shows); dyn_col_dma at row counts
-    that leave the last slice of 4 rows (csrc/probes.cu's COL_ROWS)
-    partial, whole or the only one, on a wide and a narrow w."""
+    """Out-of-table codes give zero rows; a table with an inf or a NaN
+    gives the one-hot product's NaN columns, equal as values (NaN = NaN,
+    -0 = +0), on each of `onehot_edges` (one table with three, one of each
+    ONEHOT_KINDS kind); device-held indices outside the range are taken
+    as lax.dynamic_slice takes them, on normal draws (a row or slice read
+    from the wrong place shows); dyn_col_dma at row counts that leave the
+    last slice of 4 rows (csrc/probes.cu's COL_ROWS) partial, whole or the
+    only one, on a wide and a narrow w."""
     tab = torch.randn(256, 128, device=dev)
     codes = torch.tensor([[3], [-1], [256], [255], [1000], [0], [-7], [4]],
                          dtype=torch.int32, device=dev).expand(8, 128)
     codes = codes.contiguous()
     assert torch.equal(mosaic_probe.onehot(codes, tab),
                        mosaic_probe.onehot_plain(codes, tab))
+    onehot = next(p for p in mosaic_probe.PROBES if p.name == "onehot")
+    edges = dict(mosaic_probe.onehot_edges(dev, seed=13))
+    for label, (c, t) in edges.items():
+        ok, err = mosaic_probe.agree(onehot, mosaic_probe.onehot(c, t),
+                                     mosaic_probe.onehot_plain(c, t))
+        assert ok, (label, err)
+    got = mosaic_probe.onehot(*edges["inf / NaN / -inf table"]).cpu()
+    assert got[0, [5, 7]].isnan().all() and got[0, 9] == float("-inf")
+    assert got[1, 5] == float("inf") and got[2, [5, 7, 9]].isnan().all()
     c = torch.randn(32, 128, device=dev)
     for pos in (-40, -3, 0, 7, 31, 40):
         p = torch.tensor([pos], dtype=torch.int32, device=dev)

@@ -4,7 +4,9 @@ against the JAX tool (`tools/mosaic_probe.py`) on the CPU.
 For each of the eight probes: the JAX probe runs unchanged in interpret
 mode (it asserts its own result), and the port's plain version, fed the JAX
 probe's own inputs, is compared with the JAX expression of what the probe
-expects. Data-moving probes and the argmax are compared exactly; probe 12
+expects. Data-moving probes and the argmax are compared exactly (onehot
+on non-finite tables as values: NaN equal to NaN, -0 equal to +0, which
+is what np.testing.assert_array_equal compares); probe 12
 (an f32 sum of exact bf16 x int8 products) within rtol 1e-6 of jnp.dot, with
 an absolute floor of 1e-6 of the output's largest magnitude: both sides sum
 the same products in another order, and an element near zero has no
@@ -140,6 +142,95 @@ def test_onehot_out_of_range_codes_give_zero_rows():
     assert not want[[1, 2, 4, 6]].any()
 
 
+def _onehot_rule(codes, tab):
+    """The rule csrc/probes.cu's onehot_kernel applies, in numpy: with c =
+    codes[r, 0], hit = 0 <= c < vocab and n_j the non-finite entries
+    (exponent bits all ones) of column j, out[r, j] is NaN where hit and
+    tab[c, j] is NaN, else NaN where n_j - (hit and tab[c, j] non-finite)
+    > 0, else tab[c, j] where hit, else 0."""
+    c = codes[:, 0].astype(np.int64)
+    hit = (c >= 0) & (c < tab.shape[0])
+    nonfinite = (tab.view(np.uint32) & 0x7F800000) == 0x7F800000
+    row = np.where(hit, c, 0)
+    e = np.where(hit[:, None], tab[row], np.float32(0))
+    others = nonfinite.sum(0)[None] - (hit[:, None] & nonfinite[row])
+    return np.where(np.isnan(e), e, np.where(others > 0, np.float32(np.nan),
+                                             e)).astype(np.float32)
+
+
+# (rows, vocab, d): the probe's shape, and a small table
+ONEHOT_SHAPES = [(8, 256, 128), (5, 7, 3)]
+
+
+@pytest.mark.parametrize("shape", ONEHOT_SHAPES,
+                         ids=[f"{r}x{v}x{d}" for r, v, d in ONEHOT_SHAPES])
+@pytest.mark.parametrize("kind", tprobe.ONEHOT_KINDS)
+def test_onehot_plain_matches_the_tpu_formula_on_non_finite_tables(kind,
+                                                                    shape):
+    """onehot_plain against the TPU probe's kernel body in jnp
+    (one_hot(codes[:, 0]) @ tab) on a seeded normal table with +-inf or a
+    NaN of either sign in a chosen row or in another, +inf and -inf in
+    one column, -0 entries, or none; codes -1 and vocab in rows 1 and 2.
+    NaN equal to NaN and -0 equal to +0; the rule in numpy equals both."""
+    rows, vocab, d = shape
+    rng = np.random.default_rng(100 * tprobe.ONEHOT_KINDS.index(kind) + vocab)
+    codes = tprobe.onehot_codes(rows, 128, vocab, rng)
+    tab = tprobe.onehot_table(kind, codes, vocab, d, rng)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (rows, vocab), 1)
+    oh = (iota == jnp.asarray(codes)[:, 0:1]).astype(jnp.float32)
+    want = np.asarray(jnp.dot(oh, jnp.asarray(tab),
+                              preferred_element_type=jnp.float32))
+    got = tprobe.onehot_plain(torch.from_numpy(codes), torch.from_numpy(tab))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (rows, d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(_onehot_rule(codes, tab), want)
+    # row 0 chooses the kind's row, rows 1 and 2 (codes -1, vocab) none
+    j, col = d // 3, want[:, d // 3]
+    if kind in ("finite", "-0"):
+        assert not np.isnan(want).any()
+        assert not want[1:3].any() and want[0, j] == tab[codes[0, 0], j]
+    elif kind.endswith("a chosen row"):
+        value = tprobe.ONEHOT_VALUES[kind.split(" in ")[0]]
+        same = codes[:, 0] == codes[0, 0]
+        assert np.isnan(col[~same]).all() and not same[1:3].any()
+        assert (np.isnan(col[same]) if np.isnan(value)
+                else col[same] == value).all()
+    else:
+        assert np.isnan(col).all()
+    assert not np.isnan(np.delete(want, j, axis=1)).any()
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(tprobe.onehot(torch.from_numpy(codes),
+                                     torch.from_numpy(tab)).view(torch.int32),
+                       got.view(torch.int32))
+
+
+ONEHOT_EDGES = tprobe.onehot_edges("cpu", seed=3)
+
+
+@pytest.mark.parametrize("case", ONEHOT_EDGES,
+                         ids=[label for label, _ in ONEHOT_EDGES])
+def test_onehot_edges_match_the_tpu_formula(case):
+    """The card's onehot edge cases (`onehot_edges`): onehot_plain and the
+    rule in numpy against the TPU probe's kernel body in jnp, as values;
+    on the table with +inf, NaN and -inf the columns it documents."""
+    label, (codes, tab) = case
+    iota = jax.lax.broadcasted_iota(jnp.int32, (8, 256), 1)
+    oh = (iota == jnp.asarray(codes.numpy())[:, 0:1]).astype(jnp.float32)
+    want = np.asarray(jnp.dot(oh, jnp.asarray(tab.numpy()),
+                              preferred_element_type=jnp.float32))
+    np.testing.assert_array_equal(tprobe.onehot_plain(codes, tab).numpy(),
+                                  want)
+    np.testing.assert_array_equal(_onehot_rule(codes.numpy(), tab.numpy()),
+                                  want)
+    if label == "inf / NaN / -inf table":
+        assert np.isnan(want[0, [5, 7]]).all() and want[0, 9] == -np.inf
+        assert want[1, 5] == np.inf and np.isnan(want[2, [5, 7, 9]]).all()
+        assert np.isnan(want[:, 7]).all()
+        assert np.isnan(np.delete(want[:, 5], 1)).all()
+    elif label == "codes outside the table":
+        assert not np.isnan(want).any() and not want[[1, 2, 4, 6]].any()
+
+
 @pytest.mark.parametrize("pos", [-40, -3, 0, 7, 31, 40])
 def test_dyn_sublane_clamps_like_dynamic_slice(pos):
     c = jnp.asarray(np.random.default_rng(pos + 40).standard_normal(
@@ -238,8 +329,9 @@ def test_plain_on_varied_inputs_matches_numpy(case):
     against numpy: 2x exactly, the sum in the kernel's order (o = 0;
     o += w[i]) exactly, the clamped row and column slices exactly, the
     argmax as each row's first maximum (cols where it holds a NaN)
-    exactly, rotate-half bit for bit, and the panel within PANEL_REL_TOL
-    of an f64 product (exact products; the sums' order differs)."""
+    exactly, rotate-half bit for bit, the one-hot product by its rule
+    (`_onehot_rule`) as values, and the panel within PANEL_REL_TOL of an
+    f64 product (exact products; the sums' order differs)."""
     name, _, args = case
     probe = next(p for p in tprobe.PROBES if p.name == name)
     got = probe.plain(*args)
@@ -268,6 +360,8 @@ def test_plain_on_varied_inputs_matches_numpy(case):
     elif name == "rot":
         h = a[0].shape[-1] // 2
         want = np.concatenate([-a[0][..., h:], a[0][..., :h]], -1)
+    elif name == "onehot":
+        want = _onehot_rule(args[0].numpy(), a[1])
     else:
         assert name == "int8_panel", name
         want = a[0].astype(np.float64) @ a[1][:, :tprobe.PANEL_N].astype(
@@ -285,7 +379,7 @@ def test_plain_on_varied_inputs_matches_numpy(case):
         assert err <= tprobe.PANEL_REL_TOL * np.abs(want).max(), err
     # the wrapper takes the plain version for a CPU tensor
     out = probe.kernel(*args)
-    if probe.bitwise:
+    if probe.bitwise or probe.values:
         assert torch.equal(out.view(torch.int32), got.view(torch.int32))
     else:
         assert torch.equal(out, got)
@@ -297,14 +391,16 @@ def test_varied_inputs_expose_a_misplaced_slice():
     a step dropped or repeated (fori_dma), another row (dyn_sublane) or
     column offset (dyn_col_dma), two column slices swapped (int8_panel),
     torch.argmax's index on a NaN row, a tie's highest index or the
-    largest value past a NaN (argmax, beyond one column), or the halves
-    swapped without the negation (rot, by its bits) differs from the
-    plain version on every varied input; on the tool's ones-tile the swap
-    does not show."""
+    largest value past a NaN (argmax, beyond one column), the halves
+    swapped without the negation (rot, by its bits), or a one-hot row
+    loaded blind to the other rows' non-finite entries or from the next
+    row of the table (onehot, as values, where the inputs can show it)
+    differs from the plain version on every varied input; on the tool's
+    ones-tile the swap does not show."""
     ones = tprobe.probe_inputs("cpu")["hbm_scratch"][0]
     want = tprobe.hbm_scratch_plain(ones)
     assert torch.equal(torch.cat([want[8:16], want[:8], want[16:]]), want)
-    steps = []
+    steps, onehot_shown = [], 0
     for name, label, args in VARIED:
         probe = next(p for p in tprobe.PROBES if p.name == name)
         want = probe.plain(*args)
@@ -359,12 +455,32 @@ def test_varied_inputs_expose_a_misplaced_slice():
             assert not torch.equal(bad.view(torch.int32),
                                    want.view(torch.int32)), label
             continue
+        elif name == "onehot":
+            codes, tab = args
+            vocab = tab.shape[0]
+            c = codes[:, 0].long()
+            hit = (c >= 0) & (c < vocab)
+            load = torch.where(hit[:, None], tab[c.clamp(0, vocab - 1)],
+                               torch.zeros(()))
+            unchosen = torch.ones(vocab, dtype=torch.bool)
+            unchosen[c[hit]] = False
+            # an unchosen row's inf or NaN makes a column of row 0 NaN
+            # that the row load fills from the table
+            if (~tab[unchosen].isfinite() & ~tab[c[0]].isnan()).any():
+                assert not tprobe.agree(probe, load, want)[0], label
+                onehot_shown += 1
+            if vocab > 1 and want[0].isfinite().any():
+                bad = want.clone()
+                bad[0] = tab[(c[0] + 1) % vocab]
+                assert not tprobe.agree(probe, bad, want)[0], label
+            continue
         else:
             bad = torch.cat([want[:, 32:64], want[:, :32], want[:, 64:]], 1)
             w = args[1]
             assert int(w.min()) == -128 and int(w.max()) == 127, label
         assert not torch.equal(bad, want), label
     assert tuple(steps) == tprobe.FORI_STEPS == (1, 2, 3, 4, 5, 9)
+    assert onehot_shown >= 14, onehot_shown     # of 45 at seed 5
 
 
 @pytest.mark.parametrize("name", NAMES)
